@@ -1,0 +1,411 @@
+"""Smoke test of the PyTorch/CUDA port (h2o3_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with a CUDA card and nvcc.
+It builds the port's CUDA kernels from h2o3_tpu_torch/csrc, holds every
+kernel against its plain PyTorch version, trains and scores the flagship
+GBM (1M rows, 8 numeric + 2 categorical features, bernoulli, 20 trees,
+depth 5) through the port's public entry points, checks the card's forest
+against the same port on the CPU, and times each kernel at the flagship
+level shapes beside its memory bound and a PyTorch library call. Any
+failed check exits non-zero. The last line is
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+It imports nothing of JAX and nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+FLAGSHIP = dict(n_rows=1_000_000, n_num=8, n_cat=2, ntrees=20, max_depth=5)
+KERNEL_RTOL = 1e-5          # kernel vs plain version: rtol, and atol as a
+KERNEL_ATOL_REL = 1e-5      # fraction of max|plain| (atomic-order sums)
+PRED_ATOL = 1e-5            # card vs CPU predictions of the same forest
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(ok: bool, msg: str) -> None:
+    if not ok:
+        raise SmokeFailure(msg)
+
+
+def nvidia_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def memory_rate(name: str) -> float:
+    """Peak device-memory bytes/s of the card, from its name (NVIDIA's
+    data sheets)."""
+    n = name.upper()
+    if "H200" in n:
+        return 4.8e12
+    if "H100" in n and "PCIE" in n:
+        return 2.0e12
+    if "H100" in n and "NVL" in n:
+        return 3.9e12
+    if "H100" in n:
+        return 3.35e12          # H100 SXM, 80 GB HBM3
+    raise SmokeFailure(f"no memory rate on record for {name!r}")
+
+
+F32_PEAK = 67e12            # f32 FLOP/s outside the tensor cores (H100 SXM)
+
+
+# ---------------------------------------------------------------------------
+# data: the histogram fixture of the reference's kernel tests and the
+# flagship frame of the reference's benchmark (same generators, seeded)
+# ---------------------------------------------------------------------------
+
+def hist_case(seed, n, F, maxB, S, *, dead_frac=0.15, zero_w_frac=0.1,
+              ragged_bins=False):
+    """Rows with an overweighted NA bin, dead rows (node -1), zero-weight
+    live rows and optionally ragged per-feature bin counts."""
+    rng = np.random.default_rng(seed)
+    if ragged_bins:
+        nbins = rng.integers(2, maxB + 1, F).astype(np.int64)
+    else:
+        nbins = np.full(F, maxB, np.int64)
+    offsets = np.concatenate([[0], np.cumsum(nbins)[:-1]]).astype(np.int32)
+    TB = int(nbins.sum())
+    binned = np.stack([rng.integers(0, nbins[f], n) for f in range(F)],
+                      axis=1).astype(np.int32)
+    na_rows = rng.random(n) < 0.2
+    binned[na_rows] = (nbins - 1)[None, :]
+    node = rng.integers(0, S, n).astype(np.int32)
+    node[rng.random(n) < dead_frac] = -1
+    w = rng.random(n).astype(np.float32) + 0.25
+    w[rng.random(n) < zero_w_frac] = 0.0
+    y = rng.standard_normal(n).astype(np.float32)
+    return binned, node, w, y, offsets, TB
+
+
+def flagship_frame(h2o, device, n_rows, n_num=8, n_cat=2, seed=0):
+    rng = np.random.default_rng(seed)
+    fr = h2o.Frame()
+    logit = np.zeros(n_rows)
+    for i in range(n_num):
+        x = rng.standard_normal(n_rows)
+        logit += x * rng.uniform(-1, 1)
+        fr.add(f"n{i}", h2o.Column.from_numpy(x, device=device))
+    doms = [np.array(["a", "b", "c", "d"]), np.array(["x", "y", "z"])]
+    for i in range(n_cat):
+        codes = rng.integers(0, len(doms[i % 2]), n_rows)
+        logit += (codes - 1) * 0.3
+        fr.add(f"c{i}", h2o.Column.from_numpy(doms[i % 2][codes],
+                                              ctype="enum", device=device))
+    y = np.where(rng.random(n_rows) < 1 / (1 + np.exp(-logit)), "Y", "N")
+    fr.add("y", h2o.Column.from_numpy(y, ctype="enum", device=device))
+    return fr
+
+
+def small_frame(h2o, device, seed=7, n=600):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(n)
+    g = np.array(["a", "b", "c"], object)[rng.integers(0, 3, n)]
+    yv = np.where(rng.random(n) < 1 / (1 + np.exp(-(2 * x + (g == "a")))),
+                  "Y", "N")
+    fr = h2o.Frame()
+    fr.add("x", h2o.Column.from_numpy(x, device=device))
+    fr.add("g", h2o.Column.from_numpy(g, ctype="enum", device=device))
+    fr.add("y", h2o.Column.from_numpy(yv, ctype="enum", device=device))
+    return fr
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_build():
+    from h2o3_tpu_torch import kernels
+
+    print(nvidia_smi())
+    print(f"python {sys.version.split()[0]} torch {torch.__version__} "
+          f"cuda {torch.version.cuda}")
+    out = subprocess.run([kernels.nvcc(), "--version"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()
+    print("nvcc:", out[-1] if out else "?")
+    t0 = time.perf_counter()
+    names = kernels.build_all()
+    print(f"build_s {time.perf_counter() - t0:.3f} kernels {names}")
+    for name in names:
+        for line in kernels.BUILD_LOG.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+
+
+def _to(dev, binned, node, w, y, offsets, bin_dtype):
+    return (torch.as_tensor(binned.astype(bin_dtype), device=dev),
+            torch.as_tensor(node, device=dev), torch.as_tensor(w, device=dev),
+            torch.as_tensor(y, device=dev),
+            torch.as_tensor(offsets, device=dev))
+
+
+def flagship_level_shapes():
+    """(n, F, maxB, S) of every histogram the flagship train launches."""
+    n, F, maxB = FLAGSHIP["n_rows"], 10, 21
+    return [(n, F, maxB, 2 ** d) for d in range(FLAGSHIP["max_depth"])]
+
+
+def phase_kernels(dev):
+    """hist_gather against its plain version on the card: tolerance,
+    run-to-run bitwise equality, tiled == untiled, all-dead rows."""
+    from h2o3_tpu_torch.models.tree import hist_gather as hg
+
+    cases = [  # the reference's five kernel-test geometries
+        (0, 1000, 5, 8, 12, False, np.int32),
+        (1, 512, 3, 6, 7, True, np.int32),
+        (2, 768, 8, 16, 16, False, np.int16),
+        (3, 300, 2, 4, 3, True, np.int32),
+        (4, 256, 1, 32, 5, False, np.uint8)]
+    cases += [(10 + i, n, F, maxB, S, False, np.uint8)
+              for i, (n, F, maxB, S) in enumerate(flagship_level_shapes())]
+    max_err = 0.0
+    for seed, n, F, maxB, S, ragged, bdt in cases:
+        *arrays, TB = hist_case(seed, n, F, maxB, S, ragged_bins=ragged)
+        b, nd, w, y, off = _to(dev, *arrays, bin_dtype=bdt)
+        kw = dict(offsets=off, TB=TB, S=S)
+        got = hg.hist_gather(b, nd, w, y, **kw)
+        again = hg.hist_gather(b, nd, w, y, **kw)
+        ref = hg.hist_gather_ref(b, nd, w, y, **kw)
+        torch.cuda.synchronize()
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        ok = torch.allclose(got, ref, rtol=KERNEL_RTOL,
+                            atol=KERNEL_ATOL_REL * scale)
+        check(ok, f"hist_gather != plain at n={n} F={F} maxB={maxB} S={S}: "
+                  f"max err {err} (scale {scale})")
+        check(torch.equal(got, again), f"hist_gather not run-to-run bitwise "
+                                       f"at n={n} S={S}")
+        for tile_S in (1, 2, 4):
+            tiled = hg.hist_gather(b, nd, w, y, tile_S=tile_S, **kw)
+            check(torch.equal(tiled, got),
+                  f"tile_S={tile_S} moved a bit at n={n} S={S}")
+        dead = hg.hist_gather(b, torch.full_like(nd, -1), w, y, **kw)
+        check(bool((dead == 0).all()), f"all-dead rows not zero at n={n}")
+        if n == FLAGSHIP["n_rows"]:
+            max_err = max(max_err, err)
+        print(f"hist_gather n={n} F={F} maxB={maxB} S={S} "
+              f"{np.dtype(bdt).name}: max_abs_err {err:.3e} "
+              f"(scale {scale:.3e}) bitwise-repeat tiled-1/2/4 all-dead ok")
+    return max_err
+
+
+def phase_flagship(h2o, dev):
+    """The port's main path at full width: train and score the flagship."""
+    from h2o3_tpu_torch.models.tree import hist_gather as hg
+
+    t0 = time.perf_counter()
+    fr = flagship_frame(h2o, dev, FLAGSHIP["n_rows"])
+    print(f"flagship frame {fr.nrows}x{fr.ncols} built in "
+          f"{time.perf_counter() - t0:.1f}s")
+    h2o.GBM(ntrees=2, max_depth=FLAGSHIP["max_depth"]).train(
+        y="y", training_frame=fr)                    # warm-up
+    torch.cuda.synchronize()
+    hg.launches = 0
+    t0 = time.perf_counter()
+    m = h2o.GBM(ntrees=FLAGSHIP["ntrees"],
+                max_depth=FLAGSHIP["max_depth"]).train(y="y",
+                                                       training_frame=fr)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = hg.launches
+    auc = float(m._output.training_metrics.auc)
+    rows_per_sec = FLAGSHIP["n_rows"] * FLAGSHIP["ntrees"] / dt
+    print(f"gbm_train_s {dt!r}")
+    print(f"gbm_rows_per_sec {rows_per_sec!r}")
+    print(f"gbm_training_auc {auc!r} logloss "
+          f"{m._output.training_metrics.logloss!r}")
+    print(f"hist_gather launches {launches} "
+          f"({launches / FLAGSHIP['ntrees']:.0f} per tree)")
+    check(np.isfinite(auc) and auc > 0.5, f"training AUC {auc} not > 0.5")
+    check(launches == FLAGSHIP["max_depth"] * FLAGSHIP["ntrees"],
+          f"{launches} hist_gather launches, expected "
+          f"{FLAGSHIP['max_depth'] * FLAGSHIP['ntrees']}")
+    t0 = time.perf_counter()
+    pred = m.predict(fr)
+    p = pred.col("Y").data
+    torch.cuda.synchronize()
+    print(f"predict_s {time.perf_counter() - t0!r}")
+    check(p.shape == (FLAGSHIP["n_rows"],), f"prediction shape {p.shape}")
+    check(bool(torch.isfinite(p).all()) and bool(((p >= 0) & (p <= 1)).all()),
+          "predicted probabilities not finite in [0, 1]")
+    again = h2o.GBM(ntrees=FLAGSHIP["ntrees"],
+                    max_depth=FLAGSHIP["max_depth"]).train(y="y",
+                                                           training_frame=fr)
+    a, b = _forest_arrays(m), _forest_arrays(again)
+    for k in a:
+        check(np.array_equal(a[k], b[k]), f"retrain changed forest {k}")
+    check(np.array_equal(m.forest.leaf_val, again.forest.leaf_val),
+          "retrain changed a leaf value")
+    print("retrain on the card: forest bitwise identical")
+    return launches, fr
+
+
+def phase_profile(h2o, fr, ntrees=5, top=12):
+    """Where a flagship train's time goes: device time by kernel from
+    torch.profiler over an `ntrees`-tree train, and the device-busy share
+    of the same train's unprofiled wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    kw = dict(ntrees=ntrees, max_depth=FLAGSHIP["max_depth"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h2o.GBM(**kw).train(y="y", training_frame=fr)
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        h2o.GBM(**kw).train(y="y", training_frame=fr)
+        torch.cuda.synchronize()
+    rows = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(r[0] for r in rows)
+    if busy_us <= 0:
+        print("profile: the profiler recorded no device time (not measured)")
+        return
+    print(f"profile {ntrees}-tree flagship train: unprofiled wall "
+          f"{wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms = "
+          f"{100 * busy_us / wall_us:.1f}% of it")
+    for dev_us, count, key in sorted(rows, reverse=True)[:top]:
+        print(f"  {dev_us / 1e3:9.3f} ms {100 * dev_us / busy_us:5.1f}% "
+              f"x{count:<6d} {key[:90]}")
+
+
+def _forest_arrays(m):
+    fo = m.forest
+    return {k: np.asarray(getattr(fo, k)) for k in
+            ("feat", "thresh_bin", "na_left", "left", "right", "cat_split")}
+
+
+def phase_card_vs_cpu(h2o, dev):
+    """The same port on the card and on the CPU grows the same forests."""
+    cpu = torch.device("cpu")
+    for label, make, kw in [
+            ("600-row fixture", lambda d: small_frame(h2o, d),
+             dict(ntrees=4, max_depth=3, seed=3)),
+            ("50k flagship rows", lambda d: flagship_frame(h2o, d, 50_000),
+             dict(ntrees=5, max_depth=FLAGSHIP["max_depth"], seed=1))]:
+        models, preds = [], []
+        for d in (dev, cpu):
+            fr = make(d)
+            m = h2o.GBM(**kw).train(y="y", training_frame=fr)
+            models.append(m)
+            preds.append(m.predict(fr).col("Y").data.cpu().numpy())
+        a, b = (_forest_arrays(m) for m in models)
+        for k in a:
+            check(np.array_equal(a[k], b[k]), f"{label}: forest {k} differs "
+                                              "between card and CPU")
+        diff = float(np.abs(preds[0] - preds[1]).max())
+        check(diff <= PRED_ATOL, f"{label}: card vs CPU predictions differ "
+                                 f"by {diff}")
+        print(f"card vs cpu {label}: forests equal, max pred diff {diff:.3e}")
+
+
+def _time_ms(fn, flush, reps=5):
+    """Best of `reps` device times of fn() after a warm-up, each launch
+    preceded by an L2 flush so the inputs come from device memory."""
+    fn()
+    best = float("inf")
+    for _ in range(reps):
+        flush.zero_()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        best = min(best, e0.elapsed_time(e1))
+    return best
+
+
+def phase_times(dev, launches, max_err):
+    """Kernel, plain version and library call at the flagship level
+    shapes, beside the bound."""
+    from h2o3_tpu_torch.models.tree import hist_gather as hg
+
+    name = torch.cuda.get_device_name(dev)
+    rate = memory_rate(name)
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device=dev)
+    rows = []
+    for i, (n, F, maxB, S) in enumerate(flagship_level_shapes()):
+        b, nd, w, y, off = _to(dev, *hist_case(20 + i, n, F, maxB, S)[:5],
+                               bin_dtype=np.uint8)
+        TB = F * maxB
+        kw = dict(offsets=off, TB=TB, S=S)
+        live = nd >= 0
+        idx = (nd[live].long()[:, None] * TB + off.long()[None, :]
+               + b[live].long()).reshape(-1)
+        wl, yl = w[live], y[live]
+        vals = torch.stack([wl, wl * yl, wl * yl * yl], -1)
+        vals = vals[:, None, :].expand(-1, F, 3).reshape(-1, 3).contiguous()
+        saved = hg.launches
+        k_ms = _time_ms(lambda: hg.hist_gather(b, nd, w, y, **kw), flush)
+        hg.launches = saved            # timing launches are not main-path
+        p_ms = _time_ms(lambda: hg.hist_gather_ref(b, nd, w, y, **kw), flush)
+        l_ms = _time_ms(lambda: torch.zeros(S * TB, 3, device=dev).index_put_(
+            (idx,), vals, accumulate=True), flush)
+        # bytes the function must move for this data: every row's node;
+        # bins, w and y of the rows inside [0, S); offsets; the output
+        n_live = int(((nd >= 0) & (nd < S)).sum())
+        nbytes = 4 * n + n_live * (F * 1 + 8) + 4 * F + 12 * S * TB
+        ops = 3 * n_live * F
+        bound_ms = max(nbytes / rate, ops / F32_PEAK) * 1e3
+        rows.append((k_ms, p_ms, l_ms, bound_ms))
+        print(f"time hist_gather n={n} F={F} maxB={maxB} S={S}: kernel "
+              f"{k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, library "
+              f"index_put_ {l_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} "
+              f"us ({nbytes / 1e6:.1f} MB at {rate / 1e12:.2f} TB/s), "
+              f"{FLAGSHIP['ntrees']} launches per flagship train")
+    mean = [float(np.mean([r[j] for r in rows])) for j in range(4)]
+    return [{"name": "hist_gather", "route": "cuda",
+             "source": "h2o3_tpu_torch/csrc/hist_gather.cu",
+             "replaces": "h2o3_tpu/models/tree/pallas_hist.py:362",
+             "launches": int(launches), "max_abs_err": max_err,
+             "ms": mean[0], "plain_ms": mean[1], "bound_ms": mean[3],
+             "bound_by": "bytes", "library_ms": mean[2]}]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke test needs one",
+              file=sys.stderr)
+        return 1
+    import h2o3_tpu_torch as h2o
+
+    dev = h2o.init().device
+    print("== phase 1: build")
+    phase_build()
+    print("== phase 2: kernels vs plain versions")
+    max_err = phase_kernels(dev)
+    print("== phase 3: flagship GBM train + score")
+    launches, fr = phase_flagship(h2o, dev)
+    print("== phase 3b: where the flagship train's time goes")
+    phase_profile(h2o, fr)
+    del fr
+    print("== phase 4: card vs CPU")
+    phase_card_vs_cpu(h2o, dev)
+    print("== phase 5: kernel times at the flagship level shapes")
+    kernels = phase_times(dev, launches, max_err)
+    print(json.dumps({"kernels": kernels}))
+    print(nvidia_smi())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,65 @@
+"""Carry a trained model's state across into the port.
+
+A model trained elsewhere (for example by the JAX package) is handed over
+as numpy arrays and plain values, never as that package's objects:
+
+  forest: feat, thresh_bin, na_left, left, right, leaf_val, cat_split,
+          cat_table, tree_class, na_bins, max_depth, init_f, nclasses
+  spec:   names, is_cat, nbins, edges, cards
+  output: names, domains, response_domain, model_category
+          (and optionally response_name, distribution)
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+
+from h2o3_tpu_torch.models.distribution import get_distribution
+from h2o3_tpu_torch.models.model import ModelCategory
+from h2o3_tpu_torch.models.tree.binning import BinSpec
+from h2o3_tpu_torch.models.tree.compressed import CompressedForest
+from h2o3_tpu_torch.models.tree.gbm import GBMModel
+
+_FOREST_ARRAYS = {"feat": np.int32, "thresh_bin": np.int32, "na_left": bool,
+                  "left": np.int32, "right": np.int32,
+                  "leaf_val": np.float32, "cat_split": np.int32,
+                  "cat_table": bool, "tree_class": np.int32,
+                  "na_bins": np.int32}
+
+
+def forest_from_numpy(d: Dict[str, Any]) -> CompressedForest:
+    arrays = {k: np.asarray(d[k], dt) for k, dt in _FOREST_ARRAYS.items()}
+    return CompressedForest(**arrays, max_depth=int(d["max_depth"]),
+                            init_f=float(d["init_f"]),
+                            nclasses=int(d["nclasses"]))
+
+
+def binspec_from_numpy(d: Dict[str, Any]) -> BinSpec:
+    return BinSpec(list(d["names"]), np.asarray(d["is_cat"], bool),
+                   np.asarray(d["nbins"], np.int64),
+                   [np.asarray(e, np.float32) for e in d["edges"]],
+                   np.asarray(d["cards"], np.int64))
+
+
+def gbm_model_from_numpy(d: Dict[str, Any]) -> GBMModel:
+    """A scoring-ready GBMModel from {"forest": ..., "spec": ...,
+    "output": ...}. The model scores on the device of the frame it is
+    given, so no device is fixed here."""
+    model = GBMModel()
+    model.forest = forest_from_numpy(d["forest"])
+    model.spec = binspec_from_numpy(d["spec"])
+    o = d["output"]
+    out = model._output
+    out.names = list(o["names"])
+    out.domains = {k: list(v) for k, v in dict(o["domains"]).items()}
+    rd = o.get("response_domain")
+    out.response_domain = list(rd) if rd is not None else None
+    out.model_category = str(o["model_category"])
+    out.response_name = o.get("response_name")
+    dist = o.get("distribution") or (
+        "bernoulli" if out.model_category == ModelCategory.Binomial
+        else "gaussian")
+    model._distribution = get_distribution(dist)
+    return model
