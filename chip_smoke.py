@@ -4,12 +4,13 @@
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It builds the port's CUDA kernels from h2o3_tpu_torch/csrc, holds every
-kernel against its plain PyTorch version, trains and scores the flagship
-GBM (1M rows, 8 numeric + 2 categorical features, bernoulli, 20 trees,
-depth 5) through the port's public entry points, checks the card's forest
-against the same port on the CPU, and times each kernel at the flagship
-level shapes beside its memory bound and a PyTorch library call. Any
-failed check exits non-zero. The last line is
+kernel against its plain PyTorch version bit for bit, trains and scores
+the flagship GBM (1M rows, 8 numeric + 2 categorical features,
+bernoulli, 20 trees, depth 5) through the port's public entry points,
+checks the card's forest against the same port on the CPU, and times
+each kernel at the flagship level shapes beside its memory bound and a
+PyTorch library call, with the kernel's time split by pass. Any failed
+check exits non-zero. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -20,13 +21,12 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 FLAGSHIP = dict(n_rows=1_000_000, n_num=8, n_cat=2, ntrees=20, max_depth=5)
-KERNEL_RTOL = 1e-5          # kernel vs plain version: rtol, and atol as a
-KERNEL_ATOL_REL = 1e-5      # fraction of max|plain| (atomic-order sums)
 PRED_ATOL = 1e-5            # card vs CPU predictions of the same forest
 
 
@@ -140,10 +140,18 @@ def phase_build():
     t0 = time.perf_counter()
     names = kernels.build_all()
     print(f"build_s {time.perf_counter() - t0:.3f} kernels {names}")
+    cuobjdump = Path(kernels.nvcc()).with_name("cuobjdump")
     for name in names:
         for line in kernels.BUILD_LOG.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               str(kernels.lib_path(name))],
+                              capture_output=True, text=True).stdout
+        atomics = sorted({tok for line in sass.splitlines()
+                          for tok in line.replace(";", " ").split()
+                          if tok.startswith(("ATOMS", "ATOMG", "RED"))})
+        print(f"  sass {name}: atomic opcodes {atomics}")
 
 
 def _to(dev, binned, node, w, y, offsets, bin_dtype):
@@ -159,9 +167,20 @@ def flagship_level_shapes():
     return [(n, F, maxB, 2 ** d) for d in range(FLAGSHIP["max_depth"])]
 
 
+def _bits(t):
+    """int32 view of a float tensor with every NaN as one pattern."""
+    return torch.where(torch.isnan(t), torch.nan, t).view(torch.int32)
+
+
+def same_bits(a, b) -> bool:
+    return torch.equal(_bits(a), _bits(b))
+
+
 def phase_kernels(dev):
-    """hist_gather against its plain version on the card: tolerance,
-    run-to-run bitwise equality, tiled == untiled, all-dead rows."""
+    """hist_gather against its plain version on the card, bit for bit:
+    the ten geometries and a 32-byte-row one, run to run, tiled 1/2/4
+    and with no shared tile, rows permuted, all-dead rows; then extreme
+    magnitudes and a slot too large for shared memory."""
     from h2o3_tpu_torch.models.tree import hist_gather as hg
 
     cases = [  # the reference's five kernel-test geometries
@@ -172,34 +191,63 @@ def phase_kernels(dev):
         (4, 256, 1, 32, 5, False, np.uint8)]
     cases += [(10 + i, n, F, maxB, S, False, np.uint8)
               for i, (n, F, maxB, S) in enumerate(flagship_level_shapes())]
+    # rows of 16 (int16, F=8, above) and 32 bytes take the vector loads
+    cases.append((5, 4000, 8, 9, 6, True, np.int32))
     max_err = 0.0
     for seed, n, F, maxB, S, ragged, bdt in cases:
         *arrays, TB = hist_case(seed, n, F, maxB, S, ragged_bins=ragged)
         b, nd, w, y, off = _to(dev, *arrays, bin_dtype=bdt)
         kw = dict(offsets=off, TB=TB, S=S)
         got = hg.hist_gather(b, nd, w, y, **kw)
-        again = hg.hist_gather(b, nd, w, y, **kw)
         ref = hg.hist_gather_ref(b, nd, w, y, **kw)
-        torch.cuda.synchronize()
-        scale = float(ref.abs().max())
         err = float((got - ref).abs().max())
-        ok = torch.allclose(got, ref, rtol=KERNEL_RTOL,
-                            atol=KERNEL_ATOL_REL * scale)
-        check(ok, f"hist_gather != plain at n={n} F={F} maxB={maxB} S={S}: "
-                  f"max err {err} (scale {scale})")
-        check(torch.equal(got, again), f"hist_gather not run-to-run bitwise "
-                                       f"at n={n} S={S}")
-        for tile_S in (1, 2, 4):
+        check(same_bits(got, ref), f"hist_gather != plain at n={n} F={F} "
+                                   f"maxB={maxB} S={S}: max err {err}")
+        check(same_bits(hg.hist_gather(b, nd, w, y, **kw), got),
+              f"hist_gather not run-to-run bitwise at n={n} S={S}")
+        for tile_S in (0, 1, 2, 4):
             tiled = hg.hist_gather(b, nd, w, y, tile_S=tile_S, **kw)
-            check(torch.equal(tiled, got),
+            check(same_bits(tiled, got),
                   f"tile_S={tile_S} moved a bit at n={n} S={S}")
+        perm = torch.randperm(n, generator=torch.Generator().manual_seed(
+            seed)).to(dev)
+        shuffled = hg.hist_gather(b[perm], nd[perm], w[perm], y[perm], **kw)
+        check(same_bits(shuffled, got), f"row order moved a bit at n={n}")
         dead = hg.hist_gather(b, torch.full_like(nd, -1), w, y, **kw)
         check(bool((dead == 0).all()), f"all-dead rows not zero at n={n}")
         if n == FLAGSHIP["n_rows"]:
             max_err = max(max_err, err)
         print(f"hist_gather n={n} F={F} maxB={maxB} S={S} "
-              f"{np.dtype(bdt).name}: max_abs_err {err:.3e} "
-              f"(scale {scale:.3e}) bitwise-repeat tiled-1/2/4 all-dead ok")
+              f"{np.dtype(bdt).name}: bitwise == plain (max_abs_err "
+              f"{err!r}), repeat, tile_S 0/1/2/4, permuted, all-dead ok")
+
+    n = 200_000
+    *arrays, TB = hist_case(30, n, 10, 21, 8)
+    spread = 10.0 ** np.random.default_rng(30).uniform(-20, 20, n)
+    for label, scale, nan_channels in [("y x 1e20", 1e20, [2]),
+                                       ("y x 1e-20", 1e-20, []),
+                                       ("y x 1e-20..1e20", spread, [2])]:
+        arr = list(arrays)
+        arr[3] = (arr[3] * scale).astype(np.float32)
+        b, nd, w, y, off = _to(dev, *arr, bin_dtype=np.uint8)
+        kw = dict(offsets=off, TB=TB, S=8)
+        got = hg.hist_gather(b, nd, w, y, **kw)
+        ref = hg.hist_gather_ref(b, nd, w, y, **kw)
+        check(same_bits(got, ref), f"hist_gather != plain at {label}")
+        nan = [c for c in range(3) if bool(torch.isnan(got[:, c]).all())]
+        check(nan == nan_channels, f"{label}: NaN channels {nan}, expected "
+                                   f"{nan_channels}")
+        print(f"hist_gather n={n} {label}: bitwise == plain, NaN channels "
+              f"{nan} (where (w*y)*y overflows f32)")
+    *arrays, TB = hist_case(31, n, 4, 3000, 3)
+    check(hg.plan_tiles(TB, 3) is None, f"TB={TB} should not fit")
+    b, nd, w, y, off = _to(dev, *arrays, bin_dtype=np.int16)
+    kw = dict(offsets=off, TB=TB, S=3)
+    got = hg.hist_gather(b, nd, w, y, **kw)
+    check(same_bits(got, hg.hist_gather_ref(b, nd, w, y, **kw)),
+          f"hist_gather != plain at the over-budget slot TB={TB}")
+    print(f"hist_gather n={n} TB={TB} (one slot {24 * TB} B > shared "
+          f"memory): bitwise == plain")
     return max_err
 
 
@@ -279,9 +327,12 @@ def phase_profile(h2o, fr, ntrees=5, top=12):
     print(f"profile {ntrees}-tree flagship train: unprofiled wall "
           f"{wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms = "
           f"{100 * busy_us / wall_us:.1f}% of it")
-    for dev_us, count, key in sorted(rows, reverse=True)[:top]:
-        print(f"  {dev_us / 1e3:9.3f} ms {100 * dev_us / busy_us:5.1f}% "
-              f"x{count:<6d} {key[:90]}")
+    ranked = sorted(rows, reverse=True)
+    # the top rows, then the port's own kernels wherever they rank
+    for rank, (dev_us, count, key) in enumerate(ranked):
+        if rank < top or "hist_" in key:
+            print(f"  {dev_us / 1e3:9.3f} ms {100 * dev_us / busy_us:5.1f}% "
+                  f"x{count:<6d} {key[:90]}")
 
 
 def _forest_arrays(m):
@@ -333,13 +384,16 @@ def _time_ms(fn, flush, reps=5):
 
 def phase_times(dev, launches, max_err):
     """Kernel, plain version and library call at the flagship level
-    shapes, beside the bound."""
+    shapes, beside the bound; and the kernel's time split by pass (each
+    pass alone through the same C entry point)."""
+    from h2o3_tpu_torch import kernels
     from h2o3_tpu_torch.models.tree import hist_gather as hg
 
     name = torch.cuda.get_device_name(dev)
     rate = memory_rate(name)
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device=dev)
-    rows = []
+    lib = kernels.load("hist_gather")
+    rows, splits = [], []
     for i, (n, F, maxB, S) in enumerate(flagship_level_shapes()):
         b, nd, w, y, off = _to(dev, *hist_case(20 + i, n, F, maxB, S)[:5],
                                bin_dtype=np.uint8)
@@ -357,6 +411,19 @@ def phase_times(dev, launches, max_err):
         p_ms = _time_ms(lambda: hg.hist_gather_ref(b, nd, w, y, **kw), flush)
         l_ms = _time_ms(lambda: torch.zeros(S * TB, 3, device=dev).index_put_(
             (idx,), vals, accumulate=True), flush)
+        tile_S, n_tiles = hg.plan_tiles(TB, S)
+        scratch = torch.zeros(2 + S * TB * 3, dtype=torch.int64, device=dev)
+        out = torch.empty(S * TB, 3, dtype=torch.float32, device=dev)
+
+        def run(passes):
+            err = hg.launch(lib, b, nd, w, y, off, scratch, out, TB=TB, S=S,
+                            tile_S=tile_S, n_tiles=n_tiles, passes=passes)
+            check(err == 0, f"hist_gather passes={passes}: CUDA error {err}")
+
+        run(hg.ALL_PASSES)
+        split = [_time_ms(lambda p=p: run(p), flush)
+                 for p in (hg.PASS_SCALE, hg.PASS_ACCUMULATE,
+                           hg.PASS_FINALISE)]
         # bytes the function must move for this data: every row's node;
         # bins, w and y of the rows inside [0, S); offsets; the output
         n_live = int(((nd >= 0) & (nd < S)).sum())
@@ -364,12 +431,21 @@ def phase_times(dev, launches, max_err):
         ops = 3 * n_live * F
         bound_ms = max(nbytes / rate, ops / F32_PEAK) * 1e3
         rows.append((k_ms, p_ms, l_ms, bound_ms))
+        splits.append(split)
         print(f"time hist_gather n={n} F={F} maxB={maxB} S={S}: kernel "
               f"{k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, library "
               f"index_put_ {l_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} "
               f"us ({nbytes / 1e6:.1f} MB at {rate / 1e12:.2f} TB/s), "
               f"{FLAGSHIP['ntrees']} launches per flagship train")
+        print(f"  passes alone: scale {split[0] * 1e3:.1f} us, accumulate "
+              f"{split[1] * 1e3:.1f} us, finalise {split[2] * 1e3:.1f} us "
+              f"(tile_S={tile_S}, {n_tiles} tile)")
     mean = [float(np.mean([r[j] for r in rows])) for j in range(4)]
+    pmean = [float(np.mean([s[j] for s in splits])) for j in range(3)]
+    print(f"hist_gather mean per launch: kernel {mean[0] * 1e3:.1f} us = "
+          f"{100 * mean[3] / mean[0]:.1f}% of the bound; passes alone: "
+          f"scale {pmean[0] * 1e3:.1f} us, accumulate {pmean[1] * 1e3:.1f} "
+          f"us, finalise {pmean[2] * 1e3:.1f} us")
     return [{"name": "hist_gather", "route": "cuda",
              "source": "h2o3_tpu_torch/csrc/hist_gather.cu",
              "replaces": "h2o3_tpu/models/tree/pallas_hist.py:362",

@@ -30,9 +30,8 @@ _L = ctypes.c_int64
 # C signatures per library: function name -> (restype, argtypes)
 SIGNATURES = {
     "hist_gather": {
-        "hist_gather_smem_bytes": (_L, [_I, _I]),
         "hist_gather_launch": (_I, [_P, _I, _P, _P, _P, _P, _L, _I, _I, _I,
-                                    _I, _I, _L, _I, _P, _P, _P]),
+                                    _I, _I, _L, _I, _I, _I, _P, _P, _P]),
     },
 }
 
@@ -55,7 +54,8 @@ def nvcc() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
+    """Where kernel `name`'s library is (or will be) built."""
     h = hashlib.sha256()
     for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
@@ -67,7 +67,7 @@ def _lib_path(name: str) -> Path:
 def _start(name: str):
     """Start nvcc for csrc/<name>.cu unless its library is already built;
     returns (final path, temp path, process) or None when nothing to do."""
-    out = _lib_path(name)
+    out = lib_path(name)
     if out.is_file():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -115,7 +115,7 @@ def load(name: str) -> ctypes.CDLL:
     job = _start(name)
     if job is not None:
         _finish(name, job)
-    lib = ctypes.CDLL(str(_lib_path(name)))
+    lib = ctypes.CDLL(str(lib_path(name)))
     for fn, (restype, argtypes) in SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.restype = restype

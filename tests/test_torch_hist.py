@@ -2,8 +2,11 @@
 plain version against the JAX package's Pallas kernel (interpret mode)
 and XLA twin on the reference's five kernel-test geometries, against the
 float64 ground truth, dead/zero-weight rows, the shared-memory tile
-planner, and (on a CUDA card only) the hand-written kernel against the
-plain version."""
+planner, the int64 fixed-point convention (order-free, exponents by
+hand, extreme magnitudes, non-finite rows, ties), and (on a CUDA card
+only) the hand-written kernel against the plain version, bit for bit."""
+
+import math
 
 import numpy as np
 import pytest
@@ -75,18 +78,19 @@ def test_dead_and_zero_weight_rows_drop():
 
 
 def test_shared_memory_tile_planner():
-    budget = hg.SMEM_PER_BLOCK - hg.STAGE_BYTES
+    budget = hg.SMEM_PER_BLOCK
     for TB, S in [(210, 1), (210, 16), (210, 64), (40, 12), (512, 64),
                   (96, 1), (1024, 4096), (4000, 3)]:
         tile_S, n_tiles = hg.plan_tiles(TB, S)
-        assert 12 * TB * tile_S <= budget              # fits shared memory
+        assert 24 * TB * tile_S <= budget              # fits shared memory
         assert tile_S * n_tiles >= S > tile_S * (n_tiles - 1)   # covers S
         assert tile_S <= S
-    # the flagship's widest level (S=16, TB=210) is one tile of ~40 KB
+    # the flagship's widest level (S=16, TB=210) is one tile of ~80 KB
     assert hg.plan_tiles(210, 16) == (16, 1)
-    # one slot over the budget: no plan, and the CUDA wrapper raises
-    assert hg.plan_tiles(budget // 12 + 1, 2) is None
-    assert hg.plan_tiles(100, 8, budget=1199) is None
+    # one slot over the budget: no plan, and the kernel accumulates in
+    # global memory
+    assert hg.plan_tiles(budget // 24 + 1, 2) is None
+    assert hg.plan_tiles(100, 8, budget=2399) is None
 
 
 def test_row_grid_depends_on_n_only():
@@ -107,18 +111,167 @@ def test_wrapper_routes_cpu_tensors_to_the_plain_version():
     assert hg.launches == before          # no kernel launch on the CPU
 
 
+def _bits(t):
+    """int32 view of a float tensor with every NaN as one pattern."""
+    return torch.where(torch.isnan(t), torch.nan, t).view(torch.int32)
+
+
+def _permuted(seed, *arrays):
+    perm = np.random.default_rng(seed).permutation(arrays[0].shape[0])
+    return tuple(a[perm] for a in arrays)
+
+
+@pytest.mark.parametrize("seed,n,F,maxB,S,tile_S,blk,ragged", GEOMETRIES)
+def test_plain_version_is_order_free(seed, n, F, maxB, S, tile_S, blk,
+                                     ragged):
+    binned, node, w, y, offsets, TB = _case(seed, n, F, maxB, S,
+                                            ragged_bins=ragged)
+    got = _port(binned, node, w, y, offsets, TB, S)
+    shuffled = _port(*_permuted(seed, binned, node, w, y), offsets, TB, S)
+    assert torch.equal(_bits(got), _bits(shuffled))
+
+
+# b = ceil(log2(n)) and e = frexp exponent of the maximum, by hand:
+# 1e-30 lies in [2**-100, 2**-99), 1e30 in [2**99, 2**100).
+_B = {1: 0, 31: 5, 4097: 13, 1_000_000: 20}
+_E = {0.0: 0, 1e-30: -99, 1.0: 1, 1e30: 100}
+
+
+@pytest.mark.parametrize("n", sorted(_B))
+def test_fixed_point_exponent_by_hand(n):
+    for m, e in _E.items():
+        for mf in (m, float(np.float32(m))):
+            k = hg.fixed_point_exponent(mf, n)
+            assert k == 62 - e - _B[n], (mf, n)
+            # no sum of n rows of magnitude <= m reaches 2**62
+            assert n * math.ldexp(mf, k) < 2.0 ** 62
+    for bad in (math.inf, -math.inf, math.nan):
+        assert hg.fixed_point_exponent(bad, n) is None
+
+
+def _row_values(w, y):
+    """The per-row f32 triples, as the kernel and _f64_reference form
+    them."""
+    with np.errstate(over="ignore", invalid="ignore"):
+        wy = w * y
+        return np.stack([w, wy, wy * y], axis=1)
+
+
+@pytest.mark.parametrize("magnitude", ["1e20", "1e-20", "1e-20..1e20"])
+def test_extreme_magnitudes_within_the_fixed_point_bound(magnitude):
+    """Each bucket is within rows * 2**-k_c (the quantum of the channel's
+    fixed point) plus one f32 rounding of the float64 sum of the rows'
+    f32 values. A channel whose f32 values overflow is NaN throughout."""
+    n, F, maxB, S = 800, 3, 8, 4
+    binned, node, w, y, offsets, TB = _case(20, n, F, maxB, S,
+                                            ragged_bins=True)
+    rng = np.random.default_rng(21)
+    if magnitude == "1e20":
+        y = (y * 1e20).astype(np.float32)
+    elif magnitude == "1e-20":
+        y = (y * 1e-20).astype(np.float32)
+    else:
+        y = (y * 10.0 ** rng.uniform(-20, 20, n)).astype(np.float32)
+    got = _port(binned, node, w, y, offsets, TB, S).numpy()
+    with np.errstate(over="ignore", invalid="ignore"):
+        expect = _f64_reference(binned, node, w, y, offsets, TB, S)
+    vals = _row_values(w, y)
+    for c in range(3):
+        m = float(np.abs(vals[:, c]).max())
+        k = hg.fixed_point_exponent(m, n)
+        if k is None:
+            assert np.isnan(got[:, c]).all(), c
+            continue
+        np.testing.assert_allclose(got[:, c], expect[:, c], rtol=1e-6,
+                                   atol=n * math.ldexp(1.0, -k),
+                                   err_msg=f"channel {c}")
+    assert magnitude != "1e20" or np.isnan(got[:, 2]).all()
+
+
+@pytest.mark.parametrize("w_bad,y_bad,nan_channels,live", [
+    (np.nan, 1.0, (0, 1, 2), True),
+    (np.inf, 1.0, (0, 1, 2), True),
+    (1.0, np.inf, (1, 2), True),
+    (0.0, np.inf, (1, 2), True),          # 0 * inf is NaN
+    (1.0, 1e30, (2,), True),              # only (w*y)*y overflows
+    (1.0, np.nan, (1, 2), False),         # a dead row counts too
+])
+def test_non_finite_row_turns_exactly_its_channels_nan(w_bad, y_bad,
+                                                       nan_channels, live):
+    n, F, maxB, S = 300, 3, 8, 4
+    binned, node, w, y, offsets, TB = _case(22, n, F, maxB, S)
+    w, y, node = w.copy(), y.copy(), node.copy()
+    w[7], y[7] = w_bad, y_bad
+    node[7] = 1 if live else -1
+    got = _port(binned, node, w, y, offsets, TB, S).numpy()
+    with np.errstate(over="ignore", invalid="ignore"):
+        expect = _f64_reference(binned, node, w, y, offsets, TB, S)
+    vals = _row_values(w, y)
+    for c in range(3):
+        if c in nan_channels:
+            assert np.isnan(got[:, c]).all(), c
+        else:
+            m = float(np.abs(vals[:, c]).max())
+            atol = n * math.ldexp(1.0, -hg.fixed_point_exponent(m, n))
+            np.testing.assert_allclose(got[:, c], expect[:, c], rtol=1e-6,
+                                       atol=atol, err_msg=f"channel {c}")
+
+
+def test_exact_ties_round_half_to_even():
+    # 4 rows (b = 2), largest value 1.0 (e = 1): k = 62 - 1 - 2 = 59, so a
+    # value of j * 2**-59 quantises to round_half_even(j)
+    q = math.ldexp(1.0, -59)
+    w = np.array([1.0, 2.5 * q, 0.5 * q, 3.5 * q], np.float32)
+    y = np.array([1.0, 1.0, -1.0, -1.0], np.float32)
+    binned = np.arange(4, dtype=np.int32)[:, None]
+    node = np.zeros(4, np.int32)
+    got = _port(binned, node, w, y, np.zeros(1, np.int32), 4, 1).numpy()
+    expect = np.array([[1.0, 1.0, 1.0],
+                       [2 * q, 2 * q, 2 * q],      # 2.5 -> 2, not 3
+                       [0.0, 0.0, 0.0],            # +-0.5 -> 0, not +-1
+                       [4 * q, -4 * q, 4 * q]],    # 3.5 -> 4
+                      np.float32)
+    np.testing.assert_array_equal(got, expect)
+
+
+def test_over_budget_slot_has_no_tile_plan_and_the_plain_version_runs():
+    n, F, S, TB = 500, 4, 3, 12_000
+    assert hg.plan_tiles(TB, S) is None
+    binned, node, w, y, offsets, _ = _case(23, n, F, 3000, S)
+    got = _port(binned, node, w, y, offsets, TB, S, bins=np.int16).numpy()
+    expect = _f64_reference(binned, node, w, y, offsets, TB, S)
+    np.testing.assert_allclose(got, expect, rtol=1e-6, atol=1e-6)
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("seed,n,F,maxB,S,tile_S,blk,ragged", GEOMETRIES)
 def test_cuda_kernel_vs_plain_version(seed, n, F, maxB, S, tile_S, blk,
                                       ragged):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    _cuda()
     binned, node, w, y, offsets, TB = _case(seed, n, F, maxB, S,
                                             ragged_bins=ragged)
     got = _port(binned, node, w, y, offsets, TB, S, device="cuda")
     again = _port(binned, node, w, y, offsets, TB, S, device="cuda",
                   tile_S=1)
+    shuffled = _port(*_permuted(seed, binned, node, w, y), offsets, TB, S,
+                     device="cuda")
     ref = _port(binned, node, w, y, offsets, TB, S)
-    torch.testing.assert_close(got.cpu(), ref, rtol=1e-5,
-                               atol=1e-5 * float(ref.abs().max()))
-    assert torch.equal(got, again), "tiling moved a bit"
+    assert torch.equal(_bits(got.cpu()), _bits(ref)), "kernel != plain"
+    assert torch.equal(_bits(got), _bits(again)), "tiling moved a bit"
+    assert torch.equal(_bits(got), _bits(shuffled)), "row order moved a bit"
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_over_budget_slot_vs_plain_version():
+    _cuda()
+    n, F, S, TB = 20_000, 4, 3, 12_000
+    binned, node, w, y, offsets, _ = _case(23, n, F, 3000, S)
+    got = _port(binned, node, w, y, offsets, TB, S, device="cuda",
+                bins=np.int16)
+    ref = _port(binned, node, w, y, offsets, TB, S, bins=np.int16)
+    assert torch.equal(_bits(got.cpu()), _bits(ref))
