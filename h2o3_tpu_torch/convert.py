@@ -5,9 +5,12 @@ as numpy arrays and plain values, never as that package's objects:
 
   forest: feat, thresh_bin, na_left, left, right, leaf_val, cat_split,
           cat_table, tree_class, na_bins, max_depth, init_f, nclasses
+          (and init_class, the per-class priors of a multinomial GBM)
   spec:   names, is_cat, nbins, edges, cards
   output: names, domains, response_domain, model_category
           (and optionally response_name, distribution)
+
+GBM and DRF models (per-class forests included) come across this way.
 """
 
 from __future__ import annotations
@@ -20,7 +23,9 @@ from h2o3_tpu_torch.models.distribution import get_distribution
 from h2o3_tpu_torch.models.model import ModelCategory
 from h2o3_tpu_torch.models.tree.binning import BinSpec
 from h2o3_tpu_torch.models.tree.compressed import CompressedForest
+from h2o3_tpu_torch.models.tree.drf import DRFModel
 from h2o3_tpu_torch.models.tree.gbm import GBMModel
+from h2o3_tpu_torch.models.tree.shared_tree import SharedTreeModel
 
 _FOREST_ARRAYS = {"feat": np.int32, "thresh_bin": np.int32, "na_left": bool,
                   "left": np.int32, "right": np.int32,
@@ -31,9 +36,12 @@ _FOREST_ARRAYS = {"feat": np.int32, "thresh_bin": np.int32, "na_left": bool,
 
 def forest_from_numpy(d: Dict[str, Any]) -> CompressedForest:
     arrays = {k: np.asarray(d[k], dt) for k, dt in _FOREST_ARRAYS.items()}
-    return CompressedForest(**arrays, max_depth=int(d["max_depth"]),
-                            init_f=float(d["init_f"]),
-                            nclasses=int(d["nclasses"]))
+    forest = CompressedForest(**arrays, max_depth=int(d["max_depth"]),
+                              init_f=float(d["init_f"]),
+                              nclasses=int(d["nclasses"]))
+    if d.get("init_class") is not None:
+        forest.init_class = np.asarray(d["init_class"], np.float32)
+    return forest
 
 
 def binspec_from_numpy(d: Dict[str, Any]) -> BinSpec:
@@ -47,7 +55,15 @@ def gbm_model_from_numpy(d: Dict[str, Any]) -> GBMModel:
     """A scoring-ready GBMModel from {"forest": ..., "spec": ...,
     "output": ...}. The model scores on the device of the frame it is
     given, so no device is fixed here."""
-    model = GBMModel()
+    return _tree_model_from_numpy(GBMModel(), d)
+
+
+def drf_model_from_numpy(d: Dict[str, Any]) -> DRFModel:
+    """A scoring-ready DRFModel, as gbm_model_from_numpy."""
+    return _tree_model_from_numpy(DRFModel(), d)
+
+
+def _tree_model_from_numpy(model: SharedTreeModel, d: Dict[str, Any]):
     model.forest = forest_from_numpy(d["forest"])
     model.spec = binspec_from_numpy(d["spec"])
     o = d["output"]
@@ -58,8 +74,9 @@ def gbm_model_from_numpy(d: Dict[str, Any]) -> GBMModel:
     out.response_domain = list(rd) if rd is not None else None
     out.model_category = str(o["model_category"])
     out.response_name = o.get("response_name")
-    dist = o.get("distribution") or (
-        "bernoulli" if out.model_category == ModelCategory.Binomial
-        else "gaussian")
+    dist = o.get("distribution") or {
+        ModelCategory.Binomial: "bernoulli",
+        ModelCategory.Multinomial: "multinomial"}.get(out.model_category,
+                                                      "gaussian")
     model._distribution = get_distribution(dist)
     return model

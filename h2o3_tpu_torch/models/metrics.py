@@ -1,5 +1,6 @@
-"""Model metrics: AUC, confusion matrix, logloss, regression errors
-(counterpart of h2o3_tpu/models/metrics.py, binomial and regression).
+"""Model metrics: AUC, confusion matrix, logloss, regression errors and
+deviances, multinomial logloss / confusion matrix / hit ratios
+(counterpart of h2o3_tpu/models/metrics.py).
 
 AUC keeps the reference's fixed 400-bin score histogram (hex/AUC2.java:36):
 one device pass accumulates per-bin positive/negative weight, the ROC
@@ -41,6 +42,26 @@ def _binomial_partials(y, p, w):
     ll = -torch.sum(w * (y * torch.log(pc) + (1 - y) * torch.log1p(-pc)))
     return {"logloss": ll, "se": torch.sum(w * (y - p) ** 2),
             "wsum": torch.sum(w)}
+
+
+def _multinomial_partials(y, probs, w, nclasses: int):
+    eps = 1e-15
+    yi = y.long()
+    pred = torch.argmax(probs, dim=-1)
+    rows = torch.arange(y.shape[0], device=y.device)
+    py = torch.clamp(probs[rows, yi], eps, 1.0)
+    ll = -torch.sum(w * torch.log(py))
+    cm = segment_sum(yi * nclasses + pred, w, nclasses * nclasses)
+    other = torch.where(torch.arange(nclasses, device=y.device)[None, :]
+                        == yi[:, None], 0.0, probs)
+    se = torch.sum(w * (1.0 - py) ** 2) + torch.sum(w[:, None] * other ** 2)
+    # top-k hit counts (the reference's hit_ratio_table, k up to 10)
+    k = min(10, nclasses)
+    topk = torch.argsort(-probs, dim=-1, stable=True)[:, :k]
+    hitk = torch.cumsum((topk == yi[:, None]).to(w.dtype), dim=-1) \
+        * w[:, None]
+    return {"logloss": ll, "cm": cm.reshape(nclasses, nclasses), "se": se,
+            "wsum": torch.sum(w), "hitk": torch.sum(hitk, dim=0)}
 
 
 @dataclass
@@ -144,8 +165,19 @@ class ModelMetricsBinomial(ModelMetrics):
     auc_data: Optional[AUCData] = None
 
 
-def make_regression_metrics(y, f, w) -> ModelMetricsRegression:
-    """Gaussian regression metrics; y/f/w are (N,) tensors."""
+@dataclass
+class ModelMetricsMultinomial(ModelMetrics):
+    logloss: float = float("nan")
+    mean_per_class_error: float = float("nan")
+    cm: Optional[ConfusionMatrix] = None
+    hit_ratios: Optional[List[float]] = None
+
+
+def make_regression_metrics(y, f, w, distribution=None
+                            ) -> ModelMetricsRegression:
+    """Regression metrics; y/f/w are (N,) tensors, f on the response
+    scale. The mean residual deviance is the distribution's (gaussian:
+    the MSE)."""
     parts = {k: float(v) for k, v in _regression_partials(y, f, w).items()}
     wsum = parts["wsum"]
     if wsum == 0:
@@ -153,11 +185,17 @@ def make_regression_metrics(y, f, w) -> ModelMetricsRegression:
     mse = parts["se"] / wsum
     ymean = parts["ysum"] / wsum
     ss_tot = parts["y2sum"] / wsum - ymean * ymean
+    dev = mse
+    if distribution is not None and distribution.name != "gaussian":
+        # log-link families score on the response scale: back to margins
+        fm = (distribution.link(torch.clamp_min(f, 1e-10))
+              if distribution.name in ("poisson", "gamma", "tweedie") else f)
+        dev = float(torch.sum(distribution.deviance(w, y, fm))) / wsum
     return ModelMetricsRegression(
         mse=mse, rmse=float(np.sqrt(mse)), nobs=wsum,
         mae=parts["ae"] / wsum, rmsle=float(np.sqrt(parts["sle"] / wsum)),
         r2=1.0 - mse / ss_tot if ss_tot > 0 else float("nan"),
-        mean_residual_deviance=mse)
+        mean_residual_deviance=dev)
 
 
 def make_binomial_metrics(y, p, w, domain: Optional[List[str]] = None
@@ -176,3 +214,21 @@ def make_binomial_metrics(y, p, w, domain: Optional[List[str]] = None
         logloss=parts["logloss"] / wsum, auc=auc.auc, pr_auc=auc.pr_auc,
         gini=auc.gini, mean_per_class_error=float(np.mean(
             cm.errors_per_class())), cm=cm, auc_data=auc)
+
+
+def make_multinomial_metrics(y, probs, w, domain: List[str]
+                             ) -> ModelMetricsMultinomial:
+    """y (N,) class codes, probs (N, K); all tensors."""
+    k = len(domain)
+    parts = _multinomial_partials(y, probs, w, k)
+    wsum = float(parts["wsum"])
+    if wsum == 0:
+        return ModelMetricsMultinomial()
+    cm = ConfusionMatrix(parts["cm"].cpu().numpy(), list(domain))
+    mse = float(parts["se"]) / wsum
+    return ModelMetricsMultinomial(
+        mse=mse, rmse=float(np.sqrt(mse)), nobs=wsum,
+        logloss=float(parts["logloss"]) / wsum,
+        mean_per_class_error=float(np.mean(cm.errors_per_class())),
+        cm=cm, hit_ratios=[float(h) / wsum
+                           for h in parts["hitk"].cpu().numpy()])

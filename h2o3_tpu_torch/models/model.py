@@ -33,6 +33,7 @@ class ModelOutput:
         self.response_domain: Optional[List[str]] = None
         self.model_category: str = ModelCategory.Unknown
         self.training_metrics: Optional[M.ModelMetrics] = None
+        self.validation_metrics: Optional[M.ModelMetrics] = None
         self.variable_importances: Optional[Dict[str, float]] = None
         self.scoring_history: List[dict] = []
         self.run_time_ms: int = 0
@@ -63,7 +64,8 @@ class Model:
         self._output = ModelOutput()
 
     def _predict_raw(self, frame: Frame) -> Dict[str, Any]:
-        """Regression: {"value": (N,)}; Binomial: {"probs": (N, 2)}."""
+        """Regression: {"value": (N,)}; Binomial: {"probs": (N, 2)};
+        Multinomial: {"probs": (N, K)}."""
         raise NotImplementedError
 
     # -- adaptation -------------------------------------------------------
@@ -132,11 +134,12 @@ class Model:
     def _raw_to_frame(self, raw: Dict[str, Any], n: int) -> Frame:
         out = Frame()
         cat = self._output.model_category
-        if cat == ModelCategory.Binomial:
+        if cat in (ModelCategory.Binomial, ModelCategory.Multinomial):
             probs = raw["probs"]
             dom = self._output.response_domain or []
             tm = self._output.training_metrics
-            if tm is not None and getattr(tm, "auc_data", None) is not None:
+            if cat == ModelCategory.Binomial and tm is not None \
+                    and getattr(tm, "auc_data", None) is not None:
                 thr = tm.auc_data.max_f1_threshold
                 label = (probs[:, 1] >= thr).int()
             else:
@@ -155,7 +158,10 @@ class Model:
         raw = self._predict_raw(self.adapt_test(test_data))
         return self._make_metrics(test_data, raw)
 
-    def _make_metrics(self, frame: Frame, raw: Dict[str, Any]):
+    def _make_metrics(self, frame: Frame, raw: Dict[str, Any],
+                      extra_weight=None):
+        """extra_weight: optional (N,) multiplier; rows it zeroes drop out
+        (DRF's out-of-bag training metrics)."""
         from h2o3_tpu_torch.models.data_info import DataInfo
 
         resp = self._output.response_name
@@ -164,6 +170,8 @@ class Model:
         y = self._adapt_response(frame.col(resp)).data
         wname = self._parms.get("weights_column")
         w = frame.col(wname).data if wname and wname in frame else None
+        if extra_weight is not None:
+            w = extra_weight if w is None else w * extra_weight
         wts = DataInfo.response_weight(y, w)
         cat = self._output.model_category
         if cat == ModelCategory.Binomial:
@@ -171,9 +179,14 @@ class Model:
             return M.make_binomial_metrics(
                 yf, raw["probs"][:, 1], wts,
                 domain=self._output.response_domain)
+        if cat == ModelCategory.Multinomial:
+            return M.make_multinomial_metrics(
+                DataInfo.clean_response(y), raw["probs"], wts,
+                domain=self._output.response_domain)
         if cat == ModelCategory.Regression:
-            return M.make_regression_metrics(DataInfo.clean_response(y),
-                                             raw["value"], wts)
+            return M.make_regression_metrics(
+                DataInfo.clean_response(y), raw["value"], wts,
+                distribution=getattr(self, "_distribution", None))
         return None
 
     def varimp(self) -> Optional[Dict[str, float]]:

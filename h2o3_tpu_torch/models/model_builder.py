@@ -1,11 +1,13 @@
-"""ModelBuilder: parameters, train entry, training metrics (counterpart of
-h2o3_tpu/models/model_builder.py `train` :110, `_train_impl` :249,
-`_score_on` :460, `_init_output` :465).
+"""ModelBuilder: parameters, train entry, training and validation
+metrics (counterpart of h2o3_tpu/models/model_builder.py `random_seed`
+:27, `_out_of_time` :101, `_seed` :105, `train` :110, `_train_impl`
+:249, `_score_on` :460, `_init_output` :465).
 
-This slice trains on one frame and scores the training metrics.
-Cross-validation, calibration, checkpoint continuation, durable job
-progress and model export are not ported yet: asking for them raises
-NotImplementedError.
+A builder trains on one frame, optionally watching a validation frame
+(in-training scoring, early stopping, validation metrics), under an
+optional wall-clock budget (max_runtime_secs). Cross-validation,
+calibration, checkpoint continuation, durable job progress and model
+export are not ported yet: asking for them raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -13,8 +15,15 @@ from __future__ import annotations
 import time
 from typing import Any, Dict, Optional, Sequence
 
+import numpy as np
+
 from h2o3_tpu_torch.core.frame import Frame
 from h2o3_tpu_torch.models.model import Model, ModelCategory
+
+
+def random_seed() -> int:
+    """A fresh 31-bit seed (what seed=-1 trains with)."""
+    return int(np.random.SeedSequence().entropy % (2 ** 31))
 
 
 class ModelBuilder:
@@ -28,7 +37,6 @@ class ModelBuilder:
     not_ported: Dict[str, Any] = {
         "nfolds": 0, "fold_column": None, "calibrate_model": False,
         "checkpoint": None, "export_checkpoints_dir": None,
-        "offset_column": None, "validation_frame": None,
     }
 
     def __init__(self, **params):
@@ -38,12 +46,22 @@ class ModelBuilder:
 
     @classmethod
     def default_params(cls) -> Dict[str, Any]:
-        # `seed` is accepted for the reference's signature; nothing this
-        # slice ports draws random numbers (row/column sampling is not
-        # ported), so it changes no result yet
         return {"response_column": None, "ignored_columns": [],
-                "weights_column": None, "seed": -1, "model_id": None,
-                "training_frame": None}
+                "weights_column": None, "offset_column": None,
+                "seed": -1, "max_runtime_secs": 0.0,
+                "stopping_rounds": 0, "stopping_tolerance": 1e-3,
+                "model_id": None,
+                "validation_frame": None, "training_frame": None}
+
+    def _out_of_time(self) -> bool:
+        d = getattr(self, "_deadline", None)
+        return d is not None and time.time() > d
+
+    def _seed(self) -> int:
+        """The seed to draw with: the user's when it is positive; 0 and
+        -1 both mean a fresh random one, as in the reference."""
+        s = int(self.params.get("seed", -1) or -1)
+        return s if s >= 0 else random_seed()
 
     def _set_params(self, params: Dict[str, Any]) -> None:
         for k, v in params.items():
@@ -58,15 +76,17 @@ class ModelBuilder:
                 self.params[k] = v
 
     def train(self, x: Optional[Sequence[str]] = None, y: Optional[str] = None,
-              training_frame: Optional[Frame] = None, **kw) -> Model:
+              training_frame: Optional[Frame] = None,
+              validation_frame: Optional[Frame] = None, **kw) -> Model:
         """Synchronous train. x = predictor names (default: every column
-        but the response and the weights)."""
+        but the response, the weights and the offset)."""
         self._set_params(kw)
         train = training_frame or self.params.get("training_frame")
         if train is None:
             raise ValueError("training_frame required")
         if y is not None:
             self.params["response_column"] = y
+        valid = validation_frame or self.params.get("validation_frame")
         resp = self.params.get("response_column")
         if not resp:
             raise ValueError(f"{self.algo_name}: response_column required")
@@ -75,12 +95,26 @@ class ModelBuilder:
                              "frame")
         if x is not None:
             keep = list(x) + [c for c in (resp,
-                                          self.params.get("weights_column"))
+                                          self.params.get("weights_column"),
+                                          self.params.get("offset_column"))
                               if c]
             train = train.subframe([c for c in train.names if c in keep])
         t0 = time.time()
-        model = self._fit(train)
+        # wall-clock budget: fit loops poll _out_of_time() and keep the
+        # model built so far
+        mrt = float(self.params.get("max_runtime_secs") or 0.0)
+        self._deadline = (t0 + mrt) if mrt > 0 else None
+        self._valid_frame_ref = valid
+        try:
+            model = self._fit(train)
+        finally:
+            self._valid_frame_ref = None
         model._output.training_metrics = self._score_on(model, train)
+        if valid is not None:
+            model._output.validation_metrics = self._score_on(model, valid)
+        # fit-time scratch refs would pin the training frame's buffers
+        self._train_frame_ref = None
+        self._oob_raw = None
         model._output.run_time_ms = int((time.time() - t0) * 1000)
         self.model = model
         return model
@@ -92,7 +126,8 @@ class ModelBuilder:
     def _init_output(self, model: Model, train: Frame):
         resp = self.params.get("response_column")
         out = model._output
-        skip = {resp, self.params.get("weights_column")}
+        skip = {resp, self.params.get("weights_column"),
+                self.params.get("offset_column")}
         skip |= set(self.params.get("ignored_columns") or [])
         out.names = [c for c in train.names if c not in skip
                      and not train.col(c).is_string]

@@ -1,7 +1,10 @@
 """Feature binning for histogram tree building (counterpart of
 h2o3_tpu/models/tree/binning.py).
 
-Global quantile bins computed once before training. Bins for feature f:
+Global quantile bins computed once before training. Above `sample` rows
+the quantiles come from a stride sample whose stride is taken, as the
+reference takes it, from the length the reference pads a column to on
+one device (`pad_rows`), not from the row count. Bins for feature f:
 0..B_f-2 are value bins, B_f-1 is the NA bin. Numeric bin b holds x in
 (edge[b-1], edge[b]], i.e. bin = searchsorted(edges, x, side='left');
 categorical bin = category code, capped at the NA bin.
@@ -42,6 +45,13 @@ def _nanquantile(data: torch.Tensor, qs: np.ndarray) -> np.ndarray:
     return out.double().numpy()
 
 
+def pad_rows(n: int, align: int = 8) -> int:
+    """The length the reference pads an n-row column to on one device
+    (h2o3_tpu/core/runtime.py:153 with one row shard): the smallest
+    multiple of `align` >= n, at least `align`."""
+    return max(-(-int(n) // align) * align, align)
+
+
 class BinSpec:
     """Per-feature bin layout.
 
@@ -69,7 +79,7 @@ class BinSpec:
               sample: int = 200_000,
               strategy: str = "quantile") -> "BinSpec":
         """Quantile edges per numeric feature (of a stride sample above
-        `sample` rows), identity bins per categorical."""
+        `sample` padded rows), identity bins per categorical."""
         if strategy != "quantile":
             raise NotImplementedError(f"binning strategy {strategy!r} is not "
                                       "ported yet (quantile only)")
@@ -85,9 +95,11 @@ class BinSpec:
                 cards.append(card)
                 continue
             data = c.data
-            n = data.shape[0]
-            if n > sample:
-                data = data[:: max(n // sample, 1)]
+            # the reference's padding rows are NaN and drop out of the
+            # quantiles, so striding the real rows samples the same rows
+            n_pad = pad_rows(data.shape[0])
+            if n_pad > sample:
+                data = data[:: max(n_pad // sample, 1)]
             e = _nanquantile(data, qs)
             e = np.unique(e[np.isfinite(e)]).astype(np.float32)
             is_cat.append(False)

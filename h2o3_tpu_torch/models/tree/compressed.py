@@ -6,7 +6,9 @@ thresh_bin / na_left / left / right / leaf_val / cat_split, plus one
 shared categorical-subset table. Scoring walks every row through every
 tree in lockstep: a Python loop over trees, the depth loop as torch ops
 on the whole row batch; test data is binned with the training edges so
-the walk is pure integer compares.
+the walk is pure integer compares. Per-class forests (multinomial, DRF's
+binomial_double_trees) add each tree's leaf value into its class's
+column of an (N, K) margin.
 """
 
 from __future__ import annotations
@@ -23,8 +25,11 @@ _INT_ARRAYS = ("feat", "thresh_bin", "left", "right", "cat_split",
 class CompressedForest:
     """Arrays (T, M): feat int32 (-1 leaf), thresh_bin int32, na_left bool,
     left/right int32, leaf_val f32, cat_split int32 (-1 numeric, else a
-    row of cat_table). cat_table (C, maxB) bool. tree_class (T,) int32.
-    na_bins (F,) int32 = NA bin per feature."""
+    row of cat_table). cat_table (C, maxB) bool. tree_class (T,) int32
+    tree -> class. na_bins (F,) int32 = NA bin per feature. init_class
+    (K,) per-class prior margins of a multinomial GBM, else None. gain
+    and cover (T, M) f32: each split's gain and each node's weight, for
+    forests built here (None for forests carried across)."""
 
     def __init__(self, feat, thresh_bin, na_left, left, right, leaf_val,
                  cat_split, cat_table, tree_class, na_bins, max_depth: int,
@@ -42,10 +47,35 @@ class CompressedForest:
         self.max_depth = int(max_depth)
         self.init_f = float(init_f)
         self.nclasses = int(nclasses)
+        self.init_class = None
+        self.gain = None
+        self.cover = None
 
     @property
     def n_trees(self) -> int:
         return int(self.feat.shape[0])
+
+    @property
+    def per_class_trees(self) -> bool:
+        """True when trees are grown one per class (multinomial, or DRF's
+        binomial_double_trees: class-1 trees at nclasses == 2), so scoring
+        keeps K class margins."""
+        return self.nclasses > 2 or (
+            self.nclasses == 2
+            and int(np.asarray(self.tree_class).max(initial=0)) > 0)
+
+    @property
+    def n_margins(self) -> int:
+        """K of the (N, K) margins, or 1 for (N,) margins."""
+        return self.nclasses if self.per_class_trees else 1
+
+    def init_margin(self, device):
+        """What scoring adds to the leaf sums: init_class as a (K,) tensor,
+        else init_f."""
+        if self.init_class is None:
+            return self.init_f
+        return torch.as_tensor(np.asarray(self.init_class, np.float32),
+                               device=device)
 
     @staticmethod
     def from_host_trees(trees: List, spec, *, tree_class=None,
@@ -62,8 +92,11 @@ class CompressedForest:
         cat_split = np.full((T, M), -1, np.int32)
         cat_rows = []
         maxB = int(spec.nbins.max())
+        gain = np.zeros((T, M), np.float32)
+        cover = np.zeros((T, M), np.float32)
         for ti, tree in enumerate(trees):
             for n in tree.nodes:
+                cover[ti, n.nid] = n.weight
                 if n.split is None:
                     leaf_val[ti, n.nid] = n.leaf_value
                     continue
@@ -72,6 +105,7 @@ class CompressedForest:
                 na_left[ti, n.nid] = s.na_left
                 left[ti, n.nid] = n.left
                 right[ti, n.nid] = n.right
+                gain[ti, n.nid] = max(s.gain, 0.0)
                 if s.is_cat:
                     row = np.zeros(maxB, bool)
                     row[: len(s.left_bins)] = s.left_bins
@@ -83,11 +117,14 @@ class CompressedForest:
                      else np.zeros((1, maxB), bool))
         tc = (np.asarray(tree_class, np.int32) if tree_class is not None
               else np.zeros(T, np.int32))
-        return CompressedForest(feat, thresh, na_left, left, right, leaf_val,
-                                cat_split, cat_table, tc,
-                                (spec.nbins - 1).astype(np.int32),
-                                max_depth=max_depth, init_f=init_f,
-                                nclasses=nclasses)
+        out = CompressedForest(feat, thresh, na_left, left, right, leaf_val,
+                               cat_split, cat_table, tc,
+                               (spec.nbins - 1).astype(np.int32),
+                               max_depth=max_depth, init_f=init_f,
+                               nclasses=nclasses)
+        out.gain = gain
+        out.cover = cover
+        return out
 
     def arrays(self, device) -> dict:
         """The forest's arrays as tensors on `device` (integer arrays as
@@ -100,27 +137,26 @@ class CompressedForest:
             out[name] = t.long() if name in _INT_ARRAYS else t
         return out
 
-    def _check_single_margin(self):
-        if self.nclasses > 2 or int(np.asarray(self.tree_class).max(
-                initial=0)) > 0:
-            raise NotImplementedError("per-class forests (multinomial) are "
-                                      "not ported yet")
-
     def predict_binned(self, binned: torch.Tensor) -> torch.Tensor:
-        """(N, F) integer bins -> (N,) f32 margins (leaf sums + init_f)."""
-        self._check_single_margin()
+        """(N, F) integer bins -> (N,) f32 margins (leaf sums + init_f),
+        or (N, K) per-class margins for a per-class forest."""
         a = self.arrays(binned.device)
-        return _forest_margins(binned, a, self.max_depth) + self.init_f
+        return (_forest_margins(binned, a, self.max_depth, self.n_margins)
+                + self.init_margin(binned.device))
+
+    def leaf_index(self, binned: torch.Tensor) -> torch.Tensor:
+        """(N, T) int64 leaf node id of every row in every tree."""
+        a = self.arrays(binned.device)
+        return torch.stack(list(_walk(binned, a, self.max_depth)), dim=1)
 
 
-def _forest_margins(binned, a: dict, max_depth: int) -> torch.Tensor:
-    """Lockstep traversal: (N, F) integer bins -> (N,) f32 sums of the
-    leaf values, one f32 add per tree in tree order."""
+def _walk(binned, a: dict, max_depth: int):
+    """Lockstep walk of every row through each tree in turn: yields the
+    (N,) leaf node ids of tree 0, 1, ..."""
     N = binned.shape[0]
     cat_table = a["cat_table"]
     C = cat_table.shape[1]
     na_bins = a["na_bins"]
-    acc = torch.zeros(N, dtype=torch.float32, device=binned.device)
     for t in range(a["feat"].shape[0]):
         tf, tt, tnl = a["feat"][t], a["thresh_bin"][t], a["na_left"][t]
         tl, tr, tcs = a["left"][t], a["right"][t], a["cat_split"][t]
@@ -136,7 +172,24 @@ def _forest_margins(binned, a: dict, max_depth: int) -> torch.Tensor:
             go_left = torch.where(b == na_bins[fi], tnl[node], go_left)
             nxt = torch.where(go_left, tl[node], tr[node])
             node = torch.where(f < 0, node, nxt)
-        acc = acc + a["leaf_val"][t][node]
+        yield node
+
+
+def _forest_margins(binned, a: dict, max_depth: int, K: int = 1
+                    ) -> torch.Tensor:
+    """Lockstep traversal: (N, F) integer bins -> (N,) f32 sums of the
+    leaf values (K == 1), or (N, K) with each tree's leaf value added to
+    its class's column; one f32 add per tree in tree order."""
+    N = binned.shape[0]
+    shape = (N, K) if K > 1 else (N,)
+    acc = torch.zeros(shape, dtype=torch.float32, device=binned.device)
+    tree_class = a["tree_class"].tolist()
+    for t, node in enumerate(_walk(binned, a, max_depth)):
+        contrib = a["leaf_val"][t][node]
+        if K > 1:
+            acc[:, tree_class[t]] += contrib
+        else:
+            acc = acc + contrib
     return acc
 
 
@@ -155,9 +208,10 @@ def _bin_features(X, edges, is_cat, na_bins):
 
 
 def _fused_margins(X, edges, is_cat, forest: CompressedForest):
-    """(N, F) raw float32 features -> (N,) f32 margins: binning with the
-    training edges, the lockstep traversal and the init margin."""
-    forest._check_single_margin()
+    """(N, F) raw float32 features -> (N,) or (N, K) f32 margins: binning
+    with the training edges, the lockstep traversal and the init
+    margin."""
     a = forest.arrays(X.device)
     binned = _bin_features(X, edges, is_cat, a["na_bins"])
-    return _forest_margins(binned, a, forest.max_depth) + forest.init_f
+    return (_forest_margins(binned, a, forest.max_depth, forest.n_margins)
+            + forest.init_margin(X.device))

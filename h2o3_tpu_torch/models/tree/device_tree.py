@@ -9,7 +9,8 @@ level wants more than S_{d+1}/2 splits, the lowest-gain candidates
 become leaves. Every level's histogram is the hand-written CUDA kernel
 (hist_gather.py) on the card, its plain version on the CPU. The tree is
 grown with eager torch ops queued on the current stream; nothing is
-fetched to the host until the end of training.
+fetched to the host until the end of training, except the packed tables
+of trees deeper than 10 levels (stash_packed).
 """
 
 from __future__ import annotations
@@ -37,6 +38,26 @@ def frontier_cap(F: Optional[int] = None, maxB: Optional[int] = None) -> int:
         mem_cap = 1 << max(int(budget_slots).bit_length() - 1, 8)
         cap = min(cap, mem_cap)
     return cap
+
+
+def stash_packed(packed: torch.Tensor, max_depth: int) -> torch.Tensor:
+    """Fit loops hold every tree's packed table until the end of training.
+    Shallow tables stay on the device; deep ones (cap-wide levels) move
+    to the host at once, so a long depth-20 forest does not fill the
+    card."""
+    if max_depth > 10:
+        return packed.cpu()
+    return packed
+
+
+def build_feat_masks(max_depth: int, feat_mask_fn, F: Optional[int] = None,
+                     maxB: Optional[int] = None):
+    """Per-level (S_d, F) bool column-sampling masks (host numpy) for
+    grow_tree_device, drawn level by level as the reference draws them."""
+    if feat_mask_fn is None:
+        return None
+    widths = level_widths(max_depth, frontier_cap(F, maxB))
+    return [np.asarray(feat_mask_fn(wd), bool) for wd in widths[:max_depth]]
 
 
 def level_widths(max_depth: int, cap: Optional[int] = None
@@ -91,10 +112,12 @@ def _prefix_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def _search_level(hist, *, nbins, is_cat, maxB: int, min_rows: float,
-                  min_split_improvement: float):
+                  min_split_improvement: float, feat_mask=None):
     """hist (S, F, maxB, 3) -> split tables for this level.
 
-    nbins (F,) int64 and is_cat (F,) bool are tensors on hist's device.
+    nbins (F,) int64 and is_cat (F,) bool are tensors on hist's device;
+    feat_mask, when given, is an (S, F) bool tensor there: a feature it
+    leaves out cannot split that slot.
     Returns split_feat (S,) int32 (-1 terminal), thresh (S,) int32
     (position in sorted-bin space), na_left (S,) bool, gain (S,) f32,
     left_table (S, maxB) bool, tot (S, 3) f32 node totals.
@@ -141,6 +164,8 @@ def _search_level(hist, *, nbins, is_cat, maxB: int, min_rows: float,
         return torch.where(ok, g, -torch.inf)
 
     gains = torch.stack([gains_for(0), gains_for(1)], dim=-1)  # (S,F,maxB-1,2)
+    if feat_mask is not None:
+        gains = torch.where(feat_mask[:, :, None, None], gains, -torch.inf)
     flat = gains.reshape(S, -1)
     bi = torch.argmax(flat, dim=1)                 # first maximum
     bg = torch.gather(flat, 1, bi[:, None])[:, 0]
@@ -174,12 +199,15 @@ def leaf_sums(row_leaf, cols, tot_slots: int):
 
 
 def grow_tree_device(binned, w, y, spec, *, max_depth: int, min_rows: float,
-                     min_split_improvement: float, num=None, den=None):
+                     min_split_improvement: float, num=None, den=None,
+                     feat_masks=None):
     """Grow one tree on binned's device; nothing is fetched to the host.
 
     binned (N, F) integer bin matrix (BinSpec.bin_columns); w, y, num, den
     (N,) float32 (num/den are the leaf Newton-step rows; default num=w*y,
-    den=w). Returns (packed, leaf4, row_leaf):
+    den=w). feat_masks: optional per-level (S_d, F) bool arrays for levels
+    0..max_depth-1 (column sampling, mtries), widths as level_widths().
+    Returns (packed, leaf4, row_leaf):
       packed   (max_depth+1, S_max, pack_width(maxB)) f32 per-level split
                tables with explicit child-slot links
       leaf4    (total_slots, 4) per-leaf sums of (w, w*y, num, den),
@@ -205,7 +233,13 @@ def grow_tree_device(binned, w, y, spec, *, max_depth: int, min_rows: float,
 
     # center y for the histogram: split gains are invariant under a
     # constant shift; only the packed node totals are de-centered below
-    ymean = torch.sum(w * y) / torch.clamp_min(torch.sum(w), EPS_W)
+    masks = (None if feat_masks is None else
+             [torch.as_tensor(np.asarray(m), device=dev) for m in feat_masks])
+    # in float64 (w*y of two f32s is exact there), rounded once to f32:
+    # the same on the card and the CPU whatever order the sums take
+    wd = w.double()
+    ymean = (torch.sum(wd * y.double())
+             / torch.clamp_min(torch.sum(wd), EPS_W)).float()
     yc = y - ymean
     row_node = torch.zeros(N, dtype=torch.int32, device=dev)
     row_leaf = torch.full((N,), -1, dtype=torch.int32, device=dev)
@@ -223,7 +257,8 @@ def grow_tree_device(binned, w, y, spec, *, max_depth: int, min_rows: float,
              tot) = _search_level(
                 hist.reshape(S, F, maxB, 3), nbins=nbins, is_cat=is_cat,
                 maxB=maxB, min_rows=min_rows,
-                min_split_improvement=min_split_improvement)
+                min_split_improvement=min_split_improvement,
+                feat_mask=None if masks is None else masks[d])
             # frontier budget: keep at most S_{d+1}//2 splits, best gain
             # first; the rest become leaves
             want = split_feat >= 0
@@ -277,10 +312,40 @@ def grow_tree_device(binned, w, y, spec, *, max_depth: int, min_rows: float,
     return packed, leaf4, row_leaf
 
 
+def apply_packed(binned, packed, values, max_depth: int, maxB: int):
+    """Route (N, F) binned rows through one packed tree table ->
+    (N,) f32 leaf values, `values` indexed by global leaf slot id (the
+    in-training validation margins)."""
+    N, F = binned.shape
+    dev = binned.device
+    widths = level_widths(int(max_depth), frontier_cap(F, maxB))
+    offs = level_offsets(widths)
+    K = pack_width(maxB)
+    row_node = torch.zeros(N, dtype=torch.long, device=dev)
+    row_leaf = torch.full((N,), -1, dtype=torch.long, device=dev)
+    for d in range(int(max_depth) + 1):
+        S = widths[d]
+        split_feat = packed[d, :S, 0].long()
+        left_table = packed[d, :S, 4:4 + maxB] > 0.5
+        ls = packed[d, :S, K - 2].long()
+        rs = packed[d, :S, K - 1].long()
+        live = row_leaf < 0
+        sf = split_feat[row_node]
+        terminal = sf < 0
+        row_leaf = torch.where(live & terminal, offs[d] + row_node, row_leaf)
+        b = torch.gather(binned, 1, torch.clamp_min(sf, 0)[:, None])[:, 0]
+        gl = left_table[row_node, torch.clamp_max(b.long(), maxB - 1)]
+        row_node = torch.where(live & ~terminal,
+                               torch.where(gl, ls[row_node], rs[row_node]), 0)
+    return values[torch.clamp_min(row_leaf, 0)]
+
+
 def assemble_trees(packs, leaf_vals, leaf_wys, spec, max_depth: int,
                    scale: float = 1.0):
     """End-of-training epilogue: fetch every tree's tables in one transfer
-    and build the HostTrees (leaf values scaled by `scale`)."""
+    (host-stashed deep tables are stacked on the host) and build the
+    HostTrees (leaf values scaled by `scale`: DRF divides by the tree
+    count so the summed traversal averages)."""
     packs_np = torch.stack(packs).cpu().numpy()
     vals_np = torch.stack(leaf_vals).cpu().numpy().astype(np.float64) * scale
     wys_np = torch.stack(leaf_wys).cpu().numpy().astype(np.float64)
@@ -305,7 +370,9 @@ def host_tree_from_packed(packed_np: np.ndarray, leaf_wy: np.ndarray,
     offs = level_offsets(widths)
     tree = HostTree()
     tree.n_leaves = sum(widths)
-    slot_nid = {(0, 0): 0}
+    # slot -> node id of the current level, in the order the nodes were
+    # made (one dict per level, not one scanned whole at every level)
+    level_nid = {0: 0}
     root_tot = packed_np[0, 0, 4 + maxB:4 + maxB + 3]
     tree.nodes[0].weight = float(root_tot[0])
     tree.nodes[0].pred = float(root_tot[1]) / max(float(root_tot[0]), EPS_W)
@@ -313,7 +380,8 @@ def host_tree_from_packed(packed_np: np.ndarray, leaf_wy: np.ndarray,
     for d in range(max_depth + 1):
         lv = packed_np[d]
         next_lv = packed_np[d + 1] if d + 1 <= max_depth else None
-        for (dd, s), nid in [x for x in slot_nid.items() if x[0][0] == d]:
+        next_nid = {}
+        for s, nid in level_nid.items():
             node = tree.nodes[nid]
             f = int(lv[s, 0])
             if f < 0:
@@ -339,8 +407,8 @@ def host_tree_from_packed(packed_np: np.ndarray, leaf_wy: np.ndarray,
             node.left = tree.new_node(d + 1)
             node.right = tree.new_node(d + 1)
             ls, rs = int(lv[s, K - 2]), int(lv[s, K - 1])
-            slot_nid[(d + 1, ls)] = node.left
-            slot_nid[(d + 1, rs)] = node.right
+            next_nid[ls] = node.left
+            next_nid[rs] = node.right
             if next_lv is not None:
                 for child_nid, cs in ((node.left, ls), (node.right, rs)):
                     cw = float(next_lv[cs, 4 + maxB])
@@ -351,4 +419,5 @@ def host_tree_from_packed(packed_np: np.ndarray, leaf_wy: np.ndarray,
                                  float(next_lv[ls, 4 + maxB + 1]))
                 sp.right_stats = (float(next_lv[rs, 4 + maxB]),
                                   float(next_lv[rs, 4 + maxB + 1]))
+        level_nid = next_nid
     return tree

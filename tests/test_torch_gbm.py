@@ -89,19 +89,37 @@ def test_scoring_adapts_test_frames_like_jax(cl, monkeypatch):
 
 
 def test_unported_parameters_raise():
+    """Cross-validation, checkpoints and calibration still raise; the
+    parameters this slice ports run."""
     th.init(device="cpu")
     _, tf = both_frames(train_cols(n=100))
-    for kw in ({"nfolds": 3}, {"sample_rate": 0.5},
-               {"col_sample_rate": 0.5}, {"stopping_rounds": 2},
-               {"checkpoint": "m"}, {"calibrate_model": True}):
+    for kw in ({"nfolds": 3}, {"checkpoint": "m"},
+               {"calibrate_model": True}):
         with pytest.raises(NotImplementedError):
             th.GBM(ntrees=1, **kw).train(y="y", training_frame=tf)
-    with pytest.raises(NotImplementedError):
-        th.GBM(ntrees=1, distribution="poisson").train(y="y",
-                                                       training_frame=tf)
     with pytest.raises(ValueError):
         th.GBM(not_a_param=1)
-    th.GBM(ntrees=1, sample_rate=1.0).train(y="y", training_frame=tf)
+    _, tv = both_frames(train_cols(n=64, seed=3))
+    runs = ({"sample_rate": 0.5}, {"col_sample_rate": 0.5},
+            {"col_sample_rate_per_tree": 0.5}, {"stopping_rounds": 2},
+            {"stopping_rounds": 1, "stopping_tolerance": 0.1},
+            {"max_runtime_secs": 60.0}, {"distribution": "quasibinomial"},
+            {"sample_rate": 1.0})
+    for kw in runs:
+        m = th.GBM(ntrees=2, **kw).train(y="y", training_frame=tf,
+                                         validation_frame=tv)
+        assert m._output.validation_metrics is not None, kw
+    _, tr = both_frames(train_cols(n=100, gaussian=True))
+    for dist in ("poisson", "gamma", "tweedie", "laplace", "quantile",
+                 "huber"):
+        yy = np.abs(tr.col("y").to_numpy()) + 0.1
+        fr = th.Frame()
+        fr.add("x", tr.col("x")).add("g", tr.col("g"))
+        fr.add("o", th.Column.from_numpy(np.zeros(100)))
+        fr.add("y", th.Column.from_numpy(yy))
+        m = th.GBM(ntrees=2, distribution=dist, offset_column="o").train(
+            y="y", training_frame=fr)
+        assert np.isfinite(m._output.training_metrics.rmse), dist
 
 
 def test_training_is_deterministic_on_the_cpu():
