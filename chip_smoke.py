@@ -4,17 +4,26 @@
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It builds the port's CUDA kernels from h2o3_tpu_torch/csrc, holds every
-kernel against its plain PyTorch version bit for bit (at the flagship's
-level shapes and at depth-20 DRF's, up to a 4096-slot frontier), and
-drives three paths through the port's public entry points: the flagship
-GBM (1M rows, 8 numeric + 2 categorical features, bernoulli, 20 trees,
-depth 5), the reference's deep DRF stage (200k rows, 6 numeric features,
-binomial, 5 trees, depth 20) and a multinomial GBM (the flagship's
-features, a 4-class response, sampling, a validation frame and early
-stopping). It checks the card's forests against the same port on the
-CPU and times each kernel at the level shapes of both configurations
-beside its memory bound and a PyTorch library call, with the kernel's
-time split by pass. Any failed check exits non-zero. The last line is
+kernel against its plain PyTorch version bit for bit (at the level
+shapes of every path below: the flagship's, depth-20 DRF's up to a
+4096-slot frontier, XGBoost's 257-bin int16 levels and IsolationForest's
+ragged 256-slot levels with 256 live rows), and drives these paths
+through the port's public entry points:
+- the flagship GBM (1M rows, 8 numeric + 2 categorical features,
+  bernoulli, 20 trees, depth 5);
+- the reference's deep DRF stage (200k rows, 6 numeric features,
+  binomial, 5 trees, depth 20);
+- a multinomial GBM (the flagship's features, a 4-class response,
+  sampling, a validation frame and early stopping);
+- XGBoost on the flagship frame at the reference's XGBoost defaults (eta
+  0.3, depth 6, 256 bins, lambda 1), booster gbtree and booster dart;
+- IsolationForest (50 trees, depth 8, sample_size 256, 64 uniform bins)
+  and Extended Isolation Forest (100 trees, full extension) on the
+  flagship's features with 1% of the rows moved 6 sigma out.
+It checks the card's models against the same port on the CPU and times
+the kernel at the level shapes of each configuration beside its memory
+bound and a PyTorch library call, with the kernel's time split by pass.
+Any failed check exits non-zero. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -37,6 +46,14 @@ DRF_DEEP = dict(n_rows=200_000, n_num=6, ntrees=5, max_depth=20, seed=1)
 MULTINOMIAL = dict(n_rows=1_000_000, n_valid=200_000, classes=4, ntrees=20,
                    max_depth=5, sample_rate=0.8, col_sample_rate=0.8,
                    stopping_rounds=3, seed=1)
+# the reference's XGBoost defaults (h2o3_tpu/models/xgboost.py:58-80)
+# on the flagship frame; dart drops each earlier tree with chance 0.1
+XGB = dict(ntrees=20, max_depth=6, seed=1, rate_drop=0.1)
+# the reference's IsolationForest / Extended IF defaults on the
+# flagship's 10 features, 1% of the rows moved 6 sigma out
+ISOFOR = dict(n_rows=1_000_000, ntrees=50, max_depth=8, sample_size=256,
+              nbins=64, seed=1, outlier_frac=0.01, shift=6.0)
+EIF = dict(ntrees=100, sample_size=256, seed=1)
 PRED_ATOL = 1e-5            # card vs CPU predictions of the same forest
 
 
@@ -173,6 +190,31 @@ def multinomial_frames(h2o, device, n_train, n_valid, classes=4, seed=0):
             frame(slice(n_train, n)) if n_valid else None)
 
 
+def outlier_frame(h2o, device, n_rows, frac, shift, seed=0):
+    """The flagship's 10 features (the same generator, no response) with
+    a `frac` share of the rows moved `shift` standard deviations out on
+    every numeric feature, each in a random direction. Returns the frame
+    and the (n_rows,) bool mask of the moved rows."""
+    rng = np.random.default_rng(seed)
+    cols = []
+    for _ in range(FLAGSHIP["n_num"]):
+        cols.append(rng.standard_normal(n_rows))
+        rng.uniform(-1, 1)                       # the flagship's weight
+    doms = [np.array(["a", "b", "c", "d"]), np.array(["x", "y", "z"])]
+    cats = [doms[i % 2][rng.integers(0, len(doms[i % 2]), n_rows)]
+            for i in range(FLAGSHIP["n_cat"])]
+    moved = rng.random(n_rows) < frac
+    fr = h2o.Frame()
+    for i, x in enumerate(cols):
+        sign = np.where(rng.random(n_rows) < 0.5, -1.0, 1.0)
+        fr.add(f"n{i}", h2o.Column.from_numpy(
+            np.where(moved, x + shift * sign, x), device=device))
+    for i, c in enumerate(cats):
+        fr.add(f"c{i}", h2o.Column.from_numpy(c, ctype="enum",
+                                              device=device))
+    return fr, moved
+
+
 def small_frame(h2o, device, seed=7, n=600):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal(n)
@@ -235,6 +277,49 @@ def drf_level_shapes():
     4096 wide); maxB = 19 quantile edges + 2."""
     n, F, maxB = DRF_DEEP["n_rows"], DRF_DEEP["n_num"], 21
     return [(n, F, maxB, 2 ** d) for d in range(13)]
+
+
+def xgb_level_shapes():
+    """(kind, n, S) of XGBoost's histograms on the flagship frame: 1M
+    rows, 10 features of 257 bins (int16 bins), S = 1..32 at depth 6."""
+    return [("xgboost", FLAGSHIP["n_rows"], 2 ** d)
+            for d in range(XGB["max_depth"])]
+
+
+def isofor_level_shapes():
+    """(kind, n, S) of IsolationForest's histograms: 1M rows, ragged
+    offsets of a 64-bin uniform spec, S = 1..256 at depth 8."""
+    return [("isofor", ISOFOR["n_rows"], 2 ** d)
+            for d in range(ISOFOR["max_depth"] + 1)]
+
+
+def level_case(kind, seed, n, S):
+    """Inputs of one histogram at the new paths' level shapes. "xgboost":
+    10 features of 257 bins at offsets f*257 (the device grower's
+    layout), every row live, weights and residuals random. "isofor": 8
+    numerics of 65 bins and categoricals of 5 and 4 at ragged offsets (TB
+    529), 256 live rows of n (node -1 elsewhere), w = 1 and y = 0 as the
+    isolation trees count rows. Returns (binned, node, w, y, offsets, TB,
+    bin dtype)."""
+    rng = np.random.default_rng(seed)
+    if kind == "xgboost":
+        nbins = np.full(10, 257)
+        live = np.ones(n, bool)
+    else:
+        nbins = np.array([65] * 8 + [5, 4])
+        live = np.zeros(n, bool)
+        live[rng.choice(n, min(ISOFOR["sample_size"], n), replace=False)] = 1
+    offsets = np.concatenate([[0], np.cumsum(nbins)[:-1]]).astype(np.int32)
+    binned = np.stack([rng.integers(0, b, n) for b in nbins], axis=1)
+    node = np.where(live, rng.integers(0, S, n), -1).astype(np.int32)
+    if kind == "xgboost":
+        w = (rng.random(n) + 0.25).astype(np.float32)
+        y = rng.standard_normal(n).astype(np.float32)
+        bdt = np.int16
+    else:
+        w, y = live.astype(np.float32), np.zeros(n, np.float32)
+        bdt = np.uint8
+    return binned, node, w, y, offsets, int(nbins.sum()), bdt
 
 
 def _bits(t):
@@ -355,6 +440,44 @@ def phase_kernels_drf(dev):
     return max_err
 
 
+def phase_kernels_new(dev):
+    """hist_gather against its plain version at XGBoost's and
+    IsolationForest's level shapes, bit for bit, run to run, with tile_S
+    0/1/2 and rows permuted."""
+    from h2o3_tpu_torch.models.tree import hist_gather as hg
+
+    max_err = 0.0
+    for i, (kind, n, S) in enumerate(xgb_level_shapes()
+                                     + isofor_level_shapes()):
+        *arrays, TB, bdt = level_case(kind, 80 + i, n, S)
+        b, nd, w, y, off = _to(dev, *arrays, bin_dtype=bdt)
+        kw = dict(offsets=off, TB=TB, S=S)
+        got = hg.hist_gather(b, nd, w, y, **kw)
+        ref = hg.hist_gather_ref(b, nd, w, y, **kw)
+        err = float((got - ref).abs().max())
+        max_err = max(max_err, err)
+        check(same_bits(got, ref), f"hist_gather != plain at the {kind} "
+                                   f"shape S={S}: max err {err}")
+        check(same_bits(hg.hist_gather(b, nd, w, y, **kw), got),
+              f"hist_gather not run-to-run bitwise at the {kind} shape "
+              f"S={S}")
+        for tile_S in (0, 1, 2):
+            check(same_bits(hg.hist_gather(b, nd, w, y, tile_S=tile_S, **kw),
+                            got), f"tile_S={tile_S} moved a bit at the "
+                                  f"{kind} shape S={S}")
+        perm = torch.randperm(n, generator=torch.Generator().manual_seed(
+            i)).to(dev)
+        shuffled = hg.hist_gather(b[perm], nd[perm], w[perm], y[perm], **kw)
+        check(same_bits(shuffled, got), f"row order moved a bit at the "
+                                        f"{kind} shape S={S}")
+        tile_S, n_tiles = hg.plan_tiles(TB, S)
+        print(f"hist_gather {kind} n={n} TB={TB} S={S} "
+              f"{np.dtype(bdt).name} (tile_S={tile_S}, {n_tiles} tiles): "
+              f"bitwise == plain (max_abs_err {err!r}), repeat, tile_S "
+              f"0/1/2, permuted ok")
+    return max_err
+
+
 def phase_flagship(h2o, dev):
     """The port's main path at full width: train and score the flagship."""
     from h2o3_tpu_torch.models.tree import hist_gather as hg
@@ -394,15 +517,9 @@ def phase_flagship(h2o, dev):
     check(p.shape == (FLAGSHIP["n_rows"],), f"prediction shape {p.shape}")
     check(bool(torch.isfinite(p).all()) and bool(((p >= 0) & (p <= 1)).all()),
           "predicted probabilities not finite in [0, 1]")
-    again = h2o.GBM(ntrees=FLAGSHIP["ntrees"],
-                    max_depth=FLAGSHIP["max_depth"]).train(y="y",
-                                                           training_frame=fr)
-    a, b = _forest_arrays(m), _forest_arrays(again)
-    for k in a:
-        check(np.array_equal(a[k], b[k]), f"retrain changed forest {k}")
-    check(np.array_equal(m.forest.leaf_val, again.forest.leaf_val),
-          "retrain changed a leaf value")
-    print("retrain on the card: forest bitwise identical")
+    _retrain_bitwise("flagship GBM", m, h2o.GBM(
+        ntrees=FLAGSHIP["ntrees"], max_depth=FLAGSHIP["max_depth"]).train(
+            y="y", training_frame=fr))
     return launches, fr
 
 
@@ -439,13 +556,8 @@ def phase_drf_deep(h2o, dev):
     check(p.shape == (c["n_rows"],) and bool(torch.isfinite(p).all())
           and bool(((p >= 0) & (p <= 1)).all()),
           "DRF probabilities not finite in [0, 1]")
-    again = h2o.DRF(ntrees=c["ntrees"], **kw).train(y="y", training_frame=fr)
-    a, b = _forest_arrays(m), _forest_arrays(again)
-    for k in a:
-        check(np.array_equal(a[k], b[k]), f"DRF retrain changed forest {k}")
-    check(np.array_equal(m.forest.leaf_val, again.forest.leaf_val),
-          "DRF retrain changed a leaf value")
-    print("DRF retrain on the card: forest bitwise identical")
+    _retrain_bitwise("DRF", m, h2o.DRF(ntrees=c["ntrees"], **kw).train(
+        y="y", training_frame=fr))
     phase_profile("1-tree deep DRF train", lambda: h2o.DRF(
         ntrees=1, **kw).train(y="y", training_frame=fr))
     return launches
@@ -496,6 +608,173 @@ def phase_multinomial(h2o, dev):
           and float((P.sum(1) - 1).abs().max()) < 1e-5,
           "multinomial probabilities do not sum to 1")
     return launches
+
+
+def _retrain_bitwise(label, m, again):
+    a, b = _forest_arrays(m), _forest_arrays(again)
+    for k in a:
+        check(np.array_equal(a[k], b[k]), f"{label} retrain changed forest "
+                                          f"{k}")
+    check(np.array_equal(m.forest.leaf_val, again.forest.leaf_val),
+          f"{label} retrain changed a leaf value")
+    print(f"{label} retrain on the card: forest bitwise identical")
+
+
+def phase_xgboost(h2o, dev, fr):
+    """XGBoost gbtree on the flagship frame at the reference's XGBoost
+    defaults (eta 0.3, depth 6, nbins 256 so 257-bin int16 features,
+    lambda 1, gamma 0), 20 trees after a 2-tree warm-up, timed as the
+    flagship GBM is; then a retrain that must give the same forest."""
+    from h2o3_tpu_torch.models.tree import hist_gather as hg
+
+    c = XGB
+    h2o.XGBoost(ntrees=2, seed=c["seed"]).train(y="y", training_frame=fr)
+    torch.cuda.synchronize()
+    hg.launches = 0
+    t0 = time.perf_counter()
+    m = h2o.XGBoost(ntrees=c["ntrees"], seed=c["seed"]).train(
+        y="y", training_frame=fr)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = hg.launches
+    auc = float(m._output.training_metrics.auc)
+    maxB = int(m.spec.nbins.max())
+    print(f"xgb_train_s {dt!r}")
+    print(f"xgb_rows_per_sec {fr.nrows * c['ntrees'] / dt!r}")
+    print(f"xgb_training_auc {auc!r} logloss "
+          f"{m._output.training_metrics.logloss!r}; maxB {maxB}, bins "
+          f"{m.spec.bin_columns(fr).dtype}")
+    print(f"hist_gather launches {launches} "
+          f"({launches / c['ntrees']:.0f} per tree)")
+    check(np.isfinite(auc) and auc > 0.5, f"XGBoost AUC {auc} not > 0.5")
+    check(maxB == 257, f"XGBoost's widest feature has {maxB} bins, not 257")
+    check(launches == c["max_depth"] * c["ntrees"],
+          f"{launches} hist_gather launches, expected "
+          f"{c['max_depth'] * c['ntrees']}")
+    p = m.predict(fr).col("Y").data
+    check(p.shape == (fr.nrows,) and bool(torch.isfinite(p).all())
+          and bool(((p >= 0) & (p <= 1)).all()),
+          "XGBoost probabilities not finite in [0, 1]")
+    _retrain_bitwise("XGBoost", m, h2o.XGBoost(
+        ntrees=c["ntrees"], seed=c["seed"]).train(y="y", training_frame=fr))
+    return launches
+
+
+def phase_xgboost_dart(h2o, dev, fr):
+    """XGBoost booster dart (rate_drop 0.1) on the flagship frame, 20
+    trees, every iteration scored so the history shows the drops; then a
+    retrain that must give the same forest."""
+    from h2o3_tpu_torch.models.tree import hist_gather as hg
+
+    c = XGB
+    kw = dict(booster="dart", rate_drop=c["rate_drop"], seed=c["seed"],
+              score_each_iteration=True)
+    h2o.XGBoost(ntrees=2, **kw).train(y="y", training_frame=fr)
+    torch.cuda.synchronize()
+    hg.launches = 0
+    t0 = time.perf_counter()
+    m = h2o.XGBoost(ntrees=c["ntrees"], **kw).train(y="y", training_frame=fr)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = hg.launches
+    dropped = [e["dropped"] for e in m._output.scoring_history]
+    auc = float(m._output.training_metrics.auc)
+    print(f"xgb_dart_train_s {dt!r}")
+    print(f"xgb_dart_training_auc {auc!r}; trees dropped per iteration "
+          f"{dropped}")
+    print(f"hist_gather launches {launches}")
+    check(np.isfinite(auc) and auc > 0.5, f"dart AUC {auc} not > 0.5")
+    check(len(dropped) == c["ntrees"] and sum(dropped) > 0,
+          f"dart dropped no tree: {dropped}")
+    check(launches == c["max_depth"] * c["ntrees"],
+          f"{launches} hist_gather launches, expected "
+          f"{c['max_depth'] * c['ntrees']}")
+    _retrain_bitwise("XGBoost dart", m, h2o.XGBoost(
+        ntrees=c["ntrees"], **kw).train(y="y", training_frame=fr))
+    return launches
+
+
+def _outlier_check(label, score, moved):
+    s = score.double().cpu().numpy()
+    out, rest = float(s[moved].mean()), float(s[~moved].mean())
+    print(f"{label} mean score: moved rows {out!r}, the rest {rest!r}")
+    check(np.isfinite(s).all() and ((s > 0) & (s <= 1)).all(),
+          f"{label} scores not finite in (0, 1]")
+    check(out > rest, f"{label}: moved rows do not score above the rest")
+
+
+def phase_isofor(h2o, dev):
+    """IsolationForest at the reference's defaults on the outlier frame
+    (1M rows), after a 2-tree warm-up: train, score the 1M rows (the
+    second of two predicts is timed), the moved rows must score higher,
+    and one histogram per level grown."""
+    from h2o3_tpu_torch.models.tree import hist_gather as hg
+
+    c = ISOFOR
+    fr, moved = outlier_frame(h2o, dev, c["n_rows"], c["outlier_frac"],
+                              c["shift"])
+    kw = dict(max_depth=c["max_depth"], sample_size=c["sample_size"],
+              nbins=c["nbins"], seed=c["seed"])
+    h2o.IsolationForest(ntrees=2, **kw).train(training_frame=fr)
+    torch.cuda.synchronize()
+    hg.launches = 0
+    t0 = time.perf_counter()
+    m = h2o.IsolationForest(ntrees=c["ntrees"], **kw).train(
+        training_frame=fr)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = hg.launches
+    levels = int((m.forest.depths() + 1).sum())
+    m.predict(fr)                     # warm-up: time the second predict
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred = m.predict(fr)
+    score = pred.col("predict").data
+    torch.cuda.synchronize()
+    ds = time.perf_counter() - t0
+    print(f"isofor_train_s {dt!r}")
+    print(f"isofor_score_s {ds!r} ({fr.nrows} rows)")
+    print(f"hist_gather launches {launches}, levels grown {levels} "
+          f"(TB {m.spec.tot_bins}, deepest tree "
+          f"{int(m.forest.depths().max())})")
+    check(launches == levels, f"{launches} hist_gather launches for "
+                              f"{levels} levels grown")
+    check(score.shape == (fr.nrows,), f"score shape {score.shape}")
+    _outlier_check("isofor", score, moved)
+    again = h2o.IsolationForest(ntrees=c["ntrees"], **kw).train(
+        training_frame=fr)
+    _retrain_bitwise("IsolationForest", m, again)
+    return launches, fr, moved, m
+
+
+def phase_eif(h2o, dev, fr, moved):
+    """Extended Isolation Forest (100 trees, sample_size 256, extension
+    level d - 1) on the outlier frame after a 2-tree warm-up: train,
+    score the 1M rows (the second of two predicts is timed), the moved
+    rows must score higher."""
+    c = EIF
+    d = sum(max(fr.col(n).cardinality, 1) for n in fr.names)
+    kw = dict(sample_size=c["sample_size"], extension_level=d - 1,
+              seed=c["seed"])
+    h2o.ExtendedIsolationForest(ntrees=2, **kw).train(training_frame=fr)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = h2o.ExtendedIsolationForest(ntrees=c["ntrees"], **kw).train(
+        training_frame=fr)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(m.normals.shape[2] == d, f"EIF normals {m.normals.shape}, d={d}")
+    m.predict(fr)                     # warm-up: time the second predict
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    score = m.predict(fr).col("predict").data
+    torch.cuda.synchronize()
+    ds = time.perf_counter() - t0
+    print(f"eif_train_s {dt!r}")
+    print(f"eif_score_s {ds!r} ({fr.nrows} rows, packed trees "
+          f"{tuple(m.normals.shape)}, depth {m.max_depth})")
+    check(score.shape == (fr.nrows,), f"score shape {score.shape}")
+    _outlier_check("eif", score, moved)
 
 
 def host_profile(label, train, top=10):
@@ -560,36 +839,66 @@ def _forest_arrays(m):
 
 
 def phase_card_vs_cpu(h2o, dev):
-    """The same port on the card and on the CPU grows the same forests."""
+    """The same port on the card and on the CPU grows the same models."""
     cpu = torch.device("cpu")
+    supervised = lambda b: lambda fr: b.train(y="y", training_frame=fr)
+    xgb = dict(ntrees=5, seed=1)
     cases = [
-        ("600-row fixture", lambda d: small_frame(h2o, d), h2o.GBM,
-         dict(ntrees=4, max_depth=3, seed=3), "Y"),
+        ("600-row fixture", lambda d: small_frame(h2o, d),
+         supervised(h2o.GBM(ntrees=4, max_depth=3, seed=3)), "Y"),
         ("50k flagship rows", lambda d: flagship_frame(h2o, d, 50_000),
-         h2o.GBM, dict(ntrees=5, max_depth=FLAGSHIP["max_depth"], seed=1),
-         "Y"),
+         supervised(h2o.GBM(ntrees=5, max_depth=FLAGSHIP["max_depth"],
+                            seed=1)), "Y"),
         ("DRF 20k deep-stage rows", lambda d: drf_deep_frame(h2o, d, 20_000),
-         h2o.DRF, dict(ntrees=3, max_depth=12, seed=1), "Y"),
+         supervised(h2o.DRF(ntrees=3, max_depth=12, seed=1)), "Y"),
         ("multinomial GBM 5k rows",
-         lambda d: multinomial_frames(h2o, d, 5_000, 0)[0], h2o.GBM,
-         dict(ntrees=5, max_depth=5, sample_rate=0.8, col_sample_rate=0.8,
-              seed=1), "k0")]
-    for label, make, builder, kw, col in cases:
+         lambda d: multinomial_frames(h2o, d, 5_000, 0)[0],
+         supervised(h2o.GBM(ntrees=5, max_depth=5, sample_rate=0.8,
+                            col_sample_rate=0.8, seed=1)), "k0"),
+        ("XGBoost gbtree 50k flagship rows",
+         lambda d: flagship_frame(h2o, d, 50_000),
+         supervised(h2o.XGBoost(**xgb)), "Y"),
+        ("XGBoost dart 50k flagship rows",
+         lambda d: flagship_frame(h2o, d, 50_000),
+         supervised(h2o.XGBoost(booster="dart", rate_drop=0.3, **xgb)), "Y"),
+        ("IsolationForest 50k outlier rows",
+         lambda d: outlier_frame(h2o, d, 50_000, ISOFOR["outlier_frac"],
+                                 ISOFOR["shift"])[0],
+         lambda fr: h2o.IsolationForest(seed=1).train(training_frame=fr),
+         "predict"),
+        ("Extended IF 50k outlier rows",
+         lambda d: outlier_frame(h2o, d, 50_000, ISOFOR["outlier_frac"],
+                                 ISOFOR["shift"])[0],
+         lambda fr: h2o.ExtendedIsolationForest(
+             ntrees=20, extension_level=14, seed=1).train(training_frame=fr),
+         "predict")]
+    for label, make, fit, col in cases:
         models, preds = [], []
         for d in (dev, cpu):
             fr = make(d)
-            m = builder(**kw).train(y="y", training_frame=fr)
+            m = fit(fr)
             models.append(m)
             preds.append(m.predict(fr).col(col).data.cpu().numpy())
-        a, b = (_forest_arrays(m) for m in models)
+        a, b = (_model_arrays(m) for m in models)
         for k in a:
-            check(np.array_equal(a[k], b[k]), f"{label}: forest {k} differs "
+            check(np.array_equal(a[k], b[k]), f"{label}: {k} differs "
                                               "between card and CPU")
         diff = float(np.abs(preds[0] - preds[1]).max())
         check(diff <= PRED_ATOL, f"{label}: card vs CPU predictions differ "
                                  f"by {diff}")
-        print(f"card vs cpu {label}: {models[0].forest.n_trees} trees, "
-              f"forests equal, max pred diff {diff:.3e}")
+        size = (f"{models[0].forest.n_trees} trees" if hasattr(
+            models[0], "forest") else f"{models[0].normals.shape[0]} trees")
+        print(f"card vs cpu {label}: {size}, models equal, max pred diff "
+              f"{diff:.3e}")
+
+
+def _model_arrays(m):
+    """The arrays that define a model's structure: a forest's, or an
+    Extended IF's packed trees (with the leaf path lengths)."""
+    if hasattr(m, "forest"):
+        return _forest_arrays(m)
+    return {k: getattr(m, k) for k in ("normals", "offsets", "lefts",
+                                       "rights", "values")}
 
 
 def _time_ms(fn, flush, reps=5):
@@ -609,15 +918,16 @@ def _time_ms(fn, flush, reps=5):
     return best
 
 
-def _time_shape(dev, lib, flush, rate, seed, n, F, maxB, S):
+def _time_shape(dev, lib, flush, rate, label, arrays, bdt, S):
     """Kernel, plain version and library call at one level shape, the
     bound, and the kernel's passes each alone through the same C entry
-    point. Timing launches are not main-path launches."""
+    point. `arrays` is (binned, node, w, y, offsets, TB). Timing launches
+    are not main-path launches."""
     from h2o3_tpu_torch.models.tree import hist_gather as hg
 
-    b, nd, w, y, off = _to(dev, *hist_case(seed, n, F, maxB, S)[:5],
-                           bin_dtype=np.uint8)
-    TB = F * maxB
+    *arrays, TB = arrays
+    b, nd, w, y, off = _to(dev, *arrays, bin_dtype=bdt)
+    n, F = b.shape
     kw = dict(offsets=off, TB=TB, S=S)
     live = nd >= 0
     idx = (nd[live].long()[:, None] * TB + off.long()[None, :]
@@ -646,23 +956,26 @@ def _time_shape(dev, lib, flush, rate, seed, n, F, maxB, S):
     # bytes the function must move for this data: every row's node;
     # bins, w and y of the rows inside [0, S); offsets; the output
     n_live = int(((nd >= 0) & (nd < S)).sum())
-    nbytes = 4 * n + n_live * (F * 1 + 8) + 4 * F + 12 * S * TB
+    nbytes = 4 * n + n_live * (F * b.element_size() + 8) + 4 * F + 12 * S * TB
     ops = 3 * n_live * F
     bound_ms = max(nbytes / rate, ops / F32_PEAK) * 1e3
-    print(f"time hist_gather n={n} F={F} maxB={maxB} S={S}: kernel "
-          f"{k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, library "
-          f"index_put_ {l_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} "
-          f"us ({nbytes / 1e6:.1f} MB at {rate / 1e12:.2f} TB/s)")
+    print(f"time hist_gather {label} n={n} F={F} TB={TB} S={S} "
+          f"{b.dtype}: kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} "
+          f"us, library index_put_ {l_ms * 1e3:.1f} us, bound "
+          f"{bound_ms * 1e3:.2f} us ({nbytes / 1e6:.1f} MB at "
+          f"{rate / 1e12:.2f} TB/s)")
     print(f"  passes alone: scale {split[0] * 1e3:.1f} us, accumulate "
           f"{split[1] * 1e3:.1f} us, finalise {split[2] * 1e3:.1f} us "
           f"(tile_S={tile_S}, {n_tiles} tiles)")
     return (k_ms, p_ms, l_ms, bound_ms), split
 
 
-def _means(dev, lib, flush, rate, seed0, shapes, label):
+def _means(dev, lib, flush, rate, label, cases):
+    """Times at each (arrays, bin dtype, S) case and their means. Returns
+    (mean of kernel/plain/library/bound, kernel time per case)."""
     rows, splits = [], []
-    for i, shape in enumerate(shapes):
-        r, sp = _time_shape(dev, lib, flush, rate, seed0 + i, *shape)
+    for arrays, bdt, S in cases:
+        r, sp = _time_shape(dev, lib, flush, rate, label, arrays, bdt, S)
         rows.append(r)
         splits.append(sp)
     mean = [float(np.mean([r[j] for r in rows])) for j in range(4)]
@@ -671,35 +984,61 @@ def _means(dev, lib, flush, rate, seed0, shapes, label):
           f"{mean[0] * 1e3:.1f} us = {100 * mean[3] / mean[0]:.1f}% of the "
           f"bound; passes alone: scale {pmean[0] * 1e3:.1f} us, accumulate "
           f"{pmean[1] * 1e3:.1f} us, finalise {pmean[2] * 1e3:.1f} us")
-    return mean
+    return mean, [r[0] for r in rows]
+
+
+def _block(S, times, launches):
+    mean, per_S = times
+    return {"S": S, "ms": mean[0], "plain_ms": mean[1], "bound_ms": mean[3],
+            "library_ms": mean[2], "ms_by_S": per_S, "launches": launches}
 
 
 def phase_times(dev, launches, max_err):
-    """Kernel, plain version and library call at the flagship's and the
-    deep DRF's level shapes, beside the bound, with the kernel's time
-    split by pass. `launches` holds each main path's count."""
+    """Kernel, plain version and library call at the level shapes of the
+    flagship, the deep DRF, XGBoost and IsolationForest, beside the
+    bound, with the kernel's time split by pass. `launches` holds each
+    main path's count."""
     from h2o3_tpu_torch import kernels
 
     name = torch.cuda.get_device_name(dev)
     rate = memory_rate(name)
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device=dev)
     lib = kernels.load("hist_gather")
-    flag = _means(dev, lib, flush, rate, 20, flagship_level_shapes(),
-                  "flagship")
-    drf = _means(dev, lib, flush, rate, 60, drf_level_shapes(),
-                 "deep DRF")
+
+    def grid(seed0, shapes):
+        return [(hist_case(seed0 + i, *shape), np.uint8, shape[3])
+                for i, shape in enumerate(shapes)]
+
+    def levels(seed0, shapes):
+        out = []
+        for i, (kind, n, S) in enumerate(shapes):
+            *arrays, TB, bdt = level_case(kind, seed0 + i, n, S)
+            out.append(((*arrays, TB), bdt, S))
+        return out
+
+    flag = _means(dev, lib, flush, rate, "flagship",
+                  grid(20, flagship_level_shapes()))
+    drf = _means(dev, lib, flush, rate, "deep DRF",
+                 grid(60, drf_level_shapes()))
+    xgb = _means(dev, lib, flush, rate, "xgboost",
+                 levels(100, xgb_level_shapes()))
+    iso = _means(dev, lib, flush, rate, "isofor",
+                 levels(120, isofor_level_shapes()))
+    mean = flag[0]
     return [{"name": "hist_gather", "route": "cuda",
              "source": "h2o3_tpu_torch/csrc/hist_gather.cu",
              "replaces": "h2o3_tpu/models/tree/pallas_hist.py:362",
              "launches": int(launches["gbm_flagship"]),
              "max_abs_err": max_err,
-             "ms": flag[0], "plain_ms": flag[1], "bound_ms": flag[3],
-             "bound_by": "bytes", "library_ms": flag[2],
+             "ms": mean[0], "plain_ms": mean[1], "bound_ms": mean[3],
+             "bound_by": "bytes", "library_ms": mean[2],
              "launches_by_path": launches,
-             "drf_shapes": {"S": [s[3] for s in drf_level_shapes()],
-                            "ms": drf[0], "plain_ms": drf[1],
-                            "bound_ms": drf[3], "library_ms": drf[2],
-                            "launches": int(launches["drf_deep"])}}]
+             "drf_shapes": _block([s[3] for s in drf_level_shapes()], drf,
+                                  int(launches["drf_deep"])),
+             "xgb_shapes": _block([s[2] for s in xgb_level_shapes()], xgb,
+                                  int(launches["xgboost"])),
+             "isofor_shapes": _block([s[2] for s in isofor_level_shapes()],
+                                     iso, int(launches["isolationforest"]))}]
 
 
 def main() -> int:
@@ -713,23 +1052,41 @@ def main() -> int:
     print("== phase 1: build")
     phase_build()
     print("== phase 2: kernels vs plain versions")
-    max_err = max(phase_kernels(dev), phase_kernels_drf(dev))
+    max_err = max(phase_kernels(dev), phase_kernels_drf(dev),
+                  phase_kernels_new(dev))
     launches = {}
     print("== phase 3: flagship GBM train + score")
     launches["gbm_flagship"], fr = phase_flagship(h2o, dev)
-    print("== phase 3b: where the flagship train's time goes")
+    print("== phase 3b: where the time goes (flagship, XGBoost, "
+          "IsolationForest trains; IsolationForest predict)")
     phase_profile("5-tree flagship train", lambda: h2o.GBM(
         ntrees=5, max_depth=FLAGSHIP["max_depth"]).train(
             y="y", training_frame=fr))
-    del fr
+    phase_profile("5-tree XGBoost train", lambda: h2o.XGBoost(
+        ntrees=5, seed=XGB["seed"]).train(y="y", training_frame=fr))
     print("== phase 3c: deep DRF (200k rows, depth 20)")
     launches["drf_deep"] = phase_drf_deep(h2o, dev)
     print("== phase 3d: multinomial GBM with validation and early stopping")
     launches["gbm_multinomial"] = phase_multinomial(h2o, dev)
+    print("== phase 3e: XGBoost gbtree at its defaults (flagship frame)")
+    launches["xgboost"] = phase_xgboost(h2o, dev, fr)
+    print("== phase 3f: XGBoost dart (flagship frame)")
+    launches["xgboost_dart"] = phase_xgboost_dart(h2o, dev, fr)
+    del fr
+    print("== phase 3g: IsolationForest (1M rows, 1% moved 6 sigma out)")
+    launches["isolationforest"], ofr, moved, iso = phase_isofor(h2o, dev)
+    phase_profile("50-tree IsolationForest train", lambda: h2o.IsolationForest(
+        ntrees=ISOFOR["ntrees"], seed=ISOFOR["seed"]).train(
+            training_frame=ofr))
+    phase_profile("IsolationForest predict (1M rows)",
+                  lambda: iso.predict(ofr))
+    del iso
+    print("== phase 3h: Extended Isolation Forest (same frame)")
+    phase_eif(h2o, dev, ofr, moved)
+    del ofr
     print("== phase 4: card vs CPU")
     phase_card_vs_cpu(h2o, dev)
-    print("== phase 5: kernel times at the flagship and deep-DRF level "
-          "shapes")
+    print("== phase 5: kernel times at each configuration's level shapes")
     kernels = phase_times(dev, launches, max_err)
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

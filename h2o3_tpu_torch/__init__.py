@@ -6,6 +6,9 @@
     m = h2o.GBM(ntrees=20, max_depth=5).train(y="y", training_frame=fr)
     m.predict(fr); m.model_performance()
     h2o.DRF(ntrees=50).train(y="y", training_frame=fr, validation_frame=va)
+    h2o.XGBoost(ntrees=20, booster="dart", rate_drop=0.1).train(y="y", ...)
+    h2o.IsolationForest(ntrees=50).train(training_frame=fr).predict(fr)
+    h2o.ExtendedIsolationForest(extension_level=1).train(training_frame=fr)
 
 Importing the package builds no kernel: each CUDA kernel is compiled on
 its first launch (or all at once by ``kernels.build_all``).
@@ -13,8 +16,15 @@ its first launch (or all at once by ``kernels.build_all``).
 
 from h2o3_tpu_torch.core.frame import Column, Frame
 from h2o3_tpu_torch.core.runtime import cluster, init
+from h2o3_tpu_torch.models.extended_isofor import (
+    ExtendedIsolationForest, ExtendedIsolationForestModel)
 from h2o3_tpu_torch.models.tree.drf import DRF, DRFModel
 from h2o3_tpu_torch.models.tree.gbm import GBM, GBMModel
+from h2o3_tpu_torch.models.tree.isofor import (IsolationForest,
+                                               IsolationForestModel)
+from h2o3_tpu_torch.models.xgboost import XGBoost, XGBoostModel
 
-__all__ = ["Column", "DRF", "DRFModel", "Frame", "GBM", "GBMModel",
-           "cluster", "init"]
+__all__ = ["Column", "DRF", "DRFModel", "ExtendedIsolationForest",
+           "ExtendedIsolationForestModel", "Frame", "GBM", "GBMModel",
+           "IsolationForest", "IsolationForestModel", "XGBoost",
+           "XGBoostModel", "cluster", "init"]

@@ -10,7 +10,12 @@ as numpy arrays and plain values, never as that package's objects:
   output: names, domains, response_domain, model_category
           (and optionally response_name, distribution)
 
-GBM and DRF models (per-class forests included) come across this way.
+GBM, DRF and XGBoost models (per-class forests included) come across
+this way. An IsolationForest adds `cnorm` (c(sample_size), the score's
+normaliser) beside its forest and spec. An Extended Isolation Forest
+comes as {"normals", "offsets", "lefts", "rights", "values",
+"max_depth", "cnorm", "data_info", "output"}: the packed (T, M, d) and
+(T, M) arrays, and the DataInfo state `DataInfo.from_state` reads.
 """
 
 from __future__ import annotations
@@ -19,13 +24,18 @@ from typing import Any, Dict
 
 import numpy as np
 
+from h2o3_tpu_torch.models.data_info import DataInfo
 from h2o3_tpu_torch.models.distribution import get_distribution
+from h2o3_tpu_torch.models.extended_isofor import \
+    ExtendedIsolationForestModel
 from h2o3_tpu_torch.models.model import ModelCategory
 from h2o3_tpu_torch.models.tree.binning import BinSpec
 from h2o3_tpu_torch.models.tree.compressed import CompressedForest
 from h2o3_tpu_torch.models.tree.drf import DRFModel
 from h2o3_tpu_torch.models.tree.gbm import GBMModel
+from h2o3_tpu_torch.models.tree.isofor import IsolationForestModel
 from h2o3_tpu_torch.models.tree.shared_tree import SharedTreeModel
+from h2o3_tpu_torch.models.xgboost import XGBoostModel
 
 _FOREST_ARRAYS = {"feat": np.int32, "thresh_bin": np.int32, "na_left": bool,
                   "left": np.int32, "right": np.int32,
@@ -63,10 +73,37 @@ def drf_model_from_numpy(d: Dict[str, Any]) -> DRFModel:
     return _tree_model_from_numpy(DRFModel(), d)
 
 
-def _tree_model_from_numpy(model: SharedTreeModel, d: Dict[str, Any]):
-    model.forest = forest_from_numpy(d["forest"])
-    model.spec = binspec_from_numpy(d["spec"])
-    o = d["output"]
+def xgboost_model_from_numpy(d: Dict[str, Any]) -> XGBoostModel:
+    """A scoring-ready XGBoostModel (a GBM forest), as
+    gbm_model_from_numpy."""
+    return _tree_model_from_numpy(XGBoostModel(), d)
+
+
+def isofor_model_from_numpy(d: Dict[str, Any]) -> IsolationForestModel:
+    """A scoring-ready IsolationForestModel from {"forest", "spec",
+    "output", "cnorm"}."""
+    model = _tree_model_from_numpy(IsolationForestModel(), d)
+    model._parms["_cnorm"] = float(d["cnorm"])
+    return model
+
+
+def eif_model_from_numpy(d: Dict[str, Any]) -> ExtendedIsolationForestModel:
+    """A scoring-ready ExtendedIsolationForestModel from its packed
+    arrays, depth, score normaliser and DataInfo state."""
+    model = ExtendedIsolationForestModel()
+    model.normals = np.asarray(d["normals"], np.float32)
+    model.offsets = np.asarray(d["offsets"], np.float32)
+    model.lefts = np.asarray(d["lefts"], np.int32)
+    model.rights = np.asarray(d["rights"], np.int32)
+    model.values = np.asarray(d["values"], np.float32)
+    model.max_depth = int(d["max_depth"])
+    model.cnorm = float(d["cnorm"])
+    model.data_info = DataInfo.from_state(d["data_info"])
+    _set_output(model, d["output"])
+    return model
+
+
+def _set_output(model, o: Dict[str, Any]) -> None:
     out = model._output
     out.names = list(o["names"])
     out.domains = {k: list(v) for k, v in dict(o["domains"]).items()}
@@ -74,6 +111,16 @@ def _tree_model_from_numpy(model: SharedTreeModel, d: Dict[str, Any]):
     out.response_domain = list(rd) if rd is not None else None
     out.model_category = str(o["model_category"])
     out.response_name = o.get("response_name")
+
+
+def _tree_model_from_numpy(model: SharedTreeModel, d: Dict[str, Any]):
+    model.forest = forest_from_numpy(d["forest"])
+    model.spec = binspec_from_numpy(d["spec"])
+    o = d["output"]
+    _set_output(model, o)
+    out = model._output
+    if out.model_category == ModelCategory.AnomalyDetection:
+        return model
     dist = o.get("distribution") or {
         ModelCategory.Binomial: "bernoulli",
         ModelCategory.Multinomial: "multinomial"}.get(out.model_category,

@@ -48,7 +48,7 @@ class Column:
     narrow integer code dtype for enum) or None for host-only strings,
     whose values live in `host_data`."""
 
-    __slots__ = ("data", "ctype", "domain", "host_data", "nrows")
+    __slots__ = ("data", "ctype", "domain", "host_data", "nrows", "_rollups")
 
     def __init__(self, data, ctype: str, nrows: int,
                  domain: Optional[List[str]] = None,
@@ -58,6 +58,7 @@ class Column:
         self.domain = domain
         self.host_data = host_data
         self.nrows = int(nrows)
+        self._rollups = None
 
     @staticmethod
     def from_numpy(arr, ctype: Optional[str] = None,
@@ -105,6 +106,17 @@ class Column:
     @property
     def cardinality(self) -> int:
         return len(self.domain) if self.domain else 0
+
+    @property
+    def rollups(self):
+        """min/max/mean/sigma/na/nz of the column, computed on first use
+        (ops/rollups.py; columns are not written in place, so the cache
+        stays valid)."""
+        if self._rollups is None:
+            from h2o3_tpu_torch.ops.rollups import compute_rollups
+
+            self._rollups = compute_rollups(self)
+        return self._rollups
 
     def to_numpy(self) -> np.ndarray:
         if self.data is None:

@@ -20,6 +20,7 @@ class ModelCategory:
     Regression = "Regression"
     Binomial = "Binomial"
     Multinomial = "Multinomial"
+    AnomalyDetection = "AnomalyDetection"
     Unknown = "Unknown"
 
 
@@ -65,7 +66,8 @@ class Model:
 
     def _predict_raw(self, frame: Frame) -> Dict[str, Any]:
         """Regression: {"value": (N,)}; Binomial: {"probs": (N, 2)};
-        Multinomial: {"probs": (N, K)}."""
+        Multinomial: {"probs": (N, K)}; AnomalyDetection: {"score": (N,)}
+        and optionally "mean_length"."""
         raise NotImplementedError
 
     # -- adaptation -------------------------------------------------------
@@ -147,6 +149,10 @@ class Model:
             out.add("predict", Column(label, T_CAT, n, domain=list(dom)))
             for k, lvl in enumerate(dom):
                 out.add(str(lvl), Column(probs[:, k].contiguous(), T_NUM, n))
+        elif cat == ModelCategory.AnomalyDetection:
+            out.add("predict", Column(raw["score"], T_NUM, n))
+            if "mean_length" in raw:
+                out.add("mean_length", Column(raw["mean_length"], T_NUM, n))
         else:
             out.add("predict", Column(raw["value"], T_NUM, n))
         return out

@@ -1,7 +1,7 @@
 """ModelBuilder: parameters, train entry, training and validation
 metrics (counterpart of h2o3_tpu/models/model_builder.py `random_seed`
-:27, `_out_of_time` :101, `_seed` :105, `train` :110, `_train_impl`
-:249, `_score_on` :460, `_init_output` :465).
+:27, `supervised` :43, `_out_of_time` :101, `_seed` :105, `train` :110,
+`_train_impl` :249, `_score_on` :460, `_init_output` :465).
 
 A builder trains on one frame, optionally watching a validation frame
 (in-training scoring, early stopping, validation metrics), under an
@@ -32,6 +32,9 @@ class ModelBuilder:
 
     algo_name = "base"
     model_class = Model
+    # False for builders that train without a response (anomaly
+    # detection): no response is asked for and no metrics are made
+    supervised = True
     # parameters of the reference builder this port does not implement
     # yet, with the value that means "off"
     not_ported: Dict[str, Any] = {
@@ -88,9 +91,9 @@ class ModelBuilder:
             self.params["response_column"] = y
         valid = validation_frame or self.params.get("validation_frame")
         resp = self.params.get("response_column")
-        if not resp:
+        if self.supervised and not resp:
             raise ValueError(f"{self.algo_name}: response_column required")
-        if resp not in train:
+        if self.supervised and resp not in train:
             raise ValueError(f"response column {resp!r} not in training "
                              "frame")
         if x is not None:
@@ -120,6 +123,8 @@ class ModelBuilder:
         return model
 
     def _score_on(self, model: Model, frame: Frame):
+        if model._output.response_name is None:
+            return None          # metrics need a response; skip the scoring
         raw = model._predict_raw(model.adapt_test(frame))
         return model._make_metrics(frame, raw)
 
@@ -133,6 +138,8 @@ class ModelBuilder:
                      and not train.col(c).is_string]
         out.domains = {c: list(train.col(c).domain) for c in out.names
                        if train.col(c).is_categorical}
+        if not resp:
+            return out
         rc = train.col(resp)
         out.response_name = resp
         if rc.is_categorical:

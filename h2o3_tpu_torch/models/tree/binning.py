@@ -1,8 +1,10 @@
 """Feature binning for histogram tree building (counterpart of
 h2o3_tpu/models/tree/binning.py).
 
-Global quantile bins computed once before training. Above `sample` rows
-the quantiles come from a stride sample whose stride is taken, as the
+Global bins computed once before training: quantile edges, or
+equal-width edges over [min, max] (strategy "uniform", which isolation
+forests use: they split uniformly in value space). Above `sample` rows
+the edges come from a stride sample whose stride is taken, as the
 reference takes it, from the length the reference pads a column to on
 one device (`pad_rows`), not from the row count. Bins for feature f:
 0..B_f-2 are value bins, B_f-1 is the NA bin. Numeric bin b holds x in
@@ -45,6 +47,20 @@ def _nanquantile(data: torch.Tensor, qs: np.ndarray) -> np.ndarray:
     return out.double().numpy()
 
 
+def _uniform_edges(data: torch.Tensor, nbins: int) -> np.ndarray:
+    """The nbins-1 inner edges of nbins equal-width bins over the non-NaN
+    [min, max] of `data`, computed as the reference computes them: the
+    float32 min and max, then ``np.linspace`` in float64. No edges when
+    the column is all NaN or constant."""
+    v = data[~torch.isnan(data)]
+    if v.numel() == 0:
+        return np.zeros(0)
+    lo, hi = float(v.min()), float(v.max())
+    if not (np.isfinite(lo) and np.isfinite(hi) and hi > lo):
+        return np.zeros(0)
+    return np.linspace(lo, hi, nbins + 1)[1:-1]
+
+
 def pad_rows(n: int, align: int = 8) -> int:
     """The length the reference pads an n-row column to on one device
     (h2o3_tpu/core/runtime.py:153 with one row shard): the smallest
@@ -78,11 +94,12 @@ class BinSpec:
               nbins: int = 20, nbins_cats: int = 1024,
               sample: int = 200_000,
               strategy: str = "quantile") -> "BinSpec":
-        """Quantile edges per numeric feature (of a stride sample above
-        `sample` padded rows), identity bins per categorical."""
-        if strategy != "quantile":
-            raise NotImplementedError(f"binning strategy {strategy!r} is not "
-                                      "ported yet (quantile only)")
+        """Edges per numeric feature (quantiles, or equal-width over the
+        non-NaN [min, max] for strategy "uniform"; of a stride sample
+        above `sample` padded rows), identity bins per categorical."""
+        if strategy not in ("quantile", "uniform"):
+            raise ValueError(f"unknown binning strategy {strategy!r} "
+                             "(quantile | uniform)")
         is_cat, B, edges, cards = [], [], [], []
         qs = np.linspace(0, 1, nbins + 1)[1:-1]
         for name in feature_names:
@@ -100,7 +117,8 @@ class BinSpec:
             n_pad = pad_rows(data.shape[0])
             if n_pad > sample:
                 data = data[:: max(n_pad // sample, 1)]
-            e = _nanquantile(data, qs)
+            e = (_uniform_edges(data, nbins) if strategy == "uniform"
+                 else _nanquantile(data, qs))
             e = np.unique(e[np.isfinite(e)]).astype(np.float32)
             is_cat.append(False)
             B.append(len(e) + 2)        # len(e)+1 value bins + NA bin

@@ -126,6 +126,21 @@ class CompressedForest:
         out.cover = cover
         return out
 
+    def depths(self) -> np.ndarray:
+        """(T,) depth of each tree's deepest node (0 for a stump)."""
+        out = np.zeros(self.n_trees, np.int64)
+        for t in range(self.n_trees):
+            feat, left, right = self.feat[t], self.left[t], self.right[t]
+            level, d = [0], 0
+            while True:
+                level = [c for m in level if feat[m] >= 0
+                         for c in (left[m], right[m])]
+                if not level:
+                    break
+                d += 1
+            out[t] = d
+        return out
+
     def arrays(self, device) -> dict:
         """The forest's arrays as tensors on `device` (integer arrays as
         int64, ready to index with)."""

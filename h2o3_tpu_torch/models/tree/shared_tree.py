@@ -1,8 +1,9 @@
 """SharedTree: the fit loops GBM and DRF share (counterpart of
 h2o3_tpu/models/tree/shared_tree.py: `_pre_fn` :41, `_post_fn` :71,
-`SharedTreeModel._margin_to_raw` :210, the leaf hooks :265-294, `_fit`
-:364, `_fit_single` :471, `_fit_multinomial` :625, `_sample_rows` :816,
-`_feat_mask_fn` :825, `_should_score`/`_early_stop` :848-865).
+`grow_tree` :104, `SharedTreeModel._margin_to_raw` :210, the leaf hooks
+:265-294, `_fit` :364, `_fit_single` :471, `_fit_multinomial` :625,
+`_sample_rows` :816, `_feat_mask_fn` :825, `_should_score`/`_early_stop`
+:848-865).
 
 Per tree: residuals and leaf Newton-step rows (`_pre`, with the row
 sample of sample_rate < 1), one device-grown tree (device_tree.
@@ -43,6 +44,21 @@ from h2o3_tpu_torch.models.tree.device_tree import (apply_packed,
                                                     build_feat_masks,
                                                     grow_tree_device,
                                                     stash_packed)
+
+
+def grow_tree(binned, hist_w, hist_y, spec, *, max_depth: int,
+              min_rows: float, min_split_improvement: float,
+              row_active=None, feat_mask_fn=None):
+    """Public single-tree API: (HostTree with dense leaf ids, row_leaf),
+    from the level-wise grower (host_grow.grow_tree_host), which is safe
+    at any depth. The fit loops use the single-dispatch device grower
+    (device_tree.grow_tree_device) directly."""
+    from h2o3_tpu_torch.models.tree.host_grow import grow_tree_host
+
+    return grow_tree_host(binned, hist_w, hist_y, spec, max_depth=max_depth,
+                          min_rows=min_rows,
+                          min_split_improvement=min_split_improvement,
+                          row_active=row_active, feat_mask_fn=feat_mask_fn)
 
 
 def sample_mask(root_key, t: int, n: int, rate: float, device):
@@ -106,6 +122,8 @@ class SharedTreeModel(Model):
             return {"probs": torch.stack([1 - p, p], dim=-1)}
         if cat == ModelCategory.Multinomial:
             return {"probs": softmax(f)}
+        if cat == ModelCategory.AnomalyDetection:
+            return {"score": f}
         if self._distribution is not None:
             return {"value": self._distribution.linkinv(f)}
         return {"value": f}
@@ -164,12 +182,26 @@ class SharedTree(ModelBuilder):
         num, den = self._leaf_num_den(w_t, y, z, f, dist)
         return z, w_t, num, den
 
-    def _post(self, leaf4, row_leaf, f, lr: float, clip: float):
-        """-> (gamma, f_new): leaf steps, clipped and shrunk by the
-        learning rate, added to every row's margin."""
+    def _post(self, leaf4, row_leaf, lr: float, clip: float):
+        """-> (gamma, contrib): leaf steps, clipped and shrunk by the
+        learning rate, and each row's leaf step."""
         gamma = self._leaf_gamma(leaf4[:, 2], leaf4[:, 3])
         gamma = (torch.clamp(gamma, -clip, clip) * lr).float()
-        return gamma, f + _leaf_update(gamma, row_leaf)
+        return gamma, _leaf_update(gamma, row_leaf)
+
+    def _tree_margin(self, rng, t: int, f):
+        """-> (f_used, lr, keys): the margin tree t is grown against, the
+        shrinkage of its leaves and extra scoring-history keys. Called
+        before the tree's column masks are drawn; XGBoost's dart drops
+        earlier trees here."""
+        return f, self._tree_lr(t), {}
+
+    def _add_tree(self, f_used, f_valid, contrib, vcontrib, leaf_vals):
+        """-> (f, f_valid): the training and validation margins after
+        the new tree's contributions (f_valid None without a validation
+        frame). leaf_vals holds the earlier trees' leaf values."""
+        return f_used + contrib, (None if f_valid is None
+                                  else f_valid + vcontrib)
 
     # fit loops -------------------------------------------------------------
     def _fit(self, train: Frame) -> SharedTreeModel:
@@ -271,23 +303,26 @@ class SharedTree(ModelBuilder):
         history, stop_metric = [], []
         packs, leaf_vals, leaf_wys = [], [], []
         for t in range(ntrees):
-            z, w_t, num_r, den_r = self._pre(dist, y, f, w, root_key, t,
+            f_used, lr, keys = self._tree_margin(rng, t, f)
+            z, w_t, num_r, den_r = self._pre(dist, y, f_used, w, root_key, t,
                                              rate)
             masks = build_feat_masks(max_depth, self._feat_mask_fn(rng, spec),
                                      spec.F, maxB)
             packed, leaf4, row_leaf = grow_tree_device(
                 binned, w_t, z, spec, num=num_r, den=den_r,
                 feat_masks=masks, **grow)
-            gamma, f = self._post(leaf4, row_leaf, f, self._tree_lr(t), clip)
+            gamma, contrib = self._post(leaf4, row_leaf, lr, clip)
+            vcontrib = (None if vs is None else
+                        apply_packed(vs["binned"], packed, gamma, max_depth,
+                                     maxB))
+            f, f_valid = self._add_tree(f_used, f_valid, contrib, vcontrib,
+                                        leaf_vals)
             packs.append(stash_packed(packed, max_depth))
             leaf_vals.append(gamma)
             leaf_wys.append(leaf4[:, :2])
-            if f_valid is not None:
-                f_valid = f_valid + apply_packed(vs["binned"], packed, gamma,
-                                                 max_depth, maxB)
             if self._should_score(t, ntrees):
                 dev = _mean_deviance(dist, w, y, f)
-                entry = {"tree": t + 1, "training_deviance": dev}
+                entry = {"tree": t + 1, "training_deviance": dev, **keys}
                 if f_valid is not None:
                     vdev = _mean_deviance(dist, vs["w"], vs["y"], f_valid)
                     entry["validation_deviance"] = vdev

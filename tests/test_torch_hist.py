@@ -275,3 +275,71 @@ def test_cuda_kernel_over_budget_slot_vs_plain_version():
                 bins=np.int16)
     ref = _port(binned, node, w, y, offsets, TB, S, bins=np.int16)
     assert torch.equal(_bits(got.cpu()), _bits(ref))
+
+
+# level shapes of the paths that run the kernel at new widths: XGBoost
+# (the flagship's 10 features at 257 bins, int16 bins, every row live,
+# tile_S 2 from the planner) and IsolationForest (ragged offsets of a
+# 64-bin uniform spec: 8 numerics of 65 bins and categoricals of 5 and 4,
+# TB = 529; 256 live rows of n, the rest at node -1, w = 1, y = 0)
+NEW_LEVELS = ([("xgboost", 2 ** d) for d in range(6)]
+              + [("isofor", 2 ** d) for d in range(9)])
+
+
+def _new_level(kind, seed, n, S):
+    rng = np.random.default_rng(seed)
+    if kind == "xgboost":
+        nbins = np.full(10, 257)
+        live = np.ones(n, bool)
+    else:
+        nbins = np.array([65] * 8 + [5, 4])
+        live = np.zeros(n, bool)
+        live[rng.choice(n, min(256, n), replace=False)] = True
+    offsets = np.concatenate([[0], np.cumsum(nbins)[:-1]]).astype(np.int32)
+    binned = np.stack([rng.integers(0, b, n) for b in nbins], axis=1)
+    node = np.where(live, rng.integers(0, S, n), -1).astype(np.int32)
+    if kind == "xgboost":
+        w = (rng.random(n) + 0.25).astype(np.float32)
+        y = rng.standard_normal(n).astype(np.float32)
+    else:
+        w, y = live.astype(np.float32), np.zeros(n, np.float32)
+    return binned, node, w, y, offsets, int(nbins.sum())
+
+
+def test_new_level_layouts_plan():
+    """One 257-bin XGBoost slot is 61,680 B of shared memory: two slots a
+    tile, 16 tiles at S = 32. An IsolationForest slot is 12,696 B:
+    sixteen a tile, 16 tiles at S = 256."""
+    assert hg.plan_tiles(10 * 257, 32) == (2, 16)
+    assert hg.plan_tiles(529, 256) == (16, 16)
+
+
+@pytest.mark.parametrize("kind,S", [("xgboost", 4), ("xgboost", 32),
+                                    ("isofor", 16), ("isofor", 256)])
+def test_plain_version_at_new_levels_vs_float64(kind, S):
+    binned, node, w, y, offsets, TB = _new_level(kind, S, 3000, S)
+    bins = np.int16 if kind == "xgboost" else np.uint8
+    got = _port(binned, node, w, y, offsets, TB, S, bins=bins).numpy()
+    expect = _f64_reference(binned, node, w, y, offsets, TB, S)
+    np.testing.assert_allclose(got, expect, rtol=1e-5, atol=1e-5)
+    if kind == "isofor":       # integral counts are exact
+        np.testing.assert_array_equal(got[:, 0], expect[:, 0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,S", NEW_LEVELS)
+def test_cuda_kernel_at_new_levels_vs_plain_version(kind, S):
+    _cuda()
+    n = 1_000_000
+    binned, node, w, y, offsets, TB = _new_level(kind, S, n, S)
+    bins = np.int16 if kind == "xgboost" else np.uint8
+    args = (binned, node, w, y, offsets, TB, S)
+    got = _port(*args, device="cuda", bins=bins)
+    ref = _port(*args, bins=bins)
+    assert torch.equal(_bits(got.cpu()), _bits(ref)), "kernel != plain"
+    for tile_S in (0, 1, 2):
+        again = _port(*args, device="cuda", bins=bins, tile_S=tile_S)
+        assert torch.equal(_bits(got), _bits(again)), f"tile_S={tile_S}"
+    shuffled = _port(*_permuted(S, binned, node, w, y), offsets, TB, S,
+                     device="cuda", bins=bins)
+    assert torch.equal(_bits(got), _bits(shuffled)), "row order moved a bit"

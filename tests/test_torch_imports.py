@@ -45,9 +45,12 @@ def test_port_imports_with_jax_blocked_and_reference_refused():
     assert out.returncode == 0, out.stderr
     rep = json.loads(out.stdout)
     for name in ("models.tree.hist_gather", "models.tree.drf",
-                 "core.random", "models.distribution"):
+                 "core.random", "models.distribution", "ops.rollups",
+                 "models.data_info", "models.tree.histogram",
+                 "models.tree.host_grow", "models.tree.isofor",
+                 "models.extended_isofor", "models.xgboost"):
         assert f"h2o3_tpu_torch.{name}" in rep["modules"], name
-    assert len(rep["modules"]) >= 17, rep["modules"]
+    assert len(rep["modules"]) >= 24, rep["modules"]
     assert rep["leaked"] == [], rep["leaked"]
     assert rep["built"] == 0, "importing the port built a kernel"
 
