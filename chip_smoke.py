@@ -19,7 +19,13 @@ through the port's public entry points:
   0.3, depth 6, 256 bins, lambda 1), booster gbtree and booster dart;
 - IsolationForest (50 trees, depth 8, sample_size 256, 64 uniform bins)
   and Extended Isolation Forest (100 trees, full extension) on the
-  flagship's features with 1% of the rows moved 6 sigma out.
+  flagship's features with 1% of the rows moved 6 sigma out;
+- the GLM family: a binomial GLM at the reference bench's width (1M
+  rows, 32 features, IRLS); lambda search (ADMM), p-values, multinomial
+  and ordinal (L-BFGS) GLMs and XGBoost gblinear on the flagship's
+  frames; GAM (one column per basis type) and RuleFit at its defaults
+  (50 DRF trees of depth 3, so the kernel runs, then a lasso lambda
+  search) on 200k flagship rows.
 It checks the card's models against the same port on the CPU and times
 the kernel at the level shapes of each configuration beside its memory
 bound and a PyTorch library call, with the kernel's time split by pass.
@@ -55,6 +61,23 @@ ISOFOR = dict(n_rows=1_000_000, ntrees=50, max_depth=8, sample_size=256,
               nbins=64, seed=1, outlier_frac=0.01, shift=6.0)
 EIF = dict(ntrees=100, sample_size=256, seed=1)
 PRED_ATOL = 1e-5            # card vs CPU predictions of the same forest
+# h2o3_tpu/bench.py run_glm: 1M rows, 32 standard-normal features; y is
+# drawn Bernoulli(sigmoid(X b)) rather than thresholded, so the fit has a
+# finite optimum, and b is run_glm's draw over sqrt(p): at run_glm's
+# scale some |x.b| reach 23, where float32's logistic saturates and the
+# reference's IRLS, which the port follows, diverges (ROADMAP C11)
+GLM_BENCH = dict(n_rows=1_000_000, p=32, seed=0)
+# |coef - b_true| <= this many standard errors for every coefficient
+COEF_SE_BOUND = 5.0
+GAM_RULEFIT_ROWS = 200_000
+# card vs CPU (phase 4): cuBLAS and the CPU's BLAS sum in different
+# orders, so GLM coefficients and predictions agree to rounding of
+# well-conditioned float32 solves; GAM's spline designs and RuleFit's
+# rule designs are ill-conditioned or rank-deficient (ROADMAP C10), so
+# only their fitted values are held, and more loosely
+GLM_COEF_TOL = dict(rtol=1e-4, atol=1e-4)
+GLM_PRED_ATOL = 1e-4
+C10_PRED_ATOL = 5e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -213,6 +236,47 @@ def outlier_frame(h2o, device, n_rows, frac, shift, seed=0):
         fr.add(f"c{i}", h2o.Column.from_numpy(c, ctype="enum",
                                               device=device))
     return fr, moved
+
+
+def glm_bench_frame(h2o, device, n_rows, p, seed=0):
+    """run_glm's data (h2o3_tpu/bench.py:775-777): X standard normal,
+    b_true standard normal over sqrt(p), then y ~ Bernoulli(sigmoid(X
+    b_true)). Returns the frame and b_true."""
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n_rows, p)).astype(np.float32)
+    b_true = (rng.standard_normal(p) / np.sqrt(p)).astype(np.float32)
+    eta = X.astype(np.float64) @ b_true.astype(np.float64)
+    y = np.where(rng.random(n_rows) < 1 / (1 + np.exp(-eta)), "Y", "N")
+    fr = h2o.Frame()
+    for j in range(p):
+        fr.add(f"x{j}", h2o.Column.from_numpy(X[:, j], device=device))
+    fr.add("y", h2o.Column.from_numpy(y, ctype="enum", device=device))
+    return fr, b_true
+
+
+def regression_frame(h2o, device, n_rows, kind, seed=2):
+    """The flagship's 10 features with a numeric response from a linear
+    predictor of them: "real" (gaussian noise), "count" (Poisson) or
+    "tweedie" (zero with chance 0.3, else gamma)."""
+    rng = np.random.default_rng(seed)
+    fr, eta = h2o.Frame(), np.zeros(n_rows)
+    for i in range(FLAGSHIP["n_num"]):
+        x = rng.standard_normal(n_rows)
+        eta += x * rng.uniform(-0.3, 0.3)
+        fr.add(f"n{i}", h2o.Column.from_numpy(x, device=device))
+    doms = [np.array(["a", "b", "c", "d"]), np.array(["x", "y", "z"])]
+    for i in range(FLAGSHIP["n_cat"]):
+        codes = rng.integers(0, len(doms[i % 2]), n_rows)
+        eta += (codes - 1) * 0.2
+        fr.add(f"c{i}", h2o.Column.from_numpy(doms[i % 2][codes],
+                                              ctype="enum", device=device))
+    mu = np.exp(eta)
+    y = {"real": eta + 0.5 * rng.standard_normal(n_rows),
+         "count": rng.poisson(mu).astype(float),
+         "tweedie": np.where(rng.random(n_rows) < 0.3, 0.0,
+                             rng.gamma(2.0, mu / 2.0))}[kind]
+    fr.add("y", h2o.Column.from_numpy(y, device=device))
+    return fr
 
 
 def small_frame(h2o, device, seed=7, n=600):
@@ -777,6 +841,137 @@ def phase_eif(h2o, dev, fr, moved):
     _outlier_check("eif", score, moved)
 
 
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_glm_bench(h2o, dev):
+    """The reference bench's GLM at its width: a binomial GLM (lambda 0,
+    IRLS) on 1M rows and 32 features, one warm-up train, then one on the
+    clock; coefficients within COEF_SE_BOUND standard errors of b_true;
+    a retrain with p-values must give the same coefficients bit for
+    bit."""
+    c = GLM_BENCH
+    t0 = time.perf_counter()
+    fr, b_true = glm_bench_frame(h2o, dev, c["n_rows"], c["p"], c["seed"])
+    print(f"glm bench frame {fr.nrows}x{fr.ncols} built in "
+          f"{time.perf_counter() - t0:.1f}s")
+    kw = dict(family="binomial", lambda_=0.0)
+    h2o.GLM(**kw).train(y="y", training_frame=fr)               # warm-up
+    m, dt = _timed(lambda: h2o.GLM(**kw).train(y="y", training_frame=fr))
+    it = m.iterations
+    auc = float(m._output.training_metrics.auc)
+    print(f"glm_train_s {dt!r}")
+    print(f"iterations {it}")
+    print(f"glm_irls_rows_per_sec {c['n_rows'] * it / dt!r}")
+    print(f"glm_training_auc {auc!r} residual deviance "
+          f"{m.residual_deviance!r} null deviance {m.null_deviance!r}")
+    check(np.isfinite(auc) and auc > 0.5, f"GLM AUC {auc} not > 0.5")
+    pv = h2o.GLM(compute_p_values=True, **kw).train(y="y", training_frame=fr)
+    check(torch.equal(pv.beta, m.beta), "GLM retrain changed a coefficient")
+    coef = m.coef()
+    est = np.array([coef[f"x{j}"] for j in range(c["p"])])
+    se = pv.std_errors[:c["p"]] / m.dinfo.num_sigmas.astype(np.float64)
+    err = np.abs(est - b_true)
+    worst = float(np.max(err / se))
+    print(f"GLM retrain on the card: coefficients bitwise identical; "
+          f"max |coef - b_true| {float(err.max())!r}, at most {worst:.2f} "
+          f"standard errors (bound {COEF_SE_BOUND}); p-values finite "
+          f"{bool(np.isfinite(pv.p_values).all())}")
+    check(np.isfinite(se).all() and worst <= COEF_SE_BOUND,
+          f"GLM coefficients {worst:.2f} standard errors from b_true")
+    check(bool(np.isfinite(pv.p_values).all()), "GLM p-values not finite")
+    return fr
+
+
+def _class_null_deviance(fr, y="y"):
+    codes = fr.col(y).data.long()
+    counts = torch.bincount(codes[codes >= 0]).double().cpu().numpy()
+    counts = counts[counts > 0]
+    return float(-2 * np.sum(counts * np.log(counts / counts.sum())))
+
+
+def phase_glm_solvers(h2o, dev, fr):
+    """GLM's other solvers on the flagship frame (1M rows; one-hot and
+    standardisation both run): lambda search with alpha 0.5 (ADMM each
+    step), p-values at lambda 0, multinomial and ordinal on the 4-class
+    frame (L-BFGS), and XGBoost gblinear."""
+    m, dt = _timed(lambda: h2o.GLM(lambda_search=True, alpha=0.5).train(
+        y="y", training_frame=fr))
+    print(f"glm_lambda_search_train_s {dt!r} lambdas fitted "
+          f"{m.iterations}, AUC {m._output.training_metrics.auc!r}")
+    check(m.iterations >= 2 and m._output.training_metrics.auc > 0.5,
+          "lambda search fitted too few lambdas or lost the signal")
+    m, dt = _timed(lambda: h2o.GLM(lambda_=0.0, compute_p_values=True
+                                   ).train(y="y", training_frame=fr))
+    print(f"glm_p_values_train_s {dt!r} iterations {m.iterations}, "
+          f"p-values {np.array2string(m.p_values[:4], precision=3)}...")
+    check(m.p_values is not None and bool(np.isfinite(m.p_values).all()),
+          "p-values not finite")
+    mfr, _ = multinomial_frames(h2o, dev, FLAGSHIP["n_rows"], 0,
+                                MULTINOMIAL["classes"])
+    null_dev = _class_null_deviance(mfr)
+    for fam in ("multinomial", "ordinal"):
+        m, dt = _timed(lambda: h2o.GLM(family=fam).train(
+            y="y", training_frame=mfr))
+        print(f"glm_{fam}_train_s {dt!r} iterations {m.iterations}, "
+              f"deviance {m.residual_deviance!r} (null {null_dev!r})")
+        check(np.isfinite(m.residual_deviance)
+              and m.residual_deviance < null_dev,
+              f"{fam} deviance not below the null deviance")
+        P = m.predict(mfr)
+        P = torch.stack([P.col(f"k{k}").data for k in range(4)], 1)
+        check(float((P.sum(1) - 1).abs().max()) < 1e-5,
+              f"{fam} probabilities do not sum to 1")
+    m, dt = _timed(lambda: h2o.XGBoost(booster="gblinear").train(
+        y="y", training_frame=fr))
+    print(f"xgb_gblinear_train_s {dt!r} iterations {m.iterations}, AUC "
+          f"{m._output.training_metrics.auc!r}")
+    check(m._output.training_metrics.auc > 0.5, "gblinear AUC not > 0.5")
+
+
+def phase_gam_rulefit(h2o, dev):
+    """GAM with one gam column per basis type 0-3, and RuleFit at the
+    reference's defaults, on 200k rows of the flagship frame; RuleFit's
+    DRF rules run the histogram kernel, whose launches are counted."""
+    from h2o3_tpu_torch.models.tree import hist_gather as hg
+
+    fr = flagship_frame(h2o, dev, GAM_RULEFIT_ROWS)
+    m, dt = _timed(lambda: h2o.GAM(gam_columns=["n0", "n1", "n2", "n3"],
+                                   bs=[0, 1, 2, 3]).train(
+        y="y", training_frame=fr))
+    auc = float(m._output.training_metrics.auc)
+    print(f"gam_train_s {dt!r} (knots {sum(len(k) for k in m.knots.values())}"
+          f", {m.glm_model.dinfo.fullN} design columns, "
+          f"{m.glm_model.iterations} IRLS steps), AUC {auc!r}")
+    check(np.isfinite(auc) and auc > 0.5, f"GAM AUC {auc} not > 0.5")
+    hg.launches = 0
+    m, dt = _timed(lambda: h2o.RuleFit(seed=1).train(y="y",
+                                                     training_frame=fr))
+    launches = hg.launches
+    gen = m.tree_models[0]
+    active = sum(1 for r in m.rules if r["coefficient"] != 0)
+    auc = float(m._output.training_metrics.auc)
+    print(f"rulefit_train_s {dt!r}")
+    print(f"rulefit rules {len(m.rules)} ({active} with a nonzero "
+          f"coefficient), lambdas fitted {m.glm_model.iterations}, AUC "
+          f"{auc!r}; top rule {m.rules[0]['rule']!r}")
+    print(f"hist_gather launches {launches} ({gen.forest.n_trees} trees of "
+          f"depth {int(gen.forest.depths().max())})")
+    check(np.isfinite(auc) and auc > 0.5, f"RuleFit AUC {auc} not > 0.5")
+    check(launches == 3 * gen.forest.n_trees,
+          f"{launches} hist_gather launches for {gen.forest.n_trees} trees "
+          "of depth 3")
+    check(len(m.rules) > 0 and active > 0, "RuleFit kept no rule")
+    phase_profile("RuleFit train (200k rows)", lambda: h2o.RuleFit(
+        seed=1).train(y="y", training_frame=fr))
+    return launches
+
+
 def host_profile(label, train, top=10):
     """Host time by function of the port (cumulative, cProfile) over one
     call of `train`."""
@@ -872,6 +1067,31 @@ def phase_card_vs_cpu(h2o, dev):
          lambda fr: h2o.ExtendedIsolationForest(
              ntrees=20, extension_level=14, seed=1).train(training_frame=fr),
          "predict")]
+    n = 50_000
+    for kind, fam, extra in (("real", "gaussian", {}),
+                             ("count", "poisson", {}),
+                             ("tweedie", "tweedie", {}),
+                             ("real", "gaussian", {"lambda_search": True,
+                                                   "alpha": 0.5})):
+        label = f"GLM {fam}{' lambda search' if extra else ''} {n // 1000}k"
+        cases.append((label, lambda d, k=kind: regression_frame(h2o, d, n, k),
+                      supervised(h2o.GLM(family=fam, **extra)), "predict"))
+    cases += [
+        (f"GLM binomial {n // 1000}k flagship rows",
+         lambda d: flagship_frame(h2o, d, n),
+         supervised(h2o.GLM(family="binomial")), "Y"),
+        (f"GLM multinomial {n // 1000}k", lambda d: multinomial_frames(
+            h2o, d, n, 0)[0], supervised(h2o.GLM(family="multinomial")),
+         "k0"),
+        (f"GLM ordinal {n // 1000}k", lambda d: multinomial_frames(
+            h2o, d, n, 0)[0], supervised(h2o.GLM(family="ordinal")), "k3"),
+        (f"GAM bs 0-3 {n // 1000}k flagship rows",
+         lambda d: flagship_frame(h2o, d, n),
+         supervised(h2o.GAM(gam_columns=["n0", "n1", "n2", "n3"],
+                            bs=[0, 1, 2, 3])), "Y"),
+        (f"RuleFit {n // 1000}k flagship rows",
+         lambda d: flagship_frame(h2o, d, n),
+         supervised(h2o.RuleFit(rule_generation_ntrees=20, seed=1)), "Y")]
     for label, make, fit, col in cases:
         models, preds = [], []
         for d in (dev, cpu):
@@ -879,6 +1099,9 @@ def phase_card_vs_cpu(h2o, dev):
             m = fit(fr)
             models.append(m)
             preds.append(m.predict(fr).col(col).data.cpu().numpy())
+        if hasattr(models[0], "glm_model") or hasattr(models[0], "beta"):
+            _glm_card_vs_cpu(label, models, preds)
+            continue
         a, b = (_model_arrays(m) for m in models)
         for k in a:
             check(np.array_equal(a[k], b[k]), f"{label}: {k} differs "
@@ -890,6 +1113,46 @@ def phase_card_vs_cpu(h2o, dev):
             models[0], "forest") else f"{models[0].normals.shape[0]} trees")
         print(f"card vs cpu {label}: {size}, models equal, max pred diff "
               f"{diff:.3e}")
+
+
+def _glm_card_vs_cpu(label, models, preds):
+    """A GLM-family model on the card against the CPU: GLM coefficients
+    within GLM_COEF_TOL and predictions within GLM_PRED_ATOL; GAM's knots
+    and RuleFit's forests and rules equal, their fitted values within
+    C10_PRED_ATOL (ill-conditioned designs, ROADMAP C10)."""
+    card, host = models
+    diff = float(np.abs(preds[0] - preds[1]).max())
+    if hasattr(card, "beta"):
+        ca, cb = card.coef(), host.coef()
+        check(list(ca) == list(cb), f"{label}: coefficient names differ")
+        gap = max(float(np.max(np.abs(np.asarray(ca[k]) - np.asarray(cb[k]))))
+                  for k in ca)
+        for k in ca:
+            check(np.allclose(ca[k], cb[k], **GLM_COEF_TOL),
+                  f"{label}: coefficient {k} differs, {ca[k]} vs {cb[k]}")
+        check(diff <= GLM_PRED_ATOL, f"{label}: predictions differ by "
+                                     f"{diff}")
+        print(f"card vs cpu {label}: iterations {card.iterations} / "
+              f"{host.iterations}, max coef diff {gap:.3e}, max pred diff "
+              f"{diff:.3e}")
+        return
+    if hasattr(card, "knots"):
+        for k in card.knots:
+            check(np.array_equal(card.knots[k], host.knots[k]),
+                  f"{label}: knots of {k} differ")
+        what = f"knots equal ({len(card.knots)} columns)"
+    else:
+        for ta, tb in zip(card.tree_models, host.tree_models):
+            a, b = _forest_arrays(ta), _forest_arrays(tb)
+            for k in a:
+                check(np.array_equal(a[k], b[k]), f"{label}: forest {k} "
+                                                  "differs")
+        check(sorted((r["name"], r["rule"]) for r in card.rules)
+              == sorted((r["name"], r["rule"]) for r in host.rules),
+              f"{label}: rules differ")
+        what = f"forests and {len(card.rules)} rules equal"
+    check(diff <= C10_PRED_ATOL, f"{label}: predictions differ by {diff}")
+    print(f"card vs cpu {label}: {what}, max pred diff {diff:.3e}")
 
 
 def _model_arrays(m):
@@ -1084,6 +1347,18 @@ def main() -> int:
     print("== phase 3h: Extended Isolation Forest (same frame)")
     phase_eif(h2o, dev, ofr, moved)
     del ofr
+    print("== phase 3i: GLM binomial at the reference bench's width "
+          "(1M rows, 32 features)")
+    gfr = phase_glm_bench(h2o, dev)
+    print("== phase 3b: where the time goes (GLM binomial train)")
+    phase_profile("GLM binomial train (1M x 32)", lambda: h2o.GLM(
+        family="binomial", lambda_=0.0).train(y="y", training_frame=gfr))
+    del gfr
+    print("== phase 3j: GLM's other solvers (flagship frames)")
+    phase_glm_solvers(h2o, dev, flagship_frame(h2o, dev, FLAGSHIP["n_rows"]))
+    print("== phase 3k: GAM and RuleFit (200k flagship rows; RuleFit "
+          "profiled)")
+    launches["rulefit"] = phase_gam_rulefit(h2o, dev)
     print("== phase 4: card vs CPU")
     phase_card_vs_cpu(h2o, dev)
     print("== phase 5: kernel times at each configuration's level shapes")

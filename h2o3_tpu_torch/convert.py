@@ -16,6 +16,14 @@ normaliser) beside its forest and spec. An Extended Isolation Forest
 comes as {"normals", "offsets", "lefts", "rights", "values",
 "max_depth", "cnorm", "data_info", "output"}: the packed (T, M, d) and
 (T, M) arrays, and the DataInfo state `DataInfo.from_state` reads.
+A GLM comes as {"beta", "link", "link_power", "data_info", "output",
+"parms"} (and optionally "null_deviance", "residual_deviance", "aic",
+"iterations", "distribution", "p_values", "std_errors"): beta (p+1,),
+(p+1, K) for a multinomial or (p + K-1,) for an ordinal fit, "parms"
+the parameters scoring reads (offset_column, weights_column,
+interactions). A GAM adds {"knots", "bs_types", "glm"} to its output,
+and a RuleFit {"tree_models", "rules", "linear_names", "glm"}, each
+inner model in its own form above.
 """
 
 from __future__ import annotations
@@ -23,12 +31,16 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import numpy as np
+import torch
 
 from h2o3_tpu_torch.models.data_info import DataInfo
 from h2o3_tpu_torch.models.distribution import get_distribution
 from h2o3_tpu_torch.models.extended_isofor import \
     ExtendedIsolationForestModel
+from h2o3_tpu_torch.models.gam import GAMModel
+from h2o3_tpu_torch.models.glm import GLMModel
 from h2o3_tpu_torch.models.model import ModelCategory
+from h2o3_tpu_torch.models.rulefit import RuleFitModel
 from h2o3_tpu_torch.models.tree.binning import BinSpec
 from h2o3_tpu_torch.models.tree.compressed import CompressedForest
 from h2o3_tpu_torch.models.tree.drf import DRFModel
@@ -99,6 +111,56 @@ def eif_model_from_numpy(d: Dict[str, Any]) -> ExtendedIsolationForestModel:
     model.max_depth = int(d["max_depth"])
     model.cnorm = float(d["cnorm"])
     model.data_info = DataInfo.from_state(d["data_info"])
+    _set_output(model, d["output"])
+    return model
+
+
+def glm_model_from_numpy(d: Dict[str, Any]) -> GLMModel:
+    """A scoring-ready GLMModel from its coefficients, link and DataInfo
+    state. Coefficients stay on the host until the first predict moves
+    them to the frame's device."""
+    model = GLMModel(parms=dict(d.get("parms") or {}))
+    model.beta = torch.from_numpy(np.array(d["beta"], np.float32))
+    model.linkname = str(d["link"])
+    model.link_power = float(d.get("link_power", 0.0))
+    model.dinfo = DataInfo.from_state(d["data_info"])
+    for k in ("null_deviance", "residual_deviance", "aic"):
+        setattr(model, k, float(d.get(k, float("nan"))))
+    model.iterations = int(d.get("iterations", 0))
+    for k in ("p_values", "std_errors"):
+        if d.get(k) is not None:
+            setattr(model, k, np.asarray(d[k], np.float64))
+    _set_output(model, d["output"])
+    if d.get("distribution"):
+        model._distribution = get_distribution(
+            d["distribution"], tweedie_power=float(d.get("tweedie_power",
+                                                         1.5)))
+    return model
+
+
+def gam_model_from_numpy(d: Dict[str, Any]) -> GAMModel:
+    """A scoring-ready GAMModel from its knots, basis types and inner
+    GLM."""
+    model = GAMModel(parms=dict(d.get("parms") or {}))
+    model.knots = {k: np.asarray(v, np.float64)
+                   for k, v in dict(d["knots"]).items()}
+    model.bs_types = {k: int(v) for k, v in dict(d["bs_types"]).items()}
+    model.glm_model = glm_model_from_numpy(d["glm"])
+    _set_output(model, d["output"])
+    return model
+
+
+def rulefit_model_from_numpy(d: Dict[str, Any]) -> RuleFitModel:
+    """A scoring-ready RuleFitModel from its rule generators (each as
+    drf_ or gbm_model_from_numpy takes it, with "algo" "drf" or "gbm"),
+    rule table, linear terms and inner GLM."""
+    model = RuleFitModel(parms=dict(d.get("parms") or {}))
+    model.tree_models = [
+        (gbm_model_from_numpy if t.get("algo") == "gbm"
+         else drf_model_from_numpy)(t) for t in d["tree_models"]]
+    model.rules = [dict(r) for r in d["rules"]]
+    model.linear_names = list(d.get("linear_names") or [])
+    model.glm_model = glm_model_from_numpy(d["glm"])
     _set_output(model, d["output"])
     return model
 

@@ -187,6 +187,11 @@ class Frame:
         self._cols[name] = col
         return self
 
+    def drop(self, name: str) -> "Frame":
+        self._names.remove(name)
+        self._cols.pop(name)
+        return self
+
     def subframe(self, names: Sequence[Union[str, int]]) -> "Frame":
         fr = Frame()
         for n in names:

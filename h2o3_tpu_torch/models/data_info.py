@@ -1,6 +1,6 @@
 """DataInfo: columns -> numeric design matrix, and response preparation
 (counterpart of h2o3_tpu/models/data_info.py: `_device_mode` :25,
-`DataInfo` :45, `coef_names` :109, `expand` :123, `na_row_mask` :149,
+`DataInfo` :45 with its arguments :53-65, `coef_names` :109, `expand` :123, `na_row_mask` :149,
 `response_weight` :169, `clean_response` :183).
 
 The layout is the reference's: categoricals first, one-hot with an
@@ -35,13 +35,22 @@ class DataInfo:
     """Expansion plan for a predictor set + response.
 
     use_all_factor_levels: False drops the first level per categorical
-    (GLM drops, DL keeps)."""
+    (GLM drops, DL keeps). The weights and offset columns are never
+    predictors. missing_values_handling is kept for the caller ("Skip"
+    zeroes the weight of rows with an NA predictor, via na_row_mask);
+    expand always imputes."""
 
     def __init__(self, frame: Frame, response: Optional[str] = None,
-                 *, ignored: Sequence[str] = (), standardize: bool = True,
-                 use_all_factor_levels: bool = False):
+                 *, ignored: Sequence[str] = (),
+                 weights: Optional[str] = None, offset: Optional[str] = None,
+                 standardize: bool = True, use_all_factor_levels: bool = False,
+                 missing_values_handling: str = "MeanImputation"):
+        self.response_name = response
+        self.weights_name = weights
+        self.offset_name = offset
         self.standardize = standardize
-        skip = set(ignored) | {response}
+        self.missing_values_handling = missing_values_handling
+        skip = set(ignored) | {response, weights, offset}
         self.cat_names: List[str] = []
         self.num_names: List[str] = []
         for n in frame.names:
@@ -74,6 +83,11 @@ class DataInfo:
         """A DataInfo from its plain state (the attributes `expand` and
         `coef_names` read), as a model trained elsewhere carries it."""
         di = cls.__new__(cls)
+        di.response_name = d.get("response_name")
+        di.weights_name = d.get("weights_name")
+        di.offset_name = d.get("offset_name")
+        di.missing_values_handling = d.get("missing_values_handling",
+                                           "MeanImputation")
         di.standardize = bool(d["standardize"])
         di.cat_names = list(d["cat_names"])
         di.num_names = list(d["num_names"])

@@ -99,18 +99,26 @@ class Model:
                                             train_dom),
                            T_CAT, n, domain=train_dom)
             out.add(name, c)
-        wname = self._parms.get("weights_column")
-        if wname and wname in test and wname not in out:
-            out.add(wname, test.col(wname))
+        # the special columns scoring and metrics read (model.py:144-150)
+        for pname in ("offset_column", "weights_column", "fold_column"):
+            cn = self._parms.get(pname)
+            if cn and cn in test and cn not in out:
+                out.add(cn, test.col(cn))
         return out
+
+    @staticmethod
+    def _remap_col(c: Column, train_dom: Optional[List[str]]) -> Column:
+        """One categorical column on a training domain (itself when
+        already aligned; model.py:152)."""
+        if train_dom is None or not c.is_categorical \
+                or (c.domain or []) == train_dom:
+            return c
+        return Column(_remap_to_domain(c.data, c.domain or [], train_dom),
+                      T_CAT, c.nrows, domain=list(train_dom))
 
     def _adapt_response(self, c: Column) -> Column:
         """Remap a categorical response onto the training response domain."""
-        dom = self._output.response_domain
-        if dom is None or not c.is_categorical or (c.domain or []) == dom:
-            return c
-        return Column(_remap_to_domain(c.data, c.domain or [], dom), T_CAT,
-                      c.nrows, domain=list(dom))
+        return self._remap_col(c, self._output.response_domain)
 
     def check_test_compat(self, test: Frame) -> Optional[str]:
         """The error adapt_test would raise for categorical/numeric column

@@ -7,7 +7,11 @@ A builder trains on one frame, optionally watching a validation frame
 (in-training scoring, early stopping, validation metrics), under an
 optional wall-clock budget (max_runtime_secs). Cross-validation,
 calibration, checkpoint continuation, durable job progress and model
-export are not ported yet: asking for them raises NotImplementedError.
+export are not ported yet: their parameters are accepted at the
+reference's default values, and any other value raises
+NotImplementedError. `stopping_metric` and `categorical_encoding` are
+accepted at any value, as in the reference, which reads neither on a
+ported path.
 """
 
 from __future__ import annotations
@@ -36,9 +40,13 @@ class ModelBuilder:
     # detection): no response is asked for and no metrics are made
     supervised = True
     # parameters of the reference builder this port does not implement
-    # yet, with the value that means "off"
+    # yet, with the value that means "off" (the reference's default)
     not_ported: Dict[str, Any] = {
-        "nfolds": 0, "fold_column": None, "calibrate_model": False,
+        "nfolds": 0, "fold_column": None, "fold_assignment": "AUTO",
+        "keep_cross_validation_models": True,
+        "keep_cross_validation_predictions": False,
+        "calibrate_model": False, "calibration_frame": None,
+        "calibration_method": "AUTO",
         "checkpoint": None, "export_checkpoints_dir": None,
     }
 
@@ -52,7 +60,8 @@ class ModelBuilder:
         return {"response_column": None, "ignored_columns": [],
                 "weights_column": None, "offset_column": None,
                 "seed": -1, "max_runtime_secs": 0.0,
-                "stopping_rounds": 0, "stopping_tolerance": 1e-3,
+                "stopping_rounds": 0, "stopping_metric": "AUTO",
+                "stopping_tolerance": 1e-3, "categorical_encoding": "AUTO",
                 "model_id": None,
                 "validation_frame": None, "training_frame": None}
 

@@ -126,6 +126,12 @@ class BinSpec:
             cards.append(0)
         return BinSpec(feature_names, is_cat, B, edges, cards)
 
+    def threshold_value(self, f: int, t: int) -> float:
+        """The real threshold of the numeric split `bin <= t` (x <= edge
+        t; binning.py:172)."""
+        e = self.edges[f]
+        return float(e[t]) if t < len(e) else float("inf")
+
     def padded_edges(self) -> np.ndarray:
         """(F, emax) float32 edge table, +inf beyond each feature's edges
         (the +inf lanes never count, so it bins like the ragged arrays)."""

@@ -144,7 +144,10 @@ class SharedTree(ModelBuilder):
                   "sample_rate": 1.0, "col_sample_rate_per_tree": 1.0,
                   "score_each_iteration": False, "score_tree_interval": 0,
                   "distribution": "AUTO", "tweedie_power": 1.5,
-                  "quantile_alpha": 0.5})
+                  "quantile_alpha": 0.5,
+                  # accepted as in the reference, whose huber keeps delta
+                  # 1 and never reads it (shared_tree.py:377)
+                  "huber_alpha": 0.9})
         return p
 
     # subclass hooks -------------------------------------------------------

@@ -1,6 +1,6 @@
 """XGBoost-compatible booster (counterpart of h2o3_tpu/models/xgboost.py:
 `_ALIASES` :29, `XGBoost.default_params` :53, `translate_param` :87,
-`_fit` :91, `_fit_single_dart` :143 as the fit loop's `_tree_margin`
+`_fit` :91, `_fit_gblinear` :107, `_fit_single_dart` :143 as the fit loop's `_tree_margin`
 and `_add_tree` hooks, `_leaf_den_offset` :283,
 `_leaf_gamma` :287).
 
@@ -10,8 +10,10 @@ names and defaults: eta 0.3, depth 6, 256 bins (257 with the NA bin,
 so an int16 bin matrix), min_child_weight 1, gamma 0. Leaves are
 XGBoost's G / (H + lambda), with alpha soft-thresholding G. `booster=
 "dart"` drops a random subset of the earlier trees each iteration
-(normalize_type "tree"). `booster="gblinear"` delegates to GLM in the
-reference and is not ported yet (GLM is the next slice).
+(normalize_type "tree"). `booster="gblinear"` trains the port's GLM
+(`_fit_gblinear`, xgboost.py:107-130): the limit of linear boosting is
+the elastic-net solution, with reg_alpha and reg_lambda mapped onto
+alpha and a per-row lambda.
 """
 
 from __future__ import annotations
@@ -92,13 +94,34 @@ class XGBoost(GBM):
                 raise ValueError("booster='dart' supports binomial/"
                                  "regression responses only")
         if booster == "gblinear":
-            raise NotImplementedError(
-                "xgboost: booster='gblinear' trains a GLM, which is not "
-                "ported to h2o3_tpu_torch yet (ROADMAP A9)")
+            return self._fit_gblinear(train)
         try:
             return super()._fit(train)
         finally:
             self._dart = None         # dart's per-tree margins
+
+    def _fit_gblinear(self, train):
+        """booster='gblinear': the elastic-net GLM with alpha =
+        reg_alpha / (reg_alpha + reg_lambda) and lambda = (reg_alpha +
+        reg_lambda) / rows."""
+        from h2o3_tpu_torch.models.glm import GLM
+
+        ra = float(self.params.get("reg_alpha", 0.0) or 0.0)
+        rl = float(self.params.get("reg_lambda", 1.0) or 0.0)
+        tot = ra + rl
+        resp = train.col(self.params["response_column"])
+        fam = ("binomial" if (resp.is_categorical
+                              and len(resp.domain or []) == 2)
+               else "multinomial" if resp.is_categorical else "gaussian")
+        glm = GLM(family=fam, alpha=(ra / tot) if tot > 0 else 0.0,
+                  lambda_=tot / max(train.nrows, 1), seed=self._seed(),
+                  response_column=self.params["response_column"],
+                  weights_column=self.params.get("weights_column"),
+                  offset_column=self.params.get("offset_column"),
+                  ignored_columns=self.params.get("ignored_columns") or [])
+        model = glm._fit(train)
+        model._parms["booster"] = "gblinear"
+        return model
 
     def _tree_margin(self, rng, t, f):
         """booster='dart' (XGBoost's DartBooster, normalize_type 'tree'):

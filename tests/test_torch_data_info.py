@@ -128,3 +128,29 @@ def test_from_state_expands_bitwise(cl):
     assert back.coef_names() == tdi.coef_names()
     assert back.expand(*arrays).numpy().tobytes() == \
         tdi.expand(*arrays).numpy().tobytes()
+
+
+@pytest.mark.parametrize("kw", [{"weights": "u"}, {"offset": "x"},
+                                {"weights": "u", "offset": "x",
+                                 "response": "k"}])
+def test_weights_and_offset_are_never_predictors(cl, kw):
+    """The reference's DataInfo arguments (data_info.py:53-65): the
+    weights and offset columns drop out of the design like the
+    response, in the same layout as the JAX package's."""
+    jf, tf = both_frames(_cols(na=False))
+    jdi, tdi = _pair(jf, tf, **kw)
+    skip = {v for v in kw.values()}
+    assert not skip & set(tdi.predictor_names)
+    assert tdi.predictor_names == jdi.predictor_names
+    assert tdi.coef_names() == jdi.coef_names()
+    assert (tdi.weights_name, tdi.offset_name) == (kw.get("weights"),
+                                                   kw.get("offset"))
+    je, te = _expand(jdi, tdi, jf, tf)
+    np.testing.assert_allclose(te, je, rtol=1e-6, atol=1e-6)
+
+
+def test_missing_values_handling_is_kept(cl):
+    _, tf = both_frames(_cols())
+    assert TDataInfo(tf).missing_values_handling == "MeanImputation"
+    assert TDataInfo(tf, missing_values_handling="Skip"
+                     ).missing_values_handling == "Skip"

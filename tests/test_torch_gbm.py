@@ -89,14 +89,21 @@ def test_scoring_adapts_test_frames_like_jax(cl, monkeypatch):
 
 
 def test_unported_parameters_raise():
-    """Cross-validation, checkpoints and calibration still raise; the
-    parameters this slice ports run."""
+    """Cross-validation, checkpoints and calibration still raise at any
+    value but the reference's default (ROADMAP C9); the parameters the
+    port has run."""
     th.init(device="cpu")
     _, tf = both_frames(train_cols(n=100))
     for kw in ({"nfolds": 3}, {"checkpoint": "m"},
-               {"calibrate_model": True}):
+               {"calibrate_model": True}, {"fold_assignment": "Modulo"},
+               {"keep_cross_validation_models": False},
+               {"keep_cross_validation_predictions": True},
+               {"calibration_frame": tf},
+               {"calibration_method": "IsotonicRegression"}):
         with pytest.raises(NotImplementedError):
             th.GBM(ntrees=1, **kw).train(y="y", training_frame=tf)
+        with pytest.raises(NotImplementedError):
+            th.GLM(**kw)
     with pytest.raises(ValueError):
         th.GBM(not_a_param=1)
     _, tv = both_frames(train_cols(n=64, seed=3))
@@ -120,6 +127,44 @@ def test_unported_parameters_raise():
         m = th.GBM(ntrees=2, distribution=dist, offset_column="o").train(
             y="y", training_frame=fr)
         assert np.isfinite(m._output.training_metrics.rmse), dist
+
+
+_BUILDERS = {
+    "GBM": ("h2o3_tpu.models.tree.gbm", "GBM"),
+    "DRF": ("h2o3_tpu.models.tree.drf", "DRF"),
+    "XGBoost": ("h2o3_tpu.models.xgboost", "XGBoost"),
+    "IsolationForest": ("h2o3_tpu.models.tree.isofor", "IsolationForest"),
+    "ExtendedIsolationForest": ("h2o3_tpu.models.extended_isofor",
+                                "ExtendedIsolationForest"),
+    "GLM": ("h2o3_tpu.models.glm", "GLM"),
+    "GAM": ("h2o3_tpu.models.gam", "GAM"),
+    "RuleFit": ("h2o3_tpu.models.rulefit", "RuleFit"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_BUILDERS))
+def test_every_reference_default_is_accepted(cl, name):
+    """ROADMAP C9: each ported builder constructs with every key of the
+    reference builder's default_params() at its default value, and
+    stopping_metric, categorical_encoding (and the trees' huber_alpha)
+    at any value."""
+    import importlib
+
+    mod, cls = _BUILDERS[name]
+    ref = getattr(importlib.import_module(mod), cls).default_params()
+    port = getattr(th, name)
+    b = port(**ref)
+    for k, v in ref.items():
+        if k in b.params and v is not None:
+            assert b.params[k] == v, k
+    extra = {"stopping_metric": "logloss", "categorical_encoding": "Enum"}
+    if "huber_alpha" in ref:
+        extra["huber_alpha"] = 0.5
+    assert port(**extra).params["stopping_metric"] == "logloss"
+    if name == "GBM":
+        _, tf = both_frames(train_cols(n=128))
+        m = th.GBM(**dict(ref, ntrees=1)).train(y="y", training_frame=tf)
+        assert m.forest.n_trees == 1
 
 
 def test_training_is_deterministic_on_the_cpu():

@@ -1,6 +1,7 @@
-"""The PyTorch port (h2o3_tpu_torch) stands alone: it imports with JAX
-blocked and the JAX package refused, its entry points default to CUDA,
-and no source file of it (nor chip_smoke.py) names JAX or h2o3_tpu."""
+"""The PyTorch port (h2o3_tpu_torch) stands alone: it imports with JAX,
+optax and scipy blocked and the JAX package refused, its entry points
+default to CUDA, and no source file of it (nor chip_smoke.py) imports
+JAX, optax, scipy or h2o3_tpu."""
 
 import json
 import re
@@ -25,6 +26,8 @@ class RefuseReference:
         return None
 
 sys.meta_path.insert(0, RefuseReference())
+sys.modules["optax"] = None
+sys.modules["scipy"] = None
 import h2o3_tpu_torch
 mods = sorted(m.name for m in pkgutil.walk_packages(
     h2o3_tpu_torch.__path__, "h2o3_tpu_torch."))
@@ -32,7 +35,7 @@ for m in mods:
     importlib.import_module(m)
 leaked = [k for k in sys.modules
           if k == "h2o3_tpu" or k.startswith("h2o3_tpu.")
-          or (k == "jax" and sys.modules[k] is not None)]
+          or (k in ("jax", "optax", "scipy") and sys.modules[k] is not None)]
 from h2o3_tpu_torch import kernels
 print(json.dumps({"modules": mods, "leaked": leaked,
                   "built": len(kernels._LIBS)}))
@@ -48,9 +51,11 @@ def test_port_imports_with_jax_blocked_and_reference_refused():
                  "core.random", "models.distribution", "ops.rollups",
                  "models.data_info", "models.tree.histogram",
                  "models.tree.host_grow", "models.tree.isofor",
-                 "models.extended_isofor", "models.xgboost"):
+                 "models.extended_isofor", "models.xgboost",
+                 "models.glm", "models.gam", "models.rulefit",
+                 "ops.quantile", "optim", "optim.lbfgs", "convert"):
         assert f"h2o3_tpu_torch.{name}" in rep["modules"], name
-    assert len(rep["modules"]) >= 24, rep["modules"]
+    assert len(rep["modules"]) >= 30, rep["modules"]
     assert rep["leaked"] == [], rep["leaked"]
     assert rep["built"] == 0, "importing the port built a kernel"
 
@@ -68,8 +73,9 @@ def test_init_defaults_to_cuda_and_raises_without_it(monkeypatch):
     assert h2o.init(device="cpu").device == torch.device("cpu")
 
 
-_FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|h2o3_tpu)(?:[.\s,]|$)",
-                        re.MULTILINE)
+_FORBIDDEN = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax|optax|scipy|h2o3_tpu)(?:[.\s,]|$)",
+    re.MULTILINE)
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -77,4 +83,5 @@ _FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|h2o3_tpu)(?:[.\s,]|$)",
     list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]))
 def test_no_source_names_jax_or_the_reference(path):
     text = (ROOT / path).read_text()
-    assert not _FORBIDDEN.findall(text), f"{path} imports jax or h2o3_tpu"
+    assert not _FORBIDDEN.findall(text), \
+        f"{path} imports jax, optax, scipy or h2o3_tpu"

@@ -147,10 +147,47 @@ def test_booster_checks(cl):
         th.XGBoost(booster="linear", ntrees=1).train(y="y", training_frame=tf)
     with pytest.raises(ValueError, match="binomial/regression"):
         th.XGBoost(booster="dart", ntrees=1).train(y="y", training_frame=tf)
-    with pytest.raises(NotImplementedError, match="A9"):
-        th.XGBoost(booster="gblinear").train(y="y", training_frame=tf)
+    # gblinear trains the port's GLM (a multinomial one here)
+    m = th.XGBoost(booster="gblinear").train(y="y", training_frame=tf)
+    assert isinstance(m, th.GLMModel) and m.linkname == "multinomial"
+    assert m._parms["booster"] == "gblinear"
     with pytest.raises(ValueError, match="unknown"):
         th.XGBoost(not_a_parameter=1)
+
+
+_GBLINEAR = {
+    "binomial": (lambda: train_cols(n=640), {}),
+    "gaussian_l1": (lambda: reg_cols(), {"reg_alpha": 0.5,
+                                         "reg_lambda": 2.0}),
+    "multinomial": (lambda: class_cols(), {"reg_lambda": 5.0}),
+    "ridge_only": (lambda: train_cols(n=640, seed=3), {"reg_lambda": 50.0}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_GBLINEAR))
+def test_gblinear_matches_jax(cl, monkeypatch, case):
+    """booster='gblinear' is the elastic-net GLM with alpha = reg_alpha /
+    (reg_alpha + reg_lambda) and lambda = (reg_alpha + reg_lambda) /
+    rows, in both packages: coefficients and predictions atol 1e-5 +
+    rtol 1e-5 (the GLM tests' tolerances)."""
+    make, kw = _GBLINEAR[case]
+    jm, tm, jf, tf = fit_xgb(monkeypatch, make(), booster="gblinear", **kw)
+    assert type(tm).__name__ == type(jm).__name__ == "GLMModel"
+    assert tm.linkname == jm.linkname
+    assert tm.iterations == jm.iterations
+    jc, tc = jm.coef(), tm.coef()
+    assert list(tc) == list(jc)
+    for k in jc:
+        np.testing.assert_allclose(tc[k], jc[k], rtol=1e-5, atol=1e-5,
+                                   err_msg=k)
+    n = tf.nrows
+    jp, tp = jm.predict(jf), tm.predict(tf)
+    assert tp.names == jp.names
+    for c in tp.names:
+        if not tp.col(c).is_categorical:
+            np.testing.assert_allclose(tp.col(c).to_numpy(),
+                                       jp.col(c).to_numpy()[:n], rtol=1e-5,
+                                       atol=1e-5, err_msg=c)
 
 
 def test_default_gamma_splits_on_rounding_noise(cl, monkeypatch):
