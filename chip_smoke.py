@@ -26,7 +26,8 @@ through the port's public entry points:
   frames; GAM (one column per basis type) and RuleFit at its defaults
   (50 DRF trees of depth 3, so the kernel runs, then a lasso lambda
   search) on 200k flagship rows.
-It checks the card's models against the same port on the CPU and times
+It checks the card's models and imports against the same port on the
+CPU and times
 the kernel at the level shapes of each configuration beside its memory
 bound and a PyTorch library call, with the kernel's time split by pass.
 Any failed check exits non-zero. The last line is
@@ -37,8 +38,10 @@ It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -70,6 +73,10 @@ GLM_BENCH = dict(n_rows=1_000_000, p=32, seed=0)
 # |coef - b_true| <= this many standard errors for every coefficient
 COEF_SE_BOUND = 5.0
 GAM_RULEFIT_ROWS = 200_000
+# h2o3_tpu/bench.py run_parse (:695): 400k rows, 6 numeric columns rounded
+# to 6 decimals, 2 enum columns, seed 7; a 10k-row append with a new level
+RUN_PARSE = dict(n_rows=400_000, n_num=6, n_cat=2, seed=7,
+                 append_rows=10_000)
 # card vs CPU (phase 4): cuBLAS and the CPU's BLAS sum in different
 # orders, so GLM coefficients and predictions agree to rounding of
 # well-conditioned float32 solves; GAM's spline designs and RuleFit's
@@ -142,22 +149,30 @@ def hist_case(seed, n, F, maxB, S, *, dead_frac=0.15, zero_w_frac=0.1,
     return binned, node, w, y, offsets, TB
 
 
-def flagship_frame(h2o, device, n_rows, n_num=8, n_cat=2, seed=0):
+def flagship_arrays(n_rows, n_num=8, n_cat=2, seed=0):
+    """{name: (values, ctype)} of the reference's run_flagship frame."""
     rng = np.random.default_rng(seed)
-    fr = h2o.Frame()
+    cols = {}
     logit = np.zeros(n_rows)
     for i in range(n_num):
         x = rng.standard_normal(n_rows)
         logit += x * rng.uniform(-1, 1)
-        fr.add(f"n{i}", h2o.Column.from_numpy(x, device=device))
+        cols[f"n{i}"] = (x, None)
     doms = [np.array(["a", "b", "c", "d"]), np.array(["x", "y", "z"])]
     for i in range(n_cat):
         codes = rng.integers(0, len(doms[i % 2]), n_rows)
         logit += (codes - 1) * 0.3
-        fr.add(f"c{i}", h2o.Column.from_numpy(doms[i % 2][codes],
-                                              ctype="enum", device=device))
+        cols[f"c{i}"] = (doms[i % 2][codes], "enum")
     y = np.where(rng.random(n_rows) < 1 / (1 + np.exp(-logit)), "Y", "N")
-    fr.add("y", h2o.Column.from_numpy(y, ctype="enum", device=device))
+    cols["y"] = (y, "enum")
+    return cols
+
+
+def flagship_frame(h2o, device, n_rows, n_num=8, n_cat=2, seed=0):
+    fr = h2o.Frame()
+    for name, (arr, ctype) in flagship_arrays(n_rows, n_num, n_cat,
+                                              seed).items():
+        fr.add(name, h2o.Column.from_numpy(arr, ctype=ctype, device=device))
     return fr
 
 
@@ -305,9 +320,15 @@ def phase_build():
     out = subprocess.run([kernels.nvcc(), "--version"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()
     print("nvcc:", out[-1] if out else "?")
+    from h2o3_tpu_torch import native
+
     t0 = time.perf_counter()
     names = kernels.build_all()
     print(f"build_s {time.perf_counter() - t0:.3f} kernels {names}")
+    t0 = time.perf_counter()
+    native.lib()
+    print(f"csv_parser_build_s {time.perf_counter() - t0:.3f} "
+          f"({native.cxx()}, {native.lib_path().name})")
     cuobjdump = Path(kernels.nvcc()).with_name("cuobjdump")
     for name in names:
         for line in kernels.BUILD_LOG.get(name, "").splitlines():
@@ -584,7 +605,7 @@ def phase_flagship(h2o, dev):
     _retrain_bitwise("flagship GBM", m, h2o.GBM(
         ntrees=FLAGSHIP["ntrees"], max_depth=FLAGSHIP["max_depth"]).train(
             y="y", training_frame=fr))
-    return launches, fr
+    return launches, fr, m
 
 
 def phase_drf_deep(h2o, dev):
@@ -972,6 +993,189 @@ def phase_gam_rulefit(h2o, dev):
     return launches
 
 
+def write_csv(path, cols, fmt_num):
+    """Write {name: (values, ctype)} as CSV with plain Python, 100k rows
+    at a time: numeric values through `fmt_num` (an array -> list of
+    str), enum values as their labels."""
+    names = list(cols)
+    n = len(cols[names[0]][0])
+    with open(path, "w") as f:
+        f.write(",".join(names) + "\n")
+        for lo in range(0, n, 100_000):
+            parts = [fmt_num(arr[lo:lo + 100_000]) if ctype is None
+                     else arr[lo:lo + 100_000].tolist()
+                     for arr, ctype in cols.values()]
+            f.write("\n".join(map(",".join, zip(*parts))) + "\n")
+
+
+def run_parse_arrays(n_rows, n_num, n_cat, seed, extra_level=False):
+    """h2o3_tpu/bench.py run_parse's columns (:711-724): numbers rounded
+    to 6 decimals, enums over alpha..delta and x/y/z; `extra_level`
+    puts a level never seen in the base file into c0."""
+    rng = np.random.default_rng(seed)
+    cols = {f"n{i}": (np.round(rng.standard_normal(n_rows), 6), None)
+            for i in range(n_num)}
+    doms = [np.array(["alpha", "beta", "gamma", "delta"]),
+            np.array(["x", "y", "z"])]
+    for i in range(n_cat):
+        dom = doms[i % 2]
+        if extra_level and i == 0:
+            dom = np.append(dom, "epsilon")
+        cols[f"c{i}"] = (dom[rng.integers(0, len(dom), n_rows)], "enum")
+    return cols
+
+
+def _repr_f64(a):
+    return list(map(repr, a.tolist()))
+
+
+def _repr_f32(a):
+    # each value as the float64 repr of its float32 value: the text
+    # round-trips to the same float32 by construction
+    return list(map(repr, np.asarray(a, np.float64).astype(np.float32)
+                    .astype(np.float64).tolist()))
+
+
+def same_frames(label, a, b):
+    """Two port frames hold the same data bit for bit: names, types,
+    domains, values and NA masks."""
+    check(a.names == b.names and a.nrows == b.nrows,
+          f"{label}: shapes differ ({a.nrows}x{a.ncols} vs "
+          f"{b.nrows}x{b.ncols})")
+    check(a.types == b.types, f"{label}: types differ")
+    for nm in a.names:
+        ca, cb = a.col(nm), b.col(nm)
+        check((ca.domain or None) == (cb.domain or None),
+              f"{label}: domain of {nm} differs")
+        x, y = ca.data.cpu(), cb.data.cpu()
+        check(x.dtype == y.dtype and same_bits(x, y),
+              f"{label}: column {nm} differs")
+
+
+def phase_ingest(h2o, dev, tmp, flagship_model):
+    """The reference bench's run_parse file imported chunked and
+    monolithic, a streaming append against a cold import, and the
+    flagship trained from its CSV. Returns the imported train's kernel
+    launches and the run_parse file's path (phase 4 imports it again)."""
+    import os
+
+    from h2o3_tpu_torch.ingest import chunked
+    from h2o3_tpu_torch.models.tree import hist_gather as hg
+
+    rp = RUN_PARSE
+    path = os.path.join(tmp, "bench_parse.csv")
+    t0 = time.perf_counter()
+    write_csv(path, run_parse_arrays(rp["n_rows"], rp["n_num"], rp["n_cat"],
+                                     rp["seed"]), _repr_f64)
+    size_mb = os.path.getsize(path) / 1e6
+    print(f"run_parse file: {rp['n_rows']} rows, {size_mb:.3f} MB, written "
+          f"in {time.perf_counter() - t0:.2f}s")
+    warm = os.path.join(tmp, "warm.csv")
+    with open(warm, "w") as f:
+        f.write("a,b\n1,x\n2,y\n")
+    h2o.import_file(warm)
+    torch.cuda.synchronize()
+
+    c0 = chunked.counters()
+    t0 = time.perf_counter()
+    fr = h2o.import_file(path)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    c1 = chunked.counters()
+    prof = dict(chunked.last_profile)
+    coord = c1["coordinator_ingest_bytes"] - c0["coordinator_ingest_bytes"]
+    print(f"parse_s {dt!r}")
+    print(f"parse_mb_per_sec {size_mb / dt!r}")
+    print(f"parse_chunks {c1['chunks'] - c0['chunks']} parse_workers "
+          f"{prof['workers']} coordinator_ingest_bytes {coord}")
+    print("parse stages (s): " + ", ".join(
+        f"{k} {prof[k]:.4f}" for k in ("split_s", "parse_s", "parse_cpu_s",
+                                        "resolve_s", "ship_s", "total_s")))
+    check(fr.nrows == rp["n_rows"] and fr.ncols == rp["n_num"] + rp["n_cat"],
+          f"run_parse frame {fr.nrows}x{fr.ncols}")
+    check(fr.col("c0").domain == ["alpha", "beta", "delta", "gamma"]
+          and fr.col("c1").domain == ["x", "y", "z"], "run_parse domains")
+    check(all(fr.col(f"n{i}").data.device.type == "cuda"
+              for i in range(rp["n_num"])), "columns not on the card")
+    check(coord == 0, f"chunked import staged {coord} whole-column bytes")
+    os.environ["H2O_TPU_INGEST_CHUNKED"] = "0"
+    try:
+        t0 = time.perf_counter()
+        mono = h2o.import_file(path)
+        torch.cuda.synchronize()
+        print(f"parse_mono_s {time.perf_counter() - t0!r}")
+    finally:
+        os.environ.pop("H2O_TPU_INGEST_CHUNKED")
+    same_frames("chunked vs monolithic", fr, mono)
+    print("chunked == monolithic import: values, NA masks, domains bitwise")
+    del mono
+    phase_profile("chunked import (run_parse file)",
+                  lambda: h2o.import_file(path))
+
+    # streaming append of a batch with a level the file never had
+    batch = run_parse_arrays(rp["append_rows"], rp["n_num"], rp["n_cat"],
+                             rp["seed"] + 1, extra_level=True)
+    bpath = os.path.join(tmp, "batch.csv")
+    write_csv(bpath, batch, _repr_f64)
+    with open(bpath) as f:
+        text = f.read().split("\n", 1)[1]
+    cold_path = os.path.join(tmp, "bench_parse_appended.csv")
+    with open(cold_path, "w") as out, open(path) as base:
+        out.write(base.read() + text)
+    t0 = time.perf_counter()
+    appended = chunked.append_csv(fr, text)
+    torch.cuda.synchronize()
+    print(f"append_s {time.perf_counter() - t0!r} ({appended} rows)")
+    check(appended == rp["append_rows"], f"appended {appended} rows")
+    check(fr.col("c0").domain == ["alpha", "beta", "delta", "epsilon",
+                                  "gamma"], "append did not grow c0")
+    same_frames("append vs cold import", fr, h2o.import_file(cold_path))
+    print("streaming append == cold import of the concatenated file: "
+          "bitwise")
+    del fr
+
+    # the flagship from CSV: the same forest as phase 3's frame
+    fpath = os.path.join(tmp, "flagship.csv")
+    t0 = time.perf_counter()
+    write_csv(fpath, flagship_arrays(FLAGSHIP["n_rows"]), _repr_f32)
+    fsize = os.path.getsize(fpath) / 1e6
+    print(f"flagship file: {FLAGSHIP['n_rows']} rows, {fsize:.3f} MB, "
+          f"written in {time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    ifr = h2o.import_file(fpath)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"flagship_parse_s {dt!r}")
+    print(f"flagship_parse_mb_per_sec {fsize / dt!r}")
+    same_frames("imported flagship vs phase 3's frame", ifr,
+                flagship_frame(h2o, dev, FLAGSHIP["n_rows"]))
+    hg.launches = 0
+    t0 = time.perf_counter()
+    m = h2o.GBM(ntrees=FLAGSHIP["ntrees"],
+                max_depth=FLAGSHIP["max_depth"]).train(y="y",
+                                                       training_frame=ifr)
+    torch.cuda.synchronize()
+    launches = hg.launches
+    auc = float(m._output.training_metrics.auc)
+    print(f"gbm_train_s (imported flagship) {time.perf_counter() - t0!r}")
+    print(f"imported flagship AUC {auc!r}, phase 3 AUC "
+          f"{float(flagship_model._output.training_metrics.auc)!r}; "
+          f"hist_gather launches {launches}")
+    check(launches == FLAGSHIP["max_depth"] * FLAGSHIP["ntrees"],
+          f"{launches} hist_gather launches on the imported flagship")
+    a, b = _forest_arrays(m), _forest_arrays(flagship_model)
+    for k in a:
+        check(np.array_equal(a[k], b[k]), f"imported flagship forest {k} "
+                                          "differs from phase 3's")
+    check(np.array_equal(m.forest.leaf_val, flagship_model.forest.leaf_val),
+          "imported flagship leaf values differ from phase 3's")
+    check(auc == float(flagship_model._output.training_metrics.auc),
+          "imported flagship AUC differs from phase 3's")
+    print("flagship from CSV: forest and AUC bitwise equal to phase 3's")
+    os.remove(fpath)
+    return launches, path
+
+
 def host_profile(label, train, top=10):
     """Host time by function of the port (cumulative, cProfile) over one
     call of `train`."""
@@ -1033,9 +1237,14 @@ def _forest_arrays(m):
             ("feat", "thresh_bin", "na_left", "left", "right", "cat_split")}
 
 
-def phase_card_vs_cpu(h2o, dev):
-    """The same port on the card and on the CPU grows the same models."""
+def phase_card_vs_cpu(h2o, dev, parse_path):
+    """The same port on the card and on the CPU imports the same columns
+    and grows the same models."""
     cpu = torch.device("cpu")
+    same_frames("run_parse file imported on the card vs the CPU",
+                h2o.import_file(parse_path),
+                h2o.import_file(parse_path, device="cpu"))
+    print("card vs cpu run_parse import: columns bitwise equal")
     supervised = lambda b: lambda fr: b.train(y="y", training_frame=fr)
     xgb = dict(ntrees=5, seed=1)
     cases = [
@@ -1291,7 +1500,10 @@ def phase_times(dev, launches, max_err):
     return [{"name": "hist_gather", "route": "cuda",
              "source": "h2o3_tpu_torch/csrc/hist_gather.cu",
              "replaces": "h2o3_tpu/models/tree/pallas_hist.py:362",
-             "launches": int(launches["gbm_flagship"]),
+             # the main paths of the flagship: phase 3's numpy-built frame
+             # and phase 3l's frame imported from CSV
+             "launches": int(launches["gbm_flagship"]
+                             + launches["gbm_imported_csv"]),
              "max_abs_err": max_err,
              "ms": mean[0], "plain_ms": mean[1], "bound_ms": mean[3],
              "bound_by": "bytes", "library_ms": mean[2],
@@ -1319,7 +1531,7 @@ def main() -> int:
                   phase_kernels_new(dev))
     launches = {}
     print("== phase 3: flagship GBM train + score")
-    launches["gbm_flagship"], fr = phase_flagship(h2o, dev)
+    launches["gbm_flagship"], fr, flagship_model = phase_flagship(h2o, dev)
     print("== phase 3b: where the time goes (flagship, XGBoost, "
           "IsolationForest trains; IsolationForest predict)")
     phase_profile("5-tree flagship train", lambda: h2o.GBM(
@@ -1359,8 +1571,17 @@ def main() -> int:
     print("== phase 3k: GAM and RuleFit (200k flagship rows; RuleFit "
           "profiled)")
     launches["rulefit"] = phase_gam_rulefit(h2o, dev)
-    print("== phase 4: card vs CPU")
-    phase_card_vs_cpu(h2o, dev)
+    print("== phase 3l: ingest (run_parse file, streaming append, the "
+          "flagship from CSV)")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ingest_")
+    try:
+        launches["gbm_imported_csv"], parse_path = phase_ingest(
+            h2o, dev, tmp, flagship_model)
+        del flagship_model
+        print("== phase 4: card vs CPU")
+        phase_card_vs_cpu(h2o, dev, parse_path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     print("== phase 5: kernel times at each configuration's level shapes")
     kernels = phase_times(dev, launches, max_err)
     print(json.dumps({"kernels": kernels}))

@@ -2,7 +2,7 @@
 
     import h2o3_tpu_torch as h2o
     h2o.init()                      # the CUDA device; device="cpu" on a CPU
-    fr = h2o.Frame(); fr.add("x", h2o.Column.from_numpy(x)); ...
+    fr = h2o.import_file("data.csv")   # or h2o.Frame.from_numpy(x), ...
     m = h2o.GBM(ntrees=20, max_depth=5).train(y="y", training_frame=fr)
     m.predict(fr); m.model_performance()
     h2o.DRF(ntrees=50).train(y="y", training_frame=fr, validation_frame=va)
@@ -14,12 +14,16 @@
     h2o.GAM(gam_columns=["x"], bs=[0]).train(y="y", training_frame=fr)
     h2o.RuleFit(max_rule_length=3).train(y="y", training_frame=fr)
 
-Importing the package builds no kernel: each CUDA kernel is compiled on
-its first launch (or all at once by ``kernels.build_all``).
+Importing the package builds nothing: each CUDA kernel is compiled on
+its first launch (or all at once by ``kernels.build_all``), and the C++
+CSV parser of ``import_file`` on its first parse (``native.build``).
 """
 
 from h2o3_tpu_torch.core.frame import Column, Frame
 from h2o3_tpu_torch.core.runtime import cluster, init
+from h2o3_tpu_torch.ingest.parser import (import_file, parse_setup,
+                                          upload_file)
+from h2o3_tpu_torch.ingest.sql import import_sql_select, import_sql_table
 from h2o3_tpu_torch.models.extended_isofor import (
     ExtendedIsolationForest, ExtendedIsolationForestModel)
 from h2o3_tpu_torch.models.gam import GAM, GAMModel
@@ -35,4 +39,5 @@ __all__ = ["Column", "DRF", "DRFModel", "ExtendedIsolationForest",
            "ExtendedIsolationForestModel", "Frame", "GAM", "GAMModel", "GBM",
            "GBMModel", "GLM", "GLMModel", "IsolationForest",
            "IsolationForestModel", "RuleFit", "RuleFitModel", "XGBoost",
-           "XGBoostModel", "cluster", "init"]
+           "XGBoostModel", "cluster", "import_file", "import_sql_select",
+           "import_sql_table", "init", "parse_setup", "upload_file"]

@@ -4,9 +4,13 @@ h2o3_tpu/core/frame.py).
 Storage rules are the reference's: one dense tensor per column, numeric
 columns float32 with NaN as NA, categorical columns integer codes of the
 narrowest dtype that fits the domain (`code_dtype`) with -1 as NA, and
-domains kept on the host. The reference pads rows to a multiple of its
-mesh; on one device nothing is padded, so a column holds exactly `nrows`
-values.
+domains kept on the host. Time columns are float32 epoch milliseconds
+(NaN = NA); a column built from datetime64 or integer input also keeps
+the exact values on the host (`host_data`, datetime64[ms] or the
+integers), since float32 holds epoch milliseconds only to ~2e5 ms.
+String and uuid columns live on the host only. The reference pads rows
+to a multiple of its mesh; on one device nothing is padded, so a column
+holds exactly `nrows` values.
 """
 
 from __future__ import annotations
@@ -20,7 +24,9 @@ import torch
 T_NUM = "real"
 T_INT = "int"
 T_CAT = "enum"
+T_TIME = "time"
 T_STR = "string"
+T_UUID = "uuid"
 
 NA_CAT = -1
 
@@ -33,6 +39,21 @@ def code_dtype(n_levels: int):
     if n_levels <= 32766:
         return np.int16
     return np.int32
+
+
+def numeric_host(arr, ctype: str) -> np.ndarray:
+    """The float32 host values of a numeric or time column: the
+    counterpart of the reference's pad_numeric_host
+    (h2o3_tpu/core/frame.py:72) on one device, where nothing is padded.
+    Values round through float64 to nearest float32; datetime64 input
+    becomes epoch milliseconds, NaT becomes NaN."""
+    a = np.asarray(arr)
+    if a.dtype.kind == "M":
+        ms = a.astype("datetime64[ms]")
+        out = ms.astype(np.int64).astype(np.float64)
+        out[np.isnat(ms)] = np.nan
+        return out.astype(np.float32)
+    return a.astype(np.float64).astype(np.float32)
 
 
 def _device(device):
@@ -48,17 +69,42 @@ class Column:
     narrow integer code dtype for enum) or None for host-only strings,
     whose values live in `host_data`."""
 
-    __slots__ = ("data", "ctype", "domain", "host_data", "nrows", "_rollups")
+    __slots__ = ("_data", "_loader", "ctype", "domain", "host_data", "nrows",
+                 "_rollups")
 
     def __init__(self, data, ctype: str, nrows: int,
                  domain: Optional[List[str]] = None,
                  host_data: Optional[np.ndarray] = None):
-        self.data = data
+        self._data = data
+        self._loader = None
         self.ctype = ctype
         self.domain = domain
         self.host_data = host_data
         self.nrows = int(nrows)
         self._rollups = None
+
+    @property
+    def data(self):
+        """The column's tensor; a file-backed column loads it on first
+        use (`file_backed`)."""
+        if self._data is None and self._loader is not None:
+            loader, self._loader = self._loader, None
+            self._data = loader()
+        return self._data
+
+    @data.setter
+    def data(self, v):
+        self._data = v
+        self._loader = None
+
+    @staticmethod
+    def file_backed(loader, ctype: str, nrows: int,
+                    domain: Optional[List[str]] = None) -> "Column":
+        """A column whose tensor `loader()` returns on first access (the
+        reference's Column.file_backed, water/fvec/FileVec.java)."""
+        c = Column(None, ctype, nrows, domain=domain)
+        c._loader = loader
+        return c
 
     @staticmethod
     def from_numpy(arr, ctype: Optional[str] = None,
@@ -70,9 +116,15 @@ class Column:
         if ctype is None:
             if arr.dtype.kind in "OUS":
                 return Column(None, T_STR, n, host_data=arr.astype(object))
-            if arr.dtype.kind not in "fiub":
+            if arr.dtype.kind == "M":
+                ctype = T_TIME
+            elif arr.dtype.kind in "fiub":
+                ctype = T_INT if arr.dtype.kind in "iub" else T_NUM
+            else:
                 raise TypeError(f"unsupported dtype {arr.dtype}")
-            ctype = T_INT if arr.dtype.kind in "iub" else T_NUM
+        if ctype in (T_STR, T_UUID):
+            return Column(None, ctype, n, host_data=arr.astype(object))
+        host = None
         if ctype == T_CAT:
             if arr.dtype.kind in "OUS":
                 domain, codes = _intern_domain(arr)
@@ -84,12 +136,15 @@ class Column:
             card = (len(domain) if domain is not None
                     else int(max(codes.max(initial=0) + 1, 1)))
             buf = codes.astype(code_dtype(card))
-        elif ctype in (T_NUM, T_INT):
-            buf = arr.astype(np.float64).astype(np.float32)
+        elif ctype in (T_NUM, T_INT, T_TIME):
+            buf = numeric_host(arr, ctype)
+            if ctype == T_TIME and arr.dtype.kind in "Mi":
+                host = (arr.astype("datetime64[ms]") if arr.dtype.kind == "M"
+                        else arr)          # exact epoch-millis on the host
         else:
             raise TypeError(f"cannot store ctype {ctype} on a device")
         data = torch.from_numpy(np.ascontiguousarray(buf)).to(_device(device))
-        return Column(data, ctype, n, domain=domain)
+        return Column(data, ctype, n, domain=domain, host_data=host)
 
     @property
     def is_numeric(self) -> bool:
@@ -149,9 +204,14 @@ def _intern_domain(a: np.ndarray) -> Tuple[List[str], np.ndarray]:
 
 
 class Frame:
-    """Named, ordered collection of equal-length Columns."""
+    """Named, ordered collection of equal-length Columns. `key` names the
+    frame (import_file's destination_frame); a frame parsed from CSV
+    keeps its parse options in `_parse_opts` for streaming appends."""
 
-    def __init__(self, columns: Optional[Dict[str, Column]] = None):
+    def __init__(self, columns: Optional[Dict[str, Column]] = None,
+                 key: Optional[str] = None):
+        self.key = key
+        self._parse_opts = None
         self._names: List[str] = []
         self._cols: Dict[str, Column] = {}
         for name, col in (columns or {}).items():
@@ -168,6 +228,10 @@ class Frame:
     @property
     def nrows(self) -> int:
         return self._cols[self._names[0]].nrows if self._names else 0
+
+    @property
+    def types(self) -> Dict[str, str]:
+        return {n: self._cols[n].ctype for n in self._names}
 
     def col(self, name_or_idx: Union[str, int]) -> Column:
         if isinstance(name_or_idx, int):
@@ -187,6 +251,18 @@ class Frame:
         self._cols[name] = col
         return self
 
+    def swap_columns(self, mapping: Dict[str, Column]) -> "Frame":
+        """Swap every column for a replacement of one new row count at
+        once (streaming appends grow all columns together)."""
+        if set(mapping) != set(self._names):
+            raise ValueError("swap_columns must cover exactly the frame's "
+                             "columns")
+        rows = {c.nrows for c in mapping.values()}
+        if len(rows) > 1:
+            raise ValueError(f"swap_columns row counts disagree: {rows}")
+        self._cols = {nm: mapping[nm] for nm in self._names}
+        return self
+
     def drop(self, name: str) -> "Frame":
         self._names.remove(name)
         self._cols.pop(name)
@@ -202,6 +278,37 @@ class Frame:
     def to_numpy(self) -> np.ndarray:
         return np.column_stack([self._cols[n].to_numpy()
                                 for n in self._names])
+
+    @staticmethod
+    def from_numpy(arr, names: Optional[Sequence[str]] = None,
+                   key: Optional[str] = None, device=None) -> "Frame":
+        """A 2-D array's columns as a frame (names C1, C2, ... unless
+        given), each typed by its dtype."""
+        arr = np.atleast_2d(np.asarray(arr))
+        names = (list(names) if names
+                 else [f"C{i + 1}" for i in range(arr.shape[1])])
+        fr = Frame(key=key)
+        for i, n in enumerate(names):
+            fr.add(n, Column.from_numpy(arr[:, i], device=device))
+        return fr
+
+    @staticmethod
+    def from_pandas(df, key: Optional[str] = None,
+                    column_types: Optional[Dict[str, str]] = None,
+                    device=None) -> "Frame":
+        """A pandas DataFrame as a frame: string and category columns
+        become enums unless `column_types` says otherwise. Only the
+        DataFrame's own methods are used; pandas is never imported."""
+        fr = Frame(key=key)
+        for n in df.columns:
+            s = df[n]
+            ctype = (column_types or {}).get(n)
+            if ctype is None and (s.dtype.name == "category"
+                                  or s.dtype.kind in "OUS"):
+                ctype = T_CAT
+            fr.add(str(n), Column.from_numpy(s.to_numpy(), ctype=ctype,
+                                             device=device))
+        return fr
 
     def __repr__(self) -> str:
         return f"<Frame {self.nrows}x{self.ncols} {self._names[:8]}>"

@@ -1,7 +1,7 @@
 """The PyTorch port (h2o3_tpu_torch) stands alone: it imports with JAX,
-optax and scipy blocked and the JAX package refused, its entry points
-default to CUDA, and no source file of it (nor chip_smoke.py) imports
-JAX, optax, scipy or h2o3_tpu."""
+optax, scipy and pandas blocked and the JAX package refused, its entry
+points default to CUDA, and no source file of it (nor chip_smoke.py)
+imports JAX, optax, scipy, pandas or h2o3_tpu."""
 
 import json
 import re
@@ -28,6 +28,7 @@ class RefuseReference:
 sys.meta_path.insert(0, RefuseReference())
 sys.modules["optax"] = None
 sys.modules["scipy"] = None
+sys.modules["pandas"] = None
 import h2o3_tpu_torch
 mods = sorted(m.name for m in pkgutil.walk_packages(
     h2o3_tpu_torch.__path__, "h2o3_tpu_torch."))
@@ -35,10 +36,12 @@ for m in mods:
     importlib.import_module(m)
 leaked = [k for k in sys.modules
           if k == "h2o3_tpu" or k.startswith("h2o3_tpu.")
-          or (k in ("jax", "optax", "scipy") and sys.modules[k] is not None)]
+          or (k in ("jax", "optax", "scipy", "pandas")
+              and sys.modules[k] is not None)]
 from h2o3_tpu_torch import kernels
+from h2o3_tpu_torch import native
 print(json.dumps({"modules": mods, "leaked": leaked,
-                  "built": len(kernels._LIBS)}))
+                  "built": len(kernels._LIBS) + (native._LIB is not None)}))
 '''
 
 
@@ -53,11 +56,15 @@ def test_port_imports_with_jax_blocked_and_reference_refused():
                  "models.tree.host_grow", "models.tree.isofor",
                  "models.extended_isofor", "models.xgboost",
                  "models.glm", "models.gam", "models.rulefit",
-                 "ops.quantile", "optim", "optim.lbfgs", "convert"):
+                 "ops.quantile", "optim", "optim.lbfgs", "convert",
+                 "native", "errors", "persist", "ingest.parse_setup",
+                 "ingest.chunked", "ingest.parser", "ingest.formats",
+                 "ingest.avro", "ingest.sql", "ingest.decrypt"):
         assert f"h2o3_tpu_torch.{name}" in rep["modules"], name
     assert len(rep["modules"]) >= 30, rep["modules"]
     assert rep["leaked"] == [], rep["leaked"]
-    assert rep["built"] == 0, "importing the port built a kernel"
+    assert rep["built"] == 0, "importing the port built a kernel or the " \
+        "CSV parser"
 
 
 def test_init_defaults_to_cuda_and_raises_without_it(monkeypatch):
@@ -74,7 +81,8 @@ def test_init_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 _FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|optax|scipy|h2o3_tpu)(?:[.\s,]|$)",
+    r"^\s*(?:import|from)\s+(?:jax|optax|scipy|pandas|h2o3_tpu)"
+    r"(?:[.\s,]|$)",
     re.MULTILINE)
 
 
@@ -84,4 +92,4 @@ _FORBIDDEN = re.compile(
 def test_no_source_names_jax_or_the_reference(path):
     text = (ROOT / path).read_text()
     assert not _FORBIDDEN.findall(text), \
-        f"{path} imports jax, optax, scipy or h2o3_tpu"
+        f"{path} imports jax, optax, scipy, pandas or h2o3_tpu"

@@ -56,3 +56,62 @@ def forest_arrays(forest):
     return {k: np.asarray(getattr(forest, k)) for k in
             ("feat", "thresh_bin", "na_left", "left", "right", "cat_split",
              "cat_table")}
+
+
+def _host_strings(values):
+    """A string column's host values with NaN (the reference's NA) read
+    as None (the port's)."""
+    return [None if isinstance(v, float) and v != v else v for v in values]
+
+
+def assert_frames_match(jf, tf, ctx=""):
+    """A JAX-package frame and a port frame hold the same data: names,
+    types and domains equal; numeric and time values, NA masks and enum
+    codes bitwise equal over the reference's first nrows (its columns are
+    padded); string columns equal with NA as None."""
+    assert jf.names == tf.names, (ctx, jf.names, tf.names)
+    assert jf.nrows == tf.nrows, (ctx, jf.nrows, tf.nrows)
+    assert jf.types == tf.types, (ctx, jf.types, tf.types)
+    n = jf.nrows
+    for nm in jf.names:
+        jc, tc = jf.col(nm), tf.col(nm)
+        assert (jc.domain or None) == (tc.domain or None), \
+            (ctx, nm, jc.domain, tc.domain)
+        if jc.data is None:
+            assert tc.data is None, (ctx, nm)
+            assert _host_strings(jc.host_data[:n]) == \
+                list(tc.host_data[:n]), (ctx, nm)
+            continue
+        a, b = np.asarray(jc.data)[:n], tc.data.cpu().numpy()
+        assert a.dtype == b.dtype, (ctx, nm, a.dtype, b.dtype)
+        assert_bitwise(a, b, (ctx, nm))
+
+
+def assert_bitwise(a, b, ctx=""):
+    """Equal bit for bit, any NaN equal to any NaN."""
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape and a.dtype == b.dtype, (ctx, a.shape,
+                                                       b.shape)
+    if a.dtype.kind == "f":
+        na, nb = np.isnan(a), np.isnan(b)
+        iv = {4: np.int32, 8: np.int64}[a.dtype.itemsize]
+        bad = (na != nb) | (~na & (a.view(iv) != b.view(iv)))
+    else:
+        bad = a != b
+    idx = np.flatnonzero(bad)
+    assert len(idx) == 0, (ctx, [(int(i), a[i], b[i]) for i in idx[:5]])
+
+
+def frames_bitwise(a, b, ctx=""):
+    """Two port frames hold the same data bit for bit."""
+    assert a.names == b.names and a.nrows == b.nrows, ctx
+    assert a.types == b.types, (ctx, a.types, b.types)
+    for nm in a.names:
+        ca, cb = a.col(nm), b.col(nm)
+        assert (ca.domain or None) == (cb.domain or None), (ctx, nm)
+        if ca.data is None:
+            assert list(ca.host_data[:ca.nrows]) == \
+                list(cb.host_data[:cb.nrows]), (ctx, nm)
+        else:
+            assert_bitwise(ca.data.cpu().numpy(), cb.data.cpu().numpy(),
+                           (ctx, nm))
