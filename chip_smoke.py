@@ -20,6 +20,13 @@ through the port's public entry points:
 - IsolationForest (50 trees, depth 8, sample_size 256, 64 uniform bins)
   and Extended Isolation Forest (100 trees, full extension) on the
   flagship's features with 1% of the rows moved 6 sigma out;
+- DeepLearning at the reference's defaults (hidden [200, 200],
+  Rectifier, ADADELTA, mini_batch_size 32) for one epoch of the
+  flagship frame, its step loop a CUDA graph held bit for bit to the
+  eager loop, and an autoencoder on the outlier frame below;
+- the model framework on the flagship: 5-fold cross-validation,
+  Platt and isotonic calibration, checkpoint continuation (GBM and
+  DeepLearning), save/load, leaf assignment, gains/lift and KS;
 - the GLM family: a binomial GLM at the reference bench's width (1M
   rows, 32 features, IRLS); lambda search (ADMM), p-values, multinomial
   and ordinal (L-BFGS) GLMs and XGBoost gblinear on the flagship's
@@ -83,6 +90,18 @@ RUN_PARSE = dict(n_rows=400_000, n_num=6, n_cat=2, seed=7,
 # rule designs are ill-conditioned or rank-deficient (ROADMAP C10), so
 # only their fitted values are held, and more loosely
 GLM_COEF_TOL = dict(rtol=1e-4, atol=1e-4)
+# DeepLearning at the reference's defaults (h2o3_tpu/models/deeplearning.py
+# :175-201: hidden [200, 200], Rectifier, ADADELTA, mini_batch_size 32),
+# one epoch; its warm-up and graph-vs-eager runs take 20k rows
+DL = dict(seed=1, batch=32, small_rows=20_000)
+# card vs CPU (phase 4): 2 epochs of 256 steps with dropout; cuBLAS and
+# the CPU sum each step's matmuls in different orders, and 512 ADADELTA
+# steps carry the rounding on, so weights and predictions agree to this
+DL_CPU = dict(n_rows=8192, hidden=[32, 32], batch=32, epochs=2, seed=1,
+              input_dropout=0.1, hidden_dropout=[0.2, 0.2])
+DL_CARD_CPU_ATOL = 1e-5
+# phase 3n: 5-fold CV of the flagship GBM, calibration on 200k rows
+FRAMEWORK = dict(nfolds=5, calibration_rows=200_000)
 GLM_PRED_ATOL = 1e-4
 C10_PRED_ATOL = 5e-3
 
@@ -101,6 +120,12 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+
+
+def metric(name: str, value, note: str = "") -> None:
+    """One end-to-end metric of this PR's paths, with the card's name and
+    power limit beside it."""
+    print(f"{name} {value!r} [{nvidia_smi()}]{' ' + note if note else ''}")
 
 
 def memory_rate(name: str) -> float:
@@ -327,7 +352,7 @@ def phase_build():
     print(f"build_s {time.perf_counter() - t0:.3f} kernels {names}")
     t0 = time.perf_counter()
     native.lib()
-    print(f"csv_parser_build_s {time.perf_counter() - t0:.3f} "
+    print(f"host_lib_build_s {time.perf_counter() - t0:.3f} "
           f"({native.cxx()}, {native.lib_path().name})")
     cuobjdump = Path(kernels.nvcc()).with_name("cuobjdump")
     for name in names:
@@ -1176,6 +1201,352 @@ def phase_ingest(h2o, dev, tmp, flagship_model):
     return launches, path
 
 
+# ---------------------------------------------------------------------------
+# DeepLearning and the model framework (phases 3m, 3n)
+# ---------------------------------------------------------------------------
+
+def _dl_weights(m):
+    return [t.detach().cpu().numpy() for W, b in m.params_tree
+            for t in (W, b)]
+
+
+def _prior_logloss(fr, y="y"):
+    p = float(fr.col(y).data.float().mean())
+    return float(-(p * np.log(p) + (1 - p) * np.log(1 - p)))
+
+
+def phase_deeplearning(h2o, dev, fr):
+    """DeepLearning at the reference's defaults (hidden [200, 200],
+    Rectifier, ADADELTA, mini_batch_size 32) for one epoch of the
+    flagship frame (31,250 steps through the CUDA graph), after a warm-up
+    train on 20k rows; a retrain that must give the same weights bit for
+    bit; the graph loop against the eager loop on 20k rows; and a warm
+    1M-row predict."""
+    from h2o3_tpu_torch.models import deeplearning as dl
+
+    c = DL
+    small = flagship_frame(h2o, dev, c["small_rows"], seed=1)
+    h2o.DeepLearning(epochs=1, seed=c["seed"]).train(
+        y="y", training_frame=small)                       # warm-up
+    torch.cuda.synchronize()
+    dl.graph_replays = dl.eager_steps = 0
+    t0 = time.perf_counter()
+    m = h2o.DeepLearning(epochs=1, seed=c["seed"]).train(y="y",
+                                                         training_frame=fr)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    steps = -(-fr.nrows // c["batch"])
+    replays, eager = dl.graph_replays, dl.eager_steps
+    tm = m._output.training_metrics
+    prior = _prior_logloss(fr)
+    metric("dl_train_s", dt)
+    metric("dl_steps_per_sec", steps / dt,
+           f"({steps} steps of {c['batch']} rows, hidden "
+           f"{m.params_tree[0][0].shape[1]}x{m.params_tree[1][0].shape[1]}, "
+           f"fullN {m.data_info.fullN})")
+    print(f"dl_training_auc {tm.auc!r} logloss {tm.logloss!r} (prior "
+          f"{prior!r}); graph replays {replays}, eager steps {eager}")
+    check(replays == steps and eager == 0,
+          f"{replays} graph replays and {eager} eager steps for {steps} "
+          "steps")
+    check(np.isfinite(tm.auc) and tm.auc > 0.5, f"DL AUC {tm.auc}")
+    check(tm.logloss < prior, f"DL logloss {tm.logloss} not below the "
+                              f"prior's {prior}")
+    again = h2o.DeepLearning(epochs=1, seed=c["seed"]).train(
+        y="y", training_frame=fr)
+    check(all(np.array_equal(a, b) for a, b in
+              zip(_dl_weights(m), _dl_weights(again))),
+          "DL retrain changed a weight")
+    print("DL retrain on the card: weights bitwise identical")
+    for kw in ({}, {"activation": "RectifierWithDropout",
+                    "input_dropout_ratio": 0.2},
+               {"adaptive_rate": False, "momentum_start": 0.9}):
+        w, t = {}, {}
+        for mode in ("graph", "eager"):
+            b = h2o.DeepLearning(epochs=1, seed=c["seed"], **kw)
+            b._force_eager = mode == "eager"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            w[mode] = _dl_weights(b.train(y="y", training_frame=small))
+            torch.cuda.synchronize()
+            t[mode] = time.perf_counter() - t0
+        check(all(np.array_equal(a, b) for a, b in
+                  zip(w["graph"], w["eager"])),
+              f"DL {kw}: the graph loop and the eager loop differ")
+        print(f"DL {kw or 'defaults'} on {small.nrows} rows: graph loop == "
+              f"eager loop bitwise; graph {t['graph']:.3f} s, eager "
+              f"{t['eager']:.3f} s")
+    m.predict(fr)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p = m.predict(fr).col("Y").data
+    torch.cuda.synchronize()
+    metric("dl_predict_s", time.perf_counter() - t0, f"({fr.nrows} rows)")
+    check(p.shape == (fr.nrows,) and bool(torch.isfinite(p).all()),
+          "DL probabilities not finite")
+    small_steps = -(-small.nrows // c["batch"])
+    _, small_ops = phase_profile(
+        f"DeepLearning 1-epoch train ({small.nrows} rows, {small_steps} "
+        "steps)", lambda: h2o.DeepLearning(epochs=1, seed=c["seed"]).train(
+            y="y", training_frame=small))
+    # the device-busy share of the 1M-row train itself: its device time
+    # under the profiler over the wall of the unprofiled train timed above
+    busy_us, n_ops = device_time(lambda: h2o.DeepLearning(
+        epochs=1, seed=c["seed"]).train(y="y", training_frame=fr))
+    # the profiler's activity buffers can fill and drop the rest of a
+    # long trace: the smaller train's ops per step say what a whole trace
+    # of this one holds
+    if busy_us <= 0 or n_ops < 0.9 * steps * small_ops / small_steps:
+        print(f"dl_train device-busy share: not measured (the profiler "
+              f"kept {n_ops} device ops of the {fr.nrows}-row train, "
+              f"{n_ops / steps:.1f} a step against "
+              f"{small_ops / small_steps:.1f} a step at {small.nrows} rows)")
+    else:
+        print(f"dl_train device busy {busy_us / 1e3:.1f} ms = "
+              f"{100 * busy_us / (dt * 1e6):.1f}% of its {dt:.3f} s wall "
+              f"(profiled {fr.nrows}-row train, {n_ops} device ops, "
+              f"{n_ops / steps:.1f} a step, {busy_us / steps:.1f} us a step)")
+    return m
+
+
+def phase_dl_autoencoder(h2o, dev, ofr, moved):
+    """A DeepLearning autoencoder (hidden [200, 200], 1 epoch) on phase
+    3g's frame: the moved rows reconstruct worse than the rest."""
+    t0 = time.perf_counter()
+    m = h2o.DeepLearning(autoencoder=True, epochs=1, seed=DL["seed"]).train(
+        training_frame=ofr)
+    torch.cuda.synchronize()
+    metric("dl_autoencoder_train_s", time.perf_counter() - t0)
+    err = m.anomaly(ofr).col("Reconstruction.MSE").data.cpu().numpy()
+    hi, lo = float(err[moved].mean()), float(err[~moved].mean())
+    print(f"autoencoder mean reconstruction MSE: moved rows {hi!r}, the "
+          f"rest {lo!r}; training MSE {m._output.training_metrics.mse!r}")
+    check(np.isfinite(err).all() and hi > lo,
+          "moved rows do not reconstruct worse than the rest")
+    df = m.deepfeatures(ofr, 1)
+    check(df.ncols == 200 and df.nrows == ofr.nrows
+          and df.names[0] == "DF.L2.C1",
+          f"deepfeatures shape {df.nrows}x{df.ncols}")
+    print(f"deepfeatures layer 2: {df.nrows}x{df.ncols}")
+
+
+def _check_same_splits(label, fa, fb):
+    """Two forests split alike: the node tables equal, and each
+    categorical split sends the same levels left. The row numbers of the
+    shared subset table may differ (a continued forest appends the new
+    trees' subsets after the checkpoint's table, placeholder row
+    included)."""
+    for k in ("feat", "thresh_bin", "na_left", "left", "right"):
+        check(np.array_equal(np.asarray(getattr(fa, k)),
+                             np.asarray(getattr(fb, k))),
+              f"{label}: forest {k} differs")
+    ca, cb = np.asarray(fa.cat_split), np.asarray(fb.cat_split)
+    check(np.array_equal(ca >= 0, cb >= 0), f"{label}: split kinds differ")
+    ta, tb = np.asarray(fa.cat_table), np.asarray(fb.cat_table)
+    w = min(ta.shape[1], tb.shape[1])
+    check(np.array_equal(ta[ca[ca >= 0]][:, :w], tb[cb[cb >= 0]][:, :w]),
+          f"{label}: a categorical split's levels differ")
+
+
+def _forest_margin(m, fr):
+    return m._margin(m.adapt_test(fr)).cpu().numpy()
+
+
+def phase_framework(h2o, dev, fr, dl_model, tmp):
+    """The model framework on the flagship: 5-fold CV of the flagship
+    GBM, Platt and isotonic calibration on its last 200k rows (trained on
+    the rest), a 10 + 10
+    tree continuation against a fresh 20-tree train, a DeepLearning
+    continuation, save/load, leaf assignment of the 1M rows, gains/lift
+    and KS. Returns the kernel's launches per path."""
+    import os
+
+    from h2o3_tpu_torch.models.tree import hist_gather as hg
+
+    launches = {}
+    kw = dict(ntrees=FLAGSHIP["ntrees"], max_depth=FLAGSHIP["max_depth"])
+    torch.cuda.synchronize()
+    hg.launches = 0
+    t0 = time.perf_counter()
+    m = h2o.GBM(nfolds=FRAMEWORK["nfolds"], seed=1,
+                keep_cross_validation_predictions=True, **kw).train(
+        y="y", training_frame=fr)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches["gbm_cv"] = hg.launches
+    out = m._output
+    cvm, hp = out.cross_validation_metrics, out.cross_validation_holdout_predictions
+    trains = FRAMEWORK["nfolds"] + 1
+    metric("gbm_cv_train_s", dt, f"({trains} trains)")
+    print(f"CV AUC {cvm.auc!r} logloss {cvm.logloss!r}, training AUC "
+          f"{out.training_metrics.auc!r}; hist_gather launches "
+          f"{launches['gbm_cv']}")
+    check(launches["gbm_cv"] == trains * FLAGSHIP["ntrees"]
+          * FLAGSHIP["max_depth"],
+          f"{launches['gbm_cv']} launches for {trains} trains")
+    check(hp.shape == (fr.nrows, 2)
+          and np.allclose(hp.sum(axis=1), 1.0, atol=1e-5),
+          "holdout predictions do not cover every row")
+    check(cvm is not None and np.isfinite(cvm.auc) and cvm.auc > 0.5
+          and len(out.cv_fold_metrics) == FRAMEWORK["nfolds"],
+          "CV metrics missing")
+    # calibration: train on the first rows, calibrate on the last 200k
+    from h2o3_tpu_torch.ops.filters import take_rows
+
+    n_cal = FRAMEWORK["calibration_rows"]
+    tr = take_rows(fr, np.arange(fr.nrows - n_cal))
+    cal = take_rows(fr, np.arange(fr.nrows - n_cal, fr.nrows))
+    hg.launches = 0
+    for method in ("PlattScaling", "IsotonicRegression"):
+        cm = h2o.GBM(calibrate_model=True, calibration_frame=cal,
+                     calibration_method=method, **kw).train(
+            y="y", training_frame=tr)
+        pred = cm.predict(cal)
+        p = pred.col("Y").data.cpu().numpy()
+        pc = pred.col("cal_Y").data.cpu().numpy()
+        check(np.isfinite(pc).all() and (pc >= 0).all() and (pc <= 1).all(),
+              f"{method}: calibrated probabilities not in [0, 1]")
+        o = np.argsort(p, kind="stable")
+        check(bool((np.diff(pc[o]) >= -1e-6).all()),
+              f"{method}: calibration is not monotone in p")
+        kind, parms = cm._calibrator
+        what = (f"a {parms[0]!r}, b {parms[1]!r}" if kind == "platt"
+                else f"{len(parms[0])} knots")
+        print(f"calibration {method} ({what}): mean p {p.mean():.6f}, "
+              f"mean calibrated p {pc.mean():.6f}, observed "
+              f"{float(cal.col('y').data.float().mean()):.6f}")
+    launches["gbm_calibrated"] = hg.launches
+    del tr, cal
+    # 10 + 10 trees from a checkpoint against a fresh 20
+    hg.launches = 0
+    m10 = h2o.GBM(ntrees=10, max_depth=FLAGSHIP["max_depth"]).train(
+        y="y", training_frame=fr)
+    m20c = h2o.GBM(checkpoint=m10, **kw).train(y="y", training_frame=fr)
+    launches["gbm_checkpoint"] = hg.launches
+    m20 = h2o.GBM(**kw).train(y="y", training_frame=fr)
+    _check_same_splits("checkpoint", m20.forest, m20c.forest)
+    diff = float(np.abs(_forest_margin(m20, fr)
+                        - _forest_margin(m20c, fr)).max())
+    check(diff <= PRED_ATOL, f"checkpoint margins differ by {diff}")
+    print(f"10 + 10 tree continuation == fresh 20-tree train: forest equal, "
+          f"max margin diff {diff:.3e}; launches {launches['gbm_checkpoint']}")
+    # DeepLearning continuing its epochs
+    small = flagship_frame(h2o, dev, DL["small_rows"], seed=1)
+    d1 = h2o.DeepLearning(epochs=1, seed=DL["seed"]).train(
+        y="y", training_frame=small)
+    d2 = h2o.DeepLearning(epochs=2, seed=DL["seed"], checkpoint=d1).train(
+        y="y", training_frame=small)
+    hist = [h["epoch"] for h in d2._output.scoring_history]
+    check(d2.epochs_trained == 2 and hist == [2],
+          f"DL continuation: {d2.epochs_trained} epochs, history {hist}")
+    print(f"DL continuation 1 -> 2 epochs: training loss "
+          f"{d1._output.scoring_history[-1]['training_loss']!r} -> "
+          f"{d2._output.scoring_history[-1]['training_loss']!r}")
+    # save/load
+    for label, mod, col in (("GBM", m20, "Y"), ("DeepLearning", dl_model,
+                                                "Y")):
+        path = mod.save(os.path.join(tmp, f"{label}.bin"))
+        back = h2o.load_model(path)
+        pa = mod.predict(fr).col(col).data.cpu().numpy()
+        pb = back.predict(fr).col(col).data.cpu().numpy()
+        check(pa.tobytes() == pb.tobytes(), f"{label} save/load changed "
+                                            "a prediction")
+        print(f"{label} save/load ({os.path.getsize(path)} bytes): "
+              f"{fr.nrows} predictions bitwise equal")
+    # leaf assignment of the 1M rows, gains/lift and KS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    la = m20.predict_leaf_node_assignment(fr, type="Path")
+    ln = m20.predict_leaf_node_assignment(fr, type="Node_ID")
+    torch.cuda.synchronize()
+    print(f"leaf_assignment_s {time.perf_counter() - t0!r} (Path and "
+          f"Node_ID, {fr.nrows} rows x {la.ncols} trees)")
+    check(la.ncols == ln.ncols == FLAGSHIP["ntrees"]
+          and la.nrows == fr.nrows, "leaf assignment shape")
+    leaf = m20.forest.leaf_index(m20.spec.bin_columns(
+        m20.adapt_test(fr))).cpu().numpy()
+    check(np.array_equal(ln.col("T1").to_numpy().astype(np.int64),
+                         leaf[:, 0]), "Node_ID differs from the leaf walk")
+    gl = m20.gains_lift()
+    ks = m20.kolmogorov_smirnov()
+    print(f"gains/lift {len(gl)} groups, top lift {float(gl.rows[0][4])!r}, "
+          f"KS {ks!r}")
+    check(len(gl) > 0 and 0 < ks <= 1, "gains/lift or KS missing")
+    return launches
+
+
+def phase_card_vs_cpu_framework(h2o, dev):
+    """DeepLearning's draws, weights and predictions, and a GBM's
+    cross-validation, on the card against the CPU."""
+    import math
+
+    from h2o3_tpu_torch import native
+    from h2o3_tpu_torch.core import random as rnd
+    from h2o3_tpu_torch.models import deeplearning as dl
+
+    cpu = torch.device("cpu")
+    c = DL_CPU
+    steps = math.ceil(c["n_rows"] / c["batch"])
+    sub, _ = native.split_chain(rnd.PRNGKey(c["seed"]), steps, 3)
+    draws = []
+    for d in (dev, cpu):
+        rows = rnd.randint(sub[:, 0].to(d), (c["batch"],), 0, c["n_rows"])
+        masks = dl.dropout_masks(sub[:, 1].to(d), c["batch"],
+                                 [15] + c["hidden"], c["input_dropout"],
+                                 c["hidden_dropout"])
+        draws.append([rows.cpu()] + [m.cpu() for m in masks])
+    check(all(torch.equal(a, b) for a, b in zip(*draws)),
+          "DL batch rows or dropout masks differ between card and CPU")
+    print(f"card vs cpu DL draws of {steps} steps: batch rows and "
+          f"{len(draws[0]) - 1} dropout masks bitwise equal")
+    models, preds = [], []
+    for d in (dev, cpu):
+        fr = flagship_frame(h2o, d, c["n_rows"], seed=3)
+        m = h2o.DeepLearning(
+            hidden=c["hidden"], epochs=c["epochs"], seed=c["seed"],
+            mini_batch_size=c["batch"], activation="RectifierWithDropout",
+            input_dropout_ratio=c["input_dropout"],
+            hidden_dropout_ratios=c["hidden_dropout"]).train(
+            y="y", training_frame=fr)
+        models.append(_dl_weights(m))
+        preds.append(m.predict(fr).col("Y").data.cpu().numpy())
+    wdiff = max(float(np.abs(a - b).max()) for a, b in zip(*models))
+    pdiff = float(np.abs(preds[0] - preds[1]).max())
+    print(f"card vs cpu DL {c['n_rows']} rows, hidden {c['hidden']}, "
+          f"{c['epochs']} epochs ({c['epochs'] * steps} steps): max weight "
+          f"diff {wdiff:.3e}, max pred diff {pdiff:.3e} (bar "
+          f"{DL_CARD_CPU_ATOL})")
+    check(wdiff <= DL_CARD_CPU_ATOL and pdiff <= DL_CARD_CPU_ATOL,
+          f"DL card vs CPU: weights differ by {wdiff}, predictions by "
+          f"{pdiff}")
+    cv = []
+    for d in (dev, cpu):
+        fr = flagship_frame(h2o, d, 50_000)
+        cv.append(h2o.GBM(ntrees=5, max_depth=FLAGSHIP["max_depth"],
+                          nfolds=3, seed=1,
+                          keep_cross_validation_predictions=True).train(
+            y="y", training_frame=fr)._output)
+    a, b = cv
+    check(a.fold_assignment_digest == b.fold_assignment_digest,
+          "CV fold assignments differ between card and CPU")
+    for ma, mb in zip(a.cross_validation_models, b.cross_validation_models):
+        fa, fb = _forest_arrays(ma), _forest_arrays(mb)
+        for k in fa:
+            check(np.array_equal(fa[k], fb[k]),
+                  f"CV fold model {k} differs between card and CPU")
+    hdiff = float(np.abs(a.cross_validation_holdout_predictions
+                         - b.cross_validation_holdout_predictions).max())
+    mdiff = max(abs(getattr(a.cross_validation_metrics, k)
+                    - getattr(b.cross_validation_metrics, k))
+                for k in ("auc", "logloss", "rmse"))
+    check(hdiff <= PRED_ATOL and mdiff <= PRED_ATOL,
+          f"CV card vs CPU: holdout predictions differ by {hdiff}, "
+          f"metrics by {mdiff}")
+    print(f"card vs cpu GBM 3-fold CV 50k flagship rows: fold assignment "
+          f"and fold forests equal, max holdout pred diff {hdiff:.3e}, max "
+          f"CV metric diff {mdiff:.3e}")
+
+
 def host_profile(label, train, top=10):
     """Host time by function of the port (cumulative, cProfile) over one
     call of `train`."""
@@ -1198,6 +1569,25 @@ def host_profile(label, train, top=10):
               f"{where}")
 
 
+def device_time(train):
+    """(device-busy us, device ops) of one call of `train` under
+    torch.profiler, read from the raw trace: a long train records
+    millions of kernels, too many to aggregate through key_averages()."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        train()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    busy_ns = n_ops = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            busy_ns += e.duration_ns()
+            n_ops += 1
+    return busy_ns / 1e3, n_ops
+
+
 def phase_profile(label, train, top=12):
     """Where a train's time goes: device time by kernel from
     torch.profiler over one call of `train`, the device-busy share of
@@ -1217,18 +1607,20 @@ def phase_profile(label, train, top=12):
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(r[0] for r in rows)
+    n_ops = sum(r[1] for r in rows)
     if busy_us <= 0:
         print("profile: the profiler recorded no device time (not measured)")
     else:
         print(f"profile {label}: unprofiled wall {wall_us / 1e3:.1f} ms, "
               f"device busy {busy_us / 1e3:.1f} ms = "
-              f"{100 * busy_us / wall_us:.1f}% of it")
+              f"{100 * busy_us / wall_us:.1f}% of it, {n_ops} device ops")
     # the top rows, then the port's own kernels wherever they rank
     for rank, (dev_us, count, key) in enumerate(sorted(rows, reverse=True)):
         if rank < top or "hist_" in key:
             print(f"  {dev_us / 1e3:9.3f} ms {100 * dev_us / busy_us:5.1f}% "
                   f"x{count:<6d} {key[:90]}")
     host_profile(label, train)
+    return busy_us, n_ops
 
 
 def _forest_arrays(m):
@@ -1547,7 +1939,17 @@ def main() -> int:
     launches["xgboost"] = phase_xgboost(h2o, dev, fr)
     print("== phase 3f: XGBoost dart (flagship frame)")
     launches["xgboost_dart"] = phase_xgboost_dart(h2o, dev, fr)
-    del fr
+    print("== phase 3m: DeepLearning at the reference's defaults "
+          "(flagship frame, 1 epoch)")
+    dl_model = phase_deeplearning(h2o, dev, fr)
+    print("== phase 3n: the model framework (flagship frame): CV, "
+          "calibration, checkpoints, save/load, leaf assignment, gains/lift")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_models_")
+    try:
+        launches.update(phase_framework(h2o, dev, fr, dl_model, tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del fr, dl_model
     print("== phase 3g: IsolationForest (1M rows, 1% moved 6 sigma out)")
     launches["isolationforest"], ofr, moved, iso = phase_isofor(h2o, dev)
     phase_profile("50-tree IsolationForest train", lambda: h2o.IsolationForest(
@@ -1556,6 +1958,8 @@ def main() -> int:
     phase_profile("IsolationForest predict (1M rows)",
                   lambda: iso.predict(ofr))
     del iso
+    print("== phase 3m: DeepLearning autoencoder (phase 3g's frame)")
+    phase_dl_autoencoder(h2o, dev, ofr, moved)
     print("== phase 3h: Extended Isolation Forest (same frame)")
     phase_eif(h2o, dev, ofr, moved)
     del ofr
@@ -1580,6 +1984,7 @@ def main() -> int:
         del flagship_model
         print("== phase 4: card vs CPU")
         phase_card_vs_cpu(h2o, dev, parse_path)
+        phase_card_vs_cpu_framework(h2o, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("== phase 5: kernel times at each configuration's level shapes")

@@ -13,6 +13,14 @@
     m.coef(); h2o.GLM(lambda_search=True, alpha=0.5).train(y="y", ...)
     h2o.GAM(gam_columns=["x"], bs=[0]).train(y="y", training_frame=fr)
     h2o.RuleFit(max_rule_length=3).train(y="y", training_frame=fr)
+    m = h2o.DeepLearning(hidden=[200, 200], epochs=1).train(y="y", ...)
+    h2o.DeepLearning(autoencoder=True).train(training_frame=fr).anomaly(fr)
+    h2o.GBM(nfolds=5, keep_cross_validation_predictions=True).train(...)
+    h2o.GBM(calibrate_model=True, calibration_frame=cal).train(...)
+    h2o.GBM(ntrees=20, checkpoint=m10).train(y="y", training_frame=fr)
+    m.save("m.bin"); h2o.load_model("m.bin")
+    m.gains_lift(); m.kolmogorov_smirnov()
+    m.predict_leaf_node_assignment(fr, type="Path")
 
 Importing the package builds nothing: each CUDA kernel is compiled on
 its first launch (or all at once by ``kernels.build_all``), and the C++
@@ -24,10 +32,12 @@ from h2o3_tpu_torch.core.runtime import cluster, init
 from h2o3_tpu_torch.ingest.parser import (import_file, parse_setup,
                                           upload_file)
 from h2o3_tpu_torch.ingest.sql import import_sql_select, import_sql_table
+from h2o3_tpu_torch.models.deeplearning import DeepLearning, DeepLearningModel
 from h2o3_tpu_torch.models.extended_isofor import (
     ExtendedIsolationForest, ExtendedIsolationForestModel)
 from h2o3_tpu_torch.models.gam import GAM, GAMModel
 from h2o3_tpu_torch.models.glm import GLM, GLMModel
+from h2o3_tpu_torch.models.model import Model
 from h2o3_tpu_torch.models.rulefit import RuleFit, RuleFitModel
 from h2o3_tpu_torch.models.tree.drf import DRF, DRFModel
 from h2o3_tpu_torch.models.tree.gbm import GBM, GBMModel
@@ -35,9 +45,12 @@ from h2o3_tpu_torch.models.tree.isofor import (IsolationForest,
                                                IsolationForestModel)
 from h2o3_tpu_torch.models.xgboost import XGBoost, XGBoostModel
 
-__all__ = ["Column", "DRF", "DRFModel", "ExtendedIsolationForest",
-           "ExtendedIsolationForestModel", "Frame", "GAM", "GAMModel", "GBM",
-           "GBMModel", "GLM", "GLMModel", "IsolationForest",
-           "IsolationForestModel", "RuleFit", "RuleFitModel", "XGBoost",
-           "XGBoostModel", "cluster", "import_file", "import_sql_select",
-           "import_sql_table", "init", "parse_setup", "upload_file"]
+load_model = Model.load
+
+__all__ = ["Column", "DRF", "DRFModel", "DeepLearning", "DeepLearningModel",
+           "ExtendedIsolationForest", "ExtendedIsolationForestModel",
+           "Frame", "GAM", "GAMModel", "GBM", "GBMModel", "GLM", "GLMModel",
+           "IsolationForest", "IsolationForestModel", "Model", "RuleFit",
+           "RuleFitModel", "XGBoost", "XGBoostModel", "cluster",
+           "import_file", "import_sql_select", "import_sql_table", "init",
+           "load_model", "parse_setup", "upload_file"]

@@ -23,7 +23,10 @@ A GLM comes as {"beta", "link", "link_power", "data_info", "output",
 the parameters scoring reads (offset_column, weights_column,
 interactions). A GAM adds {"knots", "bs_types", "glm"} to its output,
 and a RuleFit {"tree_models", "rules", "linear_names", "glm"}, each
-inner model in its own form above.
+inner model in its own form above. A DeepLearning model comes as
+{"params", "data_info", "activation", "nclasses", "autoencoder",
+"output"} (and optionally "epochs_trained", "parms"): "params" the
+reference's `params_tree`, a list of numpy (W, b) pairs.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 from h2o3_tpu_torch.models.data_info import DataInfo
+from h2o3_tpu_torch.models.deeplearning import DeepLearningModel
 from h2o3_tpu_torch.models.distribution import get_distribution
 from h2o3_tpu_torch.models.extended_isofor import \
     ExtendedIsolationForestModel
@@ -161,6 +165,24 @@ def rulefit_model_from_numpy(d: Dict[str, Any]) -> RuleFitModel:
     model.rules = [dict(r) for r in d["rules"]]
     model.linear_names = list(d.get("linear_names") or [])
     model.glm_model = glm_model_from_numpy(d["glm"])
+    _set_output(model, d["output"])
+    return model
+
+
+def deeplearning_model_from_numpy(d: Dict[str, Any]) -> DeepLearningModel:
+    """A scoring-ready DeepLearningModel from its weights, DataInfo
+    state, activation, class count and autoencoder flag. The weights stay
+    on the host until the first scoring moves them to the frame's
+    device."""
+    model = DeepLearningModel(parms=dict(d.get("parms") or {}))
+    model.params_tree = [
+        (torch.from_numpy(np.array(W, np.float32)),
+         torch.from_numpy(np.array(b, np.float32))) for W, b in d["params"]]
+    model.data_info = DataInfo.from_state(d["data_info"])
+    model.activation = str(d["activation"]).lower()
+    model.nclasses = int(d["nclasses"])
+    model.autoencoder = bool(d["autoencoder"])
+    model.epochs_trained = int(d.get("epochs_trained", 0))
     _set_output(model, d["output"])
     return model
 

@@ -1,10 +1,12 @@
-"""Model metrics: AUC, confusion matrix, logloss, regression errors and
-deviances, multinomial logloss / confusion matrix / hit ratios
-(counterpart of h2o3_tpu/models/metrics.py).
+"""Model metrics: AUC, confusion matrix, logloss, gains/lift and KS,
+regression errors and deviances, multinomial logloss / confusion matrix
+/ hit ratios, autoencoder reconstruction error (counterpart of
+h2o3_tpu/models/metrics.py).
 
 AUC keeps the reference's fixed 400-bin score histogram (hex/AUC2.java:36):
 one device pass accumulates per-bin positive/negative weight, the ROC
-sweep runs on the host.
+sweep and the gains/lift table (`gains_lift`, metrics.py:268) run on the
+host over the same histogram.
 """
 
 from __future__ import annotations
@@ -161,8 +163,10 @@ class ModelMetricsBinomial(ModelMetrics):
     pr_auc: float = float("nan")
     gini: float = float("nan")
     mean_per_class_error: float = float("nan")
+    ks: float = float("nan")              # Kolmogorov-Smirnov
     cm: Optional[ConfusionMatrix] = None
     auc_data: Optional[AUCData] = None
+    gains_lift_table = None               # TwoDimTable (not a field)
 
 
 @dataclass
@@ -171,6 +175,54 @@ class ModelMetricsMultinomial(ModelMetrics):
     mean_per_class_error: float = float("nan")
     cm: Optional[ConfusionMatrix] = None
     hit_ratios: Optional[List[float]] = None
+
+
+@dataclass
+class ModelMetricsAutoEncoder(ModelMetrics):
+    """Reconstruction error: the MSE over the expanded input space."""
+
+
+def gains_lift(pos_hist: np.ndarray, neg_hist: np.ndarray, groups: int = 16):
+    """Gains/lift table from the score histograms: quantile groups over
+    descending predicted probability, per group and cumulative response
+    rate, lift, capture and gain, and the KS statistic over every bin.
+    Returns (TwoDimTable, ks)."""
+    from h2o3_tpu_torch.utils.twodim import TwoDimTable
+
+    pos = np.asarray(pos_hist, np.float64)[::-1]      # descending p
+    tot = pos + np.asarray(neg_hist, np.float64)[::-1]
+    W = tot.sum()
+    P = pos.sum()
+    t = TwoDimTable("Gains/Lift Table",
+                    ["group", "cumulative_data_fraction",
+                     "lower_threshold", "response_rate", "lift",
+                     "cumulative_response_rate", "cumulative_lift",
+                     "capture_rate", "cumulative_capture_rate", "gain",
+                     "cumulative_gain", "kolmogorov_smirnov"],
+                    ["int"] + ["double"] * 11)
+    if W <= 0 or P <= 0 or P >= W:
+        return t, float("nan")
+    rate = P / W
+    nb = len(tot)
+    cw = np.cumsum(tot)
+    cp = np.cumsum(pos)
+    ks_all = np.max(np.abs(cp / P - (cw - cp) / (W - P)))
+    prev_w = prev_p = 0.0
+    for g in range(1, groups + 1):
+        target = W * g / groups
+        i = min(int(np.searchsorted(cw, target - 1e-9)), nb - 1)
+        cum_w, cum_p = float(cw[i]), float(cp[i])
+        if cum_w <= prev_w:
+            continue
+        gw, gp = cum_w - prev_w, cum_p - prev_p
+        resp = gp / gw
+        cum_resp = cum_p / cum_w
+        ks = abs(cum_p / P - (cum_w - cum_p) / (W - P))
+        t.add_row(g, cum_w / W, 1.0 - (i + 1) / nb, resp, resp / rate,
+                  cum_resp, cum_resp / rate, gp / P, cum_p / P,
+                  100 * (resp / rate - 1), 100 * (cum_resp / rate - 1), ks)
+        prev_w, prev_p = cum_w, cum_p
+    return t, float(ks_all)
 
 
 def make_regression_metrics(y, f, w, distribution=None
@@ -203,17 +255,21 @@ def make_binomial_metrics(y, p, w, domain: Optional[List[str]] = None
     """y in {0,1}, p = P(class 1); all (N,) tensors."""
     parts = {k: float(v) for k, v in _binomial_partials(y, p, w).items()}
     pos, neg = _binomial_hist(y, p, w)
-    auc = compute_auc(pos.cpu().numpy(), neg.cpu().numpy())
+    pos, neg = pos.cpu().numpy(), neg.cpu().numpy()
+    auc = compute_auc(pos, neg)
     wsum = parts["wsum"]
     if wsum == 0:
         return ModelMetricsBinomial()
     cm = auc.confusion_matrix(domain=domain)
     mse = parts["se"] / wsum
-    return ModelMetricsBinomial(
+    gl, ks = gains_lift(pos, neg)
+    mm = ModelMetricsBinomial(
         mse=mse, rmse=float(np.sqrt(mse)), nobs=wsum,
         logloss=parts["logloss"] / wsum, auc=auc.auc, pr_auc=auc.pr_auc,
         gini=auc.gini, mean_per_class_error=float(np.mean(
-            cm.errors_per_class())), cm=cm, auc_data=auc)
+            cm.errors_per_class())), ks=ks, cm=cm, auc_data=auc)
+    mm.gains_lift_table = gl
+    return mm
 
 
 def make_multinomial_metrics(y, probs, w, domain: List[str]

@@ -1,15 +1,26 @@
 """Model base: trained artifact and scoring (counterpart of
-h2o3_tpu/models/model.py).
+h2o3_tpu/models/model.py: `ModelOutput` :38, `Model` :79, `_raw_to_frame`
+:192, `_calibrated_p1` :230, `gains_lift` :289, `save`/`load` :340-388).
 
 Scoring adapts the test frame to the training columns on the host
 (column order, NA fill of missing predictors, categorical domain remap)
-and runs the per-algo `_predict_raw` on the frame's device.
+and runs the per-algo `_predict_raw` on the frame's device. A model has
+a key (its `model_id`, or one made from its class name). `save` writes
+an 8-byte magic, a u16 format version and a pickle of the model's state
+in which every tensor is a numpy array; `load` reads it back through a
+restricted unpickler (utils/unpickle.py) and puts the tensors on the
+booted device.
 """
 
 from __future__ import annotations
 
+import io
+import pickle
+import struct
+import uuid
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from h2o3_tpu_torch.core.frame import Column, Frame, NA_CAT, T_CAT, T_NUM
@@ -21,6 +32,7 @@ class ModelCategory:
     Binomial = "Binomial"
     Multinomial = "Multinomial"
     AnomalyDetection = "AnomalyDetection"
+    AutoEncoder = "AutoEncoder"
     Unknown = "Unknown"
 
 
@@ -35,6 +47,16 @@ class ModelOutput:
         self.model_category: str = ModelCategory.Unknown
         self.training_metrics: Optional[M.ModelMetrics] = None
         self.validation_metrics: Optional[M.ModelMetrics] = None
+        # cross-validation: the mean of the fold metrics, each fold's, the
+        # fold models (unless keep_cross_validation_models=False), the
+        # (n,) or (n, K) holdout predictions (with
+        # keep_cross_validation_predictions) and a digest of the fold
+        # assignment
+        self.cross_validation_metrics: Optional[M.ModelMetrics] = None
+        self.cv_fold_metrics: List[M.ModelMetrics] = []
+        self.cross_validation_models: Optional[List["Model"]] = None
+        self.cross_validation_holdout_predictions = None
+        self.fold_assignment_digest: Optional[str] = None
         self.variable_importances: Optional[Dict[str, float]] = None
         self.scoring_history: List[dict] = []
         self.run_time_ms: int = 0
@@ -54,15 +76,46 @@ def _remap_to_domain(data, from_dom: List[str], to_dom: List[str]):
                        NA_CAT)
 
 
+def _tensor_from_numpy(arr: np.ndarray) -> torch.Tensor:
+    """A saved tensor back on the booted device (the one callable a
+    model file may name, utils/unpickle.REBUILD)."""
+    from h2o3_tpu_torch.core.runtime import cluster
+
+    return torch.from_numpy(np.array(arr)).to(cluster().device)
+
+
+class _ModelPickler(pickle.Pickler):
+    """Writes every tensor as its numpy array, rebuilt by
+    _tensor_from_numpy: a pickled torch tensor would name torch's own
+    rebuild callables, which the restricted loader refuses."""
+
+    def reducer_override(self, obj):
+        if isinstance(obj, torch.Tensor):
+            return _tensor_from_numpy, (obj.detach().cpu().numpy(),)
+        return NotImplemented
+
+
 class Model:
     """Base trained model. Subclasses implement `_predict_raw(frame)` and
     set `_output.model_category`."""
 
     algo_name = "model"
+    _SAVE_MAGIC = b"H2OTORCH"
+    _SAVE_VERSION = 1
 
-    def __init__(self, parms: Optional[dict] = None):
+    def __init__(self, parms: Optional[dict] = None,
+                 key: Optional[str] = None):
         self._parms: dict = dict(parms or {})
         self._output = ModelOutput()
+        self._key = str(key or self._parms.get("model_id")
+                        or f"{type(self).__name__}_{uuid.uuid4().hex[:12]}")
+        # probability calibrator: ("platt", (a, b)) or ("isotonic",
+        # (knots x, knots y))
+        self._calibrator = None
+
+    @property
+    def key(self) -> str:
+        return self._key
 
     def _predict_raw(self, frame: Frame) -> Dict[str, Any]:
         """Regression: {"value": (N,)}; Binomial: {"probs": (N, 2)};
@@ -157,6 +210,10 @@ class Model:
             out.add("predict", Column(label, T_CAT, n, domain=list(dom)))
             for k, lvl in enumerate(dom):
                 out.add(str(lvl), Column(probs[:, k].contiguous(), T_NUM, n))
+            if self._calibrator is not None and cat == ModelCategory.Binomial:
+                pc = self._calibrated_p1(probs[:, 1])
+                out.add(f"cal_{dom[0]}", Column(1.0 - pc, T_NUM, n))
+                out.add(f"cal_{dom[1]}", Column(pc, T_NUM, n))
         elif cat == ModelCategory.AnomalyDetection:
             out.add("predict", Column(raw["score"], T_NUM, n))
             if "mean_length" in raw:
@@ -164,6 +221,20 @@ class Model:
         else:
             out.add("predict", Column(raw["value"], T_NUM, n))
         return out
+
+    def _calibrated_p1(self, p1: torch.Tensor) -> torch.Tensor:
+        """Calibrated P(class 1): Platt's sigmoid(a·logit(p) + b), or the
+        isotonic knots' interpolation clipped to [0, 1]."""
+        kind, parms = self._calibrator
+        if kind == "platt":
+            a, b = parms
+            pc = torch.clamp(p1, 1e-7, 1 - 1e-7)
+            z = torch.log(pc / (1 - pc))
+            return 1.0 / (1.0 + torch.exp(-(a * z + b)))
+        from h2o3_tpu_torch.models.isotonic import interpolate
+
+        tx, ty = parms
+        return torch.clamp(interpolate(tx, ty, p1), 0.0, 1.0)
 
     def model_performance(self, test_data: Optional[Frame] = None):
         """Training metrics, or metrics on `test_data`."""
@@ -203,8 +274,58 @@ class Model:
                 distribution=getattr(self, "_distribution", None))
         return None
 
+    def gains_lift(self, test_data: Optional[Frame] = None):
+        """The binomial gains/lift TwoDimTable: the training metrics'
+        when no frame is given."""
+        return getattr(self.model_performance(test_data),
+                       "gains_lift_table", None)
+
+    def kolmogorov_smirnov(self) -> float:
+        return float(getattr(self._output.training_metrics, "ks",
+                             float("nan")))
+
     def varimp(self) -> Optional[Dict[str, float]]:
         return self._output.variable_importances
 
+    # -- persistence ------------------------------------------------------
+    def save(self, path: str) -> str:
+        """Write the model to `path` (magic, u16 version, pickled state
+        with tensors as numpy arrays)."""
+        buf = io.BytesIO()
+        _ModelPickler(buf, protocol=4).dump((type(self), self.__dict__))
+        with open(path, "wb") as f:
+            f.write(self._SAVE_MAGIC)
+            f.write(struct.pack("<H", self._SAVE_VERSION))
+            f.write(buf.getvalue())
+        return path
+
+    @staticmethod
+    def load(path: str) -> "Model":
+        """Read a model `save` wrote; its tensors land on the booted
+        device. A file of another format, a newer version, or one that
+        names anything but the port's classes and numeric types raises
+        ValueError."""
+        from h2o3_tpu_torch.utils.unpickle import restricted_load
+
+        with open(path, "rb") as f:
+            if f.read(8) != Model._SAVE_MAGIC:
+                raise ValueError(f"{path!r} is not an h2o3_tpu_torch model "
+                                 "file")
+            (ver,) = struct.unpack("<H", f.read(2))
+            if ver > Model._SAVE_VERSION:
+                raise ValueError(
+                    f"model file version {ver} is newer than this build "
+                    f"reads ({Model._SAVE_VERSION})")
+            try:
+                cls, state = restricted_load(f, what="model file")
+            except pickle.UnpicklingError as e:
+                raise ValueError(str(e)) from e
+        if not (isinstance(cls, type) and issubclass(cls, Model)):
+            raise ValueError(f"{path!r} holds a {cls!r}, not a model")
+        obj = cls.__new__(cls)
+        obj.__dict__.update(state)
+        return obj
+
     def __repr__(self):
-        return f"<{type(self).__name__} {self._output.model_category}>"
+        return (f"<{type(self).__name__} {self._key} "
+                f"{self._output.model_category}>")

@@ -1,5 +1,6 @@
 """Compressed forest: stacked per-node tree arrays and device scoring
-(counterpart of h2o3_tpu/models/tree/compressed.py).
+(counterpart of h2o3_tpu/models/tree/compressed.py; `concat` :110,
+`forest_predict_fn` :459).
 
 The forest is dense host arrays shaped (n_trees, max_nodes): feat /
 thresh_bin / na_left / left / right / leaf_val / cat_split, plus one
@@ -126,6 +127,64 @@ class CompressedForest:
         out.cover = cover
         return out
 
+    @staticmethod
+    def concat(a: "CompressedForest", b: "CompressedForest", *,
+               scale_a: float = 1.0, scale_b: float = 1.0
+               ) -> "CompressedForest":
+        """Forest b's trees after forest a's (training continuation).
+        Node tables pad to the wider forest; b's categorical-subset rows
+        append with its split indices shifted. scale_a / scale_b rescale
+        the leaf values (DRF stores leaves divided by its tree count, so
+        a continued forest rescales both sides to n_side / n_total)."""
+        if a.nclasses != b.nclasses:
+            raise ValueError(f"concat: {a.nclasses} vs {b.nclasses} classes")
+        M = max(a.feat.shape[1], b.feat.shape[1])
+
+        def pad(x, fill):
+            x = np.asarray(x)
+            if x.shape[1] == M:
+                return x
+            out = np.full((x.shape[0], M), fill, x.dtype)
+            out[:, :x.shape[1]] = x
+            return out
+
+        maxB = max(a.cat_table.shape[1], b.cat_table.shape[1])
+
+        def padB(t):
+            t = np.asarray(t)
+            if t.shape[1] == maxB:
+                return t
+            out = np.zeros((t.shape[0], maxB), bool)
+            out[:, :t.shape[1]] = t
+            return out
+
+        b_cs = pad(b.cat_split, -1).copy()
+        b_cs[b_cs >= 0] += a.cat_table.shape[0]
+
+        def cat(fa, fb):
+            return np.concatenate([fa, fb], axis=0)
+
+        out = CompressedForest(
+            cat(pad(a.feat, -1), pad(b.feat, -1)),
+            cat(pad(a.thresh_bin, 0), pad(b.thresh_bin, 0)),
+            cat(pad(a.na_left, False), pad(b.na_left, False)),
+            cat(pad(a.left, 0), pad(b.left, 0)),
+            cat(pad(a.right, 0), pad(b.right, 0)),
+            cat(pad(a.leaf_val, 0).astype(np.float32) * np.float32(scale_a),
+                pad(b.leaf_val, 0).astype(np.float32) * np.float32(scale_b)),
+            cat(pad(a.cat_split, -1), b_cs),
+            cat(padB(a.cat_table), padB(b.cat_table)),
+            np.concatenate([np.asarray(a.tree_class),
+                            np.asarray(b.tree_class)]),
+            np.asarray(a.na_bins),
+            max_depth=max(a.max_depth, b.max_depth),
+            init_f=a.init_f, nclasses=a.nclasses)
+        out.init_class = a.init_class
+        if a.gain is not None and b.gain is not None:
+            out.gain = cat(pad(a.gain, 0), pad(b.gain, 0))
+            out.cover = cat(pad(a.cover, 0), pad(b.cover, 0))
+        return out
+
     def depths(self) -> np.ndarray:
         """(T,) depth of each tree's deepest node (0 for a stump)."""
         out = np.zeros(self.n_trees, np.int64)
@@ -230,3 +289,37 @@ def _fused_margins(X, edges, is_cat, forest: CompressedForest):
     binned = _bin_features(X, edges, is_cat, a["na_bins"])
     return (_forest_margins(binned, a, forest.max_depth, forest.n_margins)
             + forest.init_margin(X.device))
+
+
+def forest_predict_fn(device=None):
+    """(fn, example_args): the flagship's scoring step, a random but
+    structurally real forest (50 trees of depth 5 over 32 features of 20
+    bins) traversed over 1024 binned rows, built as the reference's
+    compile-check entry builds it; the tensors are on `device` (default:
+    the booted one)."""
+    from h2o3_tpu_torch.core.runtime import cluster
+
+    dev = torch.device(device) if device is not None else cluster().device
+    rng = np.random.default_rng(0)
+    T, depth, F, B, N = 50, 5, 32, 20, 1024
+    M = 2 ** (depth + 1) - 1
+    feat = np.full((T, M), -1, np.int32)
+    inner = M // 2
+    feat[:, :inner] = rng.integers(0, F, (T, inner))
+    thresh = rng.integers(0, B - 1, (T, M)).astype(np.int32)
+    left = np.zeros((T, M), np.int32)
+    right = np.zeros((T, M), np.int32)
+    for m in range(inner):
+        left[:, m], right[:, m] = 2 * m + 1, 2 * m + 2
+    forest = CompressedForest(
+        feat, thresh, np.zeros((T, M), bool), left, right,
+        rng.standard_normal((T, M)).astype(np.float32),
+        np.full((T, M), -1, np.int32), np.zeros((1, B), bool),
+        np.zeros(T, np.int32), np.full(F, B - 1, np.int32), max_depth=depth)
+    binned = torch.as_tensor(rng.integers(0, B - 1, (N, F)),
+                             dtype=torch.int32, device=dev)
+
+    def fwd(binned):
+        return forest.predict_binned(binned)
+
+    return fwd, (binned,)

@@ -1,7 +1,8 @@
 """DRF: distributed random forest (counterpart of
 h2o3_tpu/models/tree/drf.py: `_node_feat_mask_fn` :61,
 `DRFModel._margin_to_raw` :77, `DRF` defaults :106, `_mtries` :115,
-`_score_on` :122, `_fit_single` :133, `_fit_multinomial` :289).
+`_score_on` :122, `_fit_single` :133, `_fit_multinomial` :289; the
+checkpoint rescaling :159-171, :264-277, :364-376).
 
 SharedTree with a row sample per tree (sample_rate 0.632), a fresh
 mtries-subset of the features per node, leaf = weighted mean of the raw
@@ -12,6 +13,12 @@ their leaves give the out-of-bag (OOB) predictions for free; the
 training metrics are OOB, as the reference's. A class response with
 more than two levels (or binomial_double_trees) grows one tree per class
 per iteration on the class indicator.
+
+A continued forest (checkpoint) keeps its leaves divided by its own tree
+count, so the validation sum restarts at its mean times that count, and
+the joined forest rescales both parts to their share of the new total.
+The out-of-bag sums restart at zero: the bagging masks are not part of
+a model, so the continued model's OOB metrics cover the new trees only.
 """
 
 from __future__ import annotations
@@ -119,9 +126,15 @@ class DRF(SharedTree):
         max_depth = grow["max_depth"]
         maxB = int(spec.nbins.max())
         vs = self._vstate
-        v_sum = (None if vs is None else
-                 torch.zeros(vs["binned"].shape[0], dtype=torch.float32,
-                             device=dev))
+        t_base = self._ckpt_start(ntrees)
+        if vs is None:
+            v_sum = None
+        elif t_base:
+            v_sum = (self._ckpt.forest.predict_binned(vs["binned"]).float()
+                     * t_base)
+        else:
+            v_sum = torch.zeros(vs["binned"].shape[0], dtype=torch.float32,
+                                device=dev)
         oob_sum = torch.zeros(N, dtype=torch.float32, device=dev)
         oob_cnt = torch.zeros(N, dtype=torch.float32, device=dev)
         rate = float(self.params.get("sample_rate", 0.632) or 1.0)
@@ -129,7 +142,7 @@ class DRF(SharedTree):
         history, stop_metric = [], []
         packs, leaf_means, leaf_wys = [], [], []
         mask = None
-        for t in range(ntrees):
+        for t in range(t_base, ntrees):
             if rate < 1.0:
                 mask = sample_mask(root_key, t, N, rate, dev)
                 w_t = torch.where(mask, w, 0.0)
@@ -179,11 +192,15 @@ class DRF(SharedTree):
                 break
 
         # scale by the trees actually grown (early stopping may cut)
+        total = t_base + len(packs)
         trees = assemble_trees(packs, leaf_means, leaf_wys, spec, max_depth,
-                               scale=1.0 / len(packs))
+                               scale=1.0 / total)
         self._set_varimp(model, trees, history)
         forest = CompressedForest.from_host_trees(
             trees, spec, max_depth=max_depth, init_f=0.0, nclasses=1)
+        if t_base:
+            forest = CompressedForest.concat(self._ckpt.forest, forest,
+                                             scale_a=t_base / total)
         f = torch.where(oob_cnt > 0, oob_sum / torch.clamp_min(oob_cnt, 1.0),
                         0.0)
         self._oob_raw = None
@@ -210,10 +227,11 @@ class DRF(SharedTree):
         max_depth = grow["max_depth"]
         maxB = int(spec.nbins.max())
         tree_class = []
+        t_base = self._ckpt_start(ntrees, per_iter=K)
         oob_sum = torch.zeros(N, K, dtype=torch.float32, device=dev)
         oob_cnt = torch.zeros(N, dtype=torch.float32, device=dev)
         packs, leaf_means, leaf_wys = [], [], []
-        for t in range(ntrees):
+        for t in range(t_base, ntrees):
             mask, w_t = self._sample_rows(rng, N, w)
             for k in range(K):
                 masks = build_feat_masks(max_depth, feat_mask_fn, spec.F,
@@ -235,12 +253,16 @@ class DRF(SharedTree):
             if self._out_of_time():
                 break
 
+        total = t_base + len(packs) // K
         trees = assemble_trees(packs, leaf_means, leaf_wys, spec, max_depth,
-                               scale=1.0 / (len(packs) // K))
+                               scale=1.0 / total)
         self._set_varimp(model, trees, [])
         forest = CompressedForest.from_host_trees(
             trees, spec, tree_class=tree_class, max_depth=max_depth,
             nclasses=K)
+        if t_base:
+            forest = CompressedForest.concat(self._ckpt.forest, forest,
+                                             scale_a=t_base / total)
         self._oob_raw = None
         if float(torch.max(oob_cnt)) > 0:
             p = _normalised_votes(

@@ -55,6 +55,7 @@ class IsolationForest(SharedTree):
     algo_name = "isolationforest"
     model_class = IsolationForestModel
     supervised = False
+    supports_checkpoint = False      # the reference's has no continuation
 
     @classmethod
     def default_params(cls):

@@ -3,7 +3,8 @@ h2o3_tpu/models/tree/shared_tree.py: `_pre_fn` :41, `_post_fn` :71,
 `grow_tree` :104, `SharedTreeModel._margin_to_raw` :210, the leaf hooks
 :265-294, `_fit` :364, `_fit_single` :471, `_fit_multinomial` :625,
 `_sample_rows` :816, `_feat_mask_fn` :825, `_should_score`/`_early_stop`
-:848-865).
+:848-865; checkpoints `_ckpt_start`/`_ckpt_varimp0` :343-361 and
+`_finalize_varimp` :875; `predict_leaf_node_assignment` :134).
 
 Per tree: residuals and leaf Newton-step rows (`_pre`, with the row
 sample of sample_rate < 1), one device-grown tree (device_tree.
@@ -18,6 +19,13 @@ one transfer at the end of training.
 Row samples come from core/random.py (the reference's jax.random stream,
 bit for bit); column masks come from a host numpy Generator seeded as
 the reference seeds it, and are drawn in the reference's order.
+
+A checkpoint model continues: its BinSpec bins the frame, its forest's
+margins are where boosting restarts, the tree index t (and so every
+row-sample key and the learning-rate annealing) runs on from its tree
+count, the host Generator is seeded with (seed, its tree count), split
+gains accumulate onto its raw importances, and the new trees append to
+its forest (`CompressedForest.concat`).
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ import numpy as np
 import torch
 
 from h2o3_tpu_torch.core import random as rnd
-from h2o3_tpu_torch.core.frame import Frame
+from h2o3_tpu_torch.core.frame import Column, Frame
 from h2o3_tpu_torch.core.ops import segment_sum
 from h2o3_tpu_torch.models.data_info import DataInfo
 from h2o3_tpu_torch.models.distribution import (auto_distribution,
@@ -114,6 +122,40 @@ class SharedTreeModel(Model):
     def _predict_raw(self, frame: Frame):
         return self._margin_to_raw(self._margin(frame))
 
+    def predict_leaf_node_assignment(self, frame: Frame,
+                                     type: str = "Path") -> Frame:
+        """Each row's leaf in each tree: 'Path', the L/R walk from the
+        root as an enum ("(root)" for a stump), or 'Node_ID', the leaf's
+        node index. One column per tree, T<t> (T<g>.C<k> for per-class
+        forests). Leaves come from the training BinSpec's bins and the
+        forest's lockstep walk, the same walk scoring sums over."""
+        if type not in ("Path", "Node_ID"):
+            raise ValueError(f"leaf assignment type {type!r} "
+                             "(Path or Node_ID)")
+        adapted = self.adapt_test(frame)
+        dev = adapted.col(adapted.names[0]).data.device
+        leaf = self.forest.leaf_index(
+            self.spec.bin_columns(adapted)).cpu().numpy()
+        fo = self.forest
+        tcls = np.asarray(fo.tree_class)
+        per_class = fo.per_class_trees
+        counters: dict = {}
+        out = Frame()
+        for t in range(fo.n_trees):
+            if per_class:
+                k = int(tcls[t])
+                g = counters.get(k, 0)
+                counters[k] = g + 1
+                name = f"T{g + 1}.C{k + 1}"
+            else:
+                name = f"T{t + 1}"
+            if type == "Node_ID":
+                out.add(name, Column.from_numpy(leaf[:, t].astype(np.int32),
+                                                device=dev))
+                continue
+            out.add(name, _path_column(fo, t, leaf[:, t], dev))
+        return out
+
     def _margin_to_raw(self, f):
         """Margins -> raw prediction dict (pure margin math)."""
         cat = self._output.model_category
@@ -134,6 +176,7 @@ class SharedTree(ModelBuilder):
     history, early stopping and variable importances."""
 
     model_class = SharedTreeModel
+    supports_checkpoint = True
 
     @classmethod
     def default_params(cls):
@@ -143,6 +186,8 @@ class SharedTree(ModelBuilder):
                   "min_split_improvement": 1e-5,
                   "sample_rate": 1.0, "col_sample_rate_per_tree": 1.0,
                   "score_each_iteration": False, "score_tree_interval": 0,
+                  "calibrate_model": False, "calibration_frame": None,
+                  "calibration_method": "AUTO",
                   "distribution": "AUTO", "tweedie_power": 1.5,
                   "quantile_alpha": 0.5,
                   # accepted as in the reference, whose huber keeps delta
@@ -206,6 +251,26 @@ class SharedTree(ModelBuilder):
         return f_used + contrib, (None if f_valid is None
                                   else f_valid + vcontrib)
 
+    # checkpoints -----------------------------------------------------------
+    def _ckpt_start(self, ntrees: int, per_iter: int = 1) -> int:
+        """Iterations the checkpoint forest already holds (0 when training
+        fresh); ntrees is the total and must exceed them."""
+        prev = getattr(self, "_ckpt", None)
+        if prev is None:
+            return 0
+        done = prev.forest.n_trees // per_iter
+        if ntrees <= done:
+            raise ValueError(
+                f"checkpoint model already has {done} iterations; ntrees "
+                f"({ntrees}) must be greater")
+        return done
+
+    def _ckpt_varimp0(self) -> Dict[str, float]:
+        """The checkpoint model's raw (unnormalised) importances, where
+        split gains go on accumulating."""
+        prev = getattr(self, "_ckpt", None)
+        return dict(getattr(prev, "_varimp_raw", {}) or {}) if prev else {}
+
     # fit loops -------------------------------------------------------------
     def _fit(self, train: Frame) -> SharedTreeModel:
         model = self.model_class(parms=dict(self.params))
@@ -221,9 +286,21 @@ class SharedTree(ModelBuilder):
             dist_name, tweedie_power=float(self.params["tweedie_power"]),
             quantile_alpha=float(self.params["quantile_alpha"]))
         model._distribution = dist
-        spec = BinSpec.build(train, out.names,
-                             nbins=int(self.params["nbins"]),
-                             nbins_cats=int(self.params["nbins_cats"]))
+        prev = self._resolve_checkpoint()
+        if prev is not None:
+            if not isinstance(prev, SharedTreeModel) or prev.forest is None:
+                raise ValueError("checkpoint model has no forest to continue")
+            if prev._output.names != out.names \
+                    or prev._output.domains != out.domains:
+                raise ValueError(
+                    "checkpoint: training frame columns/domains differ from "
+                    f"the original run ({prev._output.names} vs {out.names})")
+            spec = prev.spec
+        else:
+            spec = BinSpec.build(train, out.names,
+                                 nbins=int(self.params["nbins"]),
+                                 nbins_cats=int(self.params["nbins_cats"]))
+        self._ckpt = prev
         model.spec = spec
         binned = spec.bin_columns(train)
         N = binned.shape[0]
@@ -234,7 +311,10 @@ class SharedTree(ModelBuilder):
         y = DataInfo.clean_response(y_col.data).float()
         offset = _offset(train, self.params.get("offset_column"), N,
                          binned.device)
-        rng = np.random.default_rng(self._seed())
+        # a continued run seeds its host draws with (seed, trees done):
+        # the bare seed would replay the original run's draws
+        rng = (np.random.default_rng([self._seed(), prev.forest.n_trees])
+               if prev is not None else np.random.default_rng(self._seed()))
         ntrees = int(self.params["ntrees"])
         self._train_frame_ref = train      # OOB metric routing (DRF)
         self._vstate = self._validation_state(model, spec)
@@ -248,6 +328,7 @@ class SharedTree(ModelBuilder):
                     model, binned, y, w, offset, spec, dist, rng, ntrees)
         finally:
             self._vstate = None
+            self._ckpt = None
         model._output.run_time_ms = int((time.time() - t0) * 1000)
         return model
 
@@ -285,27 +366,40 @@ class SharedTree(ModelBuilder):
         """Boosting loop for the single-margin families; returns the
         forest."""
         N = binned.shape[0]
-        num = float(torch.sum(dist.init_f_num(w, y, offset)))
-        den = float(torch.sum(dist.init_f_denom(w, y, offset)))
-        init_f = float(dist.link(torch.tensor(num / max(den, 1e-12),
-                                              dtype=torch.float32)))
-        if dist.name in ("bernoulli", "quasibinomial"):
-            # only the log-odds prior is clamped
-            init_f = float(np.clip(init_f, -19, 19))
-        f = torch.full((N,), init_f, dtype=torch.float32,
-                       device=binned.device) + offset
+        t_base = self._ckpt_start(ntrees)
+        if t_base:
+            # continued: margins restart from the checkpoint forest's
+            pf = self._ckpt.forest
+            init_f = pf.init_f
+            f = pf.predict_binned(binned) + offset
+        else:
+            num = float(torch.sum(dist.init_f_num(w, y, offset)))
+            den = float(torch.sum(dist.init_f_denom(w, y, offset)))
+            init_f = float(dist.link(torch.tensor(num / max(den, 1e-12),
+                                                  dtype=torch.float32)))
+            if dist.name in ("bernoulli", "quasibinomial"):
+                # only the log-odds prior is clamped
+                init_f = float(np.clip(init_f, -19, 19))
+            f = torch.full((N,), init_f, dtype=torch.float32,
+                           device=binned.device) + offset
 
         clip = self._leaf_clip()
         grow = self._grow_args()
         max_depth = grow["max_depth"]
         maxB = int(spec.nbins.max())
         vs = self._vstate
-        f_valid = None if vs is None else init_f + vs["offset"]
+        if vs is None:
+            f_valid = None
+        elif t_base:
+            f_valid = (self._ckpt.forest.predict_binned(vs["binned"])
+                       + vs["offset"])
+        else:
+            f_valid = init_f + vs["offset"]
         rate = float(self.params.get("sample_rate", 1.0) or 1.0)
         root_key = rnd.PRNGKey(self._seed())
         history, stop_metric = [], []
         packs, leaf_vals, leaf_wys = [], [], []
-        for t in range(ntrees):
+        for t in range(t_base, ntrees):
             f_used, lr, keys = self._tree_margin(rng, t, f)
             z, w_t, num_r, den_r = self._pre(dist, y, f_used, w, root_key, t,
                                              rate)
@@ -340,8 +434,11 @@ class SharedTree(ModelBuilder):
 
         trees = assemble_trees(packs, leaf_vals, leaf_wys, spec, max_depth)
         self._set_varimp(model, trees, history)
-        return CompressedForest.from_host_trees(
+        forest = CompressedForest.from_host_trees(
             trees, spec, max_depth=max_depth, init_f=init_f, nclasses=1)
+        if t_base:
+            forest = CompressedForest.concat(self._ckpt.forest, forest)
+        return forest
 
     # multinomial: K trees per iteration -------------------------------------
     def _fit_multinomial(self, model, binned, y, w, offset, spec, K, rng,
@@ -350,14 +447,22 @@ class SharedTree(ModelBuilder):
         dev = binned.device
         yi = y.long()
         vs = self._vstate
-        # init: log class priors
-        pri = segment_sum(yi, w, K).cpu().numpy()     # class weights
-        pri = np.maximum(pri / max(pri.sum(), 1e-12), 1e-9)
-        init = np.log(pri).astype(np.float32)
-        init_t = torch.as_tensor(init, device=dev)
-        f = init_t.expand(N, K).clone()
-        f_valid = (None if vs is None else
-                   init_t.expand(vs["binned"].shape[0], K).clone())
+        t_base = self._ckpt_start(ntrees, per_iter=K)
+        if t_base:
+            pf = self._ckpt.forest
+            init = np.asarray(pf.init_class, np.float32)
+            f = pf.predict_binned(binned).float()
+            f_valid = (None if vs is None else
+                       pf.predict_binned(vs["binned"]).float())
+        else:
+            # init: log class priors
+            pri = segment_sum(yi, w, K).cpu().numpy()     # class weights
+            pri = np.maximum(pri / max(pri.sum(), 1e-12), 1e-9)
+            init = np.log(pri).astype(np.float32)
+            init_t = torch.as_tensor(init, device=dev)
+            f = init_t.expand(N, K).clone()
+            f_valid = (None if vs is None else
+                       init_t.expand(vs["binned"].shape[0], K).clone())
 
         clip = self._leaf_clip()
         grow = self._grow_args()
@@ -368,7 +473,7 @@ class SharedTree(ModelBuilder):
         rate = float(self.params.get("sample_rate", 1.0) or 1.0)
         tree_class, history, stop_metric = [], [], []
         packs, leaf_vals, leaf_wys = [], [], []
-        for t in range(ntrees):
+        for t in range(t_base, ntrees):
             masks = build_feat_masks(max_depth, self._feat_mask_fn(rng, spec),
                                      spec.F, maxB)
             w_t = sampled_weights(w, root_key, t, rate)
@@ -416,6 +521,8 @@ class SharedTree(ModelBuilder):
             trees, spec, tree_class=tree_class, max_depth=max_depth,
             init_f=0.0, nclasses=K)
         forest.init_class = init          # added per class at scoring
+        if t_base:
+            forest = CompressedForest.concat(self._ckpt.forest, forest)
         return forest
 
     # sampling ---------------------------------------------------------------
@@ -473,7 +580,10 @@ class SharedTree(ModelBuilder):
 
     # varimp -----------------------------------------------------------------
     def _set_varimp(self, model, trees, history) -> None:
-        varimp: Dict[str, float] = {}
+        """Split gains summed by feature onto the checkpoint's, kept raw
+        (`_varimp_raw`, what a continuation starts from) and normalised
+        to a maximum of 1."""
+        varimp: Dict[str, float] = self._ckpt_varimp0()
         names = model._output.names
         for tree in trees:
             for n in tree.nodes:
@@ -481,11 +591,36 @@ class SharedTree(ModelBuilder):
                     nm = names[n.split.feat]
                     varimp[nm] = varimp.get(nm, 0.0) + max(n.split.gain, 0.0)
         model._output.scoring_history = history
+        model._varimp_raw = dict(varimp)
         if varimp:
             top = max(varimp.values()) or 1.0
             model._output.variable_importances = {
                 k: v / top for k, v in sorted(varimp.items(),
                                               key=lambda kv: -kv[1])}
+
+
+def _path_column(fo, t: int, leaf: np.ndarray, dev) -> Column:
+    """Tree t's root-to-leaf L/R walks as an enum column: the domain is
+    the sorted walks of the leaves some row reached ("(root)" for a
+    stump), as interning the strings would make it, built per leaf and
+    gathered, not per row."""
+    feat, left, right = (np.asarray(a[t]) for a in (fo.feat, fo.left,
+                                                    fo.right))
+    paths = [""] * feat.shape[0]
+    stack = [(0, "")]
+    while stack:
+        node, prefix = stack.pop()
+        paths[node] = prefix
+        if feat[node] >= 0:
+            stack.append((int(right[node]), prefix + "R"))
+            stack.append((int(left[node]), prefix + "L"))
+    reached = np.unique(leaf)
+    names = [paths[i] or "(root)" for i in reached]
+    order = sorted(range(len(names)), key=names.__getitem__)
+    lut = np.zeros(feat.shape[0], np.int32)
+    lut[reached[order]] = np.arange(len(order), dtype=np.int32)
+    return Column.from_numpy(lut[leaf], ctype="enum",
+                             domain=[names[i] for i in order], device=dev)
 
 
 def _leaf_update(vals, row_leaf):

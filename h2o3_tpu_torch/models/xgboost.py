@@ -2,7 +2,7 @@
 `_ALIASES` :29, `XGBoost.default_params` :53, `translate_param` :87,
 `_fit` :91, `_fit_gblinear` :107, `_fit_single_dart` :143 as the fit loop's `_tree_margin`
 and `_add_tree` hooks, `_leaf_den_offset` :283,
-`_leaf_gamma` :287).
+`_leaf_gamma` :287; dart refuses a checkpoint :161).
 
 The booster is the port's GBM engine (the same histogram tree grower,
 so the same hand-written kernel on the card) under XGBoost's parameter
@@ -122,6 +122,12 @@ class XGBoost(GBM):
         model = glm._fit(train)
         model._parms["booster"] = "gblinear"
         return model
+
+    def _ckpt_start(self, ntrees: int, per_iter: int = 1) -> int:
+        done = super()._ckpt_start(ntrees, per_iter)
+        if done and self._booster() == "dart":
+            raise ValueError("booster='dart' does not support checkpoints")
+        return done
 
     def _tree_margin(self, rng, t, f):
         """booster='dart' (XGBoost's DartBooster, normalize_type 'tree'):

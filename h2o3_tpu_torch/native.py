@@ -1,11 +1,14 @@
-"""Build and load the port's host C++ library (``csrc/csv_parser.cpp``):
-the CSV parser of the ingest path and its time-column parser.
+"""Build and load the port's host C++ library: ``csrc/csv_parser.cpp``,
+the CSV parser of the ingest path and its time-column parser, and
+``csrc/threefry.cpp``, the host walk of DeepLearning's key chain,
+compiled together into one shared library.
 
 Counterpart of h2o3_tpu/native/loader.py (`_build` :27, `get_lib` :64):
-the source compiles with the host C++ compiler (``$CXX``, else ``g++``,
+the sources compile with the host C++ compiler (``$CXX``, else ``g++``,
 the compiler nvcc drives) into ``h2o3_tpu_torch/_build/``, keyed by a
-hash of the source and the flags, on first use; the library is loaded
-with ctypes. A failed build raises: no path parses CSV another way.
+hash of the sources and the flags, on first use; the library is loaded
+with ctypes. A failed build raises: no path parses CSV or walks the key
+chain another way.
 ``treeshap.cpp`` joins this library with the explain module (ROADMAP A12).
 
 ctypes releases the GIL for the length of each call, so parses of
@@ -25,6 +28,7 @@ from pathlib import Path
 import numpy as np
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "csv_parser.cpp"
+THREEFRY_SOURCE = SOURCE.with_name("threefry.cpp")
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # -ffp-contract=off: the number parser's multiply-adds must round as
 # written, never fuse, or a float could differ from the reference's
@@ -46,6 +50,8 @@ SIGNATURES = {
     "h2o_record_ends": (_L, [_P, _L, _I, _L, _P, _L, _P]),
     "h2o_time_format": (_I, [_P, _L]),
     "h2o_parse_times": (None, [_P, _P, _P, _L, _I, _P]),
+    "h2o_split_chain": (None, [ctypes.c_uint32, ctypes.c_uint32, _L,
+                               ctypes.c_int32, _P, _P]),
 }
 
 _LOCK = threading.Lock()
@@ -56,15 +62,17 @@ def cxx() -> str:
     """The host C++ compiler: $CXX, else g++ on PATH."""
     cand = os.environ.get("CXX") or shutil.which("g++")
     if not cand:
-        raise RuntimeError("no host C++ compiler: the port's CSV parser "
+        raise RuntimeError("no host C++ compiler: the port's host library "
                            "builds with g++ (or $CXX)")
     return cand
 
 
 def lib_path() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes())
+    h = hashlib.sha256()
+    for source in (SOURCE, THREEFRY_SOURCE):
+        h.update(source.read_bytes())
     h.update(" ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"csv_parser-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"host-{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
@@ -75,17 +83,20 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}"
                         ".tmp")
-    proc = subprocess.run([cxx(), *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+    srcs = (SOURCE, THREEFRY_SOURCE)
+    proc = subprocess.run([cxx(), *CXX_FLAGS, "-o", str(tmp),
+                           *map(str, srcs)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"building {SOURCE.name} failed "
+        names = " + ".join(s.name for s in srcs)
+        raise RuntimeError(f"building {names} failed "
                            f"(rc={proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)           # atomic: concurrent builds agree
     return out
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded library, built on first use."""
+    """The loaded host library, built on first use."""
     global _LIB
     with _LOCK:
         if _LIB is None:
@@ -216,3 +227,18 @@ def parse_times(raw: np.ndarray, offs: np.ndarray, na: np.ndarray,
         lib().h2o_parse_times(_ptr(raw), _ptr(offs), _ptr(na), n, fmt,
                               _ptr(out))
     return out
+
+
+def split_chain(key, steps: int, num: int):
+    """Walk `steps` links of key <- split(key, num)[0] from the (2,) key
+    `key` (see h2o_split_chain). -> ((steps, num - 1, 2) int64 subkeys of
+    each step, the (2,) int64 key after the last step), on the CPU."""
+    import torch
+
+    k0, k1 = (int(v) for v in key.tolist())
+    out = np.empty((max(int(steps), 0), num - 1, 2), np.uint32)
+    key_out = np.empty(2, np.uint32)
+    lib().h2o_split_chain(k0, k1, int(steps), int(num), _ptr(out),
+                          _ptr(key_out))
+    return (torch.from_numpy(out.astype(np.int64)),
+            torch.from_numpy(key_out.astype(np.int64)))

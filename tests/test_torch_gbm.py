@@ -89,21 +89,50 @@ def test_scoring_adapts_test_frames_like_jax(cl, monkeypatch):
 
 
 def test_unported_parameters_raise():
-    """Cross-validation, checkpoints and calibration still raise at any
-    value but the reference's default (ROADMAP C9); the parameters the
-    port has run."""
+    """The parameters the port once refused (cross-validation,
+    calibration, checkpoints and export) run now, and default to the
+    reference's values; what still raises is a checkpoint named by a
+    string key, which needs the DKV (ROADMAP A14), and a dart booster
+    with a checkpoint (ValueError, as in the reference)."""
+    from h2o3_tpu.models.tree.gbm import GBM as JGBM
+
     th.init(device="cpu")
     _, tf = both_frames(train_cols(n=100))
-    for kw in ({"nfolds": 3}, {"checkpoint": "m"},
-               {"calibrate_model": True}, {"fold_assignment": "Modulo"},
-               {"keep_cross_validation_models": False},
-               {"keep_cross_validation_predictions": True},
-               {"calibration_frame": tf},
-               {"calibration_method": "IsotonicRegression"}):
-        with pytest.raises(NotImplementedError):
-            th.GBM(ntrees=1, **kw).train(y="y", training_frame=tf)
-        with pytest.raises(NotImplementedError):
-            th.GLM(**kw)
+    _, tc = both_frames(train_cols(n=64, seed=9))
+    ref = JGBM.default_params()
+    for k in ("nfolds", "fold_column", "fold_assignment",
+              "keep_cross_validation_models",
+              "keep_cross_validation_predictions", "calibrate_model",
+              "calibration_frame", "calibration_method", "checkpoint",
+              "export_checkpoints_dir"):
+        assert th.GBM().params[k] == ref[k], k
+    runs = ({"nfolds": 3}, {"nfolds": 2, "fold_assignment": "Modulo"},
+            {"nfolds": 2, "keep_cross_validation_models": False},
+            {"nfolds": 2, "keep_cross_validation_predictions": True},
+            {"calibrate_model": True, "calibration_frame": tc},
+            {"calibrate_model": True, "calibration_frame": tc,
+             "calibration_method": "IsotonicRegression"})
+    for kw in runs:
+        m = th.GBM(ntrees=1, **kw).train(y="y", training_frame=tf)
+        out = m._output
+        assert (out.cross_validation_metrics is not None) == \
+            ("nfolds" in kw), kw
+        assert (out.cross_validation_models is not None) == (
+            "nfolds" in kw and "keep_cross_validation_models" not in kw), kw
+        assert (out.cross_validation_holdout_predictions is not None) == \
+            ("keep_cross_validation_predictions" in kw), kw
+        assert (m._calibrator is not None) == ("calibrate_model" in kw), kw
+    m1 = th.GBM(ntrees=1).train(y="y", training_frame=tf)
+    assert th.GBM(ntrees=2, checkpoint=m1).train(
+        y="y", training_frame=tf).forest.n_trees == 2
+    assert th.GLM(nfolds=3).train(
+        y="y", training_frame=tf)._output.cross_validation_metrics
+    with pytest.raises(NotImplementedError, match="A14"):
+        th.GBM(ntrees=2, checkpoint="m").train(y="y", training_frame=tf)
+    d1 = th.XGBoost(ntrees=1, booster="dart").train(y="y", training_frame=tf)
+    with pytest.raises(ValueError, match="dart"):
+        th.XGBoost(ntrees=2, booster="dart", checkpoint=d1).train(
+            y="y", training_frame=tf)
     with pytest.raises(ValueError):
         th.GBM(not_a_param=1)
     _, tv = both_frames(train_cols(n=64, seed=3))
@@ -139,6 +168,7 @@ _BUILDERS = {
     "GLM": ("h2o3_tpu.models.glm", "GLM"),
     "GAM": ("h2o3_tpu.models.gam", "GAM"),
     "RuleFit": ("h2o3_tpu.models.rulefit", "RuleFit"),
+    "DeepLearning": ("h2o3_tpu.models.deeplearning", "DeepLearning"),
 }
 
 

@@ -115,3 +115,42 @@ def frames_bitwise(a, b, ctx=""):
         else:
             assert_bitwise(ca.data.cpu().numpy(), cb.data.cpu().numpy(),
                            (ctx, nm))
+
+
+def dl_cols(kind, n=640, seed=3):
+    """The flagship's features (8 numeric, 2 enums) with a binomial,
+    3-class ("multinomial"), numeric ("regression") or no
+    ("autoencoder") response."""
+    cols = flagship_cols(n, seed=seed)
+    rng = np.random.default_rng(seed + 100)
+    x0, x1 = cols["n0"][0], cols["n1"][0]
+    if kind == "multinomial":
+        k = np.digitize(x0 + 0.5 * rng.standard_normal(n), [-0.5, 0.5])
+        cols["y"] = (np.array(["a", "b", "c"], object)[k], "enum")
+    elif kind == "regression":
+        cols["y"] = (1.5 * x0 - x1 + 0.3 * rng.standard_normal(n), None)
+    elif kind == "autoencoder":
+        del cols["y"]
+    return cols
+
+
+def carry_forest(jm):
+    """A JAX-trained tree model's state as numpy arrays and plain values
+    (the input of convert.gbm_model_from_numpy and its siblings)."""
+    fo, sp, o = jm.forest, jm.spec, jm._output
+    forest = {k: np.asarray(getattr(fo, k)) for k in
+              ("feat", "thresh_bin", "na_left", "left", "right", "leaf_val",
+               "cat_split", "cat_table", "tree_class", "na_bins")}
+    forest |= {"max_depth": fo.max_depth, "init_f": fo.init_f,
+               "nclasses": fo.nclasses, "init_class": fo.init_class}
+    return {
+        "forest": forest,
+        "spec": {"names": list(sp.names), "is_cat": np.asarray(sp.is_cat),
+                 "nbins": np.asarray(sp.nbins),
+                 "edges": [np.asarray(e) for e in sp.edges],
+                 "cards": np.asarray(sp.cards)},
+        "output": {"names": list(o.names), "domains": dict(o.domains),
+                   "response_domain": o.response_domain,
+                   "model_category": o.model_category,
+                   "response_name": o.response_name},
+    }
