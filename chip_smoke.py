@@ -32,7 +32,12 @@ through the port's public entry points:
   and ordinal (L-BFGS) GLMs and XGBoost gblinear on the flagship's
   frames; GAM (one column per basis type) and RuleFit at its defaults
   (50 DRF trees of depth 3, so the kernel runs, then a lasso lambda
-  search) on 200k flagship rows.
+  search) on 200k flagship rows;
+- Rapids and the frame ops: the reference benchmark's three eager
+  Rapids statements over its 2M-row frame (held bit for bit to a numpy
+  float32 evaluation), a sort of that frame, the dryrun's joins at 1M
+  left rows, a group-by of the flagship frame and the verify recipe's
+  H2OFrame surface on an imported CSV; this path launches no kernel.
 It checks the card's models and imports against the same port on the
 CPU and times
 the kernel at the level shapes of each configuration beside its memory
@@ -104,6 +109,17 @@ DL_CARD_CPU_ATOL = 1e-5
 FRAMEWORK = dict(nfolds=5, calibration_rows=200_000)
 GLM_PRED_ATOL = 1e-4
 C10_PRED_ATOL = 5e-3
+# phase 3o: h2o3_tpu/bench.py run_rapids' frame and statements (:264-297,
+# 2M rows, seed 4, one warm pass then 5 timed ones); the dryrun's joins
+# (__graft_entry__.py:176-184) at 1M left rows; phase 4 at 100k rows
+RAPIDS = dict(n_rows=2_000_000, reps=5, seed=4, join_rows=1_000_000,
+              join_right=200_000, cpu_rows=100_000)
+# card vs CPU: libm's float32 functions differ in the last ulps between
+# the card and the CPU, the gamma family's reflection subtracts terms of
+# order 1, and cumulative sums scan in parallel on the card (ROADMAP C16)
+UNARY_CVC = dict(rtol=1e-6, scale=0.1)
+GAMMA_CVC = dict(rtol=4e-6, scale=1.0)
+CUMSUM_CVC = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -1547,6 +1563,381 @@ def phase_card_vs_cpu_framework(h2o, dev):
           f"CV metric diff {mdiff:.3e}")
 
 
+# ---------------------------------------------------------------------------
+# Rapids and the frame ops (phase 3o; phase 4's card-vs-CPU checks)
+# ---------------------------------------------------------------------------
+
+def rapids_arrays(n_rows, seed=4):
+    """run_rapids' columns (h2o3_tpu/bench.py:264-271): a standard normal
+    with 2% of the rows NA, b standard normal, c uniform in [0.5, 2]."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal(n_rows)
+    a[rng.integers(0, n_rows, n_rows // 50)] = np.nan
+    b = rng.standard_normal(n_rows)
+    c = rng.uniform(0.5, 2.0, n_rows)
+    return a, b, c
+
+
+def rapids_frame(h2o, device, key, n_rows, seed=4):
+    fr = h2o.Frame(key=key)
+    for name, v in zip("abc", rapids_arrays(n_rows, seed)):
+        fr.add(name, h2o.Column.from_numpy(v, device=device))
+    fr.install()
+    return fr
+
+
+def rapids_statements(key):
+    """run_rapids' three statements (h2o3_tpu/bench.py:276-297)."""
+    A, B, C = (f"(cols {key} [{i}])" for i in range(3))
+    clip = f"(ifelse (> {A} 2) 2 (ifelse (< {A} -2) -2 {A}))"
+    flags = (f"(& (| (> {B} 0.25) (< {C} 1)) "
+             f"(& (== (is.na {A}) 0) (>= {B} -3)))")
+    binned = (f"(ifelse (< {A} -1) 0 (ifelse (< {A} 0) 1 "
+              f"(ifelse (< {A} 1) 2 (ifelse (< {A} 2) 3 4))))")
+    return [f"(ifelse {flags} (+ {clip} {binned}) (- {binned} {clip}))",
+            f"(- (+ (abs (- (* {A} 0.5) {C})) (* {B} 0.25)) (* {A} 0.125))",
+            f"(sum (ifelse (> (+ {A} {B}) 0) (- {C} 0.5) (+ {C} 0.5)))"]
+
+
+def _f32(v):
+    return np.float32(v)
+
+
+def _np_cmp(op, x, y):
+    """H2O's comparison on float32 host arrays: NA on either side is NA."""
+    r = op(x, y).astype(np.float32)
+    return np.where(np.isnan(x) | np.isnan(y), _f32(np.nan), r)
+
+
+def _np_ifelse(c, yes, no):
+    return np.where(np.isnan(c), _f32(np.nan),
+                    np.where(c != 0, yes, no)).astype(np.float32)
+
+
+def _np_and(x, y):
+    na = np.isnan(x) | np.isnan(y)
+    return np.where((x == 0) | (y == 0), _f32(0),
+                    np.where(na, _f32(np.nan), _f32(1)))
+
+
+def _np_or(x, y):
+    hit = ((x != 0) & ~np.isnan(x)) | ((y != 0) & ~np.isnan(y))
+    return np.where(hit, _f32(1), np.where(np.isnan(x) | np.isnan(y),
+                                           _f32(np.nan), _f32(0)))
+
+
+def rapids_numpy(a, b, c):
+    """The three statements evaluated in numpy float32 on the host, one
+    float32 operation per prim, with H2O's NA semantics; the third as a
+    float64 sum."""
+    import operator as o
+
+    A, B, C = (np.asarray(v, np.float64).astype(np.float32)
+               for v in (a, b, c))
+    clip = _np_ifelse(_np_cmp(o.gt, A, _f32(2)), _f32(2),
+                      _np_ifelse(_np_cmp(o.lt, A, _f32(-2)), _f32(-2), A))
+    isna = np.where(np.isnan(A), _f32(1), _f32(0))
+    flags = _np_and(_np_or(_np_cmp(o.gt, B, _f32(0.25)),
+                           _np_cmp(o.lt, C, _f32(1))),
+                    _np_and(_np_cmp(o.eq, isna, _f32(0)),
+                            _np_cmp(o.ge, B, _f32(-3))))
+    binned = _f32(4)
+    for cut in (2, 1, 0, -1):              # the innermost ifelse first
+        binned = _np_ifelse(_np_cmp(o.lt, A, _f32(cut)), _f32(cut + 1),
+                            binned)
+    s1 = _np_ifelse(flags, clip + binned, binned - clip)
+    s2 = (np.abs(A * _f32(0.5) - C) + B * _f32(0.25)) - A * _f32(0.125)
+    s3 = _np_ifelse(_np_cmp(o.gt, A + B, _f32(0)), C - _f32(0.5),
+                    C + _f32(0.5))
+    return s1, s2, float(np.nansum(s3.astype(np.float64)))
+
+
+def _host_bits_equal(t, want) -> bool:
+    return same_bits(t.cpu(), torch.from_numpy(
+        np.ascontiguousarray(want, np.float32)))
+
+
+def _verify_recipe(h2o, tmp):
+    """The H2OFrame surface of the repository's verify recipe on the
+    card: a CSV written here, imported; no as_data_frame (the card's
+    machine has no pandas)."""
+    import os
+
+    path = os.path.join(tmp, "recipe.csv")
+    with open(path, "w") as f:
+        f.write("g,x\n")
+        f.writelines(f"g{i % 3},{i}\n" for i in range(1000))
+    fr = h2o.import_file(path)
+    check(isinstance(fr, h2o.H2OFrame) and h2o.DKV.get(fr.key) is fr,
+          "import_file did not install an H2OFrame")
+    check(fr.col("x").data.device == h2o.cluster().device,
+          "imported columns not on the booted device")
+    mean, med = fr["x"].mean(), fr["x"].median()
+    check(mean == 499.5 and med == 499.5, f"mean {mean}, median {med}")
+    gb = fr.group_by("g").count().mean("x").get_frame()
+    check(list(gb.col("g").values()) == ["g0", "g1", "g2"]
+          and gb.col("nrow").to_numpy().tolist() == [334, 333, 333]
+          and gb.col("mean_x").to_numpy().tolist() == [499.5, 499.0, 500.0],
+          "group_by count/mean wrong")
+    tr, te = fr.split_frame([0.8], seed=1)
+    n_tr = int((np.random.default_rng(1).random(1000) < 0.8).sum())
+    check(tr.nrows == n_tr and te.nrows == 1000 - n_tr,
+          f"split_frame sizes {tr.nrows}/{te.nrows}, expected {n_tr}")
+    pos = fr[fr["x"] > 0]
+    check(pos.nrows == 999 and pos["x"].min() == 1.0, "fr[fr['x'] > 0]")
+    print(f"verify recipe: mean {mean!r} median {med!r}, 3 groups, split "
+          f"{tr.nrows}/{te.nrows}, filter {pos.nrows} rows")
+
+
+def phase_rapids(h2o, dev, tmp):
+    """Rapids and the frame ops on the card: run_rapids' statements (eager
+    rows/s, the device-busy share of one pass, device ops per
+    statement), the sort, the dryrun's joins, a group-by of the flagship
+    frame and the verify recipe. Returns the histogram kernel's launches
+    over the phase (none: this path runs no kernel)."""
+    from h2o3_tpu_torch.models.tree import hist_gather as hg
+    from h2o3_tpu_torch.ops.groupby import GroupBy
+    from h2o3_tpu_torch.ops.merge import merge
+    from h2o3_tpu_torch.ops.sort import sort_frame, sort_order
+
+    hg.launches = 0
+    n, reps = RAPIDS["n_rows"], RAPIDS["reps"]
+    a, b, c = rapids_arrays(n, RAPIDS["seed"])
+    fr = rapids_frame(h2o, dev, "rapids_bench", n, RAPIDS["seed"])
+    stmts = rapids_statements("rapids_bench")
+    sess = h2o.Session("bench")
+
+    def run_pass():
+        out = [h2o.exec_rapids(st, sess) for st in stmts]
+        torch.cuda.synchronize()
+        return out
+
+    got = run_pass()                                      # warm
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        run_pass()
+    dt = time.perf_counter() - t0
+    metric("rapids_eager_rows_per_sec", n * len(stmts) * reps / dt,
+           f"({reps} passes of 3 statements over {n} rows in {dt!r} s)")
+    s1, s2, s3 = rapids_numpy(a, b, c)
+    check(_host_bits_equal(got[0].col(0).data, s1),
+          "statement 1 differs from numpy float32")
+    check(_host_bits_equal(got[1].col(0).data, s2),
+          "statement 2 differs from numpy float32")
+    rel = abs(got[2] - s3) / abs(s3)
+    check(rel <= 1e-5, f"statement 3 sum {got[2]!r} vs {s3!r} ({rel:.2e})")
+    print(f"statements 1, 2 bitwise equal to numpy float32; statement 3 "
+          f"sum {got[2]!r} vs float64 {s3!r} (rel {rel:.2e})")
+    for i, st in enumerate(stmts):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            h2o.exec_rapids(st, sess)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / reps
+        busy, ops = device_time(
+            lambda: [h2o.exec_rapids(st, sess) for _ in range(reps)])
+        print(f"statement {i + 1}: wall {wall * 1e3:.3f} ms, {ops / reps} "
+              f"device ops and {busy / reps / 1e3:.3f} ms device time a "
+              f"run (mean of {reps})")
+    phase_profile("one eager Rapids pass (3 statements, 2M rows)", run_pass)
+
+    sort_frame(fr, ["a"])
+    torch.cuda.synchronize()
+    sort_reps = max(reps // 2, 2)
+    t0 = time.perf_counter()
+    for _ in range(sort_reps):
+        srt = sort_frame(fr, ["a"])
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    metric("rapids_sort_rows_per_sec", n * sort_reps / dt,
+           f"({sort_reps} sorts of {n} rows in {dt!r} s)")
+    a32 = a.astype(np.float32)
+    want = np.argsort(np.where(np.isnan(a32), np.inf, a32), kind="stable")
+    perm = sort_order(fr, ["a"], [True]).cpu().numpy()
+    check(np.array_equal(perm, want), "sort permutation differs from "
+                                      "numpy's stable argsort")
+    check(_host_bits_equal(srt.col("a").data, a32[want]),
+          "sorted column differs")
+    print("sort permutation bitwise equal to numpy's stable argsort of "
+          "where(isnan, inf, a)")
+
+    nl, nr = RAPIDS["join_rows"], RAPIDS["join_right"]
+    rng = np.random.default_rng(RAPIDS["seed"])
+    x1 = rng.standard_normal(nl)
+    lk = (np.arange(nl) % 16).astype(np.float64)
+    lfr = h2o.Frame.from_numpy(np.stack([lk, x1], 1), names=["id", "a"],
+                               device=dev)
+    rfr = h2o.Frame.from_numpy(np.stack([np.arange(16.0),
+                                         np.arange(16.0) * 3.0], 1),
+                               names=["id", "b"], device=dev)
+    rk = rng.permutation(nr).astype(np.float64)
+    mk = rng.integers(0, nr, nl).astype(np.float64)
+    mlf = h2o.Frame.from_numpy(np.stack([mk, np.arange(nl, dtype=float)], 1),
+                               names=["k", "lv"], device=dev)
+    mrf = h2o.Frame.from_numpy(np.stack([rk, 2 * rk + 1], 1),
+                               names=["k", "rv"], device=dev)
+    merge(lfr, rfr), merge(mlf, mrf)                       # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    j1 = merge(lfr, rfr)
+    j2 = merge(mlf, mrf)
+    torch.cuda.synchronize()
+    metric("merge_s", time.perf_counter() - t0,
+           f"(the dryrun's {nl} x 16 join and a {nl} x {nr} many-to-one "
+           "join)")
+    check(j1.nrows == nl and j2.nrows == nl, "join row counts")
+    check(_host_bits_equal(j1.col("b").data, lk * 3), "dryrun join: b != "
+                                                      "3 id")
+    check(_host_bits_equal(j1.col("id").data, lk)
+          and _host_bits_equal(j1.col("a").data, x1),
+          "dryrun join: pairs not in the left rows' order")
+    check(_host_bits_equal(j2.col("lv").data, np.arange(nl))
+          and _host_bits_equal(j2.col("rv").data, 2 * mk + 1),
+          "many-to-one join: pairs differ from the host reference")
+    print(f"joins: {j1.nrows} and {j2.nrows} rows, pairs in the host "
+          "reference's order")
+
+    ffr = flagship_frame(h2o, dev, FLAGSHIP["n_rows"])
+
+    def groupby():
+        out = GroupBy(ffr, ["c0", "c1"]).count().mean("n0").sd("n0") \
+            .get_frame()
+        torch.cuda.synchronize()
+        return out
+
+    groupby()
+    t0 = time.perf_counter()
+    g = groupby()
+    metric("groupby_s", time.perf_counter() - t0,
+           f"({FLAGSHIP['n_rows']} rows by c0 x c1: count, mean, sd)")
+    cols = flagship_arrays(FLAGSHIP["n_rows"])
+    code = (np.searchsorted(["a", "b", "c", "d"], cols["c0"][0]) * 3
+            + np.searchsorted(["x", "y", "z"], cols["c1"][0]))
+    x = cols["n0"][0].astype(np.float32).astype(np.float64)
+    cnt = np.bincount(code, minlength=12)
+    mean = np.bincount(code, x, 12) / cnt
+    sd = np.sqrt((np.bincount(code, x * x, 12) - cnt * mean ** 2)
+                 / (cnt - 1))
+    check(np.array_equal(g.col("nrow").to_numpy(), cnt.astype(np.float32)),
+          "group counts differ")
+    dm = float(np.abs(g.col("mean_n0").to_numpy() - mean).max())
+    ds = float(np.abs(g.col("sd_n0").to_numpy() / sd - 1).max())
+    check(dm <= 1e-5 and ds <= 1e-5, f"group means {dm:.2e}, sds {ds:.2e} "
+                                     "off numpy float64")
+    again = groupby()
+    check(all(same_bits(g.col(nm).data.cpu(), again.col(nm).data.cpu())
+              for nm in ("nrow", "mean_n0", "sd_n0")),
+          "group-by rerun differs")
+    print(f"group-by: 12 groups, counts exact, means within {dm:.2e} and "
+          f"sds within {ds:.2e} (relative) of numpy float64, rerun bitwise")
+    _verify_recipe(h2o, tmp)
+    sess.end()
+    h2o.DKV.clear()
+    launches = hg.launches
+    check(launches == 0, f"the frame ops launched hist_gather {launches} "
+                         "times")
+    return launches
+
+
+def _cvc_close(label, card, cpu, rtol, scale):
+    """|card - cpu| <= rtol * max(|cpu|, scale), with NaN and inf where
+    the CPU has them; returns the worst scaled difference."""
+    a = card.cpu().double().numpy()
+    b = cpu.double().numpy()
+    fin = np.isfinite(a) & np.isfinite(b)
+    err = np.abs(a[fin] - b[fin]) / np.maximum(np.abs(b[fin]), scale)
+    worst = float(err.max()) if err.size else 0.0
+    same = (np.array_equal(np.isnan(a), np.isnan(b))
+            and np.array_equal(a[np.isinf(a)], b[np.isinf(b)]))
+    check(same and worst <= rtol,
+          f"card vs CPU {label}: {worst:.2e} > {rtol} or NaN/inf differ")
+    return worst
+
+
+def phase_card_vs_cpu_rapids(h2o, dev):
+    """The statements, sorts, joins, group-bys and window ops on 100k
+    rows on the card and on the CPU: arithmetic, comparison and ifelse
+    results, permutations, join pairs, group counts, sums and levels,
+    ranks and difflag1 bit for bit; the libm prims and cumsum/cumprod
+    within the stated bounds."""
+    from h2o3_tpu_torch.ops.groupby import GroupBy
+    from h2o3_tpu_torch.ops.merge import merge
+    from h2o3_tpu_torch.ops.sort import sort_order
+
+    n = RAPIDS["cpu_rows"]
+    unary = ["exp", "log", "sqrt", "sin", "cos", "tan", "tanh", "log1p",
+             "expm1", "asinh", "cospi"]
+    gamma = ["lgamma", "digamma", "trigamma"]
+    res = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        key = f"rapids_cvc_{name}"
+        fr = rapids_frame(h2o, d, key, n, RAPIDS["seed"])
+        sess = h2o.Session(key)
+        r = {"stmt": [h2o.exec_rapids(st, sess)
+                      for st in rapids_statements(key)]}
+        for op in unary + gamma:
+            r[op] = h2o.exec_rapids(f"({op} (cols {key} [0]))", sess)
+        r["pow"] = h2o.exec_rapids(f"(^ (cols {key} [2]) (cols {key} [1]))",
+                                   sess)
+        for op in ("cumsum", "cumprod", "cummin", "cummax"):
+            r[op] = h2o.exec_rapids(f"({op} (cols {key} [2]) 0)", sess)
+        r["perm"] = sort_order(fr, ["a"], [True])
+        r["perm2"] = sort_order(fr, ["b", "a"], [False, True])
+        rng = np.random.default_rng(5)
+        lf = h2o.Frame.from_numpy(np.stack([
+            rng.integers(0, 20_000, n).astype(float),
+            np.arange(n, dtype=float)], 1), names=["k", "lv"], device=d)
+        rf = h2o.Frame.from_numpy(np.stack([
+            rng.integers(0, 25_000, 20_000).astype(float),
+            np.arange(20_000, dtype=float)], 1), names=["k", "rv"], device=d)
+        r["inner"] = merge(lf, rf)
+        r["full"] = merge(lf, rf, all_x=True, all_y=True)
+        ffr = flagship_frame(h2o, d, n)
+        ffr.install()
+        r["groups"] = GroupBy(ffr, ["c0", "c1"]).count().sum("n0") \
+            .mean("n0").sd("n0").min("n1").max("n1").get_frame()
+        r["rank"] = h2o.exec_rapids(
+            f'(rank_within_groupby {ffr.key} [8 9] [0] [1] "r" 0)', sess)
+        r["diff"] = h2o.exec_rapids(f"(difflag1 (cols {key} [0]))", sess)
+        res[name] = r
+        sess.end()
+    card, cpu = res["card"], res["cpu"]
+    for i in (0, 1):
+        check(same_bits(card["stmt"][i].col(0).data.cpu(),
+                        cpu["stmt"][i].col(0).data),
+              f"card vs CPU: statement {i + 1} differs")
+    rel3 = abs(card["stmt"][2] - cpu["stmt"][2]) / abs(cpu["stmt"][2])
+    check(rel3 <= 1e-6, f"card vs CPU: statement 3 sum off by {rel3:.2e}")
+    for op in ("cummin", "cummax"):
+        check(same_bits(card[op].col(0).data.cpu(), cpu[op].col(0).data),
+              f"card vs CPU: {op} differs")
+    for k in ("perm", "perm2"):
+        check(torch.equal(card[k].cpu(), cpu[k]), f"card vs CPU: {k}")
+    for k in ("inner", "full", "groups", "rank"):
+        same_frames(f"card vs CPU {k}", card[k], cpu[k])
+    check(same_bits(card["diff"].col(0).data.cpu(), cpu["diff"].col(0).data),
+          "card vs CPU: difflag1 differs")
+    worst = {}
+    for op in unary + ["pow"]:
+        worst[op] = _cvc_close(op, card[op].col(0).data,
+                               cpu[op].col(0).data, **UNARY_CVC)
+    for op in gamma:
+        worst[op] = _cvc_close(op, card[op].col(0).data,
+                               cpu[op].col(0).data, **GAMMA_CVC)
+    c = rapids_arrays(n, RAPIDS["seed"])[2]
+    cs = _cvc_close("cumsum", card["cumsum"].col(0).data,
+                    cpu["cumsum"].col(0).data, CUMSUM_CVC,
+                    float(np.abs(c).sum()))
+    cp = _cvc_close("cumprod", card["cumprod"].col(0).data,
+                    cpu["cumprod"].col(0).data, CUMSUM_CVC, 0.0)
+    print(f"card vs cpu Rapids {n // 1000}k rows: statements 1-2, cummin/"
+          "cummax, sort permutations, inner and full joins, group-by, "
+          f"rank_within_groupby and difflag1 bitwise; statement 3 sum rel "
+          f"{rel3:.2e}; cumsum {cs:.2e} of sum|c|, cumprod rel {cp:.2e}; "
+          f"libm prims' worst scaled difference {json.dumps(worst)}")
+    h2o.DKV.clear()
+
+
 def host_profile(label, train, top=10):
     """Host time by function of the port (cumulative, cProfile) over one
     call of `train`."""
@@ -1982,9 +2373,13 @@ def main() -> int:
         launches["gbm_imported_csv"], parse_path = phase_ingest(
             h2o, dev, tmp, flagship_model)
         del flagship_model
+        print("== phase 3o: Rapids and the frame ops (run_rapids' 2M-row "
+              "frame, sort, joins, group-by, the verify recipe)")
+        launches["rapids"] = phase_rapids(h2o, dev, tmp)
         print("== phase 4: card vs CPU")
         phase_card_vs_cpu(h2o, dev, parse_path)
         phase_card_vs_cpu_framework(h2o, dev)
+        phase_card_vs_cpu_rapids(h2o, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("== phase 5: kernel times at each configuration's level shapes")

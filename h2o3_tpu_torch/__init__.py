@@ -2,7 +2,13 @@
 
     import h2o3_tpu_torch as h2o
     h2o.init()                      # the CUDA device; device="cpu" on a CPU
-    fr = h2o.import_file("data.csv")   # or h2o.Frame.from_numpy(x), ...
+    fr = h2o.import_file("data.csv")   # an H2OFrame in the DKV
+    fr["x"].mean(); fr["x"].median(); fr[fr["x"] > 0]
+    fr.group_by("g").count().mean("x").get_frame()
+    tr, te = fr.split_frame([0.8], seed=1)
+    fr.sort("x"); fr.merge(other); fr.impute("x", method="median")
+    h2o.exec_rapids("(+ (cols fr.hex [0]) 5)")   # Rapids statements
+    h2o.H2OFrame({"a": [1.0, 2.0]}); h2o.create_frame(rows=100, seed=1)
     m = h2o.GBM(ntrees=20, max_depth=5).train(y="y", training_frame=fr)
     m.predict(fr); m.model_performance()
     h2o.DRF(ntrees=50).train(y="y", training_frame=fr, validation_frame=va)
@@ -27,8 +33,10 @@ its first launch (or all at once by ``kernels.build_all``), and the C++
 CSV parser of ``import_file`` on its first parse (``native.build``).
 """
 
+from h2o3_tpu_torch.core.dkv import DKV, Scope
 from h2o3_tpu_torch.core.frame import Column, Frame
 from h2o3_tpu_torch.core.runtime import cluster, init
+from h2o3_tpu_torch.frame_factory import H2OFrame, create_frame
 from h2o3_tpu_torch.ingest.parser import (import_file, parse_setup,
                                           upload_file)
 from h2o3_tpu_torch.ingest.sql import import_sql_select, import_sql_table
@@ -44,13 +52,22 @@ from h2o3_tpu_torch.models.tree.gbm import GBM, GBMModel
 from h2o3_tpu_torch.models.tree.isofor import (IsolationForest,
                                                IsolationForestModel)
 from h2o3_tpu_torch.models.xgboost import XGBoost, XGBoostModel
+from h2o3_tpu_torch.rapids import Session, exec_rapids
 
 load_model = Model.load
 
-__all__ = ["Column", "DRF", "DRFModel", "DeepLearning", "DeepLearningModel",
-           "ExtendedIsolationForest", "ExtendedIsolationForestModel",
-           "Frame", "GAM", "GAMModel", "GBM", "GBMModel", "GLM", "GLMModel",
-           "IsolationForest", "IsolationForestModel", "Model", "RuleFit",
-           "RuleFitModel", "XGBoost", "XGBoostModel", "cluster",
-           "import_file", "import_sql_select", "import_sql_table", "init",
-           "load_model", "parse_setup", "upload_file"]
+
+def ls():
+    """The DKV's keys (h2o.ls)."""
+    return sorted(DKV.keys())
+
+
+__all__ = ["Column", "DKV", "DRF", "DRFModel", "DeepLearning",
+           "DeepLearningModel", "ExtendedIsolationForest",
+           "ExtendedIsolationForestModel", "Frame", "GAM", "GAMModel", "GBM",
+           "GBMModel", "GLM", "GLMModel", "H2OFrame", "IsolationForest",
+           "IsolationForestModel", "Model", "RuleFit", "RuleFitModel",
+           "Scope", "Session", "XGBoost", "XGBoostModel", "cluster",
+           "create_frame", "exec_rapids", "import_file", "import_sql_select",
+           "import_sql_table", "init", "load_model", "ls", "parse_setup",
+           "upload_file"]

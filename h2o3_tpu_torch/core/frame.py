@@ -11,15 +11,23 @@ integers), since float32 holds epoch milliseconds only to ~2e5 ms.
 String and uuid columns live on the host only. The reference pads rows
 to a multiple of its mesh; on one device nothing is padded, so a column
 holds exactly `nrows` values.
+
+A Frame lives under a DKV key (`install`/`delete`); columns are
+immutable, so column replacement and Rapids assignment are
+copy-on-write. Every Column carries a process-unique `token`, the
+identity Rapids sessions count references by.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+
+from h2o3_tpu_torch.core.dkv import Key, Keyed
 
 T_NUM = "real"
 T_INT = "int"
@@ -30,6 +38,9 @@ T_UUID = "uuid"
 
 NA_CAT = -1
 
+# Column identity tokens; next() on a count is atomic under the GIL
+_COLUMN_TOKENS = itertools.count(1)
+
 
 def code_dtype(n_levels: int):
     """Narrowest signed code dtype that fits the domain plus the -1 NA
@@ -39,6 +50,11 @@ def code_dtype(n_levels: int):
     if n_levels <= 32766:
         return np.int16
     return np.int32
+
+
+def torch_code_dtype(n_levels: int) -> torch.dtype:
+    """code_dtype as a torch dtype."""
+    return torch.from_numpy(np.zeros(0, code_dtype(n_levels))).dtype
 
 
 def numeric_host(arr, ctype: str) -> np.ndarray:
@@ -70,7 +86,7 @@ class Column:
     whose values live in `host_data`."""
 
     __slots__ = ("_data", "_loader", "ctype", "domain", "host_data", "nrows",
-                 "_rollups")
+                 "_rollups", "_token")
 
     def __init__(self, data, ctype: str, nrows: int,
                  domain: Optional[List[str]] = None,
@@ -82,6 +98,13 @@ class Column:
         self.host_data = host_data
         self.nrows = int(nrows)
         self._rollups = None
+        self._token = next(_COLUMN_TOKENS)
+
+    @property
+    def token(self) -> int:
+        """Process-unique identity of this column; unlike id() it is never
+        reused, so it can key maps that outlive the column."""
+        return self._token
 
     @property
     def data(self):
@@ -146,6 +169,49 @@ class Column:
         data = torch.from_numpy(np.ascontiguousarray(buf)).to(_device(device))
         return Column(data, ctype, n, domain=domain, host_data=host)
 
+    @staticmethod
+    def _from_strings(arr) -> "Column":
+        a = np.asarray(arr, dtype=object)
+        return Column(None, T_STR, len(a), host_data=a)
+
+    @staticmethod
+    def from_device(data, ctype: str, nrows: int,
+                    domain: Optional[List[str]] = None) -> "Column":
+        return Column(data, ctype, nrows, domain=domain)
+
+    def with_data(self, data, ctype: Optional[str] = None,
+                  domain: Optional[List[str]] = None) -> "Column":
+        return Column(data, ctype or self.ctype, self.nrows,
+                      domain=domain if domain is not None else self.domain)
+
+    def valid_mask(self) -> torch.Tensor:
+        """Bool tensor of the non-NA rows."""
+        if self.ctype == T_CAT:
+            return self.data >= 0
+        return ~torch.isnan(self.data)
+
+    @property
+    def device(self) -> torch.device:
+        """The device of the column's tensor; host-only columns report
+        the runtime's."""
+        d = self.data
+        return d.device if d is not None else _device(None)
+
+    def min(self):
+        return self.rollups.min
+
+    def max(self):
+        return self.rollups.max
+
+    def mean(self):
+        return self.rollups.mean
+
+    def sigma(self):
+        return self.rollups.sigma
+
+    def na_count(self):
+        return self.rollups.na_count
+
     @property
     def is_numeric(self) -> bool:
         return self.ctype in (T_NUM, T_INT)
@@ -203,14 +269,15 @@ def _intern_domain(a: np.ndarray) -> Tuple[List[str], np.ndarray]:
     return dom, codes
 
 
-class Frame:
-    """Named, ordered collection of equal-length Columns. `key` names the
-    frame (import_file's destination_frame); a frame parsed from CSV
-    keeps its parse options in `_parse_opts` for streaming appends."""
+class Frame(Keyed):
+    """Named, ordered collection of equal-length Columns under a DKV key
+    (import_file's destination_frame, or a generated one); a frame parsed
+    from CSV keeps its parse options in `_parse_opts` for streaming
+    appends."""
 
     def __init__(self, columns: Optional[Dict[str, Column]] = None,
                  key: Optional[str] = None):
-        self.key = key
+        super().__init__(key or Key.make("Frame"))
         self._parse_opts = None
         self._names: List[str] = []
         self._cols: Dict[str, Column] = {}
@@ -222,12 +289,19 @@ class Frame:
         return list(self._names)
 
     @property
+    def columns(self) -> List[Column]:
+        return [self._cols[n] for n in self._names]
+
+    @property
     def ncols(self) -> int:
         return len(self._names)
 
     @property
     def nrows(self) -> int:
         return self._cols[self._names[0]].nrows if self._names else 0
+
+    nrow = nrows  # h2o-py aliases
+    ncol = ncols
 
     @property
     def types(self) -> Dict[str, str]:
@@ -237,6 +311,13 @@ class Frame:
         if isinstance(name_or_idx, int):
             return self._cols[self._names[name_or_idx]]
         return self._cols[name_or_idx]
+
+    def __getitem__(self, sel):
+        if isinstance(sel, (str, int)):
+            return self.col(sel)
+        if isinstance(sel, (list, tuple)):
+            return self.subframe(sel)
+        raise TypeError(f"bad frame selector {sel!r}")
 
     def __contains__(self, name: str) -> bool:
         return name in self._cols
@@ -248,6 +329,15 @@ class Frame:
         if name in self._cols:
             raise ValueError(f"duplicate column {name!r}")
         self._names.append(name)
+        self._cols[name] = col
+        return self
+
+    def replace(self, name: str, col: Column) -> "Frame":
+        """Copy-on-write column replacement (adds an unknown name)."""
+        if name not in self._cols:
+            return self.add(name, col)
+        if col.nrows != self.nrows:
+            raise ValueError("row mismatch")
         self._cols[name] = col
         return self
 
@@ -268,12 +358,56 @@ class Frame:
         self._cols.pop(name)
         return self
 
-    def subframe(self, names: Sequence[Union[str, int]]) -> "Frame":
-        fr = Frame()
+    def rename(self, old: str, new: str) -> "Frame":
+        i = self._names.index(old)
+        self._names[i] = new
+        self._cols[new] = self._cols.pop(old)
+        return self
+
+    def subframe(self, names: Sequence[Union[str, int]],
+                 key: Optional[str] = None) -> "Frame":
+        fr = Frame(key=key)
         for n in names:
             nm = self._names[n] if isinstance(n, int) else n
             fr.add(nm, self._cols[nm])
         return fr
+
+    def cbind(self, other: "Frame") -> "Frame":
+        """Columns of self, then other's; a clashing name gets "0"
+        appended until it is unique (H2O's dedup)."""
+        fr = Frame()
+        for n in self._names:
+            fr.add(n, self._cols[n])
+        for n in other._names:
+            nm = n
+            while nm in fr._cols:
+                nm = nm + "0"
+            fr.add(nm, other._cols[n])
+        return fr
+
+    def summary(self) -> Dict[str, dict]:
+        out = {}
+        for n in self._names:
+            c = self._cols[n]
+            if c.is_numeric or c.ctype == T_TIME:
+                r = c.rollups
+                out[n] = {"type": c.ctype, "min": r.min, "max": r.max,
+                          "mean": r.mean, "sigma": r.sigma,
+                          "na_count": r.na_count}
+            elif c.is_categorical:
+                out[n] = {"type": c.ctype, "cardinality": c.cardinality,
+                          "na_count": c.rollups.na_count}
+            else:
+                out[n] = {"type": c.ctype}
+        return out
+
+    def to_pandas(self):
+        """The frame as a pandas DataFrame of user-facing values. pandas
+        is imported here only: the port runs without it, and this call
+        raises ImportError where it is not installed."""
+        import pandas as pd
+
+        return pd.DataFrame({n: self._cols[n].values() for n in self._names})
 
     def to_numpy(self) -> np.ndarray:
         return np.column_stack([self._cols[n].to_numpy()
@@ -311,4 +445,5 @@ class Frame:
         return fr
 
     def __repr__(self) -> str:
-        return f"<Frame {self.nrows}x{self.ncols} {self._names[:8]}>"
+        return (f"<Frame {self._key} {self.nrows}x{self.ncols} "
+                f"{self._names[:8]}>")

@@ -49,7 +49,8 @@ import torch
 
 from h2o3_tpu_torch import native
 from h2o3_tpu_torch.core.frame import (NA_CAT, T_CAT, T_INT, T_NUM, T_STR,
-                                       T_TIME, Column, code_dtype)
+                                       T_TIME, Column, code_dtype,
+                                       torch_code_dtype)
 
 
 class ChunkLayoutError(Exception):
@@ -390,11 +391,6 @@ def remap_lut(gdom: List[str], dom: List[str]) -> np.ndarray:
     return lut
 
 
-def _code_dtype(n_levels: int) -> torch.dtype:
-    """core.frame.code_dtype as a torch dtype."""
-    return torch.from_numpy(np.zeros(0, code_dtype(n_levels))).dtype
-
-
 def remap_codes(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """Gather local int32 codes through `lut` (NA -> the last slot)."""
     idx = codes.long()
@@ -605,7 +601,7 @@ def parse_csv_sharded(paths: Sequence[str], setup, device=None
     for i in cat_idx:
         parts = sorted(cat_doms[i], key=lambda p: p[0])
         gdom = sorted(set().union(*(d for _o, _n, d in parts)))
-        cdt = _code_dtype(len(gdom))
+        cdt = torch_code_dtype(len(gdom))
         codes = torch.empty(total, dtype=cdt, device=dev)
         with (torch.cuda.stream(sink.stream) if sink.cuda
               else contextlib.nullcontext()):
@@ -821,7 +817,7 @@ def _append_csv_locked(frame, text: str, separator: Optional[str]) -> int:
             old_dom = list(c.domain or [])
             new_dom, bcodes, old_lut = grow_domain(old_dom, val[1], val[2])
             old = c.data
-            cdt = _code_dtype(len(new_dom))
+            cdt = torch_code_dtype(len(new_dom))
             if new_dom != old_dom:
                 old = remap_codes(torch.from_numpy(old_lut).to(old.device),
                                   old)

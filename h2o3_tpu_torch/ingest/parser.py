@@ -1,4 +1,4 @@
-"""Parse orchestration: files -> typed columns -> Frame on the device
+"""Parse orchestration: files -> typed columns -> an H2OFrame on the device
 (counterpart of h2o3_tpu/ingest/parser.py).
 
 CSV files take the chunked path (ingest/chunked.py): record-aligned ~4 MB
@@ -10,9 +10,8 @@ columns before the copy to the device; those whole-column host buffers
 count as ``coordinator_ingest_bytes``. Other formats parse on the host
 (ingest/formats.py, avro.py) and take the monolithic assembly.
 
-No path parses CSV with pandas or with Python. `destination_frame`
-becomes the frame's key; registering it in a key-value store waits for
-the port's DKV (ROADMAP A14).
+No path parses CSV with pandas or with Python. The frame is installed
+in the DKV under `destination_frame`, or under a generated key.
 """
 
 from __future__ import annotations
@@ -25,8 +24,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from h2o3_tpu_torch.core.frame import (T_CAT, T_STR, T_TIME, Column, Frame,
+from h2o3_tpu_torch.core.frame import (T_CAT, T_STR, T_TIME, Column,
                                        code_dtype)
+from h2o3_tpu_torch.frame_factory import H2OFrame
 from h2o3_tpu_torch.ingest.parse_setup import (ParseSetup, guess_setup,
                                                open_stream)
 
@@ -190,8 +190,9 @@ def _column(val, t: str, device) -> Column:
 
 
 def parse(paths: Sequence[str], setup: ParseSetup,
-          destination_frame: Optional[str] = None, device=None) -> Frame:
-    """Parse files into one Frame on `device` (default: the runtime's).
+          destination_frame: Optional[str] = None, device=None) -> H2OFrame:
+    """Parse files into one H2OFrame on `device` (default: the
+    runtime's), installed under `destination_frame`.
     Multi-file CSV parses must share the first file's header."""
     from h2o3_tpu_torch import persist
     from h2o3_tpu_torch.ingest import chunked
@@ -219,7 +220,7 @@ def parse(paths: Sequence[str], setup: ParseSetup,
         except chunked.ChunkLayoutError:
             got = None
         if got is not None:
-            fr = Frame(key=destination_frame)
+            fr = H2OFrame(destination_frame=destination_frame)
             for name in setup.column_names:
                 fr.add(name, got[name])
             _note_parse_opts(fr, setup)
@@ -253,7 +254,7 @@ def parse(paths: Sequence[str], setup: ParseSetup,
                    if setup.column_names
                    and len(setup.column_names) == len(names)
                    else list(names))
-    fr = Frame(key=destination_frame)
+    fr = H2OFrame(destination_frame=destination_frame)
     for name, final, t in zip(names, final_names, types):
         parts = [r[0][name] for r in results]
         if isinstance(parts[0], tuple):
@@ -269,7 +270,7 @@ def import_file(path: str, destination_frame: Optional[str] = None,
                 header: int = 0, sep: Optional[str] = None,
                 col_names: Optional[List[str]] = None,
                 col_types=None, na_strings=None, device=None,
-                **kw) -> Frame:
+                **kw) -> H2OFrame:
     """h2o.import_file: resolves URIs through the persist registry,
     expands globs and directories, guesses the setup and parses onto
     `device` (default: the runtime's, CUDA unless booted on the CPU)."""
@@ -366,7 +367,7 @@ class _ParquetBatchLoader:
 
 
 def lazy_import_parquet(path: str, destination_frame: Optional[str] = None,
-                        device=None) -> Frame:
+                        device=None) -> H2OFrame:
     """A Parquet frame whose numeric and time columns stay on disk until
     first touched (water/fvec/FileVec.java): enum and string columns load
     at once (their domains are frame metadata); first-touch numeric loads
@@ -381,7 +382,7 @@ def lazy_import_parquet(path: str, destination_frame: Optional[str] = None,
     schema = pq.read_schema(local)
     names = [f.name for f in schema]
     types = [formats._arrow_field_type(f.type) for f in schema]
-    fr = Frame(key=destination_frame)
+    fr = H2OFrame(destination_frame=destination_frame)
     eager = [nm for nm, t in zip(names, types) if t in (T_CAT, T_STR)]
     eager_cols = {}
     if eager:

@@ -17,7 +17,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from h2o3_tpu_torch.core.frame import T_CAT, Column, Frame
+from h2o3_tpu_torch.core.frame import T_CAT, Column
+from h2o3_tpu_torch.frame_factory import H2OFrame
 
 
 def _connect(connection_url: str, username: Optional[str],
@@ -62,10 +63,11 @@ def import_sql_select(connection_url: str, select_query: str,
                       username: Optional[str] = None,
                       password: Optional[str] = None,
                       destination_frame: Optional[str] = None,
-                      device=None) -> Frame:
+                      device=None) -> H2OFrame:
     """h2o.import_sql_select: run the query, type the result columns
-    (numeric stays numeric; everything else interns as enum) and build a
-    Frame on `device` (default: the runtime's)."""
+    (numeric stays numeric; everything else interns as enum) and build an
+    H2OFrame on `device` (default: the runtime's), installed under
+    `destination_frame`."""
     conn = _connect(connection_url, username, password)
     try:
         cur = conn.cursor()
@@ -74,7 +76,7 @@ def import_sql_select(connection_url: str, select_query: str,
         rows = cur.fetchall()
     finally:
         conn.close()
-    fr = Frame(key=destination_frame)
+    fr = H2OFrame(destination_frame=destination_frame)
     for j, name in enumerate(names):
         vals = [r[j] for r in rows]
         numeric = all(v is None or isinstance(v, (int, float)) for v in vals)
@@ -94,7 +96,7 @@ def import_sql_table(connection_url: str, table: str,
                      username: Optional[str] = None,
                      password: Optional[str] = None,
                      destination_frame: Optional[str] = None,
-                     device=None) -> Frame:
+                     device=None) -> H2OFrame:
     """h2o.import_sql_table (SQLManager.java importSqlTable)."""
     if not table.replace("_", "").replace(".", "").isalnum():
         raise ValueError(f"suspicious table name {table!r}")

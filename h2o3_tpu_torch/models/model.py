@@ -5,11 +5,12 @@ h2o3_tpu/models/model.py: `ModelOutput` :38, `Model` :79, `_raw_to_frame`
 Scoring adapts the test frame to the training columns on the host
 (column order, NA fill of missing predictors, categorical domain remap)
 and runs the per-algo `_predict_raw` on the frame's device. A model has
-a key (its `model_id`, or one made from its class name). `save` writes
+a key (its `model_id`, or one made from its class name) and lives in the
+DKV under it from construction on, as in the reference. `save` writes
 an 8-byte magic, a u16 format version and a pickle of the model's state
 in which every tensor is a numpy array; `load` reads it back through a
 restricted unpickler (utils/unpickle.py) and puts the tensors on the
-booted device.
+booted device, and installs the model under its key.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from h2o3_tpu_torch.core.dkv import Keyed
 from h2o3_tpu_torch.core.frame import Column, Frame, NA_CAT, T_CAT, T_NUM
 from h2o3_tpu_torch.models import metrics as M
 
@@ -95,7 +97,7 @@ class _ModelPickler(pickle.Pickler):
         return NotImplemented
 
 
-class Model:
+class Model(Keyed):
     """Base trained model. Subclasses implement `_predict_raw(frame)` and
     set `_output.model_category`."""
 
@@ -107,15 +109,13 @@ class Model:
                  key: Optional[str] = None):
         self._parms: dict = dict(parms or {})
         self._output = ModelOutput()
+        # a plain str, so that a saved model names no key class
         self._key = str(key or self._parms.get("model_id")
                         or f"{type(self).__name__}_{uuid.uuid4().hex[:12]}")
         # probability calibrator: ("platt", (a, b)) or ("isotonic",
         # (knots x, knots y))
         self._calibrator = None
-
-    @property
-    def key(self) -> str:
-        return self._key
+        self.install()
 
     def _predict_raw(self, frame: Frame) -> Dict[str, Any]:
         """Regression: {"value": (N,)}; Binomial: {"probs": (N, 2)};
@@ -324,6 +324,7 @@ class Model:
             raise ValueError(f"{path!r} holds a {cls!r}, not a model")
         obj = cls.__new__(cls)
         obj.__dict__.update(state)
+        obj.install()
         return obj
 
     def __repr__(self):

@@ -16,8 +16,8 @@ A tree builder may calibrate its binomial probabilities on a
 calibration frame (Platt scaling or isotonic regression), and a builder
 that supports it continues training from a checkpoint model. The
 preconditions of all three raise before anything trains. A checkpoint
-named by a string key needs the DKV (ROADMAP A14) and raises
-NotImplementedError; durable job progress waits for A14 as well.
+may be the Model or its DKV key. Durable job progress waits for the
+cross-process DKV (ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from h2o3_tpu_torch.core.dkv import DKV
 from h2o3_tpu_torch.core.frame import Frame
 from h2o3_tpu_torch.models.model import Model, ModelCategory
 
@@ -237,12 +238,9 @@ class ModelBuilder:
                 or self.params.get("fold_column"):
             raise ValueError("checkpoint cannot be combined with "
                              "cross-validation")
-        if not isinstance(ck, Model):
-            raise NotImplementedError(
-                f"checkpoint {ck!r}: a checkpoint named by key needs the "
-                "DKV, which is not ported yet (ROADMAP A14); pass the "
-                "Model itself")
-        prev = ck
+        prev = ck if isinstance(ck, Model) else DKV.get(str(ck))
+        if prev is None:
+            raise ValueError(f"checkpoint model {ck!r} not found")
         if prev.algo_name != self.algo_name:
             raise ValueError(f"checkpoint model is a {prev.algo_name}, not "
                              f"a {self.algo_name}")

@@ -1,5 +1,5 @@
 """Exact column quantiles by histogram refinement (counterpart of
-h2o3_tpu/ops/quantile.py `quantile_column` and its `_select_kth`,
+h2o3_tpu/ops/quantile.py `quantile_column`, `quantile_frame` and `_select_kth`,
 `_hist_pass`, `_minmax_in_bin`).
 
 Each order statistic is found by 1024-bin histogram passes over the
@@ -93,3 +93,9 @@ def quantile_column(col, probs: Sequence[float]) -> List[float]:
             v_k1 = _select_kth(col.data, lo, hi, k + 1)
             out.append(v_k * (1 - frac) + v_k1 * frac)
     return out
+
+
+def quantile_frame(frame, probs: Sequence[float]):
+    """{name: quantiles} of every numeric column of `frame`."""
+    return {n: quantile_column(frame.col(n), probs)
+            for n in frame.names if frame.col(n).is_numeric}

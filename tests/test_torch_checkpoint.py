@@ -162,13 +162,35 @@ def test_checkpoint_guards_match_jax(cl):
                    distribution="gaussian").train(y="y", training_frame=fr)
 
 
-def test_checkpoint_by_key_waits_for_the_dkv():
-    """A checkpoint named by a string key needs the DKV, which is not
-    ported (ROADMAP A14); IsolationForest takes no checkpoint at all."""
-    th.init(device="cpu")
-    _, tf = both_frames(train_cols(n=100))
-    with pytest.raises(NotImplementedError, match="A14"):
-        th.GBM(ntrees=2, checkpoint="GBMModel_abc").train(y="y",
-                                                          training_frame=tf)
+def test_checkpoint_by_key_waits_for_the_dkv(cl, monkeypatch):
+    """Trained models live in the DKV under their keys, so a checkpoint
+    named by its key continues that model: the same forest as passing
+    the Model, and the reference's continuation by key; an unknown key
+    raises the reference's ValueError in both packages. IsolationForest
+    takes no checkpoint at all."""
+    from h2o3_tpu.models.tree.gbm import GBM as JGBM
+
+    monkeypatch.setenv("H2O_TPU_PALLAS_HIST", "1")
+    jf, tf = both_frames(train_cols(n=128))
+    kw = dict(max_depth=3, seed=1)
+    j1 = JGBM(ntrees=2, **kw).train(y="y", training_frame=jf)
+    t1 = th.GBM(ntrees=2, **kw).train(y="y", training_frame=tf)
+    assert th.DKV.get(t1.key) is t1
+    jk = JGBM(ntrees=4, checkpoint=str(j1.key), **kw).train(
+        y="y", training_frame=jf)
+    tk = th.GBM(ntrees=4, checkpoint=t1.key, **kw).train(y="y",
+                                                         training_frame=tf)
+    tm = th.GBM(ntrees=4, checkpoint=t1, **kw).train(y="y",
+                                                     training_frame=tf)
+    a, b, c = (forest_arrays(m.forest) for m in (jk, tk, tm))
+    for k in a:
+        np.testing.assert_array_equal(b[k], a[k], err_msg=k)
+        np.testing.assert_array_equal(b[k], c[k], err_msg=k)
+    np.testing.assert_allclose(tk.forest.leaf_val,
+                               np.asarray(jk.forest.leaf_val), atol=1e-5)
+    for G, fr in ((JGBM, jf), (th.GBM, tf)):
+        with pytest.raises(ValueError, match="not found"):
+            G(ntrees=2, checkpoint="GBMModel_abc").train(y="y",
+                                                         training_frame=fr)
     with pytest.raises(ValueError, match="does not support checkpoint"):
         th.IsolationForest(ntrees=2, checkpoint="x").train(training_frame=tf)

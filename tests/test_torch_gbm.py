@@ -91,9 +91,9 @@ def test_scoring_adapts_test_frames_like_jax(cl, monkeypatch):
 def test_unported_parameters_raise():
     """The parameters the port once refused (cross-validation,
     calibration, checkpoints and export) run now, and default to the
-    reference's values; what still raises is a checkpoint named by a
-    string key, which needs the DKV (ROADMAP A14), and a dart booster
-    with a checkpoint (ValueError, as in the reference)."""
+    reference's values; a checkpoint may be named by its DKV key; what
+    still raises is an unknown checkpoint key and a dart booster with a
+    checkpoint (ValueError, as in the reference)."""
     from h2o3_tpu.models.tree.gbm import GBM as JGBM
 
     th.init(device="cpu")
@@ -127,7 +127,9 @@ def test_unported_parameters_raise():
         y="y", training_frame=tf).forest.n_trees == 2
     assert th.GLM(nfolds=3).train(
         y="y", training_frame=tf)._output.cross_validation_metrics
-    with pytest.raises(NotImplementedError, match="A14"):
+    assert th.GBM(ntrees=2, checkpoint=m1.key).train(
+        y="y", training_frame=tf).forest.n_trees == 2
+    with pytest.raises(ValueError, match="not found"):
         th.GBM(ntrees=2, checkpoint="m").train(y="y", training_frame=tf)
     d1 = th.XGBoost(ntrees=1, booster="dart").train(y="y", training_frame=tf)
     with pytest.raises(ValueError, match="dart"):

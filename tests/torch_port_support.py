@@ -154,3 +154,128 @@ def carry_forest(jm):
                    "model_category": o.model_category,
                    "response_name": o.response_name},
     }
+
+
+# ---------------------------------------------------------------------------
+# the data plane: frames under one key in both packages' DKVs, Rapids
+# statements through both evaluators, results compared
+# ---------------------------------------------------------------------------
+
+def install_both(key, cols):
+    """cols: {name: (array, ctype or None)} -> (JAX Frame, port Frame),
+    each installed in its package's DKV under `key`."""
+    from h2o3_tpu.core.frame import Column as JColumn, Frame as JFrame
+
+    import h2o3_tpu_torch as th
+
+    th.init(device="cpu")
+    jf, tf = JFrame(key=key), th.Frame(key=key)
+    for name, (arr, ctype) in cols.items():
+        jf.add(name, JColumn.from_numpy(arr, ctype=ctype))
+        tf.add(name, th.Column.from_numpy(arr, ctype=ctype))
+    jf.install()
+    tf.install()
+    return jf, tf
+
+
+class Both:
+    """One Rapids session in each package; `run` evaluates a statement
+    in both and returns (reference result, port result)."""
+
+    def __init__(self, name="t"):
+        from h2o3_tpu.rapids import Session as JSession
+
+        import h2o3_tpu_torch as th
+
+        self.j, self.t = JSession(name), th.Session(name)
+
+    def run(self, expr):
+        from h2o3_tpu.rapids import exec_rapids as jexec
+
+        import h2o3_tpu_torch as th
+
+        return jexec(expr, self.j), th.exec_rapids(expr, self.t)
+
+    def end(self):
+        self.j.end()
+        self.t.end()
+
+
+def _close(a, b, rtol, scale):
+    """|b - a| <= rtol * max(|a|, scale) elementwise, NaN where NaN, inf
+    where inf (same sign)."""
+    a = np.atleast_1d(np.asarray(a, np.float64))
+    b = np.atleast_1d(np.asarray(b, np.float64))
+    assert a.shape == b.shape, (a.shape, b.shape)
+    na, nb = np.isnan(a), np.isnan(b)
+    ia, ib = np.isinf(a), np.isinf(b)
+    ok = (na == nb) & (ia == ib)
+    ok &= ~ia | (a == b)
+    fin = ~(na | nb | ia | ib)
+    ok[fin] &= (np.abs(b[fin] - a[fin])
+                <= rtol * np.maximum(np.abs(a[fin]), scale))
+    return ok
+
+
+def assert_close(a, b, rtol, scale=0.0, ctx=""):
+    ok = _close(a, b, rtol, scale)
+    idx = np.flatnonzero(~ok)
+    a, b = np.asarray(a).ravel(), np.asarray(b).ravel()
+    assert len(idx) == 0, (ctx, [(int(i), a[i], b[i]) for i in idx[:5]])
+
+
+def _col_host(c, n):
+    """A column's first n values: enum codes (int64), floats, or host
+    strings with NA as None."""
+    if c.data is None:
+        return "str", _host_strings(list(c.host_data[:n]))
+    d = c.data
+    arr = (np.asarray(d)[:n] if not hasattr(d, "cpu")
+           else d.cpu().numpy()[:n])
+    if c.ctype == "enum":
+        return "enum", arr.astype(np.int64)
+    return "num", arr.astype(np.float32)
+
+
+def assert_same(j, t, rtol=None, scale=0.0, ctx="", zero_sign=True):
+    """A reference result and a port result agree: frames in names,
+    types, domains and values; lists and scalars in values. rtol None
+    means bit for bit (any NaN equal to any NaN); else within
+    rtol * max(|ref|, scale). zero_sign=False reads -0 as +0: the
+    reference's row gathers on its 8-device test mesh sum the shards'
+    parts, and -0 + 0 is +0."""
+    from h2o3_tpu.core.frame import Frame as JFrame
+
+    if isinstance(j, JFrame):
+        assert j.names == t.names, (ctx, j.names, t.names)
+        assert j.nrows == t.nrows, (ctx, j.nrows, t.nrows)
+        assert j.types == t.types, (ctx, j.types, t.types)
+        for nm in j.names:
+            jc, tc = j.col(nm), t.col(nm)
+            assert (jc.domain or None) == (tc.domain or None), \
+                (ctx, nm, jc.domain, tc.domain)
+            kj, a = _col_host(jc, j.nrows)
+            kt, b = _col_host(tc, t.nrows)
+            assert kj == kt, (ctx, nm, kj, kt)
+            if kj != "num":
+                assert list(a) == list(b), (ctx, nm)
+            elif rtol is not None:
+                assert_close(a, b, rtol, scale, (ctx, nm))
+            elif not zero_sign:
+                assert_bitwise(a + np.float32(0), b + np.float32(0),
+                               (ctx, nm))
+            else:
+                assert_bitwise(a, b, (ctx, nm))
+        return
+    if isinstance(j, (list, tuple)):
+        assert isinstance(t, (list, tuple)) and len(j) == len(t), (ctx, j, t)
+        for x, y in zip(j, t):
+            assert_same(x, y, rtol, scale, ctx, zero_sign)
+        return
+    if isinstance(j, str):
+        assert j == t, (ctx, j, t)
+        return
+    if rtol is None:
+        assert_bitwise(np.float64(j), np.float64(t), ctx)
+    else:
+        assert_close(j, t, rtol, scale, ctx)
