@@ -37,7 +37,16 @@ through the port's public entry points:
   Rapids statements over its 2M-row frame (held bit for bit to a numpy
   float32 evaluation), a sort of that frame, the dryrun's joins at 1M
   left rows, a group-by of the flagship frame and the verify recipe's
-  H2OFrame surface on an imported CSV; this path launches no kernel.
+  H2OFrame surface on an imported CSV; this path launches no kernel;
+- the remaining builders (phase 3p): a StackedEnsemble over the 5-fold
+  CV GBM and a GLM on the same folds; KMeans (k=10, Furthest) on the
+  flagship and estimate_k on 200k rows of seeded blobs; PCA (GramSVD,
+  Randomized), SVD and NaiveBayes on the flagship; Word2Vec on a seeded
+  1M-token Zipf corpus with a planted synonym pair; TargetEncoder (5-fold
+  KFold on both enums); GLRM, CoxPH (seeded survival rows, Efron ties),
+  Aggregator and IsotonicRegression on 200k rows, PSVM on 20k; GLM
+  segment models per level of one enum and GBM segment models (which
+  run the kernel) per level of the other.
 It checks the card's models and imports against the same port on the
 CPU and times
 the kernel at the level shapes of each configuration beside its memory
@@ -114,6 +123,34 @@ C10_PRED_ATOL = 5e-3
 # (__graft_entry__.py:176-184) at 1M left rows; phase 4 at 100k rows
 RAPIDS = dict(n_rows=2_000_000, reps=5, seed=4, join_rows=1_000_000,
               join_right=200_000, cpu_rows=100_000)
+# phase 3p: k-means and PCA/SVD/GLRM widths; KMeans' estimate_k, GLRM,
+# CoxPH, Aggregator and IsotonicRegression on 200k rows; Word2Vec on a
+# seeded Zipf
+# corpus of 1M tokens over a 10k vocabulary, vec_size 100; PSVM on 20k
+# rows (its ICF rank is sqrt(n) + 1); phase 4 on 100k rows (100k tokens)
+BUILDERS = dict(k=10, pca_k=5, aux_rows=200_000, w2v_tokens=1_000_000,
+                vocab=10_000, vec_size=100, psvm_rows=20_000,
+                cvc_rows=100_000, cvc_tokens=100_000)
+# CoxPH: 6 covariates; card vs CPU coefficients to 5e-3: the float32
+# partial likelihood is flat to its last bit over sqrt(2 ulp(ll) / H) of
+# each coefficient, ~1.3e-3 at 100k rows, and Newton may stop anywhere
+# in it on either device (ROADMAP C23)
+COXPH = dict(p=6, cvc_coef_atol=5e-3)
+# Word2Vec card vs CPU: the card's index_add_ adds a step's updates of
+# one row in the order its atomics land, the CPU in turn, so the vectors
+# drift apart by rounding over the steps (1.9e-5 over one epoch of the
+# 100k-token corpus, ROADMAP C24)
+W2V_CVC_ATOL = 1e-4
+# Aggregator card vs CPU at the flagship's full width: a target of 500
+# exemplars (the CPU's passes stay short); the card's batch distances are
+# cuBLAS's, so a row within rounding of the radius or of a tie may go
+# another way on the card, and the passes part there (ROADMAP C25)
+AGG_CVC_TARGET = 500
+# GLRM's first step is init_step_size / ||Y||^2, ||Y||^2 the Gram's trace
+# (n * p after STANDARDIZE: 6.25e-7 at 200k x 8), below the default
+# min_step_size 1e-4, where the reference's loop stops before its first
+# step; phase 3p lowers min_step_size so the loop runs
+GLRM_MIN_STEP = 1e-9
 # card vs CPU: libm's float32 functions differ in the last ulps between
 # the card and the CPU, the gamma family's reflection subtracts terms of
 # order 1, and cumulative sums scan in parallel on the card (ROADMAP C16)
@@ -124,6 +161,14 @@ CUMSUM_CVC = 1e-5
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+START = time.perf_counter()
+
+
+def banner(msg: str) -> None:
+    """A phase's heading, with the seconds since the script started."""
+    print(f"== {msg} (at {time.perf_counter() - START:.1f} s)", flush=True)
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1406,6 +1451,18 @@ def phase_framework(h2o, dev, fr, dl_model, tmp):
     check(cvm is not None and np.isfinite(cvm.auc) and cvm.auc > 0.5
           and len(out.cv_fold_metrics) == FRAMEWORK["nfolds"],
           "CV metrics missing")
+    # the ensemble's path starts with its base GBM, the CV train above:
+    # its count runs on through the GLM's CV and the stack, which launch
+    # the kernel no more, so the path's count is the CV train's launches
+    banner("phase 3p: StackedEnsemble (the CV GBM above and a GLM on the "
+          "same folds)")
+    phase_ensemble(h2o, dev, fr, m)
+    launches["ensemble"] = hg.launches
+    print(f"ensemble path: hist_gather launches {launches['ensemble']} "
+          "(the base GBM's; the GLM and the stack add none)")
+    check(launches["ensemble"] == launches["gbm_cv"] > 0,
+          f"the ensemble's GLM or stack launched the kernel "
+          f"{launches['ensemble'] - launches['gbm_cv']} times")
     # calibration: train on the first rows, calibrate on the last 200k
     from h2o3_tpu_torch.ops.filters import take_rows
 
@@ -1938,6 +1995,560 @@ def phase_card_vs_cpu_rapids(h2o, dev):
     h2o.DKV.clear()
 
 
+# ---------------------------------------------------------------------------
+# the remaining model builders (phase 3p; phase 4's card-vs-CPU checks)
+# ---------------------------------------------------------------------------
+
+def blob_frame(h2o, device, n_rows, k=5, dims=4, seed=3):
+    """k seeded Gaussian blobs (sd 0.5, centers in [-8, 8]^dims), and
+    each row's blob."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-8, 8, (k, dims))
+    lab = rng.integers(0, k, n_rows)
+    X = centers[lab] + 0.5 * rng.standard_normal((n_rows, dims))
+    fr = h2o.Frame()
+    for j in range(dims):
+        fr.add(f"x{j}", h2o.Column.from_numpy(X[:, j], device=device))
+    return fr, lab
+
+
+def w2v_words(n_tokens, vocab, seed=5, sent_len=100):
+    """A seeded Zipf corpus (exponent 1.2, ranks capped at `vocab`) in
+    sentences of `sent_len` words, each ended by an NA; in a fifth of
+    the sentences "alpha" or "beta" (one or the other at random) sits
+    between "w7" and "w8", so the two are planted synonyms."""
+    rng = np.random.default_rng(seed)
+    n_sent = max(n_tokens // sent_len, 1)
+    ranks = np.minimum(rng.zipf(1.2, (n_sent, sent_len)), vocab) - 1
+    words = np.array([f"w{i}" for i in range(vocab)], object)[ranks]
+    rows = rng.random(n_sent) < 0.2
+    twin = np.where(rng.random(n_sent) < 0.5, "alpha", "beta")
+    mid = sent_len // 2
+    words[rows, mid] = twin[rows]
+    words[rows, mid - 1], words[rows, mid + 1] = "w7", "w8"
+    return np.concatenate([words, np.full((n_sent, 1), None, object)],
+                          axis=1).ravel()
+
+
+def survival_frame(h2o, device, n_rows, seed=11):
+    """COXPH["p"] standard-normal covariates, exponential event times of
+    hazard exp(x·b) for the seeded b, 25% censored, times rounded to
+    0.01 (tied times for Efron); -> (frame, b)."""
+    rng = np.random.default_rng(seed)
+    p = COXPH["p"]
+    X = rng.standard_normal((n_rows, p))
+    b = rng.uniform(-0.8, 0.8, p)
+    t = np.round(rng.exponential(1.0 / np.exp(X @ b)), 2) + 0.01
+    ev = (rng.random(n_rows) > 0.25).astype(float)
+    fr = h2o.Frame()
+    for j in range(p):
+        fr.add(f"x{j}", h2o.Column.from_numpy(X[:, j], device=device))
+    fr.add("t", h2o.Column.from_numpy(t, device=device))
+    fr.add("event", h2o.Column.from_numpy(ev, device=device))
+    return fr, b
+
+
+def _coxph_se(m, fr):
+    """Standard errors of a CoxPH fit's raw-scale coefficients from the
+    Breslow information matrix at the fit, float64 on the card."""
+    di = m.data_info
+    X = di.expand(*(c.data for c in di.cols(fr))).double()
+    t = fr.col("t").data.double()
+    ev = fr.col("event").data.double()
+    order = torch.argsort(t, stable=True)
+    X, t, ev = X[order], t[order], ev[order]
+    beta = torch.as_tensor(m.beta, dtype=torch.float64, device=X.device)
+    r = torch.exp(X @ beta)
+    # risk sets of tied times start at their group's first row
+    first = torch.searchsorted(t, t)
+
+    def rev(v):
+        return torch.flip(torch.cumsum(torch.flip(v, [0]), 0), [0])
+
+    S0 = rev(r)[first]
+    S1 = rev(r[:, None] * X)[first]
+    S2 = rev(r[:, None, None] * X[:, :, None] * X[:, None, :])[first]
+    e = ev > 0
+    mu = S1[e] / S0[e][:, None]
+    info = (S2[e] / S0[e][:, None, None]
+            - mu[:, :, None] * mu[:, None, :]).sum(dim=0)
+    se = torch.sqrt(torch.diagonal(torch.linalg.inv(info))).cpu().numpy()
+    return se / np.asarray(di.num_sigmas, np.float64)
+
+
+def _counted(hg, launches, path, fn):
+    """fn() with the histogram kernel's count set to 0 before and read
+    into launches[path] after."""
+    hg.launches = 0
+    out = fn()
+    launches[path] = hg.launches
+    return out
+
+
+def phase_ensemble(h2o, dev, fr, gbm_cv):
+    """StackedEnsemble over phase 3n's 5-fold GBM (`gbm_cv`) and a GLM
+    cross-validated on the same folds, AUTO metalearner, itself
+    cross-validated (5 folds of the level-one frame): its CV AUC is held
+    to its best base model's."""
+    nf = FRAMEWORK["nfolds"]
+    glm, dt_glm = _timed(lambda: h2o.GLM(
+        family="binomial", lambda_=0.0, nfolds=nf, seed=1,
+        keep_cross_validation_predictions=True).train(y="y",
+                                                      training_frame=fr))
+    metric("glm_cv_train_s", dt_glm, f"({nf + 1} trains)")
+    check(glm._output.fold_assignment_digest
+          == gbm_cv._output.fold_assignment_digest,
+          "the GLM's folds differ from the GBM's")
+    se, dt = _timed(lambda: h2o.StackedEnsemble(
+        base_models=[gbm_cv.key, glm.key], metalearner_nfolds=nf,
+        seed=1).train(y="y", training_frame=fr))
+    metric("se_train_s", dt, f"(level-one frame, non-negative GLM "
+           f"metalearner and its {nf}-fold CV, training metrics)")
+    aucs = {name: m._output.cross_validation_metrics.auc
+            for name, m in (("gbm", gbm_cv), ("glm", glm), ("se", se))}
+    coefs = se.metalearner.coef()
+    print(f"StackedEnsemble CV AUC {aucs['se']!r} (GBM {aucs['gbm']!r}, "
+          f"GLM {aucs['glm']!r}); training AUC "
+          f"{se._output.training_metrics.auc!r}; metalearner {coefs}")
+    check(aucs["se"] > 0.5 and aucs["se"] >= max(aucs["gbm"], aucs["glm"])
+          - 1e-3, "the ensemble's AUC is below its best base model's")
+    check(all(v >= 0 for k, v in coefs.items() if k != "Intercept"),
+          "the AUTO metalearner has a negative weight")
+
+
+def phase_builders(h2o, dev, fr):
+    """The remaining builders, each timed after a small warm-up train:
+    KMeans (k=10 Furthest on the 1M-row flagship; estimate_k on 200k
+    rows of seeded blobs), PCA (GramSVD and Randomized), SVD and
+    NaiveBayes on the flagship, Word2Vec on a seeded Zipf corpus,
+    TargetEncoder (both enums, 5-fold KFold), GLRM, CoxPH, PSVM,
+    Aggregator and IsotonicRegression on their configurations, and GLM
+    and GBM segment models. Returns the kernel's launches per path."""
+    from h2o3_tpu_torch.models import kmeans as km
+    from h2o3_tpu_torch.models import pca
+    from h2o3_tpu_torch.models.tree import hist_gather as hg
+    from h2o3_tpu_torch.ops.filters import take_rows
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on; KMeans and PCA need full float32")
+    cfg = BUILDERS
+    launches = {}
+    small = flagship_frame(h2o, dev, 20_000, seed=2)
+    n = fr.nrows
+    # KMeans
+    h2o.KMeans(k=cfg["k"], max_iterations=2, seed=1).train(
+        training_frame=small)
+    m, dt = _timed(lambda: _counted(hg, launches, "kmeans", lambda: h2o.KMeans(
+        k=cfg["k"], init="Furthest", standardize=True, max_iterations=10,
+        seed=1).train(training_frame=fr)))
+    metric("kmeans_train_s", dt, f"(k={cfg['k']}, {n} rows)")
+    _, dtp = _timed(lambda: m.predict(fr))
+    metric("kmeans_predict_s", dtp, f"({n} rows)")
+    di = m.data_info
+    X = di.expand(*(c.data for c in di.cols(fr)))
+    c0 = km._init_centers(X, cfg["k"], "Furthest", 1, di, None)
+    ss0 = float(torch.clamp_min(km._dist2(X, c0).min(dim=1).values,
+                                0.0).double().sum())
+    wss = m._output.training_metrics.tot_withinss
+    print(f"KMeans within-cluster SS {wss!r} (initial centers {ss0!r}, "
+          f"total {m._output.training_metrics.totss!r})")
+    check(wss <= ss0 * (1 + 1e-6), "KMeans ended above its initial SS")
+    del X
+    bfr, lab = blob_frame(h2o, dev, cfg["aux_rows"])
+    mk = _counted(hg, launches, "kmeans", lambda: h2o.KMeans(
+        estimate_k=True, seed=1).train(training_frame=bfr))
+    pred = mk.predict(bfr).col("predict").data.cpu().numpy()
+    pairs = set(zip(lab.tolist(), pred.tolist()))
+    print(f"KMeans estimate_k on {bfr.nrows} rows of 5 blobs: k={mk.k}, "
+          f"{len(pairs)} (blob, cluster) pairs")
+    check(mk.k == 5 and len(pairs) == 5, "KMeans did not recover the blobs")
+    # PCA and SVD
+    h2o.PCA(k=cfg["pca_k"], transform="STANDARDIZE").train(
+        training_frame=small)
+    evs = {}
+    for method in ("GramSVD", "Randomized"):
+        pm, dt = _timed(lambda: _counted(hg, launches, "pca", lambda: h2o.PCA(
+            k=cfg["pca_k"], transform="STANDARDIZE", pca_method=method,
+            seed=1).train(training_frame=fr)))
+        metric("pca_train_s", dt, f"({method}, k={cfg['pca_k']})")
+        evs[method] = pm.std_deviation ** 2
+    G = pca.gram(pm.data_info, fr) / (n - 1)
+    ref = np.sort(np.linalg.eigvalsh(G))[::-1][:cfg["pca_k"]]
+    gap = float(np.max(np.abs(evs["GramSVD"] / ref - 1)))
+    rgap = float(np.max(np.abs(evs["Randomized"] / ref - 1)))
+    print(f"PCA eigenvalues {evs['GramSVD'].tolist()}: {gap:.3e} relative "
+          f"of numpy float64's; Randomized {rgap:.3e}")
+    check(gap <= 1e-5, "PCA's eigenvalues differ from numpy's")
+    h2o.SVD(nv=cfg["pca_k"]).train(training_frame=small)
+    sm, dt = _timed(lambda: _counted(hg, launches, "svd", lambda: h2o.SVD(
+        nv=cfg["pca_k"]).train(training_frame=fr)))
+    metric("svd_train_s", dt, f"(nv={cfg['pca_k']}, U kept)")
+    check(np.all(np.isfinite(sm.d)) and np.all(np.diff(sm.d) <= 0),
+          "SVD's singular values")
+    # NaiveBayes
+    h2o.NaiveBayes().train(y="y", training_frame=small)
+    nb, dt = _timed(lambda: _counted(hg, launches, "naive_bayes", lambda:
+                                     h2o.NaiveBayes().train(
+                                         y="y", training_frame=fr)))
+    metric("nb_train_s", dt, "(training metrics included)")
+    auc = nb._output.training_metrics.auc
+    print(f"NaiveBayes training AUC {auc!r}")
+    check(auc > 0.5, "NaiveBayes AUC")
+    # Word2Vec
+    warm = h2o.Frame({"w": h2o.Column.from_numpy(
+        w2v_words(20_000, cfg["vocab"], seed=6), device=dev)})
+    h2o.Word2Vec(vec_size=cfg["vec_size"], epochs=1).train(
+        training_frame=warm)
+    words = h2o.Frame({"w": h2o.Column.from_numpy(
+        w2v_words(cfg["w2v_tokens"], cfg["vocab"]), device=dev)})
+    wm, dt = _timed(lambda: _counted(hg, launches, "word2vec", lambda:
+                                     h2o.Word2Vec(vec_size=cfg["vec_size"],
+                                                  epochs=1, seed=1).train(
+                                         training_frame=words)))
+    metric("w2v_train_s", dt, f"({cfg['w2v_tokens']} tokens, vocabulary "
+           f"{len(wm.vocab)}, vec_size {cfg['vec_size']}, 1 epoch)")
+    phase_profile("Word2Vec train (1M tokens)", lambda: h2o.Word2Vec(
+        vec_size=cfg["vec_size"], epochs=1, seed=1).train(
+            training_frame=words), wall_s=dt)
+    syn = list(wm.find_synonyms("alpha", 10))
+    print(f"Word2Vec synonyms of alpha: {syn}")
+    check("beta" in syn, "the planted synonym is not in the top 10")
+    check(np.isfinite(wm.vectors).all(), "Word2Vec vectors not finite")
+    # TargetEncoder, 5-fold KFold on both enums
+    rng = np.random.default_rng(4)
+    tfr = h2o.Frame({**{c: fr.col(c) for c in fr.names},
+                     "fold": h2o.Column.from_numpy(
+                         rng.integers(0, 5, n).astype(float), device=dev)})
+    te_kw = dict(data_leakage_handling="KFold", fold_column="fold",
+                 columns_to_encode=["c0", "c1"], seed=1)
+    h2o.TargetEncoder(**te_kw).train(y="y", training_frame=take_rows(
+        tfr, np.arange(20_000)))
+    te, dt = _timed(lambda: _counted(hg, launches, "target_encoder",
+                                     lambda: h2o.TargetEncoder(**te_kw).train(
+                                         y="y", training_frame=tfr)))
+    metric("te_train_s", dt, "(2 enums, 5 folds)")
+    enc, dt = _timed(lambda: te.transform(tfr, as_training=True))
+    metric("te_transform_s", dt, f"({n} rows, out of fold, noise)")
+    for c in ("c0_te", "c1_te"):
+        v = enc.col(c).data.cpu().numpy()
+        check(np.isfinite(v).all() and (v > -0.02).all() and (v < 1.02).all(),
+              f"{c} out of range")
+    del tfr, enc
+    # GLRM on 200k rows of the numerics
+    nums = take_rows(fr.subframe([f"n{i}" for i in range(FLAGSHIP["n_num"])]),
+                     np.arange(cfg["aux_rows"]))
+    glrm_kw = dict(k=cfg["pca_k"], transform="STANDARDIZE",
+                   min_step_size=GLRM_MIN_STEP, seed=1)
+    h2o.GLRM(max_iterations=20, **glrm_kw).train(
+        training_frame=take_rows(nums, np.arange(20_000)))
+    gm, dt = _timed(lambda: _counted(hg, launches, "glrm", lambda: h2o.GLRM(
+        **glrm_kw).train(training_frame=nums)))
+    metric("glrm_train_s", dt, f"({gm.iterations} iterations, objective "
+           f"{gm.objective!r})")
+    check(np.isfinite(gm.objective) and gm.iterations > 0, "GLRM objective")
+    # CoxPH
+    sfr, b_true = survival_frame(h2o, dev, cfg["aux_rows"])
+    h2o.CoxPH(stop_column="t").train(y="event", training_frame=take_rows(
+        sfr, np.arange(20_000)))
+    cm, dt = _timed(lambda: _counted(hg, launches, "coxph", lambda: h2o.CoxPH(
+        stop_column="t").train(y="event", training_frame=sfr)))
+    metric("coxph_train_s", dt, f"({cm.iterations} Newton iterations, "
+           "Efron ties)")
+    coef = np.array([cm.coefficients[f"x{j}"] for j in range(COXPH["p"])])
+    se = _coxph_se(cm, sfr)
+    z = np.abs(coef - b_true) / se
+    print(f"CoxPH |coef - truth| / SE: max {z.max():.3f}; loglik "
+          f"{cm.loglik!r}, concordance {cm.concordance!r}")
+    check(z.max() <= COEF_SE_BOUND, "CoxPH coefficients off the truth")
+    # PSVM
+    pfr = take_rows(fr, np.arange(cfg["psvm_rows"]))
+    h2o.PSVM().train(y="y", training_frame=take_rows(fr, np.arange(2_000)))
+    ps, dt = _timed(lambda: _counted(hg, launches, "psvm", lambda: h2o.PSVM(
+        seed=1).train(y="y", training_frame=pfr)))
+    hist = ps._output.scoring_history[0]
+    metric("psvm_train_s", dt, f"({pfr.nrows} rows, rank "
+           f"{ps.pivots.shape[0]}, {hist['iterations']} BFGS steps)")
+    print(f"PSVM training AUC {ps._output.training_metrics.auc!r}, "
+          f"{ps.svs_count} support vectors")
+    check(ps._output.training_metrics.auc > 0.5, "PSVM AUC")
+    # Aggregator on 200k rows of the flagship's 10 features
+    afr = take_rows(fr.subframe([c for c in fr.names if c != "y"]),
+                    np.arange(cfg["aux_rows"]))
+    h2o.Aggregator(target_num_exemplars=100).train(
+        training_frame=take_rows(afr, np.arange(5_000)))
+    ag, dt = _timed(lambda: _counted(hg, launches, "aggregator", lambda:
+                                     h2o.Aggregator().train(
+                                         training_frame=afr)))
+    path = ag.search_path
+    metric("aggregator_train_s", dt, f"({afr.ncol} columns, "
+           f"{len(ag.counts)} exemplars, {len(path)} radius passes)")
+    print("Aggregator radius passes (radius, exemplars; target + 1 for a "
+          "pass cut short): " + ", ".join(f"({r:.5f}, {c})" for r, c in path))
+    phase_profile("Aggregator train (200k rows, 10 columns)",
+                  lambda: h2o.Aggregator().train(training_frame=afr),
+                  wall_s=dt)
+    check(ag.counts.sum() == afr.nrows and path[-1][1] == len(ag.counts)
+          and (2500 <= len(ag.counts) <= 5000 or len(path) == 20),
+          "Aggregator exemplars")
+    # IsotonicRegression on 200k rows
+    ifr = take_rows(fr.subframe(["n0", "n1"]), np.arange(cfg["aux_rows"]))
+    h2o.IsotonicRegression().train(y="n1", training_frame=take_rows(
+        ifr, np.arange(2_000)))
+    im, dt = _timed(lambda: _counted(hg, launches, "isotonic", lambda:
+                                     h2o.IsotonicRegression().train(
+                                         y="n1", training_frame=ifr)))
+    metric("isotonic_train_s", dt, f"({len(im.thresholds_x)} knots)")
+    check(bool((np.diff(im.thresholds_y) >= 0).all()), "isotonic fit")
+    # segments: a GLM per level of c0 on the 1M rows; GBMs per level of
+    # c1 on 200k rows run the kernel
+    h2o.train_segments(h2o.GLM, {"family": "binomial"}, small, ["c0"], y="y")
+    sg, dt = _timed(lambda: _counted(hg, launches, "segments_glm", lambda:
+                                     h2o.train_segments(
+                                         h2o.GLM, {"family": "binomial"},
+                                         fr, ["c0"], y="y")))
+    metric("segments_train_s", dt, f"({len(sg)} GLMs)")
+    check(len(sg) == 4 and all(r["status"] == "SUCCEEDED" for r in sg.rows),
+          f"segments: {[r['status'] for r in sg.rows]}")
+    tbl = h2o.exec_rapids(f"(segment_models_as_frame '{sg.key}')",
+                          h2o.Session("seg"))
+    check(tbl.nrows == 4, "segment_models_as_frame rows")
+    gbm_seg = _counted(hg, launches, "segments", lambda: h2o.train_segments(
+        h2o.GBM, {"ntrees": 5, "max_depth": FLAGSHIP["max_depth"]},
+        take_rows(fr, np.arange(cfg["aux_rows"])), ["c1"], y="y"))
+    check(len(gbm_seg) == 3 and all(r["status"] == "SUCCEEDED"
+                                    for r in gbm_seg.rows), "GBM segments")
+    print(f"GBM segments: {len(gbm_seg)} models, hist_gather launches "
+          f"{launches['segments']}")
+    for path, count in launches.items():
+        check(count == 0 or path == "segments",
+              f"{path} launched the histogram kernel {count} times")
+    check(launches["segments"] == 3 * 5 * FLAGSHIP["max_depth"],
+          f"{launches['segments']} launches for 3 GBM segments")
+    h2o.DKV.clear()     # the models and frames installed since phase 3n
+    return launches
+
+
+def phase_card_vs_cpu_builders(h2o, dev):
+    """Each remaining builder on the card and on the CPU (100k-row
+    fixtures: KMeans on seeded blobs, as its CPU tests, PSVM on its 20k
+    rows), held to the CPU tests' tolerances; CoxPH's coefficients to
+    COXPH["cvc_coef_atol"] (ROADMAP C23), Word2Vec's vectors to
+    W2V_CVC_ATOL (C24); Aggregator's designs bitwise and its exemplars
+    equal, or parting first at a row within rounding of the radius or
+    of a tie (C25)."""
+    from h2o3_tpu_torch.models import aggregator as agg
+
+    cpu = torch.device("cpu")
+    n = BUILDERS["cvc_rows"]
+    # every builder is compared before the phase fails, so one run
+    # names every gap
+    failures, secs, out = [], {}, {}
+
+    def expect(ok, msg):
+        if not ok:
+            failures.append(msg)
+
+    def both(label, make, fit):
+        models = []
+        for d in (dev, cpu):
+            t0 = time.perf_counter()
+            models.append(fit(make(d)))
+            torch.cuda.synchronize()
+            secs[(label, d.type)] = time.perf_counter() - t0
+        return models
+
+    def close(label, a, b, **tol):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        diff = float(np.max(np.abs(a - b))) if a.size else 0.0
+        expect(np.allclose(a, b, **tol),
+               f"{label}: card vs CPU differ by {diff} (bar {tol})")
+        out[label] = diff
+        return diff
+
+    def flag(d):
+        return flagship_frame(h2o, d, n)
+
+    def nums(d):
+        return flag(d).subframe([f"n{i}" for i in range(8)])
+
+    k = both("KMeans", lambda d: blob_frame(h2o, d, n)[0],
+             lambda fr: h2o.KMeans(k=5, seed=1).train(training_frame=fr))
+    close("KMeans centers", k[0].centers, k[1].centers, atol=1e-5, rtol=0)
+    close("KMeans SS", k[0]._output.training_metrics.tot_withinss,
+          k[1]._output.training_metrics.tot_withinss, rtol=1e-5, atol=0)
+    p = both("PCA", flag, lambda fr: h2o.PCA(
+        k=5, transform="STANDARDIZE").train(training_frame=fr))
+    close("PCA eigenvalues", p[0].std_deviation, p[1].std_deviation,
+          rtol=1e-5, atol=0)
+    close("PCA eigenvectors", p[0].eigenvectors, p[1].eigenvectors,
+          atol=1e-4, rtol=0)
+    s = both("SVD", flag, lambda fr: h2o.SVD(nv=5, keep_u=False).train(
+        training_frame=fr))
+    close("SVD d", s[0].d, s[1].d, rtol=1e-5, atol=0)
+    nb = both("NaiveBayes", flag, lambda fr: h2o.NaiveBayes().train(
+        y="y", training_frame=fr))
+    expect(np.array_equal(nb[0].priors, nb[1].priors)
+           and all(np.array_equal(a, b)
+                   for a, b in zip(nb[0].cat_tables, nb[1].cat_tables)),
+           "NaiveBayes tables differ between card and CPU")
+    close("NaiveBayes means", nb[0].num_means, nb[1].num_means, rtol=1e-6,
+          atol=1e-7)
+    words = w2v_words(BUILDERS["cvc_tokens"], BUILDERS["vocab"], seed=7)
+    w = both("Word2Vec",
+             lambda d: h2o.Frame({"w": h2o.Column.from_numpy(words,
+                                                             device=d)}),
+             lambda fr: h2o.Word2Vec(vec_size=BUILDERS["vec_size"], epochs=1,
+                                     seed=1).train(training_frame=fr))
+    expect(list(w[0].vocab) == list(w[1].vocab), "Word2Vec vocabularies")
+    close("Word2Vec vectors", w[0].vectors, w[1].vectors, atol=W2V_CVC_ATOL,
+          rtol=0)
+
+    def te_fit(fr):
+        fr.add("fold", h2o.Column.from_numpy(np.arange(fr.nrows) % 5.0,
+                                             device=fr.col("y").device))
+        m = h2o.TargetEncoder(data_leakage_handling="KFold",
+                              fold_column="fold", seed=1).train(
+            y="y", training_frame=fr)
+        return m.transform(fr, as_training=True).col("c0_te").data.cpu()
+
+    te = both("TargetEncoder", flag, te_fit)
+    close("TargetEncoder c0_te", te[0], te[1], atol=1e-6, rtol=0)
+    g = both("GLRM", nums, lambda fr: h2o.GLRM(
+        k=5, transform="STANDARDIZE", min_step_size=GLRM_MIN_STEP,
+        max_iterations=20, seed=1).train(training_frame=fr))
+    expect(g[0].iterations == g[1].iterations > 0, "GLRM iterations")
+    close("GLRM objective", g[0].objective, g[1].objective, rtol=1e-5,
+          atol=0)
+    c = both("CoxPH", lambda d: survival_frame(h2o, d, n)[0],
+             lambda fr: h2o.CoxPH(stop_column="t").train(
+                 y="event", training_frame=fr))
+    close("CoxPH loglik", c[0].loglik, c[1].loglik, rtol=1e-6, atol=0)
+    close("CoxPH coefficients", list(c[0].coefficients.values()),
+          list(c[1].coefficients.values()), atol=COXPH["cvc_coef_atol"],
+          rtol=0)
+
+    def psvm_decision(fr):
+        m = h2o.PSVM(seed=1).train(y="y", training_frame=fr)
+        return m._predict_raw(m.adapt_test(fr))["decision"].cpu().numpy()
+
+    ps = both("PSVM", lambda d: flagship_frame(h2o, d, BUILDERS["psvm_rows"]),
+              psvm_decision)
+    close("PSVM decision", ps[0], ps[1], atol=1e-3, rtol=0)
+    # Aggregator at the flagship's full width: the designs bitwise (the
+    # NORMALIZE means are summed order-free); where the two searches
+    # part, the first pass that parts is run again on both devices and
+    # its first parting row must lie within rounding of the radius or
+    # of a tie (C25)
+    feats = [f"n{i}" for i in range(8)] + ["c0", "c1"]
+    afr = {d.type: flag(d).subframe(feats) for d in (dev, cpu)}
+    a = both("Aggregator", lambda d: afr[d.type],
+             lambda fr: h2o.Aggregator(
+                 target_num_exemplars=AGG_CVC_TARGET).train(
+                     training_frame=fr))
+    Xs = [m.data_info.expand(*(c.data for c in m.data_info.cols(afr[t])))
+          for m, t in zip(a, (dev.type, "cpu"))]
+    X = Xs[1].numpy()
+    expect(np.array_equal(Xs[0].cpu().numpy(), X),
+           "Aggregator designs differ between card and CPU")
+    shared = len(np.intersect1d(a[0].exemplar_rows, a[1].exemplar_rows))
+    ne = (len(a[0].counts), len(a[1].counts))
+    ok, note = _aggregator_parting(agg, a, Xs, AGG_CVC_TARGET)
+    expect(ok, f"Aggregator: card vs CPU part beyond C25 ({note})")
+    print(f"card vs cpu Aggregator ({n} rows, {X.shape[1]} design columns): "
+          f"{ne[0]} / {ne[1]} exemplars, {shared} shared rows, {note}")
+    expect(a[0].counts.sum() == a[1].counts.sum() == n,
+           "Aggregator counts do not cover the rows")
+    iso = both("IsotonicRegression",
+               lambda d: flag(d).subframe(["n0", "n1"]),
+               lambda fr: h2o.IsotonicRegression().train(
+                   y="n1", training_frame=fr))
+    expect(np.array_equal(iso[0].thresholds_x, iso[1].thresholds_x)
+           and np.array_equal(iso[0].thresholds_y, iso[1].thresholds_y),
+           "isotonic knots differ between card and CPU")
+    sg = both("segments", flag, lambda fr: h2o.train_segments(
+        h2o.GLM, {"family": "binomial"}, fr, ["c0"], y="y"))
+    for ra, rb in zip(sg[0].rows, sg[1].rows):
+        close(f"segment {ra['segment']['c0']} GLM",
+              list(h2o.DKV.get(ra["model_id"]).coef().values()),
+              list(h2o.DKV.get(rb["model_id"]).coef().values()),
+              **GLM_COEF_TOL)
+    se = both("StackedEnsemble", flag, lambda fr: _small_ensemble(h2o, fr))
+    close("StackedEnsemble predictions", se[0], se[1], atol=GLM_PRED_ATOL,
+          rtol=0)
+    print("card vs cpu, the remaining builders: knots, vocabulary, "
+          "NaiveBayes tables equal; max diffs " + ", ".join(
+              f"{lb} {v:.3e}" for lb, v in out.items()))
+    print("card vs cpu seconds (card / CPU): " + ", ".join(
+        f"{lb} {secs[(lb, dev.type)]:.2f} / {secs[(lb, 'cpu')]:.2f}"
+        for lb in dict.fromkeys(lb for lb, _ in secs)))
+    check(not failures, "; ".join(failures))
+
+
+def _aggregator_parting(agg, models, designs, target):
+    """(ok, note) for two Aggregator models trained on the same frame on
+    two devices, with their designs: equal exemplars and counts, or the
+    first radius pass at which their searches differ, run again on both
+    designs, parts first at a row within rounding of the radius or of a
+    tie (ROADMAP C25)."""
+    a, b = models
+    if (np.array_equal(a.exemplar_rows, b.exemplar_rows)
+            and np.array_equal(a.counts, b.counts)):
+        return True, "bitwise equal"
+    pa, pb = a.search_path, b.search_path
+    k = next((i for i, (u, v) in enumerate(zip(pa, pb)) if u != v),
+             len(pa) - 1)
+    radius = pa[k][0]
+    X = designs[1].cpu().numpy()
+    runs = [agg._radius_pass(X, Xd, radius, None if k == 19 else target)
+            for Xd in designs]
+    f, near = _first_parting(X, runs[0], runs[1], radius)
+    return f is not None and near, (
+        f"pass {k + 1} of {len(pa)} / {len(pb)} parts first at row {f}, "
+        f"{'within' if near else 'NOT within'} rounding of the radius or "
+        "of a tie")
+
+
+def _first_parting(X, a, b, radius):
+    """The first row at which two Aggregator passes `a` and `b`
+    ((exemplar rows, assignments)) over the design X part: one admits it
+    and the other does not, or they assign it differently; or None. And
+    whether that row lies, in float64, within rounding (2**-16 of the
+    squared norms) of the radius from the exemplar either pass gave it,
+    or equally far from both."""
+    (ex_a, as_a), (ex_b, as_b) = a, b
+    n = X.shape[0]
+    adm_a, adm_b = np.zeros(n, bool), np.zeros(n, bool)
+    adm_a[ex_a], adm_b[ex_b] = True, True
+    diff = np.flatnonzero((adm_a != adm_b) | (as_a != as_b))
+    if not len(diff):
+        return None, True
+    f = int(diff[0])
+    x = X[f].astype(np.float64)
+    r2 = radius * radius
+    ds, sizes = [], [x @ x]
+    for adm, ex, asg in ((adm_a, ex_a, as_a), (adm_b, ex_b, as_b)):
+        if not adm[f]:
+            e = X[ex[asg[f]]].astype(np.float64)
+            ds.append(float(((e - x) ** 2).sum()))
+            sizes.append(e @ e)
+    tol = 2.0**-16 * (max(sizes) + r2)
+    near = any(abs(v - r2) <= tol for v in ds) or (
+        len(ds) == 2 and abs(ds[0] - ds[1]) <= tol)
+    return f, near
+
+
+def _small_ensemble(h2o, fr):
+    """An AUTO StackedEnsemble over a 3-fold GBM (2 trees of depth 3)
+    and GLM -> its P(class 1) on `fr`."""
+    kw = dict(nfolds=3, seed=1, keep_cross_validation_predictions=True)
+    bases = [h2o.GBM(ntrees=2, max_depth=3, **kw).train(
+        y="y", training_frame=fr), h2o.GLM(lambda_=0.0, **kw).train(
+            y="y", training_frame=fr)]
+    se = h2o.StackedEnsemble(base_models=bases).train(y="y",
+                                                      training_frame=fr)
+    return se.predict(fr).col("Y").data.cpu().numpy()
+
+
 def host_profile(label, train, top=10):
     """Host time by function of the port (cumulative, cProfile) over one
     call of `train`."""
@@ -1979,24 +2590,29 @@ def device_time(train):
     return busy_ns / 1e3, n_ops
 
 
-def phase_profile(label, train, top=12):
+def phase_profile(label, train, top=12, wall_s=None):
     """Where a train's time goes: device time by kernel from
     torch.profiler over one call of `train`, the device-busy share of
-    the same train's unprofiled wall time, and the host time by
-    function."""
+    the same train's unprofiled wall time (`wall_s` when the caller has
+    just timed it), and the host time by function."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    train()
-    torch.cuda.synchronize()
-    wall_us = (time.perf_counter() - t0) * 1e6
+    if wall_s is None:
+        _, wall_s = _timed(train)
+    wall_us = wall_s * 1e6
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         train()
         torch.cuda.synchronize()
-    rows = [(e.self_device_time_total, e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    # summed by kernel from the raw trace: key_averages() would first
+    # parse every event into the autograd tree, seconds for a train of
+    # tens of thousands of launches
+    cuda = torch.autograd.DeviceType.CUDA
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            us, count = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (us + e.duration_ns() / 1e3, count + 1)
+    rows = [(us, count, key) for key, (us, count) in by_name.items()]
     busy_us = sum(r[0] for r in rows)
     n_ops = sum(r[1] for r in rows)
     if busy_us <= 0:
@@ -2307,41 +2923,45 @@ def main() -> int:
     import h2o3_tpu_torch as h2o
 
     dev = h2o.init().device
-    print("== phase 1: build")
+    banner("phase 1: build")
     phase_build()
-    print("== phase 2: kernels vs plain versions")
+    banner("phase 2: kernels vs plain versions")
     max_err = max(phase_kernels(dev), phase_kernels_drf(dev),
                   phase_kernels_new(dev))
     launches = {}
-    print("== phase 3: flagship GBM train + score")
+    banner("phase 3: flagship GBM train + score")
     launches["gbm_flagship"], fr, flagship_model = phase_flagship(h2o, dev)
-    print("== phase 3b: where the time goes (flagship, XGBoost, "
+    banner("phase 3b: where the time goes (flagship, XGBoost, "
           "IsolationForest trains; IsolationForest predict)")
     phase_profile("5-tree flagship train", lambda: h2o.GBM(
         ntrees=5, max_depth=FLAGSHIP["max_depth"]).train(
             y="y", training_frame=fr))
     phase_profile("5-tree XGBoost train", lambda: h2o.XGBoost(
         ntrees=5, seed=XGB["seed"]).train(y="y", training_frame=fr))
-    print("== phase 3c: deep DRF (200k rows, depth 20)")
+    banner("phase 3c: deep DRF (200k rows, depth 20)")
     launches["drf_deep"] = phase_drf_deep(h2o, dev)
-    print("== phase 3d: multinomial GBM with validation and early stopping")
+    banner("phase 3d: multinomial GBM with validation and early stopping")
     launches["gbm_multinomial"] = phase_multinomial(h2o, dev)
-    print("== phase 3e: XGBoost gbtree at its defaults (flagship frame)")
+    banner("phase 3e: XGBoost gbtree at its defaults (flagship frame)")
     launches["xgboost"] = phase_xgboost(h2o, dev, fr)
-    print("== phase 3f: XGBoost dart (flagship frame)")
+    banner("phase 3f: XGBoost dart (flagship frame)")
     launches["xgboost_dart"] = phase_xgboost_dart(h2o, dev, fr)
-    print("== phase 3m: DeepLearning at the reference's defaults "
+    banner("phase 3m: DeepLearning at the reference's defaults "
           "(flagship frame, 1 epoch)")
     dl_model = phase_deeplearning(h2o, dev, fr)
-    print("== phase 3n: the model framework (flagship frame): CV, "
+    banner("phase 3n: the model framework (flagship frame): CV, "
           "calibration, checkpoints, save/load, leaf assignment, gains/lift")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_models_")
     try:
         launches.update(phase_framework(h2o, dev, fr, dl_model, tmp))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    banner("phase 3p: the remaining builders (KMeans, PCA, SVD, "
+          "NaiveBayes, Word2Vec, TargetEncoder, GLRM, CoxPH, PSVM, "
+          "Aggregator, IsotonicRegression, segments)")
+    launches.update(phase_builders(h2o, dev, fr))
     del fr, dl_model
-    print("== phase 3g: IsolationForest (1M rows, 1% moved 6 sigma out)")
+    banner("phase 3g: IsolationForest (1M rows, 1% moved 6 sigma out)")
     launches["isolationforest"], ofr, moved, iso = phase_isofor(h2o, dev)
     phase_profile("50-tree IsolationForest train", lambda: h2o.IsolationForest(
         ntrees=ISOFOR["ntrees"], seed=ISOFOR["seed"]).train(
@@ -2349,40 +2969,41 @@ def main() -> int:
     phase_profile("IsolationForest predict (1M rows)",
                   lambda: iso.predict(ofr))
     del iso
-    print("== phase 3m: DeepLearning autoencoder (phase 3g's frame)")
+    banner("phase 3m: DeepLearning autoencoder (phase 3g's frame)")
     phase_dl_autoencoder(h2o, dev, ofr, moved)
-    print("== phase 3h: Extended Isolation Forest (same frame)")
+    banner("phase 3h: Extended Isolation Forest (same frame)")
     phase_eif(h2o, dev, ofr, moved)
     del ofr
-    print("== phase 3i: GLM binomial at the reference bench's width "
+    banner("phase 3i: GLM binomial at the reference bench's width "
           "(1M rows, 32 features)")
     gfr = phase_glm_bench(h2o, dev)
-    print("== phase 3b: where the time goes (GLM binomial train)")
+    banner("phase 3b: where the time goes (GLM binomial train)")
     phase_profile("GLM binomial train (1M x 32)", lambda: h2o.GLM(
         family="binomial", lambda_=0.0).train(y="y", training_frame=gfr))
     del gfr
-    print("== phase 3j: GLM's other solvers (flagship frames)")
+    banner("phase 3j: GLM's other solvers (flagship frames)")
     phase_glm_solvers(h2o, dev, flagship_frame(h2o, dev, FLAGSHIP["n_rows"]))
-    print("== phase 3k: GAM and RuleFit (200k flagship rows; RuleFit "
+    banner("phase 3k: GAM and RuleFit (200k flagship rows; RuleFit "
           "profiled)")
     launches["rulefit"] = phase_gam_rulefit(h2o, dev)
-    print("== phase 3l: ingest (run_parse file, streaming append, the "
+    banner("phase 3l: ingest (run_parse file, streaming append, the "
           "flagship from CSV)")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ingest_")
     try:
         launches["gbm_imported_csv"], parse_path = phase_ingest(
             h2o, dev, tmp, flagship_model)
         del flagship_model
-        print("== phase 3o: Rapids and the frame ops (run_rapids' 2M-row "
+        banner("phase 3o: Rapids and the frame ops (run_rapids' 2M-row "
               "frame, sort, joins, group-by, the verify recipe)")
         launches["rapids"] = phase_rapids(h2o, dev, tmp)
-        print("== phase 4: card vs CPU")
+        banner("phase 4: card vs CPU")
         phase_card_vs_cpu(h2o, dev, parse_path)
         phase_card_vs_cpu_framework(h2o, dev)
         phase_card_vs_cpu_rapids(h2o, dev)
+        phase_card_vs_cpu_builders(h2o, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    print("== phase 5: kernel times at each configuration's level shapes")
+    banner("phase 5: kernel times at each configuration's level shapes")
     kernels = phase_times(dev, launches, max_err)
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

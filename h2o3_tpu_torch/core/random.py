@@ -1,8 +1,8 @@
 """Counter-based random numbers: Threefry-2x32 as JAX draws it with
 ``jax_threefry_partitionable`` on (counterpart of the ``jax.random``
 draws of the tree builders, h2o3_tpu/models/tree/shared_tree.py:54 and
-:681, drf.py:39, and of DeepLearning, deeplearning.py:62-72 and
-:362-363).
+:681, drf.py:39, of DeepLearning, deeplearning.py:62-72 and :362-363,
+and of Word2Vec, word2vec.py:243-245).
 
 A key is a pair of 32-bit words. ``PRNGKey(seed)`` is (seed >> 32,
 seed & 0xFFFFFFFF), ``fold_in(key, t)`` hashes the counter pair (0, t)
@@ -15,6 +15,11 @@ so a draw over n rows is the first n values of a draw over any padded
 length. ``bernoulli`` is ``uniform < float32(p)``; ``randint`` is
 jax.random's ``_randint``: it splits the key in two, draws two words per
 element and folds them into [minval, maxval) with uint32 arithmetic.
+``choice_p`` is ``jax.random.choice`` with replacement and weights p:
+the float32 cumulative sum of p times (1 - uniform), searched for in
+that cumulative sum; ``cumsum_f32`` sums p in the order ``jnp.cumsum``
+does on XLA's CPU backend, so the draws follow the reference's bit for
+bit wherever the sum is computed once on the host.
 
 Words are int64 tensors holding values in [0, 2**32), on whatever device
 the caller gives. A key is a (2,) tensor, or a (..., 2) batch of keys:
@@ -26,6 +31,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 _MASK = 0xFFFFFFFF
@@ -145,3 +151,32 @@ def randint(key: torch.Tensor, shape, minval: int, maxval: int,
     mult = ((mult * mult) & _MASK) % span
     off = ((((hi % span) * mult) & _MASK) + lo % span) & _MASK
     return (minval + off % span).to(torch.int32)
+
+
+def cumsum_f32(p) -> np.ndarray:
+    """Inclusive float32 cumulative sum of a vector in the order of
+    XLA's CPU lowering of ``jnp.cumsum``: up to 16 values are summed in
+    turn; longer vectors are cut into rows of 16 summed in turn, and
+    each row then adds the (recursively computed) sum of the rows before
+    it."""
+    x = np.asarray(p, np.float32)
+    n = len(x)
+    if n <= 16:
+        return np.cumsum(x, dtype=np.float32)
+    m = -(-n // 16)
+    rows = np.zeros(m * 16, np.float32)
+    rows[:n] = x
+    inner = np.cumsum(rows.reshape(m, 16), axis=1, dtype=np.float32)
+    before = np.concatenate([np.zeros(1, np.float32),
+                             cumsum_f32(inner[:, -1])[:-1]])
+    return (inner + before[:, None]).ravel()[:n]
+
+
+def choice_p(key: torch.Tensor, shape, p_cuml: torch.Tensor,
+             device=None) -> torch.Tensor:
+    """int64 draws in [0, len(p)) with chance p (jax.random.choice with
+    replacement), given p's float32 cumulative sum `p_cuml` on the draw's
+    device: the first index whose cumulative sum reaches
+    p_cuml[-1] * (1 - uniform)."""
+    u = uniform(key, shape, device)
+    return torch.searchsorted(p_cuml, p_cuml[-1] * (1.0 - u))

@@ -52,7 +52,7 @@ from h2o3_tpu_torch.core.frame import Column, Frame, T_NUM
 from h2o3_tpu_torch.models import metrics as M
 from h2o3_tpu_torch.models.data_info import DataInfo
 from h2o3_tpu_torch.models.model import Model, ModelCategory
-from h2o3_tpu_torch.models.model_builder import ModelBuilder
+from h2o3_tpu_torch.models.model_builder import ModelBuilder, register
 from h2o3_tpu_torch.optim.sgd import SGD, Adadelta
 
 ACTIVATIONS = ("tanh", "tanhwithdropout", "rectifier", "rectifierwithdropout",
@@ -327,6 +327,7 @@ class _StepLoop:
         return key_out
 
 
+@register
 class DeepLearning(ModelBuilder):
     algo_name = "deeplearning"
     model_class = DeepLearningModel

@@ -32,7 +32,7 @@ import torch
 from h2o3_tpu_torch.core.frame import Frame
 from h2o3_tpu_torch.models.data_info import DataInfo
 from h2o3_tpu_torch.models.model import Model, ModelCategory
-from h2o3_tpu_torch.models.model_builder import ModelBuilder
+from h2o3_tpu_torch.models.model_builder import ModelBuilder, register
 from h2o3_tpu_torch.models.tree.isofor import _avg_path
 
 # bytes of the per-level (rows, T, d) float64 normal gather of one chunk
@@ -105,6 +105,7 @@ class ExtendedIsolationForestModel(Model):
         return None
 
 
+@register
 class ExtendedIsolationForest(ModelBuilder):
     algo_name = "extendedisolationforest"
     model_class = ExtendedIsolationForestModel

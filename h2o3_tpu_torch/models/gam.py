@@ -22,7 +22,7 @@ import torch
 from h2o3_tpu_torch.core.frame import Column, Frame, T_NUM
 from h2o3_tpu_torch.models.glm import GLM
 from h2o3_tpu_torch.models.model import Model
-from h2o3_tpu_torch.models.model_builder import ModelBuilder
+from h2o3_tpu_torch.models.model_builder import ModelBuilder, register
 from h2o3_tpu_torch.ops.quantile import quantile_column
 
 
@@ -179,6 +179,7 @@ def _per_column(v, n: int, default) -> List:
     return list(v)
 
 
+@register
 class GAM(ModelBuilder):
     algo_name = "gam"
     model_class = GAMModel

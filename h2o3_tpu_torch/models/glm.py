@@ -42,7 +42,7 @@ from h2o3_tpu_torch.core.frame import Column, Frame, T_NUM
 from h2o3_tpu_torch.models.data_info import DataInfo
 from h2o3_tpu_torch.models.distribution import get_distribution
 from h2o3_tpu_torch.models.model import Model, ModelCategory
-from h2o3_tpu_torch.models.model_builder import ModelBuilder
+from h2o3_tpu_torch.models.model_builder import ModelBuilder, register
 from h2o3_tpu_torch.optim import lbfgs
 
 EPS = 1e-10
@@ -540,6 +540,7 @@ class GLMModel(Model):
         return {n: float(b[i]) for i, n in enumerate(names)}
 
 
+@register
 class GLM(ModelBuilder):
     algo_name = "glm"
     model_class = GLMModel

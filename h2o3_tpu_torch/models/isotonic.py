@@ -1,7 +1,8 @@
-"""Pool-adjacent-violators isotonic regression on one feature, the part
-isotonic calibration needs (counterpart of h2o3_tpu/models/isotonic.py:
-`pava` :24, `interpolate` :63; the IsotonicRegression builder is still to
-port, ROADMAP A12).
+"""Pool-adjacent-violators isotonic regression on one feature: the fit
+and scoring isotonic calibration uses, and the IsotonicRegression
+builder (counterpart of h2o3_tpu/models/isotonic.py: `pava` :24,
+`interpolate` :63, `IsotonicRegressionModel` :73, `IsotonicRegression`
+:97).
 
 The fit is sequential merging over sorted, aggregated host arrays, so it
 runs on the host once; scoring is a device searchsorted and a gathered
@@ -14,6 +15,10 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from h2o3_tpu_torch.core.frame import Frame
+from h2o3_tpu_torch.models.model import Model, ModelCategory
+from h2o3_tpu_torch.models.model_builder import ModelBuilder, register
 
 
 def pava(x: np.ndarray, y: np.ndarray, w: Optional[np.ndarray] = None):
@@ -62,3 +67,60 @@ def interpolate(thresholds_x, thresholds_y, x: torch.Tensor) -> torch.Tensor:
                     0.0)
     out = ty[lo] + t * (ty[hi] - ty[lo])
     return torch.where(torch.isnan(x), float("nan"), out)
+
+
+class IsotonicRegressionModel(Model):
+    algo_name = "isotonicregression"
+
+    def __init__(self, parms=None, key=None):
+        super().__init__(parms, key)
+        self.thresholds_x: Optional[np.ndarray] = None
+        self.thresholds_y: Optional[np.ndarray] = None
+
+    def _predict_raw(self, frame: Frame):
+        x = frame.col(self._output.names[0]).data
+        out = interpolate(self.thresholds_x, self.thresholds_y, x)
+        if str(self._parms.get("out_of_bounds", "clip")).lower() == "na":
+            # outside the training range -> NA
+            out = torch.where((x < float(self.thresholds_x[0]))
+                              | (x > float(self.thresholds_x[-1])),
+                              float("nan"), out)
+        return {"value": out}
+
+
+@register
+class IsotonicRegression(ModelBuilder):
+    """A non-decreasing fit of the response on one numeric predictor;
+    rows with a non-finite x, y or weight, or a weight of 0, are left
+    out."""
+
+    algo_name = "isotonicregression"
+    model_class = IsotonicRegressionModel
+
+    @classmethod
+    def default_params(cls):
+        p = super().default_params()
+        p.update({"out_of_bounds": "clip"})
+        return p
+
+    def _fit(self, train: Frame) -> IsotonicRegressionModel:
+        model = IsotonicRegressionModel(parms=dict(self.params))
+        out = self._init_output(model, train)
+        numeric = [n for n in out.names if train.col(n).is_numeric]
+        if len(numeric) != 1:
+            raise ValueError("IsotonicRegression needs exactly one numeric "
+                             f"predictor, got {numeric}")
+        out.names = numeric
+        out.model_category = ModelCategory.Regression
+        resp = self.params["response_column"]
+        x = train.col(numeric[0]).to_numpy().astype(np.float64)
+        y = train.col(resp).to_numpy().astype(np.float64)
+        w = None
+        if self.params.get("weights_column"):
+            w = train.col(self.params["weights_column"]).to_numpy()
+        ok = np.isfinite(x) & np.isfinite(y)
+        if w is not None:
+            ok &= np.isfinite(w) & (w > 0)
+            w = w[ok]
+        model.thresholds_x, model.thresholds_y = pava(x[ok], y[ok], w)
+        return model

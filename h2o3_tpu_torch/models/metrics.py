@@ -1,6 +1,7 @@
 """Model metrics: AUC, confusion matrix, logloss, gains/lift and KS,
 regression errors and deviances, multinomial logloss / confusion matrix
-/ hit ratios, autoencoder reconstruction error (counterpart of
+/ hit ratios, autoencoder reconstruction error, clustering sums of
+squares (counterpart of
 h2o3_tpu/models/metrics.py).
 
 AUC keeps the reference's fixed 400-bin score histogram (hex/AUC2.java:36):
@@ -180,6 +181,16 @@ class ModelMetricsMultinomial(ModelMetrics):
 @dataclass
 class ModelMetricsAutoEncoder(ModelMetrics):
     """Reconstruction error: the MSE over the expanded input space."""
+
+
+@dataclass
+class ModelMetricsClustering(ModelMetrics):
+    """Within-cluster, between-cluster and total sums of squares, and
+    the rows of each cluster."""
+    tot_withinss: float = float("nan")
+    betweenss: float = float("nan")
+    totss: float = float("nan")
+    within_cluster_sizes: Optional[List[float]] = None
 
 
 def gains_lift(pos_hist: np.ndarray, neg_hist: np.ndarray, groups: int = 16):

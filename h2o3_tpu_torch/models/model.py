@@ -33,8 +33,12 @@ class ModelCategory:
     Regression = "Regression"
     Binomial = "Binomial"
     Multinomial = "Multinomial"
+    Clustering = "Clustering"
+    DimReduction = "DimReduction"
     AnomalyDetection = "AnomalyDetection"
     AutoEncoder = "AutoEncoder"
+    WordEmbedding = "WordEmbedding"
+    CoxPH = "CoxPH"
     Unknown = "Unknown"
 
 
@@ -119,8 +123,8 @@ class Model(Keyed):
 
     def _predict_raw(self, frame: Frame) -> Dict[str, Any]:
         """Regression: {"value": (N,)}; Binomial: {"probs": (N, 2)};
-        Multinomial: {"probs": (N, K)}; AnomalyDetection: {"score": (N,)}
-        and optionally "mean_length"."""
+        Multinomial: {"probs": (N, K)}; Clustering: {"cluster": (N,)};
+        AnomalyDetection: {"score": (N,)} and optionally "mean_length"."""
         raise NotImplementedError
 
     # -- adaptation -------------------------------------------------------
@@ -214,6 +218,11 @@ class Model(Keyed):
                 pc = self._calibrated_p1(probs[:, 1])
                 out.add(f"cal_{dom[0]}", Column(1.0 - pc, T_NUM, n))
                 out.add(f"cal_{dom[1]}", Column(pc, T_NUM, n))
+        elif cat == ModelCategory.Clustering:
+            cl = raw["cluster"].int()
+            k = int(self._parms.get("k", 0)) or int(cl.max()) + 1
+            out.add("predict", Column(cl, T_CAT, n,
+                                      domain=[str(i) for i in range(k)]))
         elif cat == ModelCategory.AnomalyDetection:
             out.add("predict", Column(raw["score"], T_NUM, n))
             if "mean_length" in raw:

@@ -4,7 +4,8 @@ h2o3_tpu/models/model_builder.py: `random_seed` :27, `supervised` :43,
 `default_params` :74, `_out_of_time` :101, `_seed` :105, `train` :110,
 `_train_impl` :249, `_maybe_calibrate` :312, `_CHECKPOINT_MODIFIABLE`
 :346, `_resolve_checkpoint` :355, `_cross_validate` :385, `_score_on`
-:460, `_init_output` :465, `_fit_platt` :490, `_mean_metrics` :515).
+:460, `_init_output` :465, `_fit_platt` :490, `_mean_metrics` :515,
+`BUILDERS`/`register` :535-541).
 
 A builder trains on one frame, optionally watching a validation frame
 (in-training scoring, early stopping, validation metrics), under an
@@ -27,7 +28,7 @@ import dataclasses
 import hashlib
 import os
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Type
 
 import numpy as np
 
@@ -331,8 +332,8 @@ class ModelBuilder:
 
     def _score_on(self, model: Model, frame: Frame):
         out = model._output
-        if out.response_name is None \
-                and out.model_category != ModelCategory.AutoEncoder:
+        if out.response_name is None and out.model_category not in (
+                ModelCategory.AutoEncoder, ModelCategory.Clustering):
             return None          # metrics need a response; skip the scoring
         raw = model._predict_raw(model.adapt_test(frame))
         return model._make_metrics(frame, raw)
@@ -405,3 +406,13 @@ def _mean_metrics(mets: List):
                 setattr(out, f.name, float(np.mean(valid)))
     out.description = f"{len(mets)}-fold cross-validation (mean of folds)"
     return out
+
+
+# algo name -> builder class, filled by @register as the algorithm modules
+# import (models/__init__._register_all)
+BUILDERS: Dict[str, Type[ModelBuilder]] = {}
+
+
+def register(cls):
+    BUILDERS[cls.algo_name] = cls
+    return cls

@@ -21,7 +21,7 @@ from typing import List, Tuple
 from h2o3_tpu_torch.core.frame import Column, Frame, T_NUM
 from h2o3_tpu_torch.models.glm import GLM
 from h2o3_tpu_torch.models.model import Model
-from h2o3_tpu_torch.models.model_builder import ModelBuilder
+from h2o3_tpu_torch.models.model_builder import ModelBuilder, register
 from h2o3_tpu_torch.models.tree.drf import DRF
 from h2o3_tpu_torch.models.tree.gbm import GBM
 
@@ -90,6 +90,7 @@ class RuleFitModel(Model):
         return self.rules
 
 
+@register
 class RuleFit(ModelBuilder):
     algo_name = "rulefit"
     model_class = RuleFitModel

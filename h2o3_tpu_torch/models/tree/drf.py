@@ -28,6 +28,7 @@ import torch
 
 from h2o3_tpu_torch.core import random as rnd
 from h2o3_tpu_torch.models.model import ModelCategory
+from h2o3_tpu_torch.models.model_builder import register
 from h2o3_tpu_torch.models.tree.compressed import CompressedForest
 from h2o3_tpu_torch.models.tree.device_tree import (apply_packed,
                                                     assemble_trees,
@@ -79,6 +80,7 @@ class DRFModel(SharedTreeModel):
         return {"value": f}
 
 
+@register
 class DRF(SharedTree):
     algo_name = "drf"
     model_class = DRFModel

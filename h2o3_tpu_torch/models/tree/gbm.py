@@ -14,6 +14,7 @@ import torch
 
 from h2o3_tpu_torch.core.frame import Column, Frame
 from h2o3_tpu_torch.models.model import ModelCategory
+from h2o3_tpu_torch.models.model_builder import register
 from h2o3_tpu_torch.models.tree.shared_tree import SharedTree, SharedTreeModel
 
 
@@ -71,6 +72,7 @@ class GBMModel(SharedTreeModel):
         return out
 
 
+@register
 class GBM(SharedTree):
     algo_name = "gbm"
     model_class = GBMModel

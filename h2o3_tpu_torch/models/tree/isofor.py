@@ -26,6 +26,7 @@ import torch
 
 from h2o3_tpu_torch.core.frame import Frame
 from h2o3_tpu_torch.models.model import ModelCategory
+from h2o3_tpu_torch.models.model_builder import register
 from h2o3_tpu_torch.models.tree.binning import BinSpec
 from h2o3_tpu_torch.models.tree.compressed import CompressedForest
 from h2o3_tpu_torch.models.tree.dtree import HostTree, Split, left_table_for
@@ -51,6 +52,7 @@ class IsolationForestModel(SharedTreeModel):
         return {"score": torch.exp2(-mean_len / c), "mean_length": mean_len}
 
 
+@register
 class IsolationForest(SharedTree):
     algo_name = "isolationforest"
     model_class = IsolationForestModel

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from h2o3_tpu_torch.models.model_builder import register
 from h2o3_tpu_torch.models.tree.gbm import GBM, GBMModel
 
 
@@ -48,6 +49,7 @@ _ALIASES = {
 }
 
 
+@register
 class XGBoost(GBM):
     algo_name = "xgboost"
     model_class = XGBoostModel

@@ -1366,11 +1366,23 @@ def _perfect_auc(env, probs, acts):
 
 @prim("segment_models_as_frame")
 def _segment_models_as_frame(env, key):
-    """AstSegmentModelsAsFrame: needs segment models, which the port
-    does not have yet."""
-    raise NotImplementedError(
-        "segment_models_as_frame needs models/segments.py, which is not "
-        "ported yet (ROADMAP A12)")
+    """AstSegmentModelsAsFrame: a SegmentModels' table as a frame; a
+    column of numbers is numeric, any other an enum of its strings."""
+    from h2o3_tpu_torch.core.dkv import DKV
+    from h2o3_tpu_torch.models.segments import SegmentModels
+
+    sm = DKV.get(_s(key).strip('"'))
+    if not isinstance(sm, SegmentModels):
+        raise ValueError(f"{key!r} is not a SegmentModels key")
+    tbl = sm.as_frame()
+    out = Frame()
+    for i, h in enumerate(tbl.col_names):
+        arr = np.asarray([row[i] for row in tbl.rows], object)
+        try:
+            out.add(h, Column.from_numpy(arr.astype(np.float64)))
+        except (TypeError, ValueError):
+            out.add(h, Column.from_numpy(arr.astype(str), ctype=T_CAT))
+    return out
 
 
 @prim("grouped_permute")

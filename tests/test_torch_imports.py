@@ -73,13 +73,32 @@ def test_port_imports_with_jax_blocked_and_reference_refused():
                  "core.dkv", "frame_factory", "ops.elementwise", "ops.sort",
                  "ops.merge", "ops.groupby", "ops.window", "ops.impute",
                  "rapids", "rapids.parser", "rapids.eval",
-                 "rapids.prims_ext"):
+                 "rapids.prims_ext", "models.kmeans", "models.pca",
+                 "models.svd", "models.naive_bayes", "models.word2vec",
+                 "models.ensemble", "models.target_encoder", "models.glrm",
+                 "models.coxph", "models.psvm", "optim.bfgs",
+                 "models.aggregator", "models.segments"):
         assert f"h2o3_tpu_torch.{name}" in rep["modules"], name
     assert len(rep["modules"]) >= 30, rep["modules"]
     assert rep["leaked"] == [], rep["leaked"]
     assert rep["to_pandas"] == "ImportError"
     assert rep["built"] == 0, "importing the port built a kernel or a " \
         "host library"
+
+
+def test_builders_list_every_ported_algorithm():
+    """BUILDERS maps the reference's algo names to the port's builders:
+    every algorithm the JAX package registers but `generic` (it waits
+    for the host MOJO reader, ROADMAP A12), each exported from the
+    package under its class name."""
+    import h2o3_tpu.models as ref
+    import h2o3_tpu_torch as h2o
+
+    assert sorted(h2o.BUILDERS) == sorted(set(ref.BUILDERS) - {"generic"})
+    for algo, cls in h2o.BUILDERS.items():
+        assert cls.algo_name == algo
+        assert ref.BUILDERS[algo].__name__ == cls.__name__, algo
+        assert getattr(h2o, cls.__name__) is cls, algo
 
 
 def test_init_defaults_to_cuda_and_raises_without_it(monkeypatch):

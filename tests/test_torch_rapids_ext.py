@@ -335,8 +335,14 @@ def test_model_reset_threshold(both):
 
 
 def test_segment_models_waits_for_segments(both):
-    with pytest.raises(NotImplementedError, match="A12"):
-        th.exec_rapids("(segment_models_as_frame 'seg')", both.t)
+    """The prim reads segment models from the DKV (the table itself is
+    held to the reference in test_torch_ensemble.py); a key holding none
+    raises in both packages."""
+    from h2o3_tpu.rapids import exec_rapids as jexec
+
+    for run, sess in ((jexec, both.j), (th.exec_rapids, both.t)):
+        with pytest.raises(ValueError, match="not a SegmentModels key"):
+            run("(segment_models_as_frame 'no_such_segments')", sess)
 
 
 def test_statements_cover_every_prim():
@@ -351,7 +357,10 @@ def test_statements_cover_every_prim():
     from h2o3_tpu_torch.rapids.eval import PRIMS
     from h2o3_tpu_torch.rapids.parser import parse as tparse
 
-    assert set(PRIMS) == set(JPRIMS)
+    # the reference's table may also hold a `udf.` prim that one of its
+    # own tests (test_coverage_bc.py) registers at run time in the same
+    # worker; the port registers no UDF
+    assert set(PRIMS) == {k for k in JPRIMS if not k.startswith("udf.")}
     here = Path(__file__).resolve()
     text = here.read_text() + (here.parent /
                                "test_torch_rapids.py").read_text()
