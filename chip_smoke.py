@@ -46,7 +46,12 @@ through the port's public entry points:
   KFold on both enums); GLRM, CoxPH (seeded survival rows, Efron ties),
   Aggregator and IsotonicRegression on 200k rows, PSVM on 20k; GLM
   segment models per level of one enum and GBM segment models (which
-  run the kernel) per level of the other.
+  run the kernel) per level of the other;
+- search (phase 3q): the reference dryrun's H2OAutoML(max_models=2,
+  seed=1) on the 1M-row flagship (a lambda-search GLM and a 50-tree GBM,
+  each 5-fold cross-validated, then two stacked ensembles), a Cartesian
+  GBM grid, a RandomDiscrete GLM grid walked sequentially and with
+  parallelism 3, and a GBM train cancelled from another thread.
 It checks the card's models and imports against the same port on the
 CPU and times
 the kernel at the level shapes of each configuration beside its memory
@@ -131,6 +136,23 @@ RAPIDS = dict(n_rows=2_000_000, reps=5, seed=4, join_rows=1_000_000,
 BUILDERS = dict(k=10, pca_k=5, aux_rows=200_000, w2v_tokens=1_000_000,
                 vocab=10_000, vec_size=100, psvm_rows=20_000,
                 cvc_rows=100_000, cvc_tokens=100_000)
+# phase 3q: the dryrun's AutoML (__graft_entry__.py:188-191) on the
+# full-width flagship; a Cartesian GBM grid; a RandomDiscrete GLM grid run
+# with parallelism 1 and 3 (the same combos, the same AUCs to GRID_AUC_ATOL:
+# the same fits, in another order); a GBM train cancelled after its second
+# tree; phase 4 runs the AutoML with 3 folds on 20k rows
+SEARCH = dict(aml_models=2, seed=1, grid_hyper={"max_depth": [3, 5],
+                                                "learn_rate": [0.05, 0.2]},
+              grid_ntrees=20, glm_hyper={"alpha": [0.0, 0.25, 0.5, 0.75, 1.0],
+                                         "lambda_": [0.0, 1e-4, 1e-3, 1e-2]},
+              glm_models=5, glm_seed=42, cancel_ntrees=50, cvc_rows=20_000,
+              cvc_nfolds=3)
+GRID_AUC_ATOL = 1e-6
+# the members AutoML builds with max_models=2 and GLM and GBM among its
+# algos: the reserve keeps one slot for exploitation, GLM has none, so
+# the leftover pass builds the first GBM default, then both ensembles
+AML_MEMBERS = ["def_glm", "def_gbm_1", "StackedEnsemble_BestOfFamily",
+               "StackedEnsemble_AllModels"]
 # CoxPH: 6 covariates; card vs CPU coefficients to 5e-3: the float32
 # partial likelihood is flat to its last bit over sqrt(2 ulp(ll) / H) of
 # each coefficient, ~1.3e-3 at 100k rows, and Newton may stop anywhere
@@ -2328,6 +2350,235 @@ def phase_builders(h2o, dev, fr):
     return launches
 
 
+def _levels(model):
+    """Histogram levels a tree model and its CV models walked: the device
+    grower builds one histogram per level below max_depth, every tree."""
+    ms = [model] + list(model._output.cross_validation_models or [])
+    return sum(m.forest.n_trees * int(m._parms["max_depth"]) for m in ms)
+
+
+def _aml_members(aml):
+    """Each AutoML model's step name, in the order they were built."""
+    step = {st["model_id"]: st["name"] for st in aml.modeling_plan
+            if st.get("model_id")}
+    return [step.get(str(m.key), getattr(m, "_se_name", None))
+            for m in aml.models]
+
+
+def _aml_leaderboard(aml):
+    names = dict(zip((str(m.key) for m in aml.models), _aml_members(aml)))
+    return [(names.get(r["model_id"], r["model_id"]), r["algo"],
+             r[aml._metric_name]) for r in aml.leaderboard]
+
+
+def _check_automl(aml, label):
+    """The members AutoML must build, none parked, none failed."""
+    members = _aml_members(aml)
+    check(members == AML_MEMBERS, f"{label}: members {members}")
+    counts = aml._search_engine.counts()
+    check(counts.get("done") == 2 and set(counts) <= {"done", "pending"},
+          f"{label}: member states {counts}")
+    failed = [e["message"] for e in aml.event_log if "FAILED" in
+              e["message"]]
+    check(not failed, f"{label}: {failed}")
+
+
+def phase_search(h2o, dev, fr):
+    """Search on the flagship frame: the dryrun's AutoML, a Cartesian GBM
+    grid, a RandomDiscrete GLM grid sequential and with parallelism 3,
+    and a cancelled GBM train. Returns the kernel's launches per path."""
+    import threading
+
+    from h2o3_tpu_torch.automl import search
+    from h2o3_tpu_torch.core.job import Job, JobCancelled
+    from h2o3_tpu_torch.models.tree import hist_gather as hg
+
+    c, launches = SEARCH, {}
+    search.reset_stats()
+    aml, dt = _timed(lambda: _counted(hg, launches, "automl", lambda:
+                                      h2o.H2OAutoML(
+                                          max_models=c["aml_models"],
+                                          seed=c["seed"]).train(
+                                          y="y", training_frame=fr)))
+    metric("automl_train_s", dt, f"({len(aml.models)} models, "
+           f"{aml.nfolds}-fold CV)")
+    for name, algo, auc in _aml_leaderboard(aml):
+        print(f"  leaderboard: {name} ({algo}) CV AUC {auc!r}")
+    _check_automl(aml, "AutoML")
+    lb = aml.leaderboard
+    best_base = max(_metric_of(m) for m in aml.models[:2])
+    check(lb[0]["auc"] > 0.5 and lb[0]["auc"] >= best_base - 1e-3,
+          f"the leader's AUC {lb[0]['auc']} is below its best base "
+          f"model's {best_base}")
+    gbm = aml.models[1]
+    levels = _levels(gbm)
+    print(f"AutoML hist_gather launches {launches['automl']}, levels "
+          f"grown by the GBM member's {1 + aml.nfolds} trains {levels}; "
+          "the GLM member and the ensembles add none")
+    check(launches["automl"] == levels > 0,
+          f"{launches['automl']} launches for {levels} levels grown")
+    pred = aml.predict(fr).col("Y").data
+    check(pred.shape == (fr.nrows,) and bool(torch.isfinite(pred).all()),
+          "AutoML leader predictions")
+
+    g, dt = _timed(lambda: _counted(hg, launches, "grid_gbm", lambda:
+                                    h2o.H2OGridSearch(
+                                        h2o.GBM, c["grid_hyper"]).train(
+                                        y="y", training_frame=fr,
+                                        ntrees=c["grid_ntrees"],
+                                        seed=c["seed"])))
+    metric("grid_train_s", dt, f"({len(g)} GBMs of {c['grid_ntrees']} "
+           "trees)")
+    table = g.sorted_metric_table()
+    for r in table:
+        print(f"  grid: max_depth {r['max_depth']} learn_rate "
+              f"{r['learn_rate']} training AUC {r['auc']!r}")
+    levels = sum(_levels(m) for m in g.models)
+    check(len(g) == 4 and not g.failed, f"GBM grid: {len(g)} models, "
+                                        f"failed {g.failed}")
+    check([r["auc"] for r in table] == sorted((r["auc"] for r in table),
+                                              reverse=True),
+          "the sorted metric table is out of order")
+    check(launches["grid_gbm"] == levels > 0,
+          f"{launches['grid_gbm']} launches for {levels} levels grown")
+
+    glm = {}
+    for par in (1, 3):
+        search.reset_stats()
+        g, dt = _timed(lambda: _counted(hg, launches, "grid_glm",
+                                        lambda: h2o.H2OGridSearch(
+            h2o.GLM(family="binomial"), c["glm_hyper"], search_criteria={
+                "strategy": "RandomDiscrete", "max_models": c["glm_models"],
+                "seed": c["glm_seed"]}).train(y="y", training_frame=fr,
+                                              parallelism=par)))
+        glm[par] = {str(sorted(m._grid_params.items())):
+                    m._output.training_metrics.auc for m in g.models}
+        print(f"GLM grid, parallelism {par}: {dt!r} s, {len(g)} models; "
+              f"H2O_TPU_SEARCH stats {search.stats()}")
+        check(len(g) == c["glm_models"] and not g.failed,
+              f"GLM grid (parallelism {par}): {len(g)} models, failed "
+              f"{g.failed}")
+        check(launches["grid_glm"] == 0, "a GLM grid launched the "
+                                         "histogram kernel")
+    check(search.stats()["overlap"] >= 2,
+          "the parallel GLM grid ran its members one at a time")
+    check(sorted(glm[1]) == sorted(glm[3]),
+          f"parallel GLM grid combos {sorted(glm[3])} vs {sorted(glm[1])}")
+    gap = max(abs(glm[1][k] - glm[3][k]) for k in glm[1])
+    print(f"GLM grid parallelism 3 vs 1: the same {len(glm[1])} combos, "
+          f"max AUC gap {gap!r}")
+    check(gap <= GRID_AUC_ATOL, f"parallel GLM grid AUCs differ by {gap}")
+
+    # jobs: a normal train ends DONE at progress 1.0; a train cancelled
+    # from another thread after its second tree ends CANCELLED
+    b = h2o.GBM(ntrees=5, max_depth=FLAGSHIP["max_depth"], seed=1)
+    b.train(y="y", training_frame=fr)
+    check(b.job.status == Job.DONE and b.job.progress == 1.0,
+          f"a GBM train's job ended {b.job.status} at {b.job.progress}")
+    nt = c["cancel_ntrees"]
+    b, box = h2o.GBM(ntrees=nt, max_depth=FLAGSHIP["max_depth"],
+                     seed=1), {}
+
+    def train():
+        try:
+            box["model"] = b.train(y="y", training_frame=fr)
+        except JobCancelled as e:
+            box["cancelled"] = e
+
+    t = threading.Thread(target=train)
+    t.start()
+    while t.is_alive() and (b.job is None or b.job.progress < 2 / nt):
+        time.sleep(0.001)
+    b.job.cancel()
+    t.join(600)
+    print(f"cancelled GBM train: job {b.job.status} at progress "
+          f"{b.job.progress} ({b.job.progress_msg})")
+    check(not t.is_alive() and "cancelled" in box
+          and b.job.status == Job.CANCELLED
+          and 2 / nt <= b.job.progress < 1.0,
+          f"the cancelled train's job ended {b.job.status} at "
+          f"{b.job.progress}")
+    h2o.DKV.clear()
+    return launches
+
+
+def _metric_of(m):
+    mm = m._output.cross_validation_metrics or m._output.training_metrics
+    return float(mm.auc)
+
+
+def phase_card_vs_cpu_search(h2o, dev):
+    """The AutoML of phase 3q with 3 folds on 20k flagship rows, on the
+    card and on the CPU: the same members in the same order and the same
+    leaderboard (neighbours closer than GLM_PRED_ATOL may swap); the GBM
+    member's forests (main and folds) bitwise, its holdout predictions
+    and CV metrics to PRED_ATOL; the GLM member's coefficients to
+    GLM_COEF_TOL and its predictions, and the ensembles', to
+    GLM_PRED_ATOL. Every gap is reported before the phase fails."""
+    c = SEARCH
+    failures, amls, frames = [], [], []
+
+    def expect(ok, msg):
+        if not ok:
+            failures.append(msg)
+
+    for d in (dev, torch.device("cpu")):
+        fr = flagship_frame(h2o, d, c["cvc_rows"])
+        aml, dt = _timed(lambda: h2o.H2OAutoML(
+            max_models=c["aml_models"], nfolds=c["cvc_nfolds"],
+            seed=c["seed"]).train(y="y", training_frame=fr))
+        print(f"AutoML on {d.type}, {c['cvc_rows']} rows: {dt!r} s")
+        _check_automl(aml, f"AutoML on {d.type}")
+        amls.append(aml)
+        frames.append(fr)
+    card, host = amls
+    lbs = [_aml_leaderboard(a) for a in amls]
+    print(f"leaderboards card {lbs[0]} / CPU {lbs[1]}")
+    order = [n for n, _, _ in lbs[1]]
+    pos = {n: i for i, (n, _, _) in enumerate(lbs[0])}
+    for (a, _, va), (b, _, vb) in zip(lbs[1], lbs[1][1:]):
+        expect(abs(va - vb) <= GLM_PRED_ATOL or pos[a] < pos[b],
+               f"leaderboard order card {[n for n, _, _ in lbs[0]]} vs CPU "
+               f"{order}")
+    preds = [[m.predict(f).col("Y").data.cpu().numpy() for m in a.models]
+             for a, f in zip(amls, frames)]
+    gaps = {}
+    for i, name in enumerate(AML_MEMBERS):
+        gaps[name] = float(np.abs(preds[0][i] - preds[1][i]).max())
+    gm = [a.models[1] for a in amls]
+    for ma, mb in zip([gm[0]] + gm[0]._output.cross_validation_models,
+                      [gm[1]] + gm[1]._output.cross_validation_models):
+        fa, fb = _forest_arrays(ma), _forest_arrays(mb)
+        for k in fa:
+            expect(np.array_equal(fa[k], fb[k]),
+                   f"AutoML GBM member: forest {k} differs")
+    oa, ob = gm[0]._output, gm[1]._output
+    hdiff = float(np.abs(oa.cross_validation_holdout_predictions
+                         - ob.cross_validation_holdout_predictions).max())
+    mdiff = max(abs(getattr(oa.cross_validation_metrics, k)
+                    - getattr(ob.cross_validation_metrics, k))
+                for k in ("auc", "logloss", "rmse"))
+    expect(hdiff <= PRED_ATOL and mdiff <= PRED_ATOL
+           and gaps["def_gbm_1"] <= PRED_ATOL,
+           f"AutoML GBM member: holdout predictions differ by {hdiff}, CV "
+           f"metrics by {mdiff}, predictions by {gaps['def_gbm_1']}")
+    ca, cb = card.models[0].coef(), host.models[0].coef()
+    cgap = max(abs(ca[k] - cb[k]) for k in ca)
+    expect(list(ca) == list(cb) and all(
+        np.allclose(ca[k], cb[k], **GLM_COEF_TOL) for k in ca),
+        f"AutoML GLM member: coefficients differ by {cgap}")
+    for name in ("def_glm", "StackedEnsemble_BestOfFamily",
+                 "StackedEnsemble_AllModels"):
+        expect(gaps[name] <= GLM_PRED_ATOL,
+               f"AutoML {name}: predictions differ by {gaps[name]}")
+    print(f"card vs cpu AutoML: members {AML_MEMBERS}; GBM member forests "
+          f"equal, holdout pred diff {hdiff:.3e}, CV metric diff "
+          f"{mdiff:.3e}; GLM coef diff {cgap:.3e}; prediction diffs "
+          + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
+    h2o.DKV.clear()
+    check(not failures, "; ".join(failures))
+
+
 def phase_card_vs_cpu_builders(h2o, dev):
     """Each remaining builder on the card and on the CPU (100k-row
     fixtures: KMeans on seeded blobs, as its CPU tests, PSVM on its 20k
@@ -2960,6 +3211,10 @@ def main() -> int:
           "NaiveBayes, Word2Vec, TargetEncoder, GLRM, CoxPH, PSVM, "
           "Aggregator, IsotonicRegression, segments)")
     launches.update(phase_builders(h2o, dev, fr))
+    banner("phase 3q: search on the flagship frame (the dryrun's AutoML, "
+           "a GBM grid, a GLM grid sequential and parallel, a cancelled "
+           "train)")
+    launches.update(phase_search(h2o, dev, fr))
     del fr, dl_model
     banner("phase 3g: IsolationForest (1M rows, 1% moved 6 sigma out)")
     launches["isolationforest"], ofr, moved, iso = phase_isofor(h2o, dev)
@@ -3001,6 +3256,7 @@ def main() -> int:
         phase_card_vs_cpu_framework(h2o, dev)
         phase_card_vs_cpu_rapids(h2o, dev)
         phase_card_vs_cpu_builders(h2o, dev)
+        phase_card_vs_cpu_search(h2o, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     banner("phase 5: kernel times at each configuration's level shapes")

@@ -44,14 +44,23 @@
     h2o.Aggregator(target_num_exemplars=1000).train(training_frame=fr)
     h2o.IsotonicRegression().train(x=["x"], y="y", training_frame=fr)
     h2o.train_segments(h2o.GLM, {}, fr, ["c0"], y="y").as_frame()
+    aml = h2o.H2OAutoML(max_models=2, seed=1).train(y="y", training_frame=fr)
+    aml.leaderboard; aml.leader.predict(fr)
+    g = h2o.H2OGridSearch(h2o.GBM, {"max_depth": [3, 5]}).train(
+        y="y", training_frame=fr, ntrees=20)
+    g.sorted_metric_table(); g.best_model()
+    h2o.H2OGradientBoostingEstimator(ntrees=5)   # the h2o-py names
+    h2o.get_model(key); h2o.get_frame(key); h2o.remove(key); h2o.ls()
+    h2o.export_file(fr, "out.csv"); h2o.no_progress()
 
 Importing the package builds nothing: each CUDA kernel is compiled on
 its first launch (or all at once by ``kernels.build_all``), and the C++
 CSV parser of ``import_file`` on its first parse (``native.build``).
 """
 
-from h2o3_tpu_torch.core.dkv import DKV, Scope
+from h2o3_tpu_torch.core.dkv import DKV, Key, Scope
 from h2o3_tpu_torch.core.frame import Column, Frame
+from h2o3_tpu_torch.core.job import Job
 from h2o3_tpu_torch.core.runtime import cluster, init
 from h2o3_tpu_torch.frame_factory import H2OFrame, create_frame
 from h2o3_tpu_torch.ingest.parser import (import_file, parse_setup,
@@ -90,10 +99,119 @@ from h2o3_tpu_torch.rapids import Session, exec_rapids
 
 load_model = Model.load
 
+# the h2o-py estimator surface, resolved lazily (h2o3_tpu/__init__.py:61)
+_ESTIMATORS = {
+    **{name: "h2o3_tpu_torch.estimators" for name in (
+        "H2OGeneralizedLinearEstimator", "H2OGradientBoostingEstimator",
+        "H2ORandomForestEstimator", "H2OIsolationForestEstimator",
+        "H2OExtendedIsolationForestEstimator", "H2ODeepLearningEstimator",
+        "H2OAutoEncoderEstimator", "H2OKMeansEstimator",
+        "H2OPrincipalComponentAnalysisEstimator",
+        "H2OSingularValueDecompositionEstimator", "H2ONaiveBayesEstimator",
+        "H2OGeneralizedLowRankEstimator", "H2OWord2vecEstimator",
+        "H2OXGBoostEstimator", "H2OStackedEnsembleEstimator",
+        "H2ORuleFitEstimator", "H2OGeneralizedAdditiveEstimator",
+        "H2OCoxProportionalHazardsEstimator", "H2OAggregatorEstimator",
+        "H2OTargetEncoderEstimator", "H2OGenericEstimator",
+        "H2OIsotonicRegressionEstimator",
+        "H2OSupportVectorMachineEstimator")},
+    "H2OGridSearch": "h2o3_tpu_torch.grid",
+    "H2OAssembly": "h2o3_tpu_torch.assembly",
+    "H2OAutoML": "h2o3_tpu_torch.automl.automl",
+}
+
+
+def __getattr__(name):
+    mod = _ESTIMATORS.get(name)
+    if mod is None:
+        raise AttributeError(
+            f"module 'h2o3_tpu_torch' has no attribute {name!r}")
+    import importlib
+
+    return getattr(importlib.import_module(mod), name)
+
+
+def __dir__():
+    return sorted(list(globals()) + list(_ESTIMATORS))
+
+
+def no_progress():
+    """Turn progress output off (h2o.no_progress)."""
+    from h2o3_tpu_torch.utils import log
+
+    log.PROGRESS = False
+
+
+def show_progress():
+    from h2o3_tpu_torch.utils import log
+
+    log.PROGRESS = True
+
+
+def export_file(frame, path: str, force: bool = False) -> str:
+    """Write a frame to a local CSV (h2o.export_file): a header, enum
+    labels, strings, real values in float32's shortest round-trip form,
+    integers as integers, times as epoch milliseconds, and NA as an
+    empty field. No pandas."""
+    import csv
+    import os
+
+    import numpy as np
+
+    if os.path.exists(path) and not force:
+        raise FileExistsError(f"{path} exists (use force=True)")
+    cols = []
+    for name in frame.names:
+        c = frame.col(name)
+        if c.is_categorical or c.data is None:
+            cols.append(["" if v is None else str(v) for v in c.values()])
+        elif c.ctype == "time" and c.host_data is not None:
+            # exact epoch milliseconds from the host copy
+            ms = np.asarray(c.host_data).astype("datetime64[ms]")
+            cols.append(["" if np.isnat(v) else str(v.astype(np.int64))
+                         for v in ms])
+        elif c.ctype == "real":
+            cols.append(["" if np.isnan(v) else str(v)
+                         for v in c.to_numpy().astype(np.float32)])
+        else:
+            cols.append(["" if np.isnan(v) else str(int(v))
+                         for v in c.to_numpy().astype(np.float64)])
+    with open(path, "w", newline="", encoding="utf-8") as f:
+        w = csv.writer(f)
+        w.writerow(frame.names)
+        w.writerows(zip(*cols))
+    return path
+
 
 def ls():
     """The DKV's keys (h2o.ls)."""
     return sorted(DKV.keys())
+
+
+def get_frame(key):
+    fr = DKV.get(key)
+    if fr is None:
+        raise KeyError(f"No frame under key {key!r}")
+    return fr
+
+
+def get_model(key):
+    m = DKV.get(key)
+    if m is None:
+        raise KeyError(f"No model under key {key!r}")
+    return m
+
+
+def remove(key):
+    DKV.remove(key)
+
+
+def remove_all():
+    DKV.clear()
+
+
+def frame(frame_id):
+    return get_frame(frame_id)
 
 
 __all__ = ["Aggregator", "AggregatorModel", "BUILDERS", "Column", "CoxPH",
@@ -102,12 +220,15 @@ __all__ = ["Aggregator", "AggregatorModel", "BUILDERS", "Column", "CoxPH",
            "ExtendedIsolationForestModel", "Frame", "GAM", "GAMModel", "GBM",
            "GBMModel", "GLM", "GLMModel", "GLRM", "GLRMModel", "H2OFrame",
            "IsolationForest", "IsolationForestModel", "IsotonicRegression",
-           "IsotonicRegressionModel", "KMeans", "KMeansModel", "Model",
+           "IsotonicRegressionModel", "Job", "KMeans", "KMeansModel", "Key",
+           "Model",
            "NaiveBayes", "NaiveBayesModel", "PCA", "PCAModel", "PSVM",
            "PSVMModel", "RuleFit", "RuleFitModel", "SVD", "SVDModel",
            "Scope", "SegmentModels", "Session", "StackedEnsemble",
            "StackedEnsembleModel", "TargetEncoder", "TargetEncoderModel",
            "Word2Vec", "Word2VecModel", "XGBoost", "XGBoostModel", "cluster",
-           "create_frame", "exec_rapids", "import_file", "import_sql_select",
-           "import_sql_table", "init", "load_model", "ls", "parse_setup",
+           "create_frame", "exec_rapids", "export_file", "frame",
+           "get_frame", "get_model", "import_file", "import_sql_select",
+           "import_sql_table", "init", "load_model", "ls", "no_progress",
+           "parse_setup", "remove", "remove_all", "show_progress",
            "train_segments", "upload_file"]

@@ -1,0 +1,303 @@
+"""The in-process search engine of AutoML and grid search (counterpart
+of h2o3_tpu/automl/search.py: `MAX_ATTEMPTS` :40, `_DEVICE_LANE` :53,
+`stats` :76, `member_deadline_s` :108, `search_concurrency` :123,
+`_scrub_params` :156, `SearchEngine` :176, `member` :246, `counts`
+:266, `state` :275, `run` :324, `_run` :342, `_build_one` :376).
+
+Both `H2OAutoML.train` and `H2OGridSearch.train` drive their members
+through one :class:`SearchEngine`:
+
+- each attempt of a member is a real ``Job`` on its own thread, failed
+  from outside and parked once it has held the device lane for
+  ``H2O_TPU_SEARCH_MEMBER_DEADLINE_S`` (0, the default, means no
+  deadline);
+- a ValueError or TypeError (a configuration error) parks the member on
+  its first attempt; any other error retries it, and it parks at
+  ``MAX_ATTEMPTS``. A parked member never fails the search;
+- members schedule concurrently up to ``search_concurrency()``
+  (``H2O_TPU_SEARCH_CONCURRENCY``: an int, or ``auto``, which is 1 as
+  the reference's is while admission runs uncapped; the port has no
+  admission controller yet, ROADMAP A13).
+
+The device lane (ROADMAP C27): on the one GPU every member's build
+holds `_DEVICE_LANE`, GLM's included. The reference lets builders marked
+``parallel_safe`` (GLM) skip its lane; the port does not, because a
+member's kernels launched while a DeepLearning member captures its CUDA
+graph can break the capture. Members still schedule, score and report
+concurrently, and the set of models is the sequential walk's. Since
+every member queues for the lane, a member's deadline runs from when it
+takes the lane (the reference's runs from its start, queueing
+included); a member failed at its deadline keeps the lane until its
+thread ends.
+
+Not ported until the control plane (ROADMAP A14): the durable search
+state (`save`, `finish`, restoring an engine from a snapshot, the
+`reattach` of done members), `resume_orphaned`, `run_from_state`,
+`apply_resume_op`, `_scrub_params`' oplog rule, and the search's own
+Job, which the reference's REST handlers attach (`job`, `_progress`).
+The port's search runs as the reference's does in library mode with
+``H2O_TPU_SEARCH_CKPT=0``.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
+from typing import Any, Callable, Dict, List, Optional
+
+# attempts per member before it parks (h2o3_tpu/parallel/watchdog.py:55)
+MAX_ATTEMPTS = 5
+
+_WIRE_TYPES = (str, int, float, bool, list, tuple, type(None))
+
+_LOCK = threading.Lock()
+
+# every member's build holds this lane (ROADMAP C27, above)
+_DEVICE_LANE = threading.Lock()
+
+_STATS: Dict[str, int] = {}
+
+
+def _zero() -> Dict[str, int]:
+    return dict(members_done=0, members_failed=0, members_parked=0,
+                attempts=0, running=0, overlap=0)
+
+
+_STATS.update(_zero())
+
+
+def stats() -> Dict[str, int]:
+    """Process-wide search counters: members done, failed and parked,
+    attempts dispatched, members running now, and the high-water mark of
+    members running at once (`overlap`)."""
+    with _LOCK:
+        return dict(_STATS)
+
+
+def reset_stats() -> None:
+    with _LOCK:
+        _STATS.update(_zero())
+
+
+def _bump(**kw) -> None:
+    with _LOCK:
+        for k, v in kw.items():
+            _STATS[k] = _STATS.get(k, 0) + v
+        if _STATS["running"] > _STATS["overlap"]:
+            _STATS["overlap"] = _STATS["running"]
+
+
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
+
+
+def member_deadline_s() -> float:
+    """Per-member wall-clock deadline in seconds
+    (``H2O_TPU_SEARCH_MEMBER_DEADLINE_S``, 0 = none). A member past it is
+    failed from outside and parked, and the search moves on."""
+    return _env_float("H2O_TPU_SEARCH_MEMBER_DEADLINE_S", 0.0)
+
+
+def search_concurrency() -> int:
+    """Member-scheduling width: ``H2O_TPU_SEARCH_CONCURRENCY`` as an int,
+    or ``auto`` (the default), which is 1."""
+    raw = (os.environ.get("H2O_TPU_SEARCH_CONCURRENCY") or "auto").strip()
+    if raw.lower() == "auto":
+        return 1
+    try:
+        return max(1, int(raw))
+    except ValueError:
+        return 1
+
+
+def _scrub_params(params: Optional[dict]) -> dict:
+    """A member's parameters as plain values only (what its record
+    keeps)."""
+    return {k: v for k, v in (params or {}).items()
+            if isinstance(v, _WIRE_TYPES)}
+
+
+class SearchEngine:
+    """One search's controller: the member plan and each member's
+    status, attempts and score.
+
+    Statuses: ``pending`` -> ``running`` -> ``done`` | ``failed`` (an
+    attempt burned, retried) | ``parked`` (at MAX_ATTEMPTS, past its
+    deadline, or a configuration error; never fails the search)."""
+
+    def __init__(self, key: str, kind: str, spec: Optional[dict] = None):
+        self.key = str(key)
+        self.kind = str(kind)
+        self.spec = dict(spec or {})
+        # optional owner hook, called with (member, attempt) after a
+        # failed or parked attempt (AutoML's event log)
+        self.on_member_failure = None
+        self._lock = threading.RLock()
+        self.members: Dict[str, dict] = {}
+        self.order: List[str] = []
+
+    # -- plan -------------------------------------------------------------
+    def member(self, name: str, algo: Optional[str] = None,
+               params: Optional[dict] = None) -> dict:
+        """Get or create the record of one member."""
+        with self._lock:
+            m = self.members.get(name)
+            if m is None:
+                m = {"name": str(name), "status": "pending", "attempts": 0,
+                     "model_id": None, "score": None, "error": None}
+                self.members[name] = m
+                self.order.append(name)
+            if algo is not None:
+                m["algo"] = str(algo)
+            m["params"] = _scrub_params(params)
+            return m
+
+    def counts(self) -> Dict[str, int]:
+        with self._lock:
+            out: Dict[str, int] = {}
+            for m in self.members.values():
+                st = str(m.get("status", "pending"))
+                out[st] = out.get(st, 0) + 1
+            return out
+
+    def state(self) -> dict:
+        """A snapshot: the member records without their ``_``-prefixed
+        runtime entries, and the spec."""
+        with self._lock:
+            members = {n: {k: v for k, v in m.items()
+                           if not str(k).startswith("_")}
+                       for n, m in self.members.items()}
+            return {"search": self.key, "kind": self.kind,
+                    "spec": dict(self.spec), "members": members,
+                    "order": list(self.order),
+                    "dest": self.spec.get("dest")}
+
+    # -- scheduling -------------------------------------------------------
+    def run(self, members: List[dict], build_fn: Callable[[dict], Any],
+            can_start: Optional[Callable[[int], bool]] = None,
+            score_fn: Optional[Callable[[dict, Any], Any]] = None,
+            concurrency: Optional[int] = None) -> bool:
+        """Drive `members` (plan order) to a terminal state. ``build_fn``
+        trains one member and returns its model; ``can_start(inflight)``
+        is the budget gate, asked before every dispatch. Returns False
+        when the gate stopped the search with members still pending."""
+        conc = int(concurrency) if concurrency else search_concurrency()
+        return self._run(members, build_fn, can_start, score_fn, conc)
+
+    def _run(self, members, build_fn, can_start, score_fn, conc) -> bool:
+        todo = [m for m in members
+                if m.get("status") not in ("done", "parked")]
+        if conc <= 1:
+            for m in todo:
+                if can_start is not None and not can_start(0):
+                    return False
+                self._build_one(m, build_fn, score_fn)
+            return True
+        stopped = False
+        with ThreadPoolExecutor(max_workers=conc,
+                                thread_name_prefix="h2o3-search") as ex:
+            pending = list(todo)
+            futures: Dict[Any, dict] = {}
+            while pending or futures:
+                while pending and len(futures) < conc and \
+                        (can_start is None or can_start(len(futures))):
+                    m = pending.pop(0)
+                    futures[ex.submit(self._build_one, m, build_fn,
+                                      score_fn)] = m
+                if not futures:
+                    # the gate refused with nothing in flight: the budget
+                    # is spent for good
+                    stopped = bool(pending)
+                    break
+                done, _ = wait(list(futures), return_when=FIRST_COMPLETED)
+                for f in done:
+                    futures.pop(f, None)
+                    f.result()   # an engine-level crash must propagate
+        return not stopped
+
+    def _build_one(self, m: dict, build_fn, score_fn=None) -> None:
+        """One member driven to a terminal state: each attempt is a Job on
+        its own thread, joined with the member deadline."""
+        from h2o3_tpu_torch.core.job import Job
+        from h2o3_tpu_torch.utils.log import get_logger
+
+        dl = member_deadline_s()
+        while True:
+            with self._lock:
+                m["attempts"] = int(m.get("attempts") or 0) + 1
+                m["status"] = "running"
+                attempt = m["attempts"]
+            _bump(attempts=1, running=1)
+            job = Job(description=f"{self.kind} member {m['name']}",
+                      dest=m.get("model_id"))
+            box: Dict[str, Any] = {}
+            started = threading.Event()
+
+            def work(j, _m=m, _box=box, _started=started):
+                try:
+                    with _DEVICE_LANE:
+                        _started.set()
+                        _box["model"] = build_fn(_m)
+                except BaseException as e:
+                    _box["exc"] = e
+                    raise
+
+            job.start(work, background=True)
+            # the deadline runs from when the member holds the lane: time
+            # queued behind other members' device work is not its own
+            while not started.wait(0.05) and job._thread.is_alive():
+                pass
+            job._thread.join(timeout=dl if dl > 0 else None)
+            wedged = job._thread.is_alive()
+            if wedged:
+                # fail the job from outside; its thread is left to end on
+                # its own (it may hold the device lane until then)
+                job.fail(f"search member {m['name']} exceeded its "
+                         f"{dl:g}s deadline (attempt {attempt})")
+            _bump(running=-1)
+            exc = box.get("exc")
+            if not wedged and exc is None:
+                model = box.get("model")
+                with self._lock:
+                    m["status"] = "done"
+                    m["error"] = None
+                    if model is not None and m.get("model_id") is None:
+                        mk = getattr(model, "key", None)
+                        if mk is not None:
+                            m["model_id"] = str(mk)
+                    if score_fn is not None:
+                        try:
+                            m["score"] = score_fn(m, model)
+                        except Exception:   # noqa: BLE001 — a scoring
+                            # hiccup must not undo a finished member
+                            m["score"] = None
+                _bump(members_done=1)
+                return
+            err = (job.exception if wedged else
+                   f"{type(exc).__name__}: {exc}")
+            deterministic = isinstance(exc, (ValueError, TypeError))
+            with self._lock:
+                m["error"] = str(err)[:500]
+                if deterministic or attempt >= MAX_ATTEMPTS or wedged:
+                    m["status"] = "parked"
+                else:
+                    m["status"] = "failed"
+            _bump(members_failed=1)
+            if m["status"] == "parked":
+                _bump(members_parked=1)
+            get_logger().warning(
+                "search %s: member %s attempt %d %s: %s", self.key,
+                m["name"], attempt,
+                "parked" if m["status"] == "parked" else "failed", err)
+            cb = self.on_member_failure
+            if cb is not None:
+                try:
+                    cb(dict(m), attempt)
+                except Exception:   # noqa: BLE001 — an owner's log hook
+                    pass            # must never undo the parking
+            if m["status"] == "parked":
+                return

@@ -1,0 +1,232 @@
+"""Grid search: hyperparameter sweeps with Cartesian and RandomDiscrete
+walkers (counterpart of h2o3_tpu/grid.py: `H2OGridSearch` :53,
+`_candidates` :99, `train` :206, `get_grid` :328, `sorted_metric_table`
+:348, `best_model` :355).
+
+Reference: hex/grid/GridSearch.java + HyperSpaceWalker.java (Cartesian
+and RandomDiscrete with max_models / max_runtime_secs budgets and a
+seed), with parallel model building (GridSearch.java `parallelism`).
+
+Each candidate trains through its builder's normal train on the one
+device, driven by the in-process search engine (`automl/search.py`): a
+member that fails is retried or parked and listed in `failed`, and never
+fails the grid. `parallelism` > 1 overlaps the members' host work; their
+device work takes turns (ROADMAP C27). Grid recovery (`recovery_dir`,
+`H2OGridSearch.load`) waits for the durable search state (ROADMAP A14).
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+import threading
+import time
+from typing import Any, Dict, List, Optional, Sequence, Type
+
+import numpy as np
+
+from h2o3_tpu_torch.core.dkv import Keyed
+from h2o3_tpu_torch.core.frame import Frame
+from h2o3_tpu_torch.models.model import Model
+from h2o3_tpu_torch.models.model_builder import (BUILDERS, ModelBuilder,
+                                                 random_seed)
+
+_LOWER_IS_BETTER = {"rmse", "mse", "logloss", "mae", "mean_residual_deviance",
+                    "mean_per_class_error", "err", "rmsle"}
+
+
+def _metric_value(model: Model, metric: str) -> float:
+    mm = (model._output.cross_validation_metrics
+          or model._output.validation_metrics
+          or model._output.training_metrics)
+    if mm is None:
+        return float("nan")
+    return float(getattr(mm, metric.lower(), float("nan")))
+
+
+def _default_metric(model: Model) -> str:
+    cat = model._output.model_category
+    return {"Binomial": "auc", "Multinomial": "logloss",
+            "Regression": "rmse"}.get(cat, "rmse")
+
+
+class H2OGridSearch(Keyed):
+    """h2o-py H2OGridSearch surface: build over hyper_params, rank models.
+
+    `model` is a builder class, an instance (its non-default parameters
+    become the base configuration) or an algo name."""
+
+    def __init__(self, model, hyper_params: Dict[str, Sequence],
+                 grid_id: Optional[str] = None,
+                 search_criteria: Optional[Dict[str, Any]] = None):
+        super().__init__(grid_id)
+        if isinstance(model, str):
+            self.builder_cls: Type[ModelBuilder] = BUILDERS[model.lower()]
+            self.base_params: Dict[str, Any] = {}
+        elif isinstance(model, type):
+            self.builder_cls = model
+            self.base_params = {}
+        else:
+            self.builder_cls = type(model)
+            self.base_params = {k: v for k, v in model.params.items()
+                                if v != model.default_params().get(k)}
+        self.hyper_params = {k: list(v) for k, v in hyper_params.items()}
+        self.search_criteria = dict(search_criteria
+                                    or {"strategy": "Cartesian"})
+        self.models: List[Model] = []
+        self.failed: List[Dict[str, Any]] = []
+        self._done: set = set()            # combo keys already trained
+        self._lock = threading.Lock()
+        self.install()
+
+    def __getstate__(self):
+        d = dict(self.__dict__)
+        d.pop("_lock", None)
+        d.pop("_search_engine", None)
+        return d
+
+    def __setstate__(self, d):
+        self.__dict__.update(d)
+        self._lock = threading.Lock()
+
+    @staticmethod
+    def _combo_key(params: Dict[str, Any]) -> str:
+        return json.dumps(sorted((k, str(v)) for k, v in params.items()))
+
+    # -- walkers (HyperSpaceWalker.java) ----------------------------------
+    def _candidates(self):
+        """-> (hyperparameter names, combos in walk order): the Cartesian
+        product, shuffled by numpy's default_rng(seed) for RandomDiscrete
+        (a fresh seed when it is negative or absent)."""
+        keys = list(self.hyper_params)
+        grids = [self.hyper_params[k] for k in keys]
+        strategy = (self.search_criteria.get("strategy")
+                    or "Cartesian").lower()
+        combos = list(itertools.product(*grids))
+        if strategy == "randomdiscrete":
+            seed = int(self.search_criteria.get("seed", -1))
+            rng = np.random.default_rng(
+                seed if seed >= 0 else random_seed())
+            rng.shuffle(combos)
+        return keys, combos
+
+    def _record(self, combo_params: Dict[str, Any], model: Model) -> None:
+        with self._lock:
+            model._grid_params = dict(combo_params)
+            self.models.append(model)
+            self._done.add(self._combo_key(combo_params))
+
+    def train(self, x=None, y=None, training_frame: Optional[Frame] = None,
+              validation_frame: Optional[Frame] = None,
+              parallelism: Optional[int] = None,
+              recovery_dir: Optional[str] = None, **kw):
+        """Walk the hyper space through the search engine. `parallelism`
+        is the member-scheduling width (GridSearch.java parallelism);
+        None takes ``H2O_TPU_SEARCH_CONCURRENCY``. Combos already trained
+        by an earlier train() of this grid are skipped. `recovery_dir`
+        is not supported yet (ROADMAP A14)."""
+        from h2o3_tpu_torch.automl.search import SearchEngine
+
+        if recovery_dir:
+            raise NotImplementedError(
+                "grid recovery_dir needs the durable search state, which "
+                "the port does not have yet (ROADMAP A14)")
+        keys, combos = self._candidates()
+        max_models = int(self.search_criteria.get("max_models", 0) or 0)
+        max_secs = float(self.search_criteria.get("max_runtime_secs", 0)
+                         or 0)
+        t0 = time.time()
+
+        engine = SearchEngine(str(self.key), "grid", {
+            "kind": "grid", "description": f"Grid {self.key} Build",
+            "dest": str(self.key), "algo": self.builder_cls.algo_name,
+            "hyper": self.hyper_params, "criteria": self.search_criteria,
+            "x": list(x) if isinstance(x, (list, tuple)) else x, "y": y})
+        self._search_engine = engine
+
+        members = []
+        for combo in combos:
+            combo_params = dict(zip(keys, combo))
+            ck = self._combo_key(combo_params)
+            if ck in self._done:
+                continue
+            mem = engine.member(ck, self.builder_cls.algo_name, combo_params)
+            mem["_combo"] = combo_params
+            members.append(mem)
+
+        def can_start(inflight: int) -> bool:
+            # the models cap counts in-flight builds too, so the budget
+            # holds exactly as in a sequential walk
+            if max_models and len(self.models) + inflight >= max_models:
+                return False
+            if max_secs and time.time() - t0 > max_secs:
+                return False
+            return True
+
+        def build(mem: dict) -> Model:
+            combo_params = dict(mem["_combo"])
+            params = dict(self.base_params)
+            params.update(kw)
+            params.update(combo_params)
+            m = self.builder_cls(**params).train(
+                x=x, y=y, training_frame=training_frame,
+                validation_frame=validation_frame)
+            self._record(combo_params, m)
+            return m
+
+        def score(mem, model):
+            return _metric_value(model, _default_metric(model))
+
+        engine.run(members, build, can_start=can_start, score_fn=score,
+                   concurrency=int(parallelism) if parallelism else None)
+        for mem in members:
+            if mem.get("status") == "parked" and not any(
+                    f.get("combo_key") == mem["name"] for f in self.failed):
+                with self._lock:
+                    self.failed.append({"params": dict(mem["_combo"]),
+                                        "error": mem.get("error"),
+                                        "combo_key": mem["name"]})
+        if not self.models:
+            raise RuntimeError(f"grid produced no models; failures: "
+                               f"{self.failed[:3]}")
+        return self
+
+    # -- ranking (Grid.java getModels sorted) ------------------------------
+    def get_grid(self, sort_by: Optional[str] = None,
+                 decreasing: Optional[bool] = None):
+        metric = (sort_by or _default_metric(self.models[0])).lower()
+        if decreasing is None:
+            decreasing = metric not in _LOWER_IS_BETTER
+
+        def keyfn(m):
+            v = _metric_value(m, metric)
+            if v != v:
+                return float("inf")
+            return -v if decreasing else v
+
+        order = sorted(self.models, key=keyfn)
+        g = H2OGridSearch.__new__(H2OGridSearch)
+        g.__dict__.update(self.__dict__)
+        g.models = order
+        return g
+
+    @property
+    def model_ids(self) -> List[str]:
+        return [str(m.key) for m in self.models]
+
+    def sorted_metric_table(self, sort_by: Optional[str] = None
+                            ) -> List[dict]:
+        metric = (sort_by or _default_metric(self.models[0])).lower()
+        rows = [{"model_id": str(m.key), metric: _metric_value(m, metric),
+                 **getattr(m, "_grid_params", {})} for m in self.models]
+        return sorted(rows, key=lambda r: r[metric],
+                      reverse=metric not in _LOWER_IS_BETTER)
+
+    def best_model(self, metric: Optional[str] = None) -> Model:
+        return self.get_grid(sort_by=metric).models[0]
+
+    def __getitem__(self, i: int) -> Model:
+        return self.models[i]
+
+    def __len__(self):
+        return len(self.models)

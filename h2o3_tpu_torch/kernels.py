@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, List
 
@@ -36,6 +37,9 @@ SIGNATURES = {
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# one build at a time in this process: search members train on threads,
+# and two first launches would otherwise run nvcc into the same temp file
+_LOCK = threading.RLock()
 # nvcc's -Xptxas -v report per kernel, from the build that made the library
 BUILD_LOG: Dict[str, str] = {}
 
@@ -92,33 +96,39 @@ def build_all() -> List[str]:
     """Build every kernel library, one nvcc per source started together;
     returns the kernel names. Already-built libraries are reused."""
     names = sorted(SIGNATURES)
-    jobs = {n: _start(n) for n in names}
-    errors = []
-    for n, job in jobs.items():
-        if job is not None:
-            try:
-                _finish(n, job)
-            except RuntimeError as e:
-                errors.append(str(e))
-    if errors:
-        raise RuntimeError("\n".join(errors))
-    for n in names:
-        load(n)
+    with _LOCK:
+        jobs = {n: _start(n) for n in names}
+        errors = []
+        for n, job in jobs.items():
+            if job is not None:
+                try:
+                    _finish(n, job)
+                except RuntimeError as e:
+                    errors.append(str(e))
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        for n in names:
+            load(n)
     return names
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for kernel `name`, built on first use."""
+    """The loaded library for kernel `name`, built on first use (once,
+    whatever the number of threads asking)."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    job = _start(name)
-    if job is not None:
-        _finish(name, job)
-    lib = ctypes.CDLL(str(lib_path(name)))
-    for fn, (restype, argtypes) in SIGNATURES[name].items():
-        f = getattr(lib, fn)
-        f.restype = restype
-        f.argtypes = argtypes
-    _LIBS[name] = lib
-    return lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is not None:
+            return lib
+        job = _start(name)
+        if job is not None:
+            _finish(name, job)
+        lib = ctypes.CDLL(str(lib_path(name)))
+        for fn, (restype, argtypes) in SIGNATURES[name].items():
+            f = getattr(lib, fn)
+            f.restype = restype
+            f.argtypes = argtypes
+        _LIBS[name] = lib
+        return lib

@@ -211,6 +211,9 @@ class CoxPH(ModelBuilder):
             prev = cur
             if done:
                 break
+            if self.job:
+                self.job.update(progress=it / int(p.get("max_iterations", 20)),
+                                msg=f"newton {it}")
 
         model = CoxPHModel(parms=dict(p))
         self._init_output(model, train)

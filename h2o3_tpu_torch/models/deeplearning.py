@@ -509,6 +509,11 @@ class DeepLearning(ModelBuilder):
             model._output.scoring_history.append(
                 {"epoch": ep + 1, "training_loss": tr_loss})
             history.append(tr_loss)
+            if self.job:
+                # tr_loss is already on the host: the tick adds no sync
+                self.job.update(progress=(ep + 1) / n_epochs,
+                                msg=f"epoch {ep + 1}/{n_epochs} "
+                                    f"loss={tr_loss:.5f}")
             if stop_rounds > 0 and len(history) > stop_rounds:
                 best_recent = min(history[-stop_rounds:])
                 best_before = min(history[:-stop_rounds])

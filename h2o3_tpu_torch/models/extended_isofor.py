@@ -132,11 +132,13 @@ class ExtendedIsolationForest(ModelBuilder):
         rng = np.random.default_rng(self._seed())
 
         all_nodes: List[List[_Node]] = []
-        for _ in range(ntrees):
+        for t in range(ntrees):
             sub = X[rng.choice(n, size=psi, replace=False)]
             nodes: List[_Node] = []
             self._grow(sub, 0, max_depth, ext, rng, nodes)
             all_nodes.append(nodes)
+            if self.job:
+                self.job.update(progress=(t + 1) / ntrees, msg=f"tree {t + 1}")
 
         M = max(len(nd) for nd in all_nodes)
         normals = np.zeros((ntrees, M, d), np.float32)

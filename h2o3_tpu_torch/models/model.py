@@ -26,6 +26,7 @@ import torch
 
 from h2o3_tpu_torch.core.dkv import Keyed
 from h2o3_tpu_torch.core.frame import Column, Frame, NA_CAT, T_CAT, T_NUM
+from h2o3_tpu_torch.core.runtime import in_full_float32
 from h2o3_tpu_torch.models import metrics as M
 
 
@@ -194,6 +195,14 @@ class Model(Keyed):
         return None
 
     # -- scoring ----------------------------------------------------------
+    def __init_subclass__(cls, **kw):
+        # a subclass's own predict() runs in full float32 too (C26)
+        super().__init_subclass__(**kw)
+        fn = cls.__dict__.get("predict")
+        if fn is not None and not getattr(fn, "_full_float32", False):
+            cls.predict = in_full_float32(fn)
+
+    @in_full_float32
     def predict(self, frame: Frame) -> Frame:
         raw = self._predict_raw(self.adapt_test(frame))
         return self._raw_to_frame(raw, frame.nrows)
@@ -245,6 +254,7 @@ class Model(Keyed):
         tx, ty = parms
         return torch.clamp(interpolate(tx, ty, p1), 0.0, 1.0)
 
+    @in_full_float32
     def model_performance(self, test_data: Optional[Frame] = None):
         """Training metrics, or metrics on `test_data`."""
         if test_data is None:

@@ -28,12 +28,15 @@ import dataclasses
 import hashlib
 import os
 import time
+import traceback
 from typing import Any, Dict, List, Optional, Sequence, Type
 
 import numpy as np
 
 from h2o3_tpu_torch.core.dkv import DKV
 from h2o3_tpu_torch.core.frame import Frame
+from h2o3_tpu_torch.core.job import Job, JobCancelled
+from h2o3_tpu_torch.core.runtime import in_full_float32
 from h2o3_tpu_torch.models.model import Model, ModelCategory
 
 
@@ -58,7 +61,23 @@ class ModelBuilder:
     def __init__(self, **params):
         self.params: Dict[str, Any] = self.default_params()
         self._set_params(params)
+        # the Job of the running (or last) train; None for the fold
+        # builders of cross-validation, which bypass train()
+        self.job: Optional[Job] = None
         self.model: Optional[Model] = None
+
+    def __init_subclass__(cls, **kw):
+        # a subclass's own train() runs in full float32 too (C26)
+        super().__init_subclass__(**kw)
+        fn = cls.__dict__.get("train")
+        if fn is not None and not getattr(fn, "_full_float32", False):
+            cls.train = in_full_float32(fn)
+
+    @classmethod
+    def translate_param(cls, name: str) -> str:
+        """A parameter's external spelling -> its canonical name
+        (XGBoost overrides it for eta, n_estimators, ...)."""
+        return name
 
     @classmethod
     def default_params(cls) -> Dict[str, Any]:
@@ -92,11 +111,16 @@ class ModelBuilder:
         self.params.update({k: v for k, v in params.items()
                             if v is not None})
 
+    @in_full_float32
     def train(self, x: Optional[Sequence[str]] = None, y: Optional[str] = None,
               training_frame: Optional[Frame] = None,
               validation_frame: Optional[Frame] = None, **kw) -> Model:
-        """Synchronous train. x = predictor names (default: every column
-        but the response, the weights, the offset and the fold column)."""
+        """Synchronous train under a Job (`self.job`: DONE with progress
+        1.0, FAILED on an exception, CANCELLED when `self.job.cancel()`
+        stopped it at a progress tick), in full float32 matmul precision
+        whatever the caller's TF32 setting (ROADMAP C26). x = predictor
+        names (default: every column but the response, the weights, the
+        offset and the fold column)."""
         self._set_params(kw)
         train = training_frame or self.params.get("training_frame")
         if train is None:
@@ -117,12 +141,23 @@ class ModelBuilder:
                                           self.params.get("fold_column"))
                               if c]
             train = train.subframe([c for c in train.names if c in keep])
+        self.job = Job(description=f"{self.algo_name} train",
+                       dest=self.params.get("model_id"))
         t0 = time.time()
         # wall-clock budget: fit loops poll _out_of_time() and keep the
         # model built so far
         mrt = float(self.params.get("max_runtime_secs") or 0.0)
         self._deadline = (t0 + mrt) if mrt > 0 else None
-        model = self._train_impl(train, valid)
+        self.job.begin()
+        try:
+            model = self._train_impl(train, valid)
+        except JobCancelled:
+            self.job.cancelled_local()
+            raise
+        except Exception:
+            self.job.fail_local(traceback.format_exc())
+            raise
+        self.job.complete()
         model._output.run_time_ms = int((time.time() - t0) * 1000)
         self.model = model
         return model
@@ -306,7 +341,7 @@ class ModelBuilder:
         preds_buf = None
         drop = ("nfolds", "fold_column", "training_frame", "validation_frame",
                 "model_id", "checkpoint", "export_checkpoints_dir")
-        for f in folds:
+        for fi, f in enumerate(folds):
             ho_idx = np.nonzero(assign == f)[0]
             tr = take_rows(train, np.nonzero(assign != f)[0])
             ho = take_rows(train, ho_idx)
@@ -326,6 +361,9 @@ class ModelBuilder:
                     preds_buf = np.zeros((n,) + vals.shape[1:], np.float32)
                 preds_buf[ho_idx] = vals
             models.append(m)
+            if self.job:
+                self.job.update(progress=0.5 * (fi + 1) / len(folds),
+                                msg=f"CV fold {fi + 1}/{len(folds)}")
         digest = hashlib.sha1(np.ascontiguousarray(assign, np.int64)
                               ).hexdigest()
         return models, mets, preds_buf, digest

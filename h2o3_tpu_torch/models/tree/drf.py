@@ -192,6 +192,8 @@ class DRF(SharedTree):
                     break
             if self._out_of_time():
                 break
+            if self.job:
+                self.job.update(progress=(t + 1) / ntrees, msg=f"tree {t + 1}")
 
         # scale by the trees actually grown (early stopping may cut)
         total = t_base + len(packs)
@@ -254,6 +256,8 @@ class DRF(SharedTree):
                 oob_cnt = oob_cnt + ((~mask) & (w > 0)).float()
             if self._out_of_time():
                 break
+            if self.job:
+                self.job.update(progress=(t + 1) / ntrees, msg=f"iter {t + 1}")
 
         total = t_base + len(packs) // K
         trees = assemble_trees(packs, leaf_means, leaf_wys, spec, max_depth,

@@ -87,13 +87,16 @@ class IsolationForest(SharedTree):
 
         max_depth = int(self.params["max_depth"])
         trees: List[HostTree] = []
-        for _ in range(int(self.params["ntrees"])):
+        ntrees = int(self.params["ntrees"])
+        for t in range(ntrees):
             pick = rng.choice(N, size=sample_size, replace=False)
             w = np.zeros(N, np.float32)
             w[pick] = 1.0
             trees.append(self._grow_random_tree(
                 binned, torch.as_tensor(w, device=binned.device), spec,
                 max_depth, rng))
+            if self.job:
+                self.job.update(progress=(t + 1) / ntrees, msg=f"tree {t + 1}")
         model._parms["_cnorm"] = _avg_path(sample_size)
         model.forest = CompressedForest.from_host_trees(
             trees, spec, max_depth=max_depth, init_f=0.0, nclasses=1)

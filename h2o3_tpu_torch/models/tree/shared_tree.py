@@ -431,6 +431,8 @@ class SharedTree(ModelBuilder):
                     break
             if self._out_of_time():
                 break
+            if self.job:
+                self.job.update(progress=(t + 1) / ntrees, msg=f"tree {t + 1}")
 
         trees = assemble_trees(packs, leaf_vals, leaf_wys, spec, max_depth)
         self._set_varimp(model, trees, history)
@@ -514,6 +516,8 @@ class SharedTree(ModelBuilder):
                     break
             if self._out_of_time():
                 break
+            if self.job:
+                self.job.update(progress=(t + 1) / ntrees, msg=f"iter {t + 1}")
 
         trees = assemble_trees(packs, leaf_vals, leaf_wys, spec, max_depth)
         self._set_varimp(model, trees, history)

@@ -268,6 +268,9 @@ class Word2Vec(ModelBuilder):
                 for s in range(idx.shape[0]):
                     _sgd_step(Win, Wout, cen_d, ctx_d, idx[s], negs[s],
                               labels, float(lr), cbow)
+            if self.job:
+                self.job.update(progress=(ep + 1) / epochs,
+                                msg=f"epoch {ep + 1}")
 
         model = Word2VecModel(parms=dict(p))
         model._output.model_category = ModelCategory.WordEmbedding

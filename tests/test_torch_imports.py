@@ -77,7 +77,11 @@ def test_port_imports_with_jax_blocked_and_reference_refused():
                  "models.svd", "models.naive_bayes", "models.word2vec",
                  "models.ensemble", "models.target_encoder", "models.glrm",
                  "models.coxph", "models.psvm", "optim.bfgs",
-                 "models.aggregator", "models.segments"):
+                 "models.aggregator", "models.segments", "core.job",
+                 "grid", "automl", "automl.automl", "automl.search",
+                 "automl.steps", "estimators", "extensions", "assembly",
+                 "bindings", "utils.log", "models.gbm", "models.drf",
+                 "models.isofor"):
         assert f"h2o3_tpu_torch.{name}" in rep["modules"], name
     assert len(rep["modules"]) >= 30, rep["modules"]
     assert rep["leaked"] == [], rep["leaked"]

@@ -345,22 +345,42 @@ def test_segment_models_waits_for_segments(both):
             run("(segment_models_as_frame 'no_such_segments')", sess)
 
 
-def test_statements_cover_every_prim():
+def test_statements_cover_every_prim(frames):
     """Every prim the port registers is named by a statement of this
     file or of test_torch_rapids.py (or is one of the stateful prims
-    above), and the port registers exactly the reference's prims."""
+    above), and the port registers exactly the reference's prims. A UDF
+    registered in both packages (extensions.register_udf) runs as the
+    prim `udf.<name>` in both, with the same result bit for bit."""
     import re
     from pathlib import Path
 
+    from h2o3_tpu import extensions as jext
     from h2o3_tpu.rapids.eval import PRIMS as JPRIMS
 
+    from h2o3_tpu_torch import extensions as text
     from h2o3_tpu_torch.rapids.eval import PRIMS
     from h2o3_tpu_torch.rapids.parser import parse as tparse
 
-    # the reference's table may also hold a `udf.` prim that one of its
-    # own tests (test_coverage_bc.py) registers at run time in the same
-    # worker; the port registers no UDF
-    assert set(PRIMS) == {k for k in JPRIMS if not k.startswith("udf.")}
+    def square_plus(a, c):
+        return a * a + c
+
+    try:
+        jext.register_udf("cover_sq", square_plus)
+        text.register_udf("cover_sq", square_plus)
+        assert "cover_sq" in text.udfs()
+        both = Both("udf")
+        j, t = both.run("(udf.cover_sq (cols ext.hex ['a']) 3)")
+        assert_same(j, t, ctx="udf.cover_sq")
+        both.end()
+    finally:
+        # a UDF left in the reference's shared table breaks later tests
+        # of the same worker
+        JPRIMS.pop("udf.cover_sq", None)
+        PRIMS.pop("udf.cover_sq", None)
+    # either table may hold a `udf.` prim that another test of the same
+    # worker registered (the reference's test_coverage_bc.py does)
+    assert {k for k in PRIMS if not k.startswith("udf.")} == \
+        {k for k in JPRIMS if not k.startswith("udf.")}
     here = Path(__file__).resolve()
     text = here.read_text() + (here.parent /
                                "test_torch_rapids.py").read_text()
@@ -372,5 +392,6 @@ def test_statements_cover_every_prim():
               (tparse(e) for e, _, _ in fam)}
     named |= set(BIT_BINOPS + BIT_UNOPS + GAMMA_UNOPS + TOL_UNOPS + IMPURE)
     named |= {"cumsum", "cumprod", "cummin", "cummax"}
-    missing = sorted(set(PRIMS) - named)
+    missing = sorted(k for k in set(PRIMS) - named
+                     if not k.startswith("udf."))
     assert not missing, missing
