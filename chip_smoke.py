@@ -51,7 +51,14 @@ through the port's public entry points:
   seed=1) on the 1M-row flagship (a lambda-search GLM and a 50-tree GBM,
   each 5-fold cross-validated, then two stacked ensembles), a Cartesian
   GBM grid, a RandomDiscrete GLM grid walked sequentially and with
-  parallelism 3, and a GBM train cancelled from another thread.
+  parallelism 3, and a GBM train cancelled from another thread;
+- export and explanation (phase 3r) over the flagship GBM, the
+  DeepLearning model and a binomial GLM: MOJO round trips through
+  H2OGenericEstimator (bitwise), Java-format MOJOs scored by the torch
+  walk, POJO sources, TreeSHAP contributions on 100k rows (the host
+  library's walk), partial dependence of all 10 columns on 1M rows and
+  an ICE curve, feature interactions and the varimp and correlation
+  matrices; this path launches no kernel.
 It checks the card's models and imports against the same port on the
 CPU and times
 the kernel at the level shapes of each configuration beside its memory
@@ -148,6 +155,20 @@ SEARCH = dict(aml_models=2, seed=1, grid_hyper={"max_depth": [3, 5],
               glm_models=5, glm_seed=42, cancel_ntrees=50, cvc_rows=20_000,
               cvc_nfolds=3)
 GRID_AUC_ATOL = 1e-6
+# phase 3r: TreeSHAP on the flagship's first 100k rows (a host walk,
+# linear in rows: all 1M would take tens of seconds), partial dependence
+# of every flagship column over 20 grid values on all 1M rows; phase 4 on
+# 100k rows. Bars: the reference's Java round trip (tests/
+# test_java_mojo.py:160) and TreeSHAP's local accuracy (tests/
+# test_explain.py:76)
+EXPLAIN = dict(contrib_rows=100_000, nbins=20, cvc_rows=100_000)
+JAVA_ATOL = 2e-5
+CONTRIB_ATOL = 2e-3
+# card vs CPU PDP tables: the same margins, but the card's and the CPU's
+# float32 exp round the sigmoid apart in the last bits (7.45e-9 on the
+# means of 100k rows on an H100 80GB HBM3; ROADMAP C29); C2's
+# prediction bar
+PDP_CVC_ATOL = 1e-6
 # the members AutoML builds with max_models=2 and GLM and GBM among its
 # algos: the reserve keeps one slot for exploitation, GLM has none, so
 # the leftover pass builds the first GBM default, then both ensembles
@@ -2507,6 +2528,211 @@ def _metric_of(m):
     return float(mm.auc)
 
 
+def _pred_columns(m, fr):
+    """{column: host array} of m.predict(fr)."""
+    p = m.predict(fr)
+    return {nm: p.col(nm).data.cpu().numpy() for nm in p.names}
+
+
+def _same_predictions(label, a, b):
+    check(sorted(a) == sorted(b), f"{label}: columns {sorted(a)} vs "
+                                  f"{sorted(b)}")
+    for nm in a:
+        check(a[nm].dtype == b[nm].dtype and np.array_equal(
+            a[nm].view(np.uint8), b[nm].view(np.uint8)),
+            f"{label}: column {nm} differs")
+
+
+def _feat_rows(src):
+    """Rows of a tree POJO's FEAT table (one per tree)."""
+    import re
+
+    table = re.search(r"static final int\[\]\[\] FEAT = \{(.*)\};", src)
+    return len(re.findall(r"\{[^{}]*\}", table.group(1)))
+
+
+def phase_explain_export(h2o, dev, fr, gbm, dl_model, tmp):
+    """Export, import and explanation on the flagship frame, over the
+    flagship GBM (phase 3), phase 3m's DeepLearning model and one
+    binomial GLM trained here: native MOJO round trips through
+    H2OGenericEstimator (bitwise), Java-format MOJOs scored by the torch
+    walk (probabilities to JAVA_ATOL), POJO sources, TreeSHAP on the
+    first EXPLAIN["contrib_rows"] rows (row sums to the margins within
+    CONTRIB_ATOL), partial dependence of all 10 columns and one ICE
+    curve, feature interactions, the varimp and correlation matrices;
+    the two explanation calls profiled. Launches no histogram kernel."""
+    import os
+
+    from h2o3_tpu_torch import explain
+    from h2o3_tpu_torch.models import mojo, mojo_java, pojo
+    from h2o3_tpu_torch.models.tree import hist_gather as hg
+    from h2o3_tpu_torch.ops.filters import take_rows
+
+    c = EXPLAIN
+    hg.launches = 0
+    glm = h2o.GLM(family="binomial").train(y="y", training_frame=fr)
+    models = {"gbm": gbm, "glm": glm, "deeplearning": dl_model}
+    want = {k: _pred_columns(m, fr) for k, m in models.items()}
+    for name, m in models.items():
+        path, t_exp = _timed(lambda: m.download_mojo(
+            os.path.join(tmp, f"{name}.zip")))
+        gm, t_imp = _timed(lambda: h2o.H2OGenericEstimator(
+            path=path).train())
+        got, t_pred = _timed(lambda: _pred_columns(gm, fr))
+        _same_predictions(f"{name} MOJO round trip", want[name], got)
+        check(gm.inner_algo == m.algo_name, f"{name}: inner algo "
+                                            f"{gm.inner_algo}")
+        size = os.path.getsize(path)
+        if name == "gbm":
+            metric("mojo_export_s", t_exp)
+            metric("mojo_import_s", t_imp)
+            metric("generic_predict_s", t_pred, f"({fr.nrows} rows)")
+            metric("mojo_bytes", size)
+        print(f"{name} MOJO round trip: {size} bytes, export {t_exp:.4f} s, "
+              f"import {t_imp:.4f} s, predict {t_pred:.4f} s, predictions "
+              "bitwise equal")
+    for name in ("gbm", "glm"):
+        blob, t_exp = _timed(lambda: mojo_java.export_java_mojo_bytes(
+            models[name]))
+        jm = mojo.read_mojo(blob)
+        got, t_pred = _timed(lambda: _pred_columns(jm, fr))
+        gap = float(np.abs(got["Y"] - want[name]["Y"]).max())
+        agree = float((got["predict"] == want[name]["predict"]).mean())
+        check(gap <= JAVA_ATOL and agree > 0.995,
+              f"{name} Java MOJO: probabilities differ by {gap}, labels "
+              f"agree on {agree}")
+        if name == "gbm":
+            metric("java_mojo_export_s", t_exp)
+            metric("java_mojo_predict_s", t_pred, f"({fr.nrows} rows)")
+        print(f"{name} Java MOJO: {len(blob)} bytes, max probability gap "
+              f"{gap:.3e}, labels agree on {agree:.6f}")
+    (src_gbm, src_glm), t_pojo = _timed(lambda: (
+        pojo.pojo_source(gbm), pojo.pojo_source(glm)))
+    check(_feat_rows(src_gbm) == gbm.forest.n_trees == FLAGSHIP["ntrees"],
+          f"the GBM POJO names {_feat_rows(src_gbm)} trees")
+    check("double[] BETA" in src_glm, "the GLM POJO has no coefficients")
+    metric("pojo_source_s", t_pojo, f"({len(src_gbm)} + {len(src_glm)} "
+                                    "characters)")
+
+    sub = take_rows(fr, np.arange(c["contrib_rows"]))
+    contrib, t_con = _timed(lambda: gbm.predict_contributions(sub))
+    phi = np.stack([contrib.col(nm).data.cpu().numpy()
+                    for nm in contrib.names], 1).astype(np.float64)
+    margin = gbm.forest.predict_binned(gbm.spec.bin_columns(
+        gbm.adapt_test(sub))).cpu().numpy()
+    lgap = float(np.abs(phi.sum(1) - margin).max())
+    check(contrib.names == gbm._output.names + ["BiasTerm"]
+          and np.isfinite(phi).all() and lgap <= CONTRIB_ATOL,
+          f"contributions: row sums differ from the margins by {lgap}")
+    metric("contrib_rows_per_sec", c["contrib_rows"] / t_con,
+           f"({c['contrib_rows']} rows, {gbm.forest.n_trees} trees, "
+           f"{t_con!r} s)")
+    print(f"TreeSHAP: contributions + BiasTerm = margin within {lgap:.3e}")
+
+    tables, t_pdp = _timed(lambda: gbm.partial_plot(fr, nbins=c["nbins"]))
+    ice = gbm.partial_plot(fr, cols=["n0"], nbins=c["nbins"], row_index=0)
+    calls = sum(len(t["values"]) for t in tables)
+    check([t["column"] for t in tables] == gbm._output.names,
+          "partial_plot: the tables are not one per column")
+    for t in tables + ice:
+        v = np.asarray(t["mean_response"])
+        check(np.isfinite(v).all() and (v >= 0).all() and (v <= 1).all(),
+              f"partial_plot {t['column']}: responses not in [0, 1]")
+    check(all(s == 0.0 for s in ice[0]["stddev_response"])
+          and len(ice[0]["values"]) == c["nbins"], "ICE curve malformed")
+    metric("pdp_s", t_pdp, f"({calls} scoring calls of {fr.nrows} rows)")
+
+    rows = gbm.feature_interaction(2)
+    fo = gbm.forest
+    total = sum(float(g) for g in fo.gain[fo.feat >= 0])
+    singles = sum(r["gain"] for r in rows if r["depth"] == 0)
+    check(abs(singles - total) <= 1e-9 * max(1.0, abs(total)),
+          f"depth-0 gains sum to {singles}, the forest's to {total}")
+    vm = explain.varimp_matrix(list(models.values()))
+    cm, t_cor = _timed(lambda: explain.model_correlation(
+        list(models.values()), fr))
+    C = cm["matrix"]
+    check(C.shape == (3, 3) and np.abs(np.diag(C) - 1).max() <= 1e-6,
+          f"model correlation diagonal {np.diag(C)}")
+    print(f"feature interactions: {len(rows)} rows, depth-0 gains "
+          f"{singles!r} = forest {total!r}; varimp matrix "
+          f"{vm['matrix'].shape}; correlations "
+          f"{np.round(C[np.triu_indices(3, 1)], 4).tolist()} "
+          f"({t_cor:.3f} s)")
+    phase_profile(f"predict_contributions ({c['contrib_rows']} rows)",
+                  lambda: gbm.predict_contributions(sub), wall_s=t_con)
+    phase_profile(f"partial_plot (n0 and c0, {fr.nrows} rows)",
+                  lambda: gbm.partial_plot(fr, cols=["n0", "c0"],
+                                           nbins=c["nbins"]))
+    launches = hg.launches
+    check(launches == 0, f"phase 3r launched the histogram kernel "
+                         f"{launches} times")
+    return launches
+
+
+def phase_card_vs_cpu_explain(h2o, dev):
+    """A GBM on EXPLAIN["cvc_rows"] flagship rows trained on the card and
+    its forest carried to a CPU model: contributions bit for bit (the
+    same host walk over the same bin matrix); the PDP grid frames'
+    margins bit for bit (ROADMAP C2) and the PDP tables of a numeric and
+    an enum column within PDP_CVC_ATOL (the probabilities pass through
+    the card's and the CPU's float32 exp, ROADMAP C29); and the card model's MOJO read and
+    scored on the CPU equal to the CPU model's predictions."""
+    from h2o3_tpu_torch import convert, explain
+    from h2o3_tpu_torch.models import mojo
+
+    n, cpu = EXPLAIN["cvc_rows"], torch.device("cpu")
+    frs = [flagship_frame(h2o, d, n) for d in (dev, cpu)]
+    card = h2o.GBM(ntrees=5, max_depth=FLAGSHIP["max_depth"], seed=1).train(
+        y="y", training_frame=frs[0])
+    fo, sp, o = card.forest, card.spec, card._output
+    host = convert.gbm_model_from_numpy({
+        "forest": {**{k: getattr(fo, k) for k in (
+            "feat", "thresh_bin", "na_left", "left", "right", "leaf_val",
+            "cat_split", "cat_table", "tree_class", "na_bins", "init_class",
+            "gain", "cover")},
+            "max_depth": fo.max_depth, "init_f": fo.init_f,
+            "nclasses": fo.nclasses},
+        "spec": {"names": sp.names, "is_cat": sp.is_cat, "nbins": sp.nbins,
+                 "edges": sp.edges, "cards": sp.cards},
+        "output": {"names": o.names, "domains": o.domains,
+                   "response_domain": o.response_domain,
+                   "model_category": o.model_category,
+                   "response_name": o.response_name}})
+    # labels follow the max-F1 threshold of the training metrics
+    host._output.training_metrics = o.training_metrics
+    phis = [np.stack([c.col(nm).data.cpu().numpy() for nm in c.names], 1)
+            for c in (card.predict_contributions(frs[0]),
+                      host.predict_contributions(frs[1]))]
+    check(np.array_equal(phis[0].view(np.uint32), phis[1].view(np.uint32)),
+          "contributions differ between the card and the CPU")
+    pdps = [m.partial_plot(f, cols=["n0", "c0"], nbins=EXPLAIN["nbins"])
+            for m, f in ((card, frs[0]), (host, frs[1]))]
+    gap = max(float(np.abs(np.asarray(a[k]) - np.asarray(b[k])).max())
+              for a, b in zip(*pdps)
+              for k in ("mean_response", "stddev_response"))
+    check(all(a["values"] == b["values"] for a, b in zip(*pdps))
+          and gap <= PDP_CVC_ATOL, f"PDP tables differ between the card "
+                                   f"and the CPU by {gap}")
+    for v in (-1.5, 0.25, 2.0):      # a grid frame's margins, bitwise
+        margins = [m.forest.predict_binned(m.spec.bin_columns(m.adapt_test(
+            explain._with_value(f, "n0", v, False, [])))).cpu().numpy()
+            for m, f in ((card, frs[0]), (host, frs[1]))]
+        check(np.array_equal(margins[0].view(np.uint32),
+                             margins[1].view(np.uint32)),
+              f"PDP grid frame n0={v}: margins differ between the card "
+              "and the CPU")
+    back = mojo.read_mojo(mojo.export_mojo_bytes(card))
+    _same_predictions("card MOJO scored on the CPU",
+                      _pred_columns(host, frs[1]),
+                      _pred_columns(back, frs[1]))
+    print(f"card vs cpu explain ({n} rows): contributions bitwise, the "
+          f"PDP grid frames' margins bitwise, PDP tables {gap:.3e} apart "
+          f"(bitwise: {pdps[0] == pdps[1]}), the card's MOJO on the CPU "
+          "predicts bitwise")
+    h2o.DKV.clear()
+
+
 def phase_card_vs_cpu_search(h2o, dev):
     """The AutoML of phase 3q with 3 folds on 20k flagship rows, on the
     card and on the CPU: the same members in the same order and the same
@@ -3215,6 +3441,15 @@ def main() -> int:
            "a GBM grid, a GLM grid sequential and parallel, a cancelled "
            "train)")
     launches.update(phase_search(h2o, dev, fr))
+    banner("phase 3r: MOJO/POJO export and import, the Generic model and "
+           "the explanation suite (flagship GBM, phase 3m's DeepLearning, "
+           "a GLM)")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mojo_")
+    try:
+        launches["explain_export"] = phase_explain_export(
+            h2o, dev, fr, flagship_model, dl_model, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     del fr, dl_model
     banner("phase 3g: IsolationForest (1M rows, 1% moved 6 sigma out)")
     launches["isolationforest"], ofr, moved, iso = phase_isofor(h2o, dev)
@@ -3257,6 +3492,7 @@ def main() -> int:
         phase_card_vs_cpu_rapids(h2o, dev)
         phase_card_vs_cpu_builders(h2o, dev)
         phase_card_vs_cpu_search(h2o, dev)
+        phase_card_vs_cpu_explain(h2o, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     banner("phase 5: kernel times at each configuration's level shapes")

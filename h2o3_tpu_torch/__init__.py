@@ -25,6 +25,8 @@
     h2o.GBM(calibrate_model=True, calibration_frame=cal).train(...)
     h2o.GBM(ntrees=20, checkpoint=m10).train(y="y", training_frame=fr)
     m.save("m.bin"); h2o.load_model("m.bin")
+    h2o.H2OGenericEstimator(path=m.download_mojo("/tmp")).train()
+    m.predict_contributions(fr); m.partial_plot(fr, cols=["x"], nbins=20)
     m.gains_lift(); m.kolmogorov_smirnov()
     m.predict_leaf_node_assignment(fr, type="Path")
     km = h2o.KMeans(k=10, init="Furthest").train(training_frame=fr)
@@ -75,6 +77,7 @@ from h2o3_tpu_torch.models.ensemble import (StackedEnsemble,
 from h2o3_tpu_torch.models.extended_isofor import (
     ExtendedIsolationForest, ExtendedIsolationForestModel)
 from h2o3_tpu_torch.models.gam import GAM, GAMModel
+from h2o3_tpu_torch.models.generic import Generic, GenericModel
 from h2o3_tpu_torch.models.glm import GLM, GLMModel
 from h2o3_tpu_torch.models.glrm import GLRM, GLRMModel
 from h2o3_tpu_torch.models.isotonic import (IsotonicRegression,
@@ -218,7 +221,8 @@ __all__ = ["Aggregator", "AggregatorModel", "BUILDERS", "Column", "CoxPH",
            "CoxPHModel", "DKV", "DRF", "DRFModel", "DeepLearning",
            "DeepLearningModel", "ExtendedIsolationForest",
            "ExtendedIsolationForestModel", "Frame", "GAM", "GAMModel", "GBM",
-           "GBMModel", "GLM", "GLMModel", "GLRM", "GLRMModel", "H2OFrame",
+           "GBMModel", "GLM", "GLMModel", "GLRM", "GLRMModel", "Generic",
+           "GenericModel", "H2OFrame",
            "IsolationForest", "IsolationForestModel", "IsotonicRegression",
            "IsotonicRegressionModel", "Job", "KMeans", "KMeansModel", "Key",
            "Model",

@@ -28,7 +28,7 @@ _CAMEL = {"gbm": "GradientBoosting", "drf": "RandomForest",
           "stackedensemble": "StackedEnsemble",
           "targetencoder": "TargetEncoder", "aggregator": "Aggregator",
           "extendedisolationforest": "ExtendedIsolationForest",
-          "isotonicregression": "IsotonicRegression"}
+          "isotonicregression": "IsotonicRegression", "generic": "Generic"}
 
 
 def _class_name(algo: str) -> str:

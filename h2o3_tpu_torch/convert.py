@@ -5,7 +5,9 @@ as numpy arrays and plain values, never as that package's objects:
 
   forest: feat, thresh_bin, na_left, left, right, leaf_val, cat_split,
           cat_table, tree_class, na_bins, max_depth, init_f, nclasses
-          (and init_class, the per-class priors of a multinomial GBM)
+          (and init_class, the per-class priors of a multinomial GBM;
+          gain and cover, each split's gain and each node's weight,
+          which feature interactions and TreeSHAP read)
   spec:   names, is_cat, nbins, edges, cards
   output: names, domains, response_domain, model_category
           (and optionally response_name, distribution)
@@ -67,6 +69,9 @@ def forest_from_numpy(d: Dict[str, Any]) -> CompressedForest:
                               nclasses=int(d["nclasses"]))
     if d.get("init_class") is not None:
         forest.init_class = np.asarray(d["init_class"], np.float32)
+    if d.get("gain") is not None and d.get("cover") is not None:
+        forest.gain = np.asarray(d["gain"], np.float32)
+        forest.cover = np.asarray(d["cover"], np.float32)
     return forest
 
 

@@ -26,6 +26,7 @@ _MAP = {
     "H2OGeneralizedAdditiveEstimator": ("h2o3_tpu_torch.models.gam", "GAM"),
     "H2OGeneralizedLinearEstimator": ("h2o3_tpu_torch.models.glm", "GLM"),
     "H2OGeneralizedLowRankEstimator": ("h2o3_tpu_torch.models.glrm", "GLRM"),
+    "H2OGenericEstimator": ("h2o3_tpu_torch.models.generic", "Generic"),
     "H2OIsotonicRegressionEstimator": ("h2o3_tpu_torch.models.isotonic",
                                        "IsotonicRegression"),
     "H2OKMeansEstimator": ("h2o3_tpu_torch.models.kmeans", "KMeans"),
@@ -63,10 +64,6 @@ def __getattr__(name: str):
 
         globals()[name] = H2OAutoEncoderEstimator
         return H2OAutoEncoderEstimator
-    if name == "H2OGenericEstimator":
-        raise AttributeError(
-            "H2OGenericEstimator loads MOJOs, which the port cannot read "
-            "yet (ROADMAP A12)")
     entry = _MAP.get(name)
     if entry is None:
         raise AttributeError(

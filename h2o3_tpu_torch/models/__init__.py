@@ -11,7 +11,7 @@ ALGORITHMS = ("tree.gbm", "tree.drf", "tree.isofor", "deeplearning",
               "kmeans", "pca", "naive_bayes", "svd", "glrm", "word2vec",
               "ensemble", "rulefit", "coxph", "gam", "aggregator",
               "extended_isofor", "psvm", "xgboost", "isotonic",
-              "target_encoder", "segments", "glm")
+              "target_encoder", "segments", "glm", "generic")
 
 
 def _register_all():

@@ -306,6 +306,47 @@ class Model(Keyed):
     def varimp(self) -> Optional[Dict[str, float]]:
         return self._output.variable_importances
 
+    # -- explanation (hex/PartialDependence, genmodel TreeSHAP,
+    #    FeatureInteraction; the h2o-py Model API names) -------------------
+    @in_full_float32
+    def partial_plot(self, data: Frame, cols: Optional[List[str]] = None,
+                     nbins: int = 20, plot: bool = False,
+                     weight_column: Optional[str] = None,
+                     row_index: int = -1, col_pairs_2dpdp=None):
+        """Partial-dependence tables (plotting stays with the client)."""
+        from h2o3_tpu_torch import explain
+
+        if col_pairs_2dpdp:
+            return explain.partial_dependence_2d(self, data, col_pairs_2dpdp,
+                                                 nbins=nbins)
+        return explain.partial_dependence(self, data, cols, nbins=nbins,
+                                          weight_column=weight_column,
+                                          row_index=row_index)
+
+    @in_full_float32
+    def predict_contributions(self, test_data: Frame,
+                              key: Optional[str] = None) -> Frame:
+        """Per-feature SHAP contributions and BiasTerm (tree models)."""
+        from h2o3_tpu_torch import explain
+        from h2o3_tpu_torch.core.dkv import Key
+
+        out = explain.predict_contributions(self, test_data)
+        if key:
+            out._key = Key(key)
+        return out
+
+    def feature_interaction(self, max_interaction_depth: int = 2):
+        from h2o3_tpu_torch import explain
+
+        return explain.feature_interactions(
+            self, max_interaction_depth=max_interaction_depth)
+
+    def download_mojo(self, path: str) -> str:
+        """Export the model as a MOJO zip (format in models/mojo.py)."""
+        from h2o3_tpu_torch.models import mojo
+
+        return mojo.export_mojo(self, path)
+
     # -- persistence ------------------------------------------------------
     def save(self, path: str) -> str:
         """Write the model to `path` (magic, u16 version, pickled state

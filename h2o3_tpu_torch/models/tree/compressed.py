@@ -29,8 +29,8 @@ class CompressedForest:
     row of cat_table). cat_table (C, maxB) bool. tree_class (T,) int32
     tree -> class. na_bins (F,) int32 = NA bin per feature. init_class
     (K,) per-class prior margins of a multinomial GBM, else None. gain
-    and cover (T, M) f32: each split's gain and each node's weight, for
-    forests built here (None for forests carried across)."""
+    and cover (T, M) f32: each split's gain and each node's weight (None
+    for a forest carried across or read from a MOJO without them)."""
 
     def __init__(self, feat, thresh_bin, na_left, left, right, leaf_val,
                  cat_split, cat_table, tree_class, na_bins, max_depth: int,

@@ -1,15 +1,15 @@
 """Build and load the port's host C++ library: ``csrc/csv_parser.cpp``,
 the CSV parser of the ingest path and its time-column parser, and
-``csrc/threefry.cpp``, the host walk of DeepLearning's key chain,
-compiled together into one shared library.
+``csrc/threefry.cpp``, the host walk of DeepLearning's key chain, and
+``csrc/treeshap.cpp``, the path-dependent TreeSHAP walk of
+``predict_contributions``, compiled together into one shared library.
 
 Counterpart of h2o3_tpu/native/loader.py (`_build` :27, `get_lib` :64):
 the sources compile with the host C++ compiler (``$CXX``, else ``g++``,
 the compiler nvcc drives) into ``h2o3_tpu_torch/_build/``, keyed by a
 hash of the sources and the flags, on first use; the library is loaded
-with ctypes. A failed build raises: no path parses CSV or walks the key
-chain another way.
-``treeshap.cpp`` joins this library with the explain module (ROADMAP A12).
+with ctypes. A failed build raises: no path parses CSV, walks the key
+chain or explains a forest another way.
 
 ctypes releases the GIL for the length of each call, so parses of
 different byte ranges run in parallel on a thread pool.
@@ -29,6 +29,7 @@ import numpy as np
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "csv_parser.cpp"
 THREEFRY_SOURCE = SOURCE.with_name("threefry.cpp")
+TREESHAP_SOURCE = SOURCE.with_name("treeshap.cpp")
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # -ffp-contract=off: the number parser's multiply-adds must round as
 # written, never fuse, or a float could differ from the reference's
@@ -52,6 +53,8 @@ SIGNATURES = {
     "h2o_parse_times": (None, [_P, _P, _P, _L, _I, _P]),
     "h2o_split_chain": (None, [ctypes.c_uint32, ctypes.c_uint32, _L,
                                ctypes.c_int32, _P, _P]),
+    "h2o_treeshap": (None, [_P, ctypes.c_longlong, _I, _P, _P, _P, _P, _P,
+                            _P, _P, _P, _I, _P, _P, _I, _I, _P, _I]),
 }
 
 _LOCK = threading.Lock()
@@ -67,9 +70,14 @@ def cxx() -> str:
     return cand
 
 
+def sources() -> tuple:
+    """The library's C++ sources, in link order."""
+    return (SOURCE, THREEFRY_SOURCE, TREESHAP_SOURCE)
+
+
 def lib_path() -> Path:
     h = hashlib.sha256()
-    for source in (SOURCE, THREEFRY_SOURCE):
+    for source in sources():
         h.update(source.read_bytes())
     h.update(" ".join(CXX_FLAGS).encode())
     return BUILD_DIR / f"host-{h.hexdigest()[:16]}.so"
@@ -83,7 +91,7 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}"
                         ".tmp")
-    srcs = (SOURCE, THREEFRY_SOURCE)
+    srcs = sources()
     proc = subprocess.run([cxx(), *CXX_FLAGS, "-o", str(tmp),
                            *map(str, srcs)],
                           capture_output=True, text=True)
@@ -242,3 +250,40 @@ def split_chain(key, steps: int, num: int):
                           _ptr(key_out))
     return (torch.from_numpy(out.astype(np.int64)),
             torch.from_numpy(key_out.astype(np.int64)))
+
+
+# treeshap.cpp's unique-path buffer holds 72 entries (PE m[MAXP]); a walk
+# extends it once per level, so deeper forests would overflow it
+TREESHAP_MAX_DEPTH = 68
+
+
+def native_treeshap(binned: np.ndarray, forest, nthreads: int = 0
+                    ) -> np.ndarray:
+    """TreeSHAP of every row of the (n, F) bin matrix through every tree
+    of a CompressedForest with covers (see h2o_treeshap): -> (n, F+1)
+    float64 contributions, the last (bias) column left 0. A forest
+    deeper than TREESHAP_MAX_DEPTH raises ValueError."""
+    if forest.max_depth > TREESHAP_MAX_DEPTH:
+        raise ValueError(f"TreeSHAP walks forests up to depth "
+                         f"{TREESHAP_MAX_DEPTH}, not {forest.max_depth}")
+    n, F = binned.shape
+    T, M = forest.feat.shape
+    if len(forest.na_bins) != F or forest.cover.shape != (T, M):
+        raise ValueError(f"TreeSHAP: a bin matrix of {F} features for a "
+                         f"forest of {len(forest.na_bins)}, covers "
+                         f"{forest.cover.shape} for nodes {(T, M)}")
+    b = np.ascontiguousarray(binned, np.int32)
+    tables = [np.ascontiguousarray(getattr(forest, name), dt) for name, dt in
+              (("feat", np.int32), ("thresh_bin", np.int32),
+               ("na_left", np.uint8), ("left", np.int32),
+               ("right", np.int32), ("leaf_val", np.float32),
+               ("cat_split", np.int32))]
+    cat_table = np.ascontiguousarray(forest.cat_table, np.uint8)
+    na_bins = np.ascontiguousarray(forest.na_bins, np.int32)
+    cover = np.ascontiguousarray(forest.cover, np.float32)
+    phi = np.zeros((n, F + 1), np.float64)
+    lib().h2o_treeshap(
+        _ptr(b), n, F, *map(_ptr, tables), _ptr(cat_table),
+        int(cat_table.shape[1]), _ptr(na_bins), _ptr(cover), T, M,
+        _ptr(phi), nthreads or min(os.cpu_count() or 4, 16))
+    return phi

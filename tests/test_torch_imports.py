@@ -1,7 +1,8 @@
 """The PyTorch port (h2o3_tpu_torch) stands alone: it imports with JAX,
-optax, scipy and pandas blocked and the JAX package refused, its entry
-points default to CUDA, and no source file of it (nor chip_smoke.py)
-imports JAX, optax, scipy, pandas or h2o3_tpu. The one exception is
+optax, scipy and pandas blocked and the JAX package and its standalone
+MOJO runtime (h2o3_genmodel) refused, its entry points default to CUDA,
+and no source file of it (nor chip_smoke.py) imports JAX, optax, scipy,
+pandas, h2o3_tpu or h2o3_genmodel. The one exception is
 Frame.to_pandas, which imports pandas inside the method and raises
 ImportError where pandas is absent."""
 
@@ -23,7 +24,7 @@ sys.modules["jax"] = None
 
 class RefuseReference:
     def find_spec(self, name, path=None, target=None):
-        if name == "h2o3_tpu" or name.startswith("h2o3_tpu."):
+        if name.split(".")[0] in ("h2o3_tpu", "h2o3_genmodel"):
             raise ImportError(f"refused {name}")
         return None
 
@@ -37,7 +38,7 @@ mods = sorted(m.name for m in pkgutil.walk_packages(
 for m in mods:
     importlib.import_module(m)
 leaked = [k for k in sys.modules
-          if k == "h2o3_tpu" or k.startswith("h2o3_tpu.")
+          if k.split(".")[0] in ("h2o3_tpu", "h2o3_genmodel")
           or (k in ("jax", "optax", "scipy", "pandas")
               and sys.modules[k] is not None)]
 from h2o3_tpu_torch import kernels
@@ -81,7 +82,8 @@ def test_port_imports_with_jax_blocked_and_reference_refused():
                  "grid", "automl", "automl.automl", "automl.search",
                  "automl.steps", "estimators", "extensions", "assembly",
                  "bindings", "utils.log", "models.gbm", "models.drf",
-                 "models.isofor"):
+                 "models.isofor", "models.mojo", "models.mojo_java",
+                 "models.pojo", "models.generic", "explain"):
         assert f"h2o3_tpu_torch.{name}" in rep["modules"], name
     assert len(rep["modules"]) >= 30, rep["modules"]
     assert rep["leaked"] == [], rep["leaked"]
@@ -92,13 +94,12 @@ def test_port_imports_with_jax_blocked_and_reference_refused():
 
 def test_builders_list_every_ported_algorithm():
     """BUILDERS maps the reference's algo names to the port's builders:
-    every algorithm the JAX package registers but `generic` (it waits
-    for the host MOJO reader, ROADMAP A12), each exported from the
-    package under its class name."""
+    every algorithm the JAX package registers, `generic` included, each
+    exported from the package under its class name."""
     import h2o3_tpu.models as ref
     import h2o3_tpu_torch as h2o
 
-    assert sorted(h2o.BUILDERS) == sorted(set(ref.BUILDERS) - {"generic"})
+    assert sorted(h2o.BUILDERS) == sorted(ref.BUILDERS)
     for algo, cls in h2o.BUILDERS.items():
         assert cls.algo_name == algo
         assert ref.BUILDERS[algo].__name__ == cls.__name__, algo
@@ -119,7 +120,8 @@ def test_init_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 _FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|optax|scipy|pandas|h2o3_tpu)"
+    r"^\s*(?:import|from)\s+(?:jax|optax|scipy|pandas|h2o3_tpu|"
+    r"h2o3_genmodel)"
     r"(?:[.\s,]|$)",
     re.MULTILINE)
 
@@ -134,4 +136,5 @@ def test_no_source_names_jax_or_the_reference(path):
         # Frame.to_pandas's import, inside the method
         found = [f for f in found if f != "        import pandas "]
     assert not found, \
-        f"{path} imports jax, optax, scipy, pandas or h2o3_tpu"
+        f"{path} imports jax, optax, scipy, pandas, h2o3_tpu or " \
+        "h2o3_genmodel"

@@ -26,8 +26,8 @@ def test_estimator_names_resolve_to_the_ports_builders(cl):
 
     names = set(ref._ESTIMATORS) - {"start_server", "exec_rapids"}
     assert set(th._ESTIMATORS) == names
-    for name in sorted(names - {"H2OGenericEstimator", "H2OAutoML",
-                                "H2OGridSearch", "H2OAssembly"}):
+    for name in sorted(names - {"H2OAutoML", "H2OGridSearch",
+                                "H2OAssembly"}):
         got, want = getattr(th, name), getattr(ref, name)
         assert got.__name__ == want.__name__, name
         assert got.__module__.startswith("h2o3_tpu_torch."), name
@@ -38,8 +38,7 @@ def test_estimator_names_resolve_to_the_ports_builders(cl):
     assert th.H2OAutoML.__module__ == "h2o3_tpu_torch.automl.automl"
     assert th.H2OGridSearch.__module__ == "h2o3_tpu_torch.grid"
     assert th.H2OAssembly.__module__ == "h2o3_tpu_torch.assembly"
-    with pytest.raises(AttributeError, match="ROADMAP A12"):
-        th.H2OGenericEstimator
+    assert th.H2OGenericEstimator is th.Generic
     with pytest.raises(AttributeError, match="no attribute"):
         th.H2ONoSuchEstimator
     assert "H2OAutoML" in dir(th)

@@ -142,7 +142,9 @@ def carry_forest(jm):
               ("feat", "thresh_bin", "na_left", "left", "right", "leaf_val",
                "cat_split", "cat_table", "tree_class", "na_bins")}
     forest |= {"max_depth": fo.max_depth, "init_f": fo.init_f,
-               "nclasses": fo.nclasses, "init_class": fo.init_class}
+               "nclasses": fo.nclasses, "init_class": fo.init_class,
+               "gain": getattr(fo, "gain", None),
+               "cover": getattr(fo, "cover", None)}
     return {
         "forest": forest,
         "spec": {"names": list(sp.names), "is_cat": np.asarray(sp.is_cat),
@@ -279,3 +281,58 @@ def assert_same(j, t, rtol=None, scale=0.0, ctx="", zero_sign=True):
         assert_bitwise(np.float64(j), np.float64(t), ctx)
     else:
         assert_close(j, t, rtol, scale, ctx)
+
+
+# ---------------------------------------------------------------------------
+# export and explanation: fixtures and what the tests compare
+# ---------------------------------------------------------------------------
+
+def family_cols(kind, n=256, seed=11):
+    """The flagship's 8 numeric and 2 enum features, with a response:
+    bin (Y/N), multi (a/b/c), reg, count (Poisson counts), none; or
+    words (one enum column of words), surv (x1, x2, time, event)."""
+    rng = np.random.default_rng(seed)
+    if kind == "words":
+        w = np.asarray(["alpha", "beta", "gamma", "delta"])[
+            rng.integers(0, 4, 4 * n)]
+        return {"w": (w, "enum")}
+    if kind == "surv":
+        x1, x2 = rng.normal(size=n), rng.normal(size=n)
+        t = rng.exponential(1.0 / np.exp(0.8 * x1 - 0.5 * x2))
+        ev = np.where(rng.random(n) < 0.8, "1", "0")
+        return {"x1": (x1, None), "x2": (x2, None), "time": (t, None),
+                "event": (ev, "enum")}
+    cols = flagship_cols(n, seed=seed)
+    x0, x1 = cols["n0"][0], cols["n1"][0]
+    if kind == "multi":
+        k = np.digitize(x0 + 0.5 * rng.standard_normal(n), [-0.5, 0.5])
+        cols["y"] = (np.array(["a", "b", "c"], object)[k], "enum")
+    elif kind == "reg":
+        cols["y"] = (1.5 * x0 - x1 + 0.3 * rng.standard_normal(n), None)
+    elif kind == "count":
+        cols["y"] = (rng.poisson(np.exp(0.3 * x0)).astype(float), None)
+    elif kind == "none":
+        del cols["y"]
+    return cols
+
+
+def model_outputs(model, fr, what, n):
+    """The compared values as host arrays: every column of predict (or
+    transform), enum columns as their codes."""
+    out = model.predict(fr) if what == "predict" else model.transform(fr)
+    res = {}
+    for nm in out.names:
+        c = out.col(nm)
+        d = c.data
+        arr = d.cpu().numpy() if hasattr(d, "cpu") else np.asarray(d)
+        res[nm] = arr[:n]
+    return res
+
+
+def mojo_parts(blob):
+    """A zip's entries: {name: bytes}."""
+    import io
+    import zipfile
+
+    with zipfile.ZipFile(io.BytesIO(blob)) as z:
+        return {n: z.read(n) for n in z.namelist()}
