@@ -58,7 +58,16 @@ through the port's public entry points:
   walk, POJO sources, TreeSHAP contributions on 100k rows (the host
   library's walk), partial dependence of all 10 columns on 1M rows and
   an ICE curve, feature interactions and the varimp and correlation
-  matrices; this path launches no kernel.
+  matrices; this path launches no kernel;
+- serving (phase 3s) over the flagship GBM and phase 3r's GLM: the
+  scoring session's bucket ladder on CUDA graphs at run_scoring's
+  request sizes and one 1M-row request, 4 rounds of 16 concurrent
+  128-row requests through the micro-batcher, admission with a static
+  cap of 1 and a queue of 2, the memory planner at a 2 MB budget, two
+  injected OOMs and a real torch.cuda.OutOfMemoryError under a capped
+  allocator (each recovered bit for bit), the cleaner's sweep, fault-in
+  and spill, and standalone artifacts: export, load in process and the
+  runner in a fresh process on the card; this path launches no kernel.
 It checks the card's models and imports against the same port on the
 CPU and times
 the kernel at the level shapes of each configuration beside its memory
@@ -70,6 +79,7 @@ It imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import shutil
 import subprocess
@@ -194,6 +204,20 @@ AGG_CVC_TARGET = 500
 # min_step_size 1e-4, where the reference's loop stops before its first
 # step; phase 3p lowers min_step_size so the loop runs
 GLRM_MIN_STEP = 1e-9
+# phase 3s: h2o3_tpu/bench.py run_scoring's request sizes (:180) and
+# coalescing rounds (:212-246), run_oom_degrade's 2 MB budget (:899-990)
+# and run_artifact's 256-row requests for 3 s (:593); the real OOM caps
+# the allocator between the working sets of two buckets; phase 4 on 100k
+# rows
+SERVING = dict(sizes=(777, 3_000, 12_000, 16_384), passes=3, conc=16,
+               rounds=4, small_rows=128, mem_budget_mb="2",
+               oom_buckets=(262_144, 1_048_576),
+               artifact_buckets=[256, 16_384], batch_rows=256,
+               sustain_s=3.0, cvc_rows=100_000)
+# the GLM artifact's runner vs in-process predict: BLAS sums a row's dot
+# product in an order set by the row count's blocking, and the runner
+# pads requests to its buckets (ROADMAP C30)
+GLM_ARTIFACT_ATOL = 1e-6
 # card vs CPU: libm's float32 functions differ in the last ulps between
 # the card and the CPU, the gamma family's reflection subtracts terms of
 # order 1, and cumulative sums scan in parallel on the card (ROADMAP C16)
@@ -2560,7 +2584,8 @@ def phase_explain_export(h2o, dev, fr, gbm, dl_model, tmp):
     first EXPLAIN["contrib_rows"] rows (row sums to the margins within
     CONTRIB_ATOL), partial dependence of all 10 columns and one ICE
     curve, feature interactions, the varimp and correlation matrices;
-    the two explanation calls profiled. Launches no histogram kernel."""
+    the two explanation calls profiled. Launches no histogram kernel;
+    returns (launches, the GLM)."""
     import os
 
     from h2o3_tpu_torch import explain
@@ -2667,7 +2692,7 @@ def phase_explain_export(h2o, dev, fr, gbm, dl_model, tmp):
     launches = hg.launches
     check(launches == 0, f"phase 3r launched the histogram kernel "
                          f"{launches} times")
-    return launches
+    return launches, glm
 
 
 def phase_card_vs_cpu_explain(h2o, dev):
@@ -3113,6 +3138,412 @@ def _forest_arrays(m):
             ("feat", "thresh_bin", "na_left", "left", "right", "cat_split")}
 
 
+def _margins_of(sess, fr):
+    """A session's margins of `fr`'s rows (a device tensor)."""
+    return sess._margin_x(sess._features(sess.model.adapt_test(fr)))
+
+
+def _same_bits(label, got, want):
+    check(got.shape == want.shape and same_bits(got, want),
+          f"{label}: not bitwise equal")
+
+
+def _frames_same(label, a, b):
+    _same_predictions(label, {nm: a.col(nm).data.cpu().numpy()
+                              for nm in a.names},
+                      {nm: b.col(nm).data.cpu().numpy() for nm in b.names})
+
+
+def _concurrent(fn, frames):
+    """fn(frame) from one thread per frame, started together; returns
+    (results, errors) in frame order."""
+    import threading
+
+    out, errs = [None] * len(frames), [None] * len(frames)
+    barrier = threading.Barrier(len(frames))
+
+    def worker(i):
+        barrier.wait(timeout=60)
+        try:
+            out[i] = fn(frames[i])
+        except Exception as e:   # noqa: BLE001 — each request's own error
+            errs[i] = e
+
+    ths = [threading.Thread(target=worker, args=(i,))
+           for i in range(len(frames))]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join(timeout=300)
+    check(not any(t.is_alive() for t in ths), "a request thread hung")
+    return out, errs
+
+
+@contextlib.contextmanager
+def _env(**kw):
+    """Environment knobs set for the block, restored after it."""
+    import os
+
+    saved = {k: os.environ.get(k) for k in kw}
+    os.environ.update({k: str(v) for k, v in kw.items()})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _serving_session(h2o, dev, fr, gbm):
+    """Step 1: run_scoring's request sizes through the flagship's
+    session; step 2: the micro-batcher and admission."""
+    from h2o3_tpu_torch import admission, scoring
+    from h2o3_tpu_torch.ops.filters import take_rows
+
+    c = SERVING
+    scoring.purge()
+    sess = scoring.session_for(gbm)
+    check(sess.device.type == "cuda", f"session on {sess.device}")
+    frames = [take_rows(fr, np.arange(n)) for n in c["sizes"]]
+    for sub in frames:                       # warm every bucket
+        want = gbm._margin(gbm.adapt_test(sub))
+        for _ in range(2):                   # the eager run, then a replay
+            _same_bits(f"session margins ({sub.nrows} rows)",
+                       _margins_of(sess, sub), want)
+        _frames_same(f"session predict ({sub.nrows} rows)",
+                     sess.predict(sub), gbm.predict(sub))
+    preds = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(c["passes"]):
+        for sub in frames:
+            preds.append(sess.predict(sub))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rows = c["passes"] * sum(c["sizes"])
+    metric("score_rows_per_sec", rows / dt,
+           f"({c['passes']} passes of {list(c['sizes'])} rows, {dt!r} s)")
+    check(sess.fused_compiles <= len(sess.buckets),
+          f"{sess.fused_compiles} captures for {len(sess.buckets)} buckets")
+    print(f"session: {sess.fused_compiles} CUDA-graph captures, buckets "
+          f"{list(sess.buckets)}")
+    big, t_big = _timed(lambda: _margins_of(sess, fr))
+    _same_bits("1M-row request margins", big, gbm._margin(gbm.adapt_test(fr)))
+    _, t_big = _timed(lambda: sess.predict(fr).delete())
+    metric("score_1m_s", t_big, f"({fr.nrows} rows in windows of "
+                                f"{sess.buckets[-1]})")
+    for p in preds:
+        p.delete()
+    x16 = sess._features(gbm.adapt_test(frames[-1]))
+    phase_profile(f"session dispatch ({frames[-1].nrows} rows, graph "
+                  "replay)", lambda: sess._margin_x(x16))
+    phase_profile(f"eager walk ({frames[-1].nrows} rows)",
+                  lambda: gbm._margin(gbm.adapt_test(frames[-1])))
+
+    small = [take_rows(fr, np.arange(i * c["small_rows"],
+                                     (i + 1) * c["small_rows"]))
+             for i in range(c["conc"])]
+    alone = [sess.predict(sub) for sub in small]
+    s0 = sess.stats.snapshot()
+    for r in range(c["rounds"]):
+        got, errs = _concurrent(
+            lambda sub: scoring.BATCHER.submit(gbm, sub)[0], small)
+        check(not any(errs), f"batcher round {r}: {errs}")
+        for a, b in zip(got, alone):
+            _frames_same(f"coalesced request vs alone (round {r})", a, b)
+            a.delete()
+    s1 = sess.stats.snapshot()
+    flushes = s1["batches"] - s0["batches"]
+    dpf = (s1["dispatches"] - s0["dispatches"]) / max(flushes, 1)
+    metric("score_dispatches_per_flush", dpf,
+           f"({flushes} flushes of {c['rounds']} x {c['conc']} requests)")
+    metric("score_p99_ms", s1.get("p99_ms", 0.0))
+    check(dpf <= 2.0, f"{dpf} dispatches per flush: coalescing regressed")
+    for a in alone:
+        a.delete()
+
+    admission.CONTROLLER.reset()
+    with _env(H2O_TPU_SCORE_MAX_INFLIGHT=1, H2O_TPU_SCORE_QUEUE_CAP=2):
+        got, errs = _concurrent(
+            lambda sub: scoring.score_request(gbm, sub)[0], small)
+    shed = [e for e in errs if e is not None]
+    check(shed and all(isinstance(e, admission.AdmissionRejected)
+                       for e in shed), f"admission: {shed[:3]}")
+    served = [(sub, p) for sub, p in zip(small, got) if p is not None]
+    for sub, p in served:
+        _frames_same("admitted request", p, gbm.predict(sub))
+        p.delete()
+    print(f"admission: {len(shed)} of {len(small)} requests shed "
+          f"(status {shed[0].status}, Retry-After "
+          f"{shed[0].retry_after_s:.3f} s), {len(served)} served bitwise; "
+          f"{admission.CONTROLLER.snapshot()['rejected']} rejected")
+    admission.CONTROLLER.reset()
+    return sess
+
+
+def _serving_memory(h2o, dev, fr, gbm, sess):
+    """Step 3: the budgeted run, the injected ladder and a real OOM."""
+    from h2o3_tpu_torch import scoring
+    from h2o3_tpu_torch.core import failure
+    from h2o3_tpu_torch.memory import budget, stream
+    from h2o3_tpu_torch.models.tree.compressed import ResidentForest
+
+    c = SERVING
+    want = _margins_of(sess, fr)
+    with _env(H2O_TPU_MEM_BUDGET_MB=c["mem_budget_mb"]):
+        stream.reset_counters()
+        got, t = _timed(lambda: _margins_of(sess, fr))
+        sc = stream.counters()
+    _same_bits("budgeted (streamed) margins", got, want)
+    check(sc["chunked_runs"] >= 1 and sc["windows"] > 1,
+          f"a {c['mem_budget_mb']} MB budget did not stream: {sc}")
+    print(f"budget {c['mem_budget_mb']} MB: {sc['windows']} windows, "
+          f"{t:.3f} s, bitwise equal to the unbudgeted run")
+    stream.reset_counters()
+    with failure.inject("mem.exhausted", times=2):
+        got, t = _timed(lambda: _margins_of(sess, fr))
+    sc = stream.counters()
+    _same_bits("ladder-recovered margins", got, want)
+    check(sc["ladder_recoveries"] == 1, f"injected OOMs: {sc}")
+    metric("mem_degrade_recover_s", t, "(two injected OOMs, 1M rows)")
+    metric("mem_ladder_halvings", sc["ladder_halvings"])
+
+    # a real OOM: a session whose largest bucket needs more than the
+    # capped process can allocate, while half of it fits
+    res = ResidentForest(gbm.forest, gbm.spec, dev)
+    X = gbm._features(gbm.adapt_test(fr))
+    need = {}
+    for n in c["oom_buckets"]:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        res.margins(X[:n])
+        need[n] = torch.cuda.max_memory_allocated(dev) - base
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    small, big = c["oom_buckets"]
+    allow = 2 * need[small] + (64 << 20)
+    check(allow < need[big], f"working sets {need} leave no room to "
+                             "separate the buckets")
+    total = torch.cuda.mem_get_info(dev)[1]
+    cap = (torch.cuda.memory_reserved(dev) + allow) / total
+    stream.reset_counters()
+    with _env(H2O_TPU_SCORE_BUCKETS=",".join(map(str, c["oom_buckets"]))):
+        oom_sess = scoring.ScoringSession(gbm)
+    torch.cuda.set_per_process_memory_fraction(cap, dev)
+    try:
+        got, t = _timed(lambda: oom_sess._margin_x(X))
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+    sc = stream.counters()
+    _same_bits("real-OOM-recovered margins", got, want)
+    check(sc["ladder_recoveries"] >= 1 and sc["ladder_halvings"] >= 1,
+          f"the capped run raised no OutOfMemoryError: {sc}")
+    print(f"real OOM: working sets {need} bytes, cap {cap:.4f} of "
+          f"{total} bytes; the ladder recovered ({sc}), {t:.3f} s, "
+          "bitwise")
+    budget.reset_pressure()
+
+
+def _serving_cleaner(h2o, dev, fr, gbm, sess, tmp):
+    """Step 4: evict the frames' columns, fault them back in, spill."""
+    from h2o3_tpu_torch.core import cleaner
+    from h2o3_tpu_torch.persist import spill
+
+    want = sess.predict(fr)
+    fr.install()
+    before = cleaner.device_bytes_in_use()
+    freed, t = _timed(lambda: cleaner.sweep(before))
+    count = cleaner.evicted_count()
+    check(all(fr._cols[nm].is_evicted for nm in fr.names),
+          "the sweep left a flagship column on the card")
+    metric("evicted_count", count, f"({freed} bytes in {t:.3f} s)")
+    _frames_same("predictions after fault-in", sess.predict(fr), want)
+    check(not any(fr._cols[nm].is_evicted for nm in gbm._output.names),
+          "a predict left a feature column evicted")
+    col = fr._cols["n0"]
+    data = col.data.clone()
+    spill.spill_column(col, "n0")
+    check(col.is_evicted and callable(col._evicted), "n0 did not spill")
+    check(torch.equal(fr.col("n0").data, data), "n0 reloaded differently")
+    print(f"spill: n0 round trip through {spill.spill_dir()} bitwise")
+    want.delete()
+
+
+def _runner_subprocess(art, csv_path, out_dir, device):
+    """The standalone runner in a fresh process on `device`: (cold start
+    from spawn to the first prediction, requests per second over
+    SERVING['sustain_s'] at 256 rows, its raw.npz)."""
+    import os
+
+    code = (
+        "import time\n"
+        "start = time.time()\n"
+        "import json, runpy, sys\n"
+        "g = runpy.run_path(sys.argv[1])\n"
+        "imported = time.time()\n"
+        "art, csv, out, dev = sys.argv[2:6]\n"
+        "g['main'](['--artifact', art, '--input', csv, '--output',\n"
+        "           out + '/out.csv', '--raw-npz', out + '/raw.npz',\n"
+        "           '--device', dev])\n"
+        "first = time.time()\n"
+        "s = g['load_artifact'](art, dev)\n"
+        "X = s.pack_features(g['read_csv_columns'](csv))\n"
+        "s.raw_predict(X)\n"
+        "n, t0 = 0, time.perf_counter()\n"
+        f"while time.perf_counter() - t0 < {SERVING['sustain_s']}:\n"
+        "    s.raw_predict(X)\n"
+        "    n += 1\n"
+        "qps = n / (time.perf_counter() - t0)\n"
+        "mods = sorted(k for k in sys.modules if k.startswith('h2o3'))\n"
+        "print(json.dumps({'start': start, 'imported': imported,\n"
+        "                  'first': first, 'qps': qps, 'n': n,\n"
+        "                  'modules': mods}))\n")
+    runner = Path(__file__).resolve().parent / "h2o3_tpu_torch" / \
+        "artifact" / "runner.py"
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    spawn = time.time()
+    proc = subprocess.run([sys.executable, "-c", code, str(runner), art,
+                           csv_path, out_dir, device], capture_output=True,
+                          text=True, timeout=300, cwd=out_dir, env=env)
+    check(proc.returncode == 0, f"runner process failed: "
+                                f"{proc.stderr[-3000:]}")
+    rep = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(rep["modules"] == [], f"the runner imported {rep['modules']}")
+    print(f"runner process: interpreter up {rep['start'] - spawn:.3f} s, "
+          f"runner and torch imported {rep['imported'] - rep['start']:.3f} "
+          f"s, first prediction {rep['first'] - rep['imported']:.3f} s "
+          f"later; {rep['n']} requests in {SERVING['sustain_s']} s")
+    return rep["first"] - spawn, rep["qps"], os.path.join(out_dir, "raw.npz")
+
+
+def _serving_artifacts(h2o, dev, fr, gbm, glm, sess, tmp):
+    """Step 5: export, load in process, the runner in a fresh process."""
+    import os
+
+    from h2o3_tpu_torch import artifact
+    from h2o3_tpu_torch.ops.filters import take_rows
+
+    c = SERVING
+    art = os.path.join(tmp, "gbm_artifact")
+    man, t_exp = _timed(lambda: artifact.export_model(
+        gbm, art, buckets=c["artifact_buckets"]))
+    metric("artifact_export_s", t_exp,
+           f"(flagship GBM, buckets {c['artifact_buckets']}, "
+           f"{sum(e['bytes'] for e in man['programs'])} program bytes)")
+    gart = os.path.join(tmp, "glm_artifact")
+    _, t_glm = _timed(lambda: artifact.export_model(
+        glm, gart, buckets=c["artifact_buckets"]))
+    print(f"GLM artifact export {t_glm:.3f} s")
+    want = _margins_of(sess, fr)
+    loaded = artifact.load_model(art, model_id="chip_smoke_artifact_gbm")
+    _same_bits("artifact loaded in process: margins",
+               loaded._margin(loaded.adapt_test(fr)), want)
+    gl = artifact.load_model(gart, model_id="chip_smoke_artifact_glm")
+    _frames_same("GLM artifact loaded in process", gl.predict(fr),
+                 glm.predict(fr))
+    loaded.delete()
+    gl.delete()
+
+    n = c["batch_rows"]
+    sub = take_rows(fr, np.arange(n))
+    cols = {}
+    for nm in gbm._output.names:
+        col = sub.col(nm)
+        v = col.data.cpu().numpy()
+        cols[nm] = (np.asarray(col.domain, object)[v] if col.domain
+                    else [repr(float(x)) for x in v])
+    csv_path = os.path.join(tmp, "batch.csv")
+    with open(csv_path, "w") as f:
+        f.write(",".join(cols) + "\n")
+        for i in range(n):
+            f.write(",".join(str(cols[nm][i]) for nm in cols) + "\n")
+    cold, qps, raw = _runner_subprocess(art, csv_path, tmp, dev.type)
+    metric("artifact_cold_start_s", cold, "(fresh process, spawn to the "
+                                          "first prediction)")
+    metric("artifact_qps", qps, f"({n} rows a request)")
+    with np.load(raw) as z:
+        _same_bits("runner margins (card) vs in-process serving",
+                   torch.from_numpy(z["margins"]),
+                   _margins_of(sess, sub).cpu())
+    runner = _load_runner()
+    gs = runner.load_artifact(gart, dev.type)
+    X = gs.pack_features({k: list(v) for k, v in cols.items()})
+    got = gs.raw_predict(X)["probs"][:, 1]
+    ref = glm.predict(sub).col("Y").data.cpu().numpy()
+    gap = float(np.abs(got - ref).max())
+    check(gap <= GLM_ARTIFACT_ATOL, f"GLM runner vs predict: {gap}")
+    print(f"GLM runner (card) vs in-process predict: max gap {gap:.3e} "
+          f"({'bitwise' if gap == 0.0 else 'ROADMAP C30'})")
+    return art
+
+
+def _load_runner():
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "h2o3_tpu_torch" / \
+        "artifact" / "runner.py"
+    spec = importlib.util.spec_from_file_location("artifact_runner", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_serving(h2o, dev, fr, gbm, glm, tmp):
+    """Serving on the card (phase 3s) over the flagship GBM and phase
+    3r's GLM: the bucketed session on CUDA graphs at run_scoring's
+    request sizes and one 1M-row request, coalesced and admission-
+    controlled requests, the memory planner and its ladder (a 2 MB
+    budget, injected OOMs, a real OutOfMemoryError under a capped
+    allocator), the cleaner and spill, and the standalone artifacts.
+    Every response is held bit for bit. Launches no histogram kernel;
+    returns (launches, the GBM artifact's directory)."""
+    from h2o3_tpu_torch.models.tree import hist_gather as hg
+
+    hg.launches = 0
+    sess = _serving_session(h2o, dev, fr, gbm)
+    _serving_memory(h2o, dev, fr, gbm, sess)
+    _serving_cleaner(h2o, dev, fr, gbm, sess, tmp)
+    art = _serving_artifacts(h2o, dev, fr, gbm, glm, sess, tmp)
+    launches = hg.launches
+    check(launches == 0, f"phase 3s launched the histogram kernel "
+                         f"{launches} times")
+    return launches, art
+
+
+def phase_card_vs_cpu_serving(h2o, dev, art):
+    """Session margins on SERVING['cvc_rows'] flagship rows on the card
+    and on the CPU (bitwise), and the card-exported artifact scored by
+    the runner on the CPU: margins bitwise, probabilities to C29's 1e-6."""
+    from h2o3_tpu_torch import artifact, scoring
+
+    n = SERVING["cvc_rows"]
+    gbm = artifact.load_model(art, install=False)
+    card = _margins_of(scoring.ScoringSession(gbm),
+                       flagship_frame(h2o, dev, n)).cpu()
+    cpu_fr = flagship_frame(h2o, torch.device("cpu"), n)
+    h2o.init(device="cpu")
+    try:
+        cpu = _margins_of(scoring.ScoringSession(gbm), cpu_fr)
+    finally:
+        h2o.init()
+    _same_bits("session margins card vs CPU", card, cpu)
+    s = _load_runner().load_artifact(art, "cpu")
+    X = gbm._features(gbm.adapt_test(cpu_fr)).numpy()
+    _same_bits("card-exported artifact on the CPU runner: margins",
+               torch.from_numpy(s.margins(X)), card)
+    probs = s.raw_predict(X)["probs"]
+    ref = gbm._margin_to_raw(card)["probs"].numpy()
+    gap = float(np.abs(probs - ref).max())
+    check(gap <= PDP_CVC_ATOL, f"runner CPU vs card probabilities: {gap}")
+    print(f"card vs cpu serving ({n} rows): session margins bitwise, "
+          f"runner --device cpu margins bitwise, probabilities within "
+          f"{gap:.3e}")
+
+
 def phase_card_vs_cpu(h2o, dev, parse_path):
     """The same port on the card and on the CPU imports the same columns
     and grows the same models."""
@@ -3446,11 +3877,17 @@ def main() -> int:
            "a GLM)")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_mojo_")
     try:
-        launches["explain_export"] = phase_explain_export(
+        launches["explain_export"], glm = phase_explain_export(
             h2o, dev, fr, flagship_model, dl_model, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    del fr, dl_model
+    banner("phase 3s: serving (the flagship GBM's session on CUDA graphs, "
+           "micro-batching and admission, the memory ladder, the cleaner "
+           "and spill, standalone artifacts)")
+    serving_tmp = tempfile.mkdtemp(prefix="chip_smoke_serving_")
+    launches["serving"], serving_art = phase_serving(
+        h2o, dev, fr, flagship_model, glm, serving_tmp)
+    del fr, dl_model, glm
     banner("phase 3g: IsolationForest (1M rows, 1% moved 6 sigma out)")
     launches["isolationforest"], ofr, moved, iso = phase_isofor(h2o, dev)
     phase_profile("50-tree IsolationForest train", lambda: h2o.IsolationForest(
@@ -3493,8 +3930,10 @@ def main() -> int:
         phase_card_vs_cpu_builders(h2o, dev)
         phase_card_vs_cpu_search(h2o, dev)
         phase_card_vs_cpu_explain(h2o, dev)
+        phase_card_vs_cpu_serving(h2o, dev, serving_art)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(serving_tmp, ignore_errors=True)
     banner("phase 5: kernel times at each configuration's level shapes")
     kernels = phase_times(dev, launches, max_err)
     print(json.dumps({"kernels": kernels}))

@@ -15,9 +15,10 @@ through one :class:`SearchEngine`:
   its first attempt; any other error retries it, and it parks at
   ``MAX_ATTEMPTS``. A parked member never fails the search;
 - members schedule concurrently up to ``search_concurrency()``
-  (``H2O_TPU_SEARCH_CONCURRENCY``: an int, or ``auto``, which is 1 as
-  the reference's is while admission runs uncapped; the port has no
-  admission controller yet, ROADMAP A13).
+  (``H2O_TPU_SEARCH_CONCURRENCY``: an int, or ``auto``, which sizes the
+  width from the free capacity of the serving tier's admission
+  controller, ``admission.CONTROLLER``, and is 1 while admission runs
+  uncapped, as the reference's is).
 
 The device lane (ROADMAP C27): on the one GPU every member's build
 holds `_DEVICE_LANE`, GLM's included. The reference lets builders marked
@@ -104,14 +105,26 @@ def member_deadline_s() -> float:
 
 def search_concurrency() -> int:
     """Member-scheduling width: ``H2O_TPU_SEARCH_CONCURRENCY`` as an int,
-    or ``auto`` (the default), which is 1."""
+    or ``auto`` (the default), which sizes off the admission controller's
+    free capacity (its static cap less the requests in flight, at most
+    4) and stays 1 while admission runs uncapped: width is worth paying
+    for only when the operator has said how much device pressure is
+    safe."""
     raw = (os.environ.get("H2O_TPU_SEARCH_CONCURRENCY") or "auto").strip()
-    if raw.lower() == "auto":
+    if raw.lower() != "auto":
+        try:
+            return max(1, int(raw))
+        except ValueError:
+            return 1
+    from h2o3_tpu_torch import admission
+
+    snap = admission.CONTROLLER.snapshot()
+    cap = int(snap.get("max_inflight") or 0)
+    if cap <= 0:
         return 1
-    try:
-        return max(1, int(raw))
-    except ValueError:
-        return 1
+    inflight = sum(int(m.get("inflight") or 0)
+                   for m in (snap.get("models") or {}).values())
+    return min(4, max(1, cap - inflight))
 
 
 def _scrub_params(params: Optional[dict]) -> dict:

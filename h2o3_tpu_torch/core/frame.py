@@ -27,6 +27,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from h2o3_tpu_torch.core import cleaner
 from h2o3_tpu_torch.core.dkv import Key, Keyed
 
 T_NUM = "real"
@@ -85,14 +86,16 @@ class Column:
     narrow integer code dtype for enum) or None for host-only strings,
     whose values live in `host_data`."""
 
-    __slots__ = ("_data", "_loader", "ctype", "domain", "host_data", "nrows",
-                 "_rollups", "_token")
+    __slots__ = ("_data", "_evicted", "_loader", "_touch", "ctype", "domain",
+                 "host_data", "nrows", "_rollups", "_token")
 
     def __init__(self, data, ctype: str, nrows: int,
                  domain: Optional[List[str]] = None,
                  host_data: Optional[np.ndarray] = None):
         self._data = data
-        self._loader = None
+        self._evicted = None       # host copy (or loader) while evicted
+        self._loader = None        # file-backed source
+        self._touch = 0            # LRU clock (core/cleaner.py)
         self.ctype = ctype
         self.domain = domain
         self.host_data = host_data
@@ -108,24 +111,73 @@ class Column:
 
     @property
     def data(self):
-        """The column's tensor; a file-backed column loads it on first
-        use (`file_backed`)."""
-        if self._data is None and self._loader is not None:
-            loader, self._loader = self._loader, None
-            self._data = loader()
-        return self._data
+        """The column's tensor. A file-backed column loads it on first
+        use (`file_backed`), and an evicted one faults back in (`evict`).
+        The load runs outside the swap lock; the install happens under
+        it only if the column still holds the same source (a racing
+        evict/fault-in cycle retries). Every access stamps the cleaner's
+        LRU clock."""
+        d = self._data
+        while d is None:
+            src = self._evicted
+            if src is None:
+                d = self._data      # host-only column, or raced in
+                break
+            buf = src() if callable(src) else src
+            with cleaner.SWAP_LOCK:
+                if self._data is None and self._evicted is src:
+                    self._data = buf.to(_device(None))
+                    self._evicted = None
+                d = self._data
+        self._touch = cleaner.tick()
+        return d
 
     @data.setter
     def data(self, v):
-        self._data = v
-        self._loader = None
+        # a rebound tensor is authoritative: eviction then copies it to
+        # the host instead of reverting to a stale file source
+        with cleaner.SWAP_LOCK:
+            self._data = v
+            self._evicted = None
+            self._loader = None
+
+    def evict(self) -> int:
+        """Move the tensor off the device (water/Cleaner.java's swap):
+        to a host copy, or back to its file source for a file-backed
+        column; returns the tensor's bytes (0 for a host-only or already
+        evicted column). A runtime on the CPU evicts the same way, its
+        "host copy" being the tensor itself."""
+        with cleaner.SWAP_LOCK:
+            d = self._data
+            if d is None:
+                return 0
+            freed = d.numel() * d.element_size()
+            self._evicted = (self._loader if self._loader is not None
+                             else d.to("cpu"))
+            self._data = None
+            return freed
+
+    @property
+    def is_evicted(self) -> bool:
+        return self._data is None and self._evicted is not None
+
+    @property
+    def device_nbytes(self) -> int:
+        """Bytes of the column's resident tensor (0 when evicted or
+        host-only)."""
+        d = self._data
+        if d is None:
+            return 0
+        return d.numel() * d.element_size()
 
     @staticmethod
     def file_backed(loader, ctype: str, nrows: int,
                     domain: Optional[List[str]] = None) -> "Column":
         """A column whose tensor `loader()` returns on first access (the
-        reference's Column.file_backed, water/fvec/FileVec.java)."""
+        reference's Column.file_backed, water/fvec/FileVec.java);
+        evicting it reverts to the loader."""
         c = Column(None, ctype, nrows, domain=domain)
+        c._evicted = loader
         c._loader = loader
         return c
 

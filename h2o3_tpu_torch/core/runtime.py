@@ -51,6 +51,12 @@ def cluster() -> Cluster:
     return _CLUSTER if _CLUSTER is not None else init()
 
 
+# One CUDA-graph capture at a time in the process: the scoring sessions'
+# bucket programs and DeepLearning's step loop capture under it, so two
+# captures never interleave (ROADMAP C27).
+CAPTURE_LOCK = threading.Lock()
+
+
 # -- full float32 matmuls (ROADMAP C26) ------------------------------------
 # The port's float32 matmuls (KMeans' distances, PCA, DeepLearning,
 # Word2Vec, Aggregator) are held to the CPU and to the reference at

@@ -131,29 +131,17 @@ class DataInfo:
         """Predictor tensors (cats first) -> (rows, fullN) float32: NAs
         imputed (mean for numerics, mode for categorical codes), one-hot
         with optional first-level drop, numerics standardised."""
-        ncat = len(self.cat_names)
-        parts = []
-        base = 0 if self.use_all_factor_levels else 1
-        for i in range(ncat):
-            codes = arrays[i].long()
-            codes = torch.where(codes < 0, int(self.cat_modes[i]), codes)
-            card = max(self.cards[i], base + 1)
-            oh = torch.nn.functional.one_hot(codes, card).float()
-            parts.append(oh[:, base:] if base else oh)
-        if self.num_names:
-            dev = arrays[ncat].device
-            nums = torch.stack([arrays[ncat + j].float()
-                                for j in range(len(self.num_names))], dim=-1)
-            fill = torch.as_tensor(self.impute_values, device=dev)
-            nums = torch.where(torch.isnan(nums), fill[None, :], nums)
-            if self.standardize:
-                mean = torch.as_tensor(self.num_means, device=dev)
-                sigma = torch.as_tensor(self.num_sigmas, device=dev)
-                nums = (nums - mean[None, :]) / sigma[None, :]
-            parts.append(nums)
-        if not parts:
-            raise ValueError("no predictors")
-        return torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
+        dev = arrays[0].device
+
+        def t(a):
+            return torch.as_tensor(a, device=dev)
+
+        return expand_columns(
+            arrays, t(self.cat_modes.astype(np.int64)),
+            t(self.impute_values), t(self.num_means), t(self.num_sigmas),
+            cards=tuple(int(c) for c in self.cards),
+            use_all_factor_levels=self.use_all_factor_levels,
+            standardize=self.standardize, n_cat=len(self.cat_names))
 
     def na_row_mask(self, *arrays) -> torch.Tensor:
         """1.0 where any predictor is NA, else 0.0."""
@@ -184,3 +172,31 @@ class DataInfo:
         if not torch.is_floating_point(y):
             return torch.clamp_min(y, 0)
         return torch.where(torch.isnan(y), 0.0, y)
+
+
+def expand_columns(arrays, cat_modes, impute_values, num_means, num_sigmas,
+                   *, cards: tuple, use_all_factor_levels: bool,
+                   standardize: bool, n_cat: int) -> torch.Tensor:
+    """DataInfo.expand over moments given as tensors on the columns'
+    device, so the expansion syncs with the host nowhere: the GLM
+    artifact exports it (artifact/glm.py) and the standalone runner
+    captures it in a CUDA graph."""
+    parts = []
+    base = 0 if use_all_factor_levels else 1
+    for i in range(n_cat):
+        codes = arrays[i].long()
+        codes = torch.where(codes < 0, cat_modes[i], codes)
+        card = max(cards[i], base + 1)
+        oh = torch.nn.functional.one_hot(codes, card).float()
+        parts.append(oh[:, base:] if base else oh)
+    n_num = len(arrays) - n_cat
+    if n_num:
+        nums = torch.stack([arrays[n_cat + j].float() for j in range(n_num)],
+                           dim=-1)
+        nums = torch.where(torch.isnan(nums), impute_values[None, :], nums)
+        if standardize:
+            nums = (nums - num_means[None, :]) / num_sigmas[None, :]
+        parts.append(nums)
+    if not parts:
+        raise ValueError("no predictors")
+    return torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]

@@ -290,9 +290,12 @@ class _StepLoop:
                 slot_c.zero_()
                 self._step(params_c, opt_c, slot_c)
         torch.cuda.current_stream().wait_stream(side)
+        from h2o3_tpu_torch.core.runtime import CAPTURE_LOCK
+
         g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            self._step(self.params, self.opt, self.slot)
+        with CAPTURE_LOCK:
+            with torch.cuda.graph(g):
+                self._step(self.params, self.opt, self.slot)
         self.graph = g
 
     def epoch(self, key: torch.Tensor, steps: int) -> torch.Tensor:

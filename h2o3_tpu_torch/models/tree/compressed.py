@@ -70,14 +70,6 @@ class CompressedForest:
         """K of the (N, K) margins, or 1 for (N,) margins."""
         return self.nclasses if self.per_class_trees else 1
 
-    def init_margin(self, device):
-        """What scoring adds to the leaf sums: init_class as a (K,) tensor,
-        else init_f."""
-        if self.init_class is None:
-            return self.init_f
-        return torch.as_tensor(np.asarray(self.init_class, np.float32),
-                               device=device)
-
     @staticmethod
     def from_host_trees(trees: List, spec, *, tree_class=None,
                         max_depth: int, init_f: float = 0.0,
@@ -214,57 +206,131 @@ class CompressedForest:
     def predict_binned(self, binned: torch.Tensor) -> torch.Tensor:
         """(N, F) integer bins -> (N,) f32 margins (leaf sums + init_f),
         or (N, K) per-class margins for a per-class forest."""
-        a = self.arrays(binned.device)
-        return (_forest_margins(binned, a, self.max_depth, self.n_margins)
-                + self.init_margin(binned.device))
+        r = ResidentForest(self, None, binned.device)
+        return margins_core(binned, r.init, *r.arrays,
+                            max_depth=r.max_depth, tree_class=r.tree_class,
+                            K=r.K)
 
     def leaf_index(self, binned: torch.Tensor) -> torch.Tensor:
         """(N, T) int64 leaf node id of every row in every tree."""
-        a = self.arrays(binned.device)
-        return torch.stack(list(_walk(binned, a, self.max_depth)), dim=1)
+        r = ResidentForest(self, None, binned.device)
+        return leaves_core(binned, *r.walk_arrays, max_depth=r.max_depth)
 
 
-def _walk(binned, a: dict, max_depth: int):
-    """Lockstep walk of every row through each tree in turn: yields the
-    (N,) leaf node ids of tree 0, 1, ..."""
-    N = binned.shape[0]
-    cat_table = a["cat_table"]
+# the forest arrays the walk reads, in the order the cores take them
+WALK_ARRAYS = ("feat", "thresh_bin", "na_left", "left", "right",
+               "cat_split", "cat_table", "na_bins")
+
+
+class ResidentForest:
+    """A forest's scoring inputs on one device, resolved once: the walk
+    arrays (integer arrays as int64), the leaf values, the init margin as
+    a tensor (a 0-dim init_f or the (K,) init_class), with the spec's
+    padded edges and categorical mask when a BinSpec is given, and the
+    tree -> class map as a host tuple. The cores below take these and
+    sync with the host nowhere, so a CUDA graph can capture them."""
+
+    def __init__(self, forest: CompressedForest, spec, device):
+        dev = torch.device(device)
+        a = forest.arrays(dev)
+        self.walk_arrays = tuple(a[k] for k in WALK_ARRAYS)
+        self.leaf_val = a["leaf_val"]
+        # margins_core's argument order: walk arrays with leaf_val after
+        # right (the reference's forest argument order)
+        self.arrays = self.walk_arrays[:5] + (self.leaf_val,) \
+            + self.walk_arrays[5:]
+        self.tree_class = tuple(int(c) for c in np.asarray(forest.tree_class))
+        self.max_depth = int(forest.max_depth)
+        self.K = forest.n_margins
+        init = (np.asarray(forest.init_class, np.float32)
+                if forest.init_class is not None
+                else np.float32(forest.init_f))
+        self.init = torch.as_tensor(init, device=dev)
+        if spec is not None:
+            self.edges = torch.as_tensor(spec.padded_edges(), device=dev)
+            self.is_cat = torch.as_tensor(np.asarray(spec.is_cat, bool),
+                                          device=dev)
+
+    def margins(self, X: torch.Tensor) -> torch.Tensor:
+        """(N, F) raw float32 features -> (N,) or (N, K) margins."""
+        return score_core(X, self.edges, self.is_cat, self.init,
+                          *self.arrays, max_depth=self.max_depth,
+                          tree_class=self.tree_class, K=self.K)
+
+    def leaves(self, X: torch.Tensor) -> torch.Tensor:
+        """(N, F) raw float32 features -> (N, T) int64 leaf ids."""
+        return leaf_score_core(X, self.edges, self.is_cat,
+                               *self.walk_arrays, max_depth=self.max_depth)
+
+
+# a walk holds a few (trees, rows) int64 temporaries: trees are walked in
+# groups of at most this many (tree, row) cells
+_WALK_CELLS = 1 << 24
+
+
+def _walk(binned, feat, thresh_bin, na_left, left, right, cat_split,
+          cat_table, na_bins, max_depth: int):
+    """Lockstep walk of every row through every tree: yields (G, N)
+    leaf node ids for successive groups of G trees (all T trees at
+    once when T x N fits _WALK_CELLS). Each level is a handful of
+    gathers over the (G, N) node matrix, so the op count grows with the
+    depth and not with the tree count. Factories take their device from
+    `binned` (*_like), so an exported program carries none."""
+    T, N = feat.shape[0], binned.shape[0]
     C = cat_table.shape[1]
-    na_bins = a["na_bins"]
-    for t in range(a["feat"].shape[0]):
-        tf, tt, tnl = a["feat"][t], a["thresh_bin"][t], a["na_left"][t]
-        tl, tr, tcs = a["left"][t], a["right"][t], a["cat_split"][t]
-        node = torch.zeros(N, dtype=torch.long, device=binned.device)
+    binned_t = binned.T.contiguous().long()            # (F, N)
+    zero_row = torch.zeros_like(binned_t[0])[None, :]  # (1, N)
+    G = max(1, min(T, _WALK_CELLS // max(N, 1)))
+    for g0 in range(0, T, G):
+        sl = slice(g0, min(T, g0 + G))
+        tf, tt, tnl = feat[sl], thresh_bin[sl], na_left[sl]
+        tl, tr, tcs = left[sl], right[sl], cat_split[sl]
+        node = zero_row.expand(tf.shape[0], N)
         for _ in range(max_depth + 1):
-            f = tf[node]
+            f = torch.gather(tf, 1, node)
             fi = torch.clamp_min(f, 0)
-            b = torch.gather(binned, 1, fi[:, None])[:, 0].long()
-            csid = tcs[node]
+            b = torch.gather(binned_t, 0, fi)
+            csid = torch.gather(tcs, 1, node)
             cat_left = cat_table[torch.clamp_min(csid, 0),
                                  torch.clamp_max(b, C - 1)]
-            go_left = torch.where(csid >= 0, cat_left, b <= tt[node])
-            go_left = torch.where(b == na_bins[fi], tnl[node], go_left)
-            nxt = torch.where(go_left, tl[node], tr[node])
+            go_left = torch.where(csid >= 0, cat_left,
+                                  b <= torch.gather(tt, 1, node))
+            go_left = torch.where(b == na_bins[fi],
+                                  torch.gather(tnl, 1, node), go_left)
+            nxt = torch.where(go_left, torch.gather(tl, 1, node),
+                              torch.gather(tr, 1, node))
             node = torch.where(f < 0, node, nxt)
         yield node
 
 
-def _forest_margins(binned, a: dict, max_depth: int, K: int = 1
-                    ) -> torch.Tensor:
+def margins_core(binned, init, feat, thresh_bin, na_left, left, right,
+                 leaf_val, cat_split, cat_table, na_bins, *, max_depth: int,
+                 tree_class: tuple, K: int = 1) -> torch.Tensor:
     """Lockstep traversal: (N, F) integer bins -> (N,) f32 sums of the
-    leaf values (K == 1), or (N, K) with each tree's leaf value added to
-    its class's column; one f32 add per tree in tree order."""
+    leaf values plus `init` (K == 1), or (N, K) with each tree's leaf
+    value added to its class's column (`tree_class`, a host tuple) and
+    the (K,) `init` after; one f32 add per tree in tree order."""
     N = binned.shape[0]
-    shape = (N, K) if K > 1 else (N,)
-    acc = torch.zeros(shape, dtype=torch.float32, device=binned.device)
-    tree_class = a["tree_class"].tolist()
-    for t, node in enumerate(_walk(binned, a, max_depth)):
-        contrib = a["leaf_val"][t][node]
-        if K > 1:
-            acc[:, tree_class[t]] += contrib
-        else:
-            acc = acc + contrib
-    return acc
+    acc = leaf_val.new_zeros((N, K) if K > 1 else (N,))
+    t = 0
+    for node in _walk(binned, feat, thresh_bin, na_left, left, right,
+                      cat_split, cat_table, na_bins, max_depth):
+        contrib = torch.gather(leaf_val[t: t + node.shape[0]], 1, node)
+        for row in contrib:
+            if K > 1:
+                acc[:, tree_class[t]] += row
+            else:
+                acc = acc + row
+            t += 1
+    return acc + init
+
+
+def leaves_core(binned, feat, thresh_bin, na_left, left, right, cat_split,
+                cat_table, na_bins, *, max_depth: int) -> torch.Tensor:
+    """(N, F) integer bins -> (N, T) int64 leaf node ids."""
+    return torch.cat(list(_walk(binned, feat, thresh_bin, na_left, left,
+                                right, cat_split, cat_table, na_bins,
+                                max_depth)), dim=0).T
 
 
 def _bin_features(X, edges, is_cat, na_bins):
@@ -281,14 +347,29 @@ def _bin_features(X, edges, is_cat, na_bins):
     return torch.where(is_cat[None, :], cat_b, num_b)
 
 
-def _fused_margins(X, edges, is_cat, forest: CompressedForest):
-    """(N, F) raw float32 features -> (N,) or (N, K) f32 margins: binning
-    with the training edges, the lockstep traversal and the init
-    margin."""
-    a = forest.arrays(X.device)
-    binned = _bin_features(X, edges, is_cat, a["na_bins"])
-    return (_forest_margins(binned, a, forest.max_depth, forest.n_margins)
-            + forest.init_margin(X.device))
+def score_core(X, edges, is_cat, init, feat, thresh_bin, na_left, left,
+               right, leaf_val, cat_split, cat_table, na_bins, *,
+               max_depth: int, tree_class: tuple, K: int = 1
+               ) -> torch.Tensor:
+    """The fused scoring program (the reference's `_fused_score_fn`,
+    compressed.py:336): (N, F) raw float32 features -> margins, binning
+    with the training edges, the lockstep walk and the init margin. Every
+    tree predict, the scoring sessions' CUDA graphs and the exported
+    artifact programs run this one function."""
+    binned = _bin_features(X, edges, is_cat, na_bins)
+    return margins_core(binned, init, feat, thresh_bin, na_left, left,
+                        right, leaf_val, cat_split, cat_table, na_bins,
+                        max_depth=max_depth, tree_class=tree_class, K=K)
+
+
+def leaf_score_core(X, edges, is_cat, feat, thresh_bin, na_left, left,
+                    right, cat_split, cat_table, na_bins, *, max_depth: int
+                    ) -> torch.Tensor:
+    """The fused bin + leaf program (the reference's `_fused_leaf_fn`,
+    compressed.py:418): (N, F) raw features -> (N, T) int64 leaf ids."""
+    binned = _bin_features(X, edges, is_cat, na_bins)
+    return leaves_core(binned, feat, thresh_bin, na_left, left, right,
+                       cat_split, cat_table, na_bins, max_depth=max_depth)
 
 
 def forest_predict_fn(device=None):

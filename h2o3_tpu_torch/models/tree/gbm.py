@@ -15,7 +15,9 @@ import torch
 from h2o3_tpu_torch.core.frame import Column, Frame
 from h2o3_tpu_torch.models.model import ModelCategory
 from h2o3_tpu_torch.models.model_builder import register
-from h2o3_tpu_torch.models.tree.shared_tree import SharedTree, SharedTreeModel
+from h2o3_tpu_torch.models.tree.shared_tree import (SharedTree,
+                                                    SharedTreeModel,
+                                                    _leaf_matrix)
 
 
 class GBMModel(SharedTreeModel):
@@ -31,8 +33,7 @@ class GBMModel(SharedTreeModel):
             raise ValueError("staged_predict_proba needs a classification "
                              "GBM")
         adapted = self.adapt_test(frame)
-        leaf = self.forest.leaf_index(
-            self.spec.bin_columns(adapted)).cpu().numpy()
+        leaf = _leaf_matrix(self, adapted, frame.nrows)
         dev = adapted.col(adapted.names[0]).data.device
         fo = self.forest
         lv = np.asarray(fo.leaf_val, np.float64)

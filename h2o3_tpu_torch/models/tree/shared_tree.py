@@ -46,7 +46,7 @@ from h2o3_tpu_torch.models.model import Model, ModelCategory
 from h2o3_tpu_torch.models.model_builder import ModelBuilder
 from h2o3_tpu_torch.models.tree.binning import BinSpec, pad_rows
 from h2o3_tpu_torch.models.tree.compressed import (CompressedForest,
-                                                   _fused_margins)
+                                                   ResidentForest)
 from h2o3_tpu_torch.models.tree.device_tree import (apply_packed,
                                                     assemble_trees,
                                                     build_feat_masks,
@@ -107,17 +107,20 @@ class SharedTreeModel(Model):
         self.spec: Optional[BinSpec] = None
         self._distribution = None
 
+    def _features(self, frame: Frame) -> torch.Tensor:
+        """(N, F) float32 features of the adapted frame in training-column
+        order, on its device: numerics as they are (NaN = NA),
+        categoricals as their codes (NA negative)."""
+        return torch.stack([frame.col(n).data.float()
+                            for n in self.spec.names], dim=1)
+
     def _margin(self, frame: Frame) -> torch.Tensor:
         """(N,) or (N, K) margins of the adapted frame: raw features
         binned with the training edges and walked through the forest in
-        one pass."""
-        spec = self.spec
-        X = torch.stack([frame.col(n).data.float() for n in spec.names],
-                        dim=1)
-        dev = X.device
-        return _fused_margins(
-            X, torch.as_tensor(spec.padded_edges(), device=dev),
-            torch.as_tensor(spec.is_cat, device=dev), self.forest)
+        one pass (compressed.score_core, the program the scoring
+        sessions capture)."""
+        X = self._features(frame)
+        return ResidentForest(self.forest, self.spec, X.device).margins(X)
 
     def _predict_raw(self, frame: Frame):
         return self._margin_to_raw(self._margin(frame))
@@ -134,8 +137,7 @@ class SharedTreeModel(Model):
                              "(Path or Node_ID)")
         adapted = self.adapt_test(frame)
         dev = adapted.col(adapted.names[0]).data.device
-        leaf = self.forest.leaf_index(
-            self.spec.bin_columns(adapted)).cpu().numpy()
+        leaf = _leaf_matrix(self, adapted, frame.nrows)
         fo = self.forest
         tcls = np.asarray(fo.tree_class)
         per_class = fo.per_class_trees
@@ -625,6 +627,19 @@ def _path_column(fo, t: int, leaf: np.ndarray, dev) -> Column:
     lut[reached[order]] = np.arange(len(order), dtype=np.int32)
     return Column.from_numpy(lut[leaf], ctype="enum",
                              domain=[names[i] for i in order], device=dev)
+
+
+def _leaf_matrix(model, adapted: Frame, n: int) -> np.ndarray:
+    """(n, T) leaf ids of the adapted frame: through the model's scoring
+    session (bucketed, captured once per bucket on the card) when the
+    model rides the session path, else the eager bin + walk pass; the
+    two are bitwise equal."""
+    from h2o3_tpu_torch import scoring
+
+    if scoring.supports(model):
+        return scoring.session_for(model).leaf_matrix(adapted, n)
+    return model.forest.leaf_index(
+        model.spec.bin_columns(adapted)).cpu().numpy()
 
 
 def _leaf_update(vals, row_leaf):

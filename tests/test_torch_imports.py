@@ -83,7 +83,13 @@ def test_port_imports_with_jax_blocked_and_reference_refused():
                  "automl.steps", "estimators", "extensions", "assembly",
                  "bindings", "utils.log", "models.gbm", "models.drf",
                  "models.isofor", "models.mojo", "models.mojo_java",
-                 "models.pojo", "models.generic", "explain"):
+                 "models.pojo", "models.generic", "explain",
+                 "scoring", "admission", "memory", "memory.budget",
+                 "memory.stream", "core.failure", "core.cleaner",
+                 "persist.spill", "utils.retry", "artifact",
+                 "artifact.manifest", "artifact.packer", "artifact.aot",
+                 "artifact.compile_cache", "artifact.glm",
+                 "artifact.export", "artifact.loader", "artifact.runner"):
         assert f"h2o3_tpu_torch.{name}" in rep["modules"], name
     assert len(rep["modules"]) >= 30, rep["modules"]
     assert rep["leaked"] == [], rep["leaked"]
@@ -138,3 +144,21 @@ def test_no_source_names_jax_or_the_reference(path):
     assert not found, \
         f"{path} imports jax, optax, scipy, pandas, h2o3_tpu or " \
         "h2o3_genmodel"
+
+
+def test_runner_imports_only_torch_numpy_and_the_standard_library():
+    """The standalone runner ships to serving hosts without the package:
+    every import it names (at any depth) is torch, numpy or a standard-
+    library module."""
+    import ast
+
+    tree = ast.parse((PORT / "artifact" / "runner.py").read_text())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 0, "relative import in runner.py"
+            roots.add(node.module.split(".")[0])
+    allowed = {"torch", "numpy", "__future__"} | set(sys.stdlib_module_names)
+    assert roots and roots <= allowed, roots - allowed
