@@ -67,7 +67,15 @@ through the port's public entry points:
   injected OOMs and a real torch.cuda.OutOfMemoryError under a capped
   allocator (each recovered bit for bit), the cleaner's sweep, fault-in
   and spill, and standalone artifacts: export, load in process and the
-  runner in a fresh process on the card; this path launches no kernel.
+  runner in a fresh process on the card; this path launches no kernel;
+- statement fusion, lazy sessions and the munge→score pipeline (phase
+  3t) at the reference bench's sizes: run_rapids' three statements on
+  its 2M-row frame fused against eager, its chained session on 4M rows
+  lazy against eager (CSE hits and dead temps counted as the JAX package
+  counts them), and run_pipeline's shape (a 10-tree depth-5 GBM on 20k
+  rows, which runs the kernel, scoring 200k raw rows through a lazy
+  feature chain fused against staged, one 1M-row request, and a pipeline
+  artifact scored from raw rows by the runner in a fresh process).
 It checks the card's models and imports against the same port on the
 CPU and times
 the kernel at the level shapes of each configuration beside its memory
@@ -145,6 +153,18 @@ C10_PRED_ATOL = 5e-3
 # (__graft_entry__.py:176-184) at 1M left rows; phase 4 at 100k rows
 RAPIDS = dict(n_rows=2_000_000, reps=5, seed=4, join_rows=1_000_000,
               join_right=200_000, cpu_rows=100_000)
+# phase 3t: run_rapids' chained session (h2o3_tpu/bench.py:336-402, 4M
+# rows, 3 warm-free interleaved A/B passes beyond run_rapids' 5) and
+# run_pipeline (:803-890: 20k training rows, 10 trees of depth 5, 200k raw
+# rows, 5 reps; one 1M-row request); the JAX package counts one CSE hit,
+# one dead temp and two inlined intermediates per chained pass (its
+# planner on the CPU over the same statements); phase 4 at 100k rows
+FUSION = dict(chain_rows=4_000_000, chain_reps=8, pipe_train=20_000,
+              pipe_rows=200_000, pipe_reps=5, pipe_ntrees=10,
+              pipe_depth=5, pipe_1m=1_000_000, artifact_rows=4_096,
+              ref_per_pass={"cse_hits": 1, "dead_temps_eliminated": 1,
+                            "inlined_intermediates": 2},
+              cvc_rows=100_000)
 # phase 3p: k-means and PCA/SVD/GLRM widths; KMeans' estimate_k, GLRM,
 # CoxPH, Aggregator and IsotonicRegression on 200k rows; Word2Vec on a
 # seeded Zipf
@@ -1820,11 +1840,24 @@ def phase_rapids(h2o, dev, tmp):
     frame and the verify recipe. Returns the histogram kernel's launches
     over the phase (none: this path runs no kernel)."""
     from h2o3_tpu_torch.models.tree import hist_gather as hg
+    from h2o3_tpu_torch.rapids import fusion, planner
+
+    hg.launches = 0
+    # the eager evaluator, as this phase has measured it since PR 9 (the
+    # fused and lazy paths are phase 3t's)
+    with fusion.force(False), planner.force(False):
+        _phase_rapids_eager(h2o, dev, tmp)
+    launches = hg.launches
+    check(launches == 0, f"the frame ops launched hist_gather {launches} "
+                         "times")
+    return launches
+
+
+def _phase_rapids_eager(h2o, dev, tmp):
     from h2o3_tpu_torch.ops.groupby import GroupBy
     from h2o3_tpu_torch.ops.merge import merge
     from h2o3_tpu_torch.ops.sort import sort_frame, sort_order
 
-    hg.launches = 0
     n, reps = RAPIDS["n_rows"], RAPIDS["reps"]
     a, b, c = rapids_arrays(n, RAPIDS["seed"])
     fr = rapids_frame(h2o, dev, "rapids_bench", n, RAPIDS["seed"])
@@ -1957,10 +1990,341 @@ def phase_rapids(h2o, dev, tmp):
     _verify_recipe(h2o, tmp)
     sess.end()
     h2o.DKV.clear()
+
+
+# ---------------------------------------------------------------------------
+# statement fusion, lazy sessions and the pipeline (phase 3t; phase 4)
+# ---------------------------------------------------------------------------
+
+def chain_statements(key):
+    """run_rapids' chained session (h2o3_tpu/bench.py:357-367)."""
+    A, B, C = (f"(cols {key} [{i}])" for i in range(3))
+    clip = f"(ifelse (> {A} 2) 2 (ifelse (< {A} -2) -2 {A}))"
+    flags = (f"(& (| (> {B} 0.25) (< {C} 1)) "
+             f"(& (== (is.na {A}) 0) (>= {B} -3)))")
+    binned = (f"(ifelse (< {A} -1) 0 (ifelse (< {A} 0) 1 "
+              f"(ifelse (< {A} 1) 2 (ifelse (< {A} 2) 3 4))))")
+    return [f"(tmp= rb_clip {clip})", f"(tmp= rb_flags {flags})",
+            f"(tmp= rb_bin {binned})", f"(tmp= rb_bin2 {binned})",
+            "(tmp= rb_t (* rb_clip 2))", "(tmp= rb_t (+ rb_clip rb_bin))",
+            "(tmp= rb_out (ifelse rb_flags rb_t (- rb_bin2 rb_clip)))",
+            "(rm rb_clip)", "(rm rb_flags)", "(rm rb_t)"]
+
+
+def chain_pass(h2o, key, sess):
+    """One chained session: the statements, the observation of rb_out
+    (its tensor), then the temps removed."""
+    for st in chain_statements(key):
+        h2o.exec_rapids(st, sess)
+    out = h2o.exec_rapids("rb_out", sess).col(0).data
+    for k in ("rb_out", "rb_bin", "rb_bin2"):
+        h2o.exec_rapids(f"(rm {k})", sess)
+    return out
+
+
+def pipe_train_frame(h2o, device, n, seed=7):
+    """run_pipeline's training frame: x1, x2 and y on the engineered
+    names; returns (frame, the generator, continued for the raw rows)."""
+    rng = np.random.default_rng(seed)
+    x1, x2 = rng.standard_normal(n), rng.standard_normal(n)
+    logit = 0.8 * x1 - 0.6 * x2
+    fr = h2o.Frame()
+    fr.add("x1", h2o.Column.from_numpy(x1, device=device))
+    fr.add("x2", h2o.Column.from_numpy(x2, device=device))
+    fr.add("y", h2o.Column.from_numpy(
+        np.where(rng.random(n) < 1 / (1 + np.exp(-logit)), "Y", "N"),
+        ctype="enum", device=device))
+    return fr, rng
+
+
+def pipe_raw_frame(h2o, device, key, n, rng):
+    """run_pipeline's raw rows: r1 with every 97th row NA, r2."""
+    r1 = rng.standard_normal(n)
+    r1[::97] = np.nan
+    r2 = rng.standard_normal(n)
+    fr = h2o.Frame(key=key)
+    fr.add("r1", h2o.Column.from_numpy(r1, device=device))
+    fr.add("r2", h2o.Column.from_numpy(r2, device=device))
+    fr.install()
+    return fr, r1, r2
+
+
+class _Engineer:
+    """run_pipeline's feature chain with fresh temps every call."""
+
+    def __init__(self, h2o, sess, rawkey, prefix="pb"):
+        self.h2o, self.sess, self.raw, self.p = h2o, sess, rawkey, prefix
+        self.seq = 0
+
+    def __call__(self):
+        self.seq += 1
+        p, R1, R2 = (f"{self.p}{self.seq}", f"(cols {self.raw} [0])",
+                     f"(cols {self.raw} [1])")
+        ex = self.h2o.exec_rapids
+        ex(f"(tmp= {p}_a (+ {R1} 0.5))", self.sess)
+        ex(f"(tmp= {p}_b (ifelse (> {R2} 0) {R2} {p}_a))", self.sess)
+        return ex(f'(tmp= {p}_pf (colnames= (cbind {p}_a {p}_b) [0 1] '
+                  f'["x1" "x2"]))', self.sess)
+
+
+def _fused_statements(h2o, dev, sess, key, reps):
+    """run_rapids' per-statement A/B: (eager results, fused results,
+    eager seconds, fused seconds) over `reps` timed passes each."""
+    from h2o3_tpu_torch.rapids import fusion, planner
+
+    stmts = rapids_statements(key)
+
+    def run_pass():
+        out = [h2o.exec_rapids(st, sess) for st in stmts]
+        torch.cuda.synchronize()
+        return out
+
+    def timed(on):
+        with fusion.force(on), planner.force(on):
+            got = run_pass()                # warm (captures excluded)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                run_pass()
+            return got, time.perf_counter() - t0, run_pass
+
+    return timed(False), timed(True)
+
+
+def phase_fusion(h2o, dev, tmp):
+    """Phase 3t: run_rapids' statements fused against eager on its 2M-row
+    frame, its chained session lazy against eager on 4M rows, and
+    run_pipeline's munge→score splice against the staged path, with a
+    pipeline artifact scored by the runner in a fresh process. Returns
+    (the histogram kernel's launches, the pipeline's GBM)."""
+    import os
+
+    from h2o3_tpu_torch import artifact, pipeline, scoring
+    from h2o3_tpu_torch.models.tree import hist_gather as hg
+    from h2o3_tpu_torch.rapids import fusion, planner
+
+    c = FUSION
+    n, reps = RAPIDS["n_rows"], RAPIDS["reps"]
+    rapids_frame(h2o, dev, "rapids_fused", n, RAPIDS["seed"])
+    sess = h2o.Session("fused")
+    fusion.reset_counters()
+    (eager, dt_e, pass_e), (fused, dt_f, pass_f) = _fused_statements(
+        h2o, dev, sess, "rapids_fused", reps)
+    fc = fusion.counters()
+    rows = n * 3 * reps
+    metric("rapids_fused_rows_per_sec", rows / dt_f,
+           f"({reps} passes of 3 statements over {n} rows in {dt_f!r} s)")
+    metric("rapids_fused_vs_eager", dt_e / dt_f,
+           f"(eager {rows / dt_e!r} rows/s in the same call)")
+    for i in (0, 1):
+        check(same_bits(fused[i].col(0).data, eager[i].col(0).data),
+              f"fused statement {i + 1} differs from eager")
+    check(fused[2] == eager[2], f"fused statement 3 sum {fused[2]!r} vs "
+                                f"eager {eager[2]!r}")
+    print(f"fused statements 1, 2 and the sum {fused[2]!r} bitwise equal "
+          f"to eager; {fc['captures']} captures and "
+          f"{fc['fused_programs_compiled']} programs built over "
+          f"{reps + 1} passes, {fc['fused_programs']} program runs")
+    for label, run in (("eager", pass_e), ("fused", pass_f)):
+        mode = label == "fused"
+        with fusion.force(mode), planner.force(mode):
+            _, wall = _timed(run)
+            c0 = fusion.counters()["captures"]
+            busy, ops = device_time(run)
+            caps = fusion.counters()["captures"] - c0
+        print(f"one {label} pass (3 statements, {n} rows): wall "
+              f"{wall * 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms = "
+              f"{100 * busy / 1e3 / (wall * 1e3):.1f}%, {ops} device ops, "
+              f"{caps} captures")
+    with fusion.force(True), planner.force(True):
+        phase_profile("one fused Rapids pass (3 statements, 2M rows)",
+                      pass_f)
+    sess.end()
+
+    # run_rapids' chained session, interleaved A/B
+    nc = c["chain_rows"]
+    rapids_frame(h2o, dev, "rapids_chain", nc, RAPIDS["seed"] + 1)
+    csess = h2o.Session("bench_chain")
+
+    def chain_once(lazy):
+        with planner.force(lazy), fusion.force(lazy):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = chain_pass(h2o, "rapids_chain", csess)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+    ref, _ = chain_once(False)
+    got, _ = chain_once(True)                  # warm both modes
+    check(same_bits(got, ref), "lazy rb_out differs from eager")
+    dt_e = dt_l = 0.0
+    planner.reset_counters()
+    for _ in range(c["chain_reps"]):
+        dt_e += chain_once(False)[1]
+        out, dt = chain_once(True)
+        dt_l += dt
+        check(same_bits(out, ref), "lazy rb_out differs from eager")
+    lz = planner.counters()
+    chain_rows = nc * 7 * c["chain_reps"]
+    metric("rapids_chained_rows_per_sec", chain_rows / dt_l,
+           f"({c['chain_reps']} lazy passes of 7 statements over {nc} rows "
+           f"in {dt_l!r} s)")
+    metric("rapids_chained_vs_eager", dt_e / dt_l,
+           f"(eager {dt_e!r} s in the same call)")
+    metric("rapids_cse_hits", lz["cse_hits"])
+    metric("rapids_dead_temps", lz["dead_temps_eliminated"])
+    for k, per in c["ref_per_pass"].items():
+        check(lz[k] == per * c["chain_reps"],
+              f"planner {k}: {lz[k]} over {c['chain_reps']} passes, the "
+              f"JAX package counts {per} a pass")
+    print(f"chained session: rb_out bitwise equal to eager every pass; "
+          f"per pass {json.dumps(c['ref_per_pass'])} as the JAX package")
+    csess.end()
+    h2o.DKV.clear()
+
+    # run_pipeline: raw rows through a lazy feature chain into a GBM
+    hg.launches = 0
+    tr, rng = pipe_train_frame(h2o, dev, c["pipe_train"])
+    model = h2o.GBM(ntrees=c["pipe_ntrees"], max_depth=c["pipe_depth"],
+                    seed=7).train(y="y", training_frame=tr)
     launches = hg.launches
-    check(launches == 0, f"the frame ops launched hist_gather {launches} "
-                         "times")
-    return launches
+    check(launches > 0, "the pipeline's GBM launched no hist_gather")
+    ssn = scoring.session_for(model)
+    raw, _r1, _r2 = pipe_raw_frame(h2o, dev, "pipe_bench_raw",
+                                   c["pipe_rows"], rng)
+    psess = h2o.Session("bench_pipe")
+    engineer = _Engineer(h2o, psess, "pipe_bench_raw")
+
+    def timed(on):
+        with planner.force(True), fusion.force(True), pipeline.force(on):
+            ssn.predict(engineer())            # warm (captures excluded)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(c["pipe_reps"]):
+                ssn.predict(engineer()).col(0).data
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+    dt_s = timed(False)
+    pipeline.reset_counters()
+    dt_p = timed(True)
+    pc = pipeline.counters()
+    prow = c["pipe_rows"] * c["pipe_reps"]
+    metric("pipeline_rows_per_sec", prow / dt_p,
+           f"({c['pipe_reps']} requests of {c['pipe_rows']} raw rows)")
+    metric("pipeline_staged_rows_per_sec", prow / dt_s)
+    metric("pipeline_vs_staged", dt_s / dt_p)
+    metric("pipeline_materialized_columns", pc["materialized_columns"],
+           f"({pc['fused_dispatches']} pipeline dispatches, "
+           f"{pc['captures']} captures)")
+    check(pc["materialized_columns"] == 0 and pc["fallbacks"] == 0,
+          f"the pipeline made engineered columns: {pc}")
+    with planner.force(True), fusion.force(True), pipeline.force(True):
+        pf = engineer()
+        cap = pipeline.try_capture(ssn, pf)
+        check(cap is not None, "the engineered frame did not capture")
+        mg, _ = pipeline.execute_margins(ssn, cap)
+        staged = _margins_of(ssn, pf)          # flushes, then stages
+    _same_bits("pipeline margins vs staged", mg, staged)
+    big, _, _ = pipe_raw_frame(h2o, dev, "pipe_raw_1m", c["pipe_1m"], rng)
+    big_eng = _Engineer(h2o, psess, "pipe_raw_1m", prefix="pm")
+    with planner.force(True), fusion.force(True), pipeline.force(True):
+        ssn.predict(big_eng())                 # warm the tail's bucket
+        pf = big_eng()
+        out, t_1m = _timed(lambda: ssn.predict(pf).col(0).data)
+    metric("pipeline_1m_s", t_1m, f"({c['pipe_1m']} raw rows, one request)")
+    with pipeline.force(False):
+        ref = ssn.predict(pf).col(0).data
+    _same_bits("pipeline 1M-row request vs staged", out, ref)
+
+    # the pipeline artifact, scored from raw rows in a fresh process
+    m = c["artifact_rows"]
+    sub, r1, r2 = pipe_raw_frame(h2o, dev, "pipe_raw_art", m, rng)
+    with planner.force(True), fusion.force(True), pipeline.force(True):
+        pf = _Engineer(h2o, psess, "pipe_raw_art", prefix="pa")()
+        art = os.path.join(tmp, "pipeline_artifact")
+        man = artifact.export_pipeline(model, pf, art, buckets=[m])
+        cap = pipeline.try_capture(ssn, pf)
+        want, _ = pipeline.execute_margins(ssn, cap)
+    check(man["model_type"] == "pipeline" and
+          sorted(man["names"]) == ["r1", "r2"], "pipeline manifest")
+    csv_path = os.path.join(tmp, "pipe_raw.csv")
+    with open(csv_path, "w") as f:
+        f.write("r1,r2\n")
+        for a, b in zip(r1.astype(np.float32), r2.astype(np.float32)):
+            f.write(f"{'' if np.isnan(a) else repr(float(a))},"
+                    f"{float(b)!r}\n")
+    runner = Path(__file__).resolve().parent / "h2o3_tpu_torch" / \
+        "artifact" / "runner.py"
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc, t_run = _timed(lambda: subprocess.run(
+        [sys.executable, str(runner), "--artifact", art, "--input",
+         csv_path, "--output", os.path.join(tmp, "pipe_out.csv"),
+         "--raw-npz", os.path.join(tmp, "pipe_raw.npz"), "--device",
+         dev.type], capture_output=True, text=True, timeout=300, cwd=tmp,
+        env=env))
+    check(proc.returncode == 0, f"pipeline runner failed: "
+                                f"{proc.stderr[-3000:]}")
+    with np.load(os.path.join(tmp, "pipe_raw.npz")) as z:
+        _same_bits("pipeline artifact runner margins (card) vs in-process",
+                   torch.from_numpy(z["margins"]), want.cpu())
+    print(f"pipeline artifact: {man['programs'][0]['bytes']} program "
+          f"bytes, the runner scored {m} raw rows bitwise in a fresh "
+          f"process ({t_run:.2f} s from spawn to exit)")
+    psess.end()
+    return launches, model
+
+
+def phase_card_vs_cpu_fusion(h2o, dev, model):
+    """Fused statements, the lazy chained session and pipeline margins on
+    FUSION['cvc_rows'] rows on the card and on the CPU: bit for bit (the
+    statement sum to 1e-6, its float32 order differs), the pipeline's
+    probabilities to C29's 1e-6."""
+    from h2o3_tpu_torch import pipeline, scoring
+    from h2o3_tpu_torch.rapids import fusion, planner
+
+    n = FUSION["cvc_rows"]
+    res = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        key = f"fusion_cvc_{name}"
+        rapids_frame(h2o, d, key, n, RAPIDS["seed"])
+        sess = h2o.Session(key)
+        with fusion.force(True), planner.force(True):
+            stmt = [h2o.exec_rapids(st, sess)
+                    for st in rapids_statements(key)]
+            chain = chain_pass(h2o, key, sess)
+        sess.end()
+        if name == "cpu":
+            h2o.init(device="cpu")
+        try:
+            pipe_raw_frame(h2o, d, f"pipe_cvc_{name}", n,
+                           np.random.default_rng(11))
+            psess = h2o.Session(f"pipe_{name}")
+            ssn = scoring.ScoringSession(model)
+            with fusion.force(True), planner.force(True), \
+                    pipeline.force(True):
+                pf = _Engineer(h2o, psess, f"pipe_cvc_{name}")()
+                cap = pipeline.try_capture(ssn, pf)
+                check(cap is not None, f"no capture on the {name}")
+                mg, _ = pipeline.execute_margins(ssn, cap)
+            psess.end()
+        finally:
+            h2o.init()
+        res[name] = (stmt, chain.cpu(), mg.cpu(),
+                     model._margin_to_raw(mg.cpu())["probs"])
+    (cs, cc, cm, cp), (hs, hc, hm, hp) = res["card"], res["cpu"]
+    for i in (0, 1):
+        check(same_bits(cs[i].col(0).data.cpu(), hs[i].col(0).data),
+              f"card vs CPU: fused statement {i + 1} differs")
+    rel = abs(cs[2] - hs[2]) / abs(hs[2])
+    check(rel <= 1e-6, f"card vs CPU: fused statement 3 sum off by {rel}")
+    check(same_bits(cc, hc), "card vs CPU: lazy rb_out differs")
+    check(same_bits(cm, hm), "card vs CPU: pipeline margins differ")
+    gap = float((cp - hp).abs().max())
+    check(gap <= PDP_CVC_ATOL, f"card vs CPU: pipeline probabilities {gap}")
+    print(f"card vs cpu fusion ({n} rows): fused statements 1-2, the lazy "
+          f"chained session and pipeline margins bitwise; statement 3 sum "
+          f"rel {rel:.2e}; pipeline probabilities within {gap:.3e}")
+    h2o.DKV.clear()
 
 
 def _cvc_close(label, card, cpu, rtol, scale):
@@ -3923,6 +4287,10 @@ def main() -> int:
         banner("phase 3o: Rapids and the frame ops (run_rapids' 2M-row "
               "frame, sort, joins, group-by, the verify recipe)")
         launches["rapids"] = phase_rapids(h2o, dev, tmp)
+        banner("phase 3t: statement fusion, lazy sessions and the "
+               "munge→score pipeline (run_rapids' statements and chained "
+               "session, run_pipeline's shape, a pipeline artifact)")
+        launches["pipeline"], pipe_model = phase_fusion(h2o, dev, tmp)
         banner("phase 4: card vs CPU")
         phase_card_vs_cpu(h2o, dev, parse_path)
         phase_card_vs_cpu_framework(h2o, dev)
@@ -3931,6 +4299,7 @@ def main() -> int:
         phase_card_vs_cpu_search(h2o, dev)
         phase_card_vs_cpu_explain(h2o, dev)
         phase_card_vs_cpu_serving(h2o, dev, serving_art)
+        phase_card_vs_cpu_fusion(h2o, dev, pipe_model)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         shutil.rmtree(serving_tmp, ignore_errors=True)

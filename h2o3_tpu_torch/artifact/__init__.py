@@ -9,15 +9,18 @@
 - :mod:`manifest`, :mod:`packer`, :mod:`aot`, :mod:`glm`: the codecs.
 - :mod:`runner`: the standalone scorer, run as a file path with torch,
   numpy and the standard library alone.
-
-Pipeline artifacts (``export_pipeline``) wait for the lazy Rapids
-planner (ROADMAP A11).
+- :mod:`pipeline`: ``export_pipeline`` fuses a pending lazy Rapids
+  feature pipeline with a forest or GLM into one program per bucket,
+  scored from raw rows by the runner; the loader imports it as a
+  ``PipelineModel``.
 """
 
 from h2o3_tpu_torch.artifact.export import export_model, supports_export
 from h2o3_tpu_torch.artifact.loader import describe, load_model
 from h2o3_tpu_torch.artifact.manifest import (FORMAT, FORMAT_VERSION,
                                               ArtifactError)
+from h2o3_tpu_torch.artifact.pipeline import export_pipeline
 
-__all__ = ["export_model", "supports_export", "load_model", "describe",
+__all__ = ["export_model", "export_pipeline", "supports_export",
+           "load_model", "describe",
            "ArtifactError", "FORMAT", "FORMAT_VERSION"]

@@ -6,7 +6,10 @@ distribution, labelling threshold), a GLM artifact the GLMModel (its
 coefficients and DataInfo), installed under a DKV key; the model then
 serves through the same scoring session as one trained here. The
 artifact's programs are not needed for that, so an artifact exported by
-either package loads. Every byte read is checksum-gated by the manifest
+either package loads. A pipeline artifact (artifact/pipeline.py) imports
+as a :class:`~h2o3_tpu_torch.artifact.pipeline.PipelineModel`, which
+scores raw frames through the artifact's own programs on the booted
+device. Every byte read is checksum-gated by the manifest
 (manifest.read_payload) and the npz payload is read with
 ``allow_pickle=False``.
 """
@@ -68,11 +71,12 @@ def load_model(art_dir: str, model_id: Optional[str] = None,
     mt = m.get("model_type", "forest")
     if mt == "glm":
         return _load_glm(art_dir, m, model_id, install)
+    if mt == "pipeline":
+        return _load_pipeline(art_dir, m, model_id, install)
     if mt != "forest":
         raise ArtifactError(
-            f"artifact model_type {mt!r} cannot be imported (forest and "
-            "glm artifacts import; pipeline artifacts wait for the lazy "
-            "planner, ROADMAP A11)")
+            f"artifact model_type {mt!r} cannot be imported (forest, glm "
+            "and pipeline artifacts import)")
     arrays = packer.load_npz(
         manifest.read_payload(art_dir, m["files"]["forest"]))
     try:
@@ -179,6 +183,36 @@ def _load_glm(art_dir: str, m: Dict[str, Any], model_id: Optional[str],
     if artifact_glm.glm_checksum(model) != m["model_checksum"]:
         raise ArtifactError("model checksum mismatch — the packed glm "
                             "payload does not match the manifest")
+    return _finish(model, m, model_id, install)
+
+
+def _load_pipeline(art_dir: str, m: Dict[str, Any],
+                   model_id: Optional[str], install: bool):
+    """Pipeline artifact -> PipelineModel over the artifact's programs;
+    the manifest's checksum must bind the inner model to the plan."""
+    import hashlib
+
+    from h2o3_tpu_torch.artifact import runner
+    from h2o3_tpu_torch.artifact.pipeline import PipelineModel
+    from h2o3_tpu_torch.core.runtime import cluster
+
+    p = m["pipeline"]
+    want = hashlib.sha256((str(p.get("inner_model_checksum")) + "|"
+                           + str(p.get("signature"))).encode()).hexdigest()
+    if want != m["model_checksum"]:
+        raise ArtifactError("model checksum mismatch — the pipeline's plan "
+                            "and inner model do not match the manifest")
+    scorer = runner.AotScorer(art_dir, device=str(cluster().device),
+                              pin_float32=False)
+    model = _new_model(PipelineModel)
+    model.scorer = scorer
+    model.pipeline = dict(p)
+    o = model._output
+    o.names = list(m["names"])
+    o.domains = {k: list(v) for k, v in (m.get("domains") or {}).items()}
+    o.response_name = m.get("response_name")
+    o.response_domain = list(m.get("response_domain") or []) or None
+    o.model_category = str(m["model_category"])
     return _finish(model, m, model_id, install)
 
 

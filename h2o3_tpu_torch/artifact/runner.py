@@ -9,6 +9,10 @@ training stack. Run it as a file path, so the package's own
     python h2o3_tpu_torch/artifact/runner.py --artifact DIR \\
         --input in.csv --output out.csv [--raw-npz raw.npz] [--device cpu]
 
+A pipeline artifact (``model_type`` "pipeline", artifact/pipeline.py)
+scores raw rows: its programs compute the engineered features and run
+the model core in one program, over the raw inputs the manifest names.
+
 ``--device`` defaults to ``cuda`` and fails when there is no card. On
 the card each row bucket's exported program (``program_b{N}.pt2``) runs
 eagerly once and is then captured in a CUDA graph of its own; later
@@ -152,19 +156,36 @@ class AotScorer:
     """One loaded artifact: its arrays on the device and one exported
     program per row bucket, loaded and captured at first use."""
 
-    def __init__(self, art_dir: str, device: str = "cuda"):
+    def __init__(self, art_dir: str, device: str = "cuda",
+                 pin_float32: bool = True):
         self.dir = str(art_dir)
         self.device = _resolve_device(device)
-        # full float32 matmuls: a GLM's TF32 product would drift ~1e-3
-        torch.set_float32_matmul_precision("highest")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        if pin_float32:
+            # full float32 matmuls: a GLM's TF32 product would drift ~1e-3
+            # (the package's loader scores inside its own full_float32)
+            torch.set_float32_matmul_precision("highest")
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
         m = _read_manifest(self.dir)
         self.manifest = m
         self.model_type = str(m.get("model_type") or "forest")
-        if self.model_type not in ("forest", "glm"):
-            raise ArtifactError(f"this runner scores forest and glm "
-                                f"artifacts, not {self.model_type!r}")
+        if self.model_type not in ("forest", "glm", "pipeline"):
+            raise ArtifactError(f"this runner scores forest, glm and "
+                                f"pipeline artifacts, not "
+                                f"{self.model_type!r}")
+        # a pipeline's programs take the raw (n, R) matrix; its inner
+        # model's arrays are the program inputs after it
+        inner = self.model_type
+        if inner == "pipeline":
+            p = m.get("pipeline")
+            if not isinstance(p, dict) or "pipeline" not in m["files"]:
+                raise ArtifactError("pipeline artifact manifest missing its "
+                                    "'pipeline' block or payload")
+            _read_payload(self.dir, m["files"]["pipeline"])
+            inner = str(p.get("inner"))
+            if inner not in ("forest", "glm"):
+                raise ArtifactError(f"pipeline artifact wraps unsupported "
+                                    f"inner model {inner!r}")
         self.names: List[str] = list(m["names"])
         self.category = str(m["model_category"])
         self.response_domain: List[str] = list(m.get("response_domain")
@@ -176,7 +197,7 @@ class AotScorer:
         self.per_class = bool(m.get("per_class_trees"))
         self.domains: Dict[str, List[str]] = {
             k: list(v) for k, v in (m.get("domains") or {}).items()}
-        payload = m["files"]["glm" if self.model_type == "glm" else "forest"]
+        payload = m["files"][inner]
         with np.load(io.BytesIO(_read_payload(self.dir, payload)),
                      allow_pickle=False) as z:
             a = {k: np.asarray(z[k]) for k in z.files}
@@ -186,10 +207,11 @@ class AotScorer:
         def t(x, dtype):
             return torch.as_tensor(np.asarray(x), device=dev).to(dtype)
 
-        if self.model_type == "glm":
+        if inner == "glm":
             g = m.get("glm")
-            if not isinstance(g, dict) or \
-                    int(g.get("n_cat", 0)) + int(g.get("n_num", 0)) != F:
+            if not isinstance(g, dict) or (
+                    self.model_type == "glm" and
+                    int(g.get("n_cat", 0)) + int(g.get("n_num", 0)) != F):
                 raise ArtifactError("glm layout disagrees with manifest "
                                     "names")
             self.n_cat = int(g["n_cat"])
@@ -199,7 +221,8 @@ class AotScorer:
                            t(a["num_means"], torch.float32),
                            t(a["num_sigmas"], torch.float32))
         else:
-            if int(a["spec_is_cat"].shape[0]) != F:
+            if self.model_type == "forest" and \
+                    int(a["spec_is_cat"].shape[0]) != F:
                 raise ArtifactError("packed spec width disagrees with "
                                     "manifest names")
             init = (np.asarray(a["init_class"], np.float32)
@@ -257,8 +280,8 @@ class AotScorer:
 
     def _columns(self, X: torch.Tensor) -> List[torch.Tensor]:
         """The program's per-request inputs: the (m, F) matrix for a
-        forest; for a GLM int32 categorical codes (NaN -> -1) then
-        float32 numerics."""
+        forest or a pipeline; for a GLM int32 categorical codes (NaN ->
+        -1) then float32 numerics."""
         if self.model_type != "glm":
             return [X]
         cols = [torch.where(torch.isnan(X[:, i]), -1.0, X[:, i])

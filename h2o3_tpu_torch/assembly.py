@@ -11,9 +11,9 @@ persists as a scoring artifact.
 Each step runs torch ops on the frame's columns, on their device; a
 step decoded from the REST wire format (`from_steps`) runs its Rapids
 expression through the port's evaluator. The fitted pipeline saves with
-a versioned header and loads through the restricted unpickler. Fusing a
-pipeline with a model's scoring into one artifact (`export_pipeline`)
-waits for the port's artifacts (ROADMAP A13).
+a versioned header and loads through the restricted unpickler.
+`export_pipeline` fuses an assembly's Rapids steps with a model's
+scoring into one pipeline artifact (artifact/pipeline.py).
 """
 
 from __future__ import annotations
@@ -232,11 +232,37 @@ class H2OAssembly:
 
     def export_pipeline(self, model, frame: Frame, out_dir: str,
                         buckets: Optional[Sequence[int]] = None):
-        """The reference fuses the munge with a model's scoring into one
-        standalone artifact; the port has no artifact format yet."""
-        raise NotImplementedError(
-            "export_pipeline needs the port's scoring artifacts "
-            "(ROADMAP A13)")
+        """Fuse this assembly's munge with `model`'s scoring into one
+        standalone pipeline artifact: the steps replay lazily through a
+        private Rapids session, so every engineered column stays a
+        pending expression node, and the exporter splices those nodes
+        into the model's scoring program. The runner then scores raw
+        rows in `frame`'s schema. Only Rapids-backed steps (the REST wire
+        format) stay lazy; steps that touch column data (H2OScaler and
+        the like) make their outputs, and the export refuses with the
+        reason. Returns the written manifest."""
+        import uuid
+
+        from h2o3_tpu_torch.artifact.pipeline import (
+            export_pipeline as _export)
+        from h2o3_tpu_torch.rapids import Session
+        from h2o3_tpu_torch.rapids import planner as lazy_planner
+
+        sess = Session(f"assembly_pipe_{uuid.uuid4().hex[:8]}")
+        try:
+            with lazy_planner.force(True):
+                out = frame
+                for _name, step in self.steps:
+                    if isinstance(step, RestStep):
+                        out = step.transform(out, session=sess)
+                    elif self.fitted:
+                        out = step.transform(out)
+                    else:
+                        out = step.fit_transform(out)
+                return _export(model, out, out_dir,
+                               buckets=list(buckets) if buckets else None)
+        finally:
+            sess.end()
 
     def to_source(self, name: str = "MungePipeline") -> str:
         """The pipeline as commented Rapids that any client can replay
@@ -274,19 +300,26 @@ class RestStep:
             re.search(r'\(cols(?:_py)?\s+dummy\s+"([^"]+)"\)', self.ast)
         return m.group(1) if m else None
 
-    def _exec(self, fr: Frame):
+    def _exec(self, fr: Frame, session=None):
         import re
 
+        from h2o3_tpu_torch.core.dkv import Key
         from h2o3_tpu_torch.rapids import exec_rapids
 
-        return exec_rapids(re.sub(r"\bdummy\b", str(fr.key), self.ast))
+        expr = re.sub(r"\bdummy\b", str(fr.key), self.ast)
+        if session is not None:
+            # bound to a session temp: assignments are what the lazy
+            # planner defers, so the step stays a pending DAG node (the
+            # pipeline-artifact export path)
+            expr = f"(tmp= {Key.make('assembly_t')} {expr})"
+        return exec_rapids(expr, session)
 
     def fit_transform(self, fr: Frame) -> Frame:
         return self.transform(fr)
 
-    def transform(self, fr: Frame) -> Frame:
+    def transform(self, fr: Frame, session=None) -> Frame:
         fr.install()
-        res = self._exec(fr)
+        res = self._exec(fr, session)
         if self.klass == "H2OColSelect":
             return res if isinstance(res, Frame) else fr
         old = self._old_col()

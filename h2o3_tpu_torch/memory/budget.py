@@ -54,17 +54,25 @@ def pressure_cooldown_s() -> float:
     return max(env_float("H2O_TPU_MEM_PRESSURE_COOLDOWN_S", 10.0), 0.0)
 
 
+_TOTAL_BYTES: Dict[object, int] = {}
+
+
 def _device_budget_bytes() -> Optional[int]:
     """The booted card's total memory; None on the CPU or before boot
-    (planning never boots the runtime)."""
+    (planning never boots the runtime). Read once per device: the query
+    (cudaMemGetInfo) costs ~1 ms of host, and every dispatch plans."""
     from h2o3_tpu_torch.core import runtime
 
     cl = runtime._CLUSTER
     if cl is None or cl.device.type != "cuda":
         return None
-    import torch
+    total = _TOTAL_BYTES.get(cl.device)
+    if total is None:
+        import torch
 
-    return int(torch.cuda.mem_get_info(cl.device)[1])
+        total = _TOTAL_BYTES[cl.device] = int(
+            torch.cuda.mem_get_info(cl.device)[1])
+    return total
 
 
 def budget_bytes() -> Optional[int]:

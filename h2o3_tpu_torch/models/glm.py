@@ -24,10 +24,11 @@ and the proportional-odds likelihoods. p-values come
 from the information matrix in float64 on the host, the normal tail
 through math.erfc.
 
-Not ported here: durable IRLS chunks and job progress (ROADMAP A14) and
-the Rapids munge-to-score splice (`pipeline.try_glm_raw`, A11/A13);
-predictions take the staged adapt -> expand path the reference falls
-back to.
+`GLMModel.predict` first offers the frame to the munge-to-score splice
+(pipeline.try_glm_raw): a frame fed by a pending lazy Rapids pipeline
+scores without making its engineered columns; any other frame takes the
+staged adapt -> expand path. Not ported here: durable IRLS chunks and job
+progress (ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -458,6 +459,14 @@ class GLMModel(Model):
             test = interaction_frame(pre, list(ints),
                                      self._output.response_name)
         return super().adapt_test(test)
+
+    def predict(self, frame: Frame) -> Frame:
+        from h2o3_tpu_torch import pipeline
+
+        raw = pipeline.try_glm_raw(self, frame)
+        if raw is not None:
+            return self._raw_to_frame(raw, frame.nrows)
+        return super().predict(frame)
 
     def _design(self, frame: Frame) -> torch.Tensor:
         return self.dinfo.expand(*(c.data for c in self.dinfo.cols(frame)))

@@ -50,7 +50,12 @@ def _as_f32(col: Column) -> torch.Tensor:
 
 
 def _scalar_like(v, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(np.float32(v), device=like.device)
+    """A 0-dim float32 tensor of `v` on `like`'s device, filled there (no
+    host-to-device copy, so a CUDA graph can capture it). Operands stay
+    0-dim tensors: with a Python-scalar exponent torch.pow would take its
+    square and square-root fast paths and give other bits."""
+    return torch.full((), float(np.float32(v)), dtype=torch.float32,
+                      device=like.device)
 
 
 def _sign(x: torch.Tensor) -> torch.Tensor:
@@ -220,9 +225,13 @@ def binop(op: str, left, right) -> Column:
     return Column.from_device(binop_expr(op, a, b), T_NUM, ref.nrows)
 
 
+def unop_expr(op: str, x: torch.Tensor) -> torch.Tensor:
+    """Unary math op on a float32 tensor."""
+    return _UNOPS[op](x).float()
+
+
 def unop(op: str, col: Column) -> Column:
-    out = _UNOPS[op](_as_f32(col)).float()
-    return Column.from_device(out, T_NUM, col.nrows)
+    return Column.from_device(unop_expr(op, _as_f32(col)), T_NUM, col.nrows)
 
 
 def ifelse_expr(c, a, b):

@@ -2,13 +2,16 @@
 (counterpart of h2o3_tpu/rapids/eval.py; the reference:
 water/rapids/Session.java, Env.java, ast/prims/*).
 
-Statements evaluate eagerly: each prim is one or a few PyTorch ops over
-the columns' tensors (ops/*), or a host pass where the reference also
-works on the host (strings, numeric group keys). The reference also
-plans statement fusion and lazy sessions (rapids/fusion.py,
-rapids/planner.py); it holds fused and eager evaluation to the same bits,
-so a statement here evaluates to what the reference's does either way.
-The fusion slice is ROADMAP A11.
+Each prim is one or a few PyTorch ops over the columns' tensors (ops/*),
+or a host pass where the reference also works on the host (strings,
+numeric group keys). Two engines sit in front of the prims, both on by
+default as in the reference: the lazy session planner
+(rapids/planner.py, ``H2O_TPU_RAPIDS_LAZY``) defers assignment
+statements into a per-session DAG, and statement fusion
+(rapids/fusion.py, ``H2O_TPU_RAPIDS_FUSION``) runs each maximal fusible
+subtree as one program (a CUDA graph on the card). Both keep the eager
+prims' bits, so a statement evaluates to the same values whichever path
+runs it.
 """
 
 from __future__ import annotations
@@ -36,6 +39,31 @@ class Session:
         self.id = session_id
         self.temps: Dict[str, Frame] = {}
         self.refcnt: Dict[int, int] = {}
+        self._planner = None                 # lazy-session DAG (planner.py)
+
+    @property
+    def planner(self):
+        """The session's deferred-statement DAG planner, made on first
+        use (rapids/planner.SessionPlanner)."""
+        if self._planner is None:
+            from h2o3_tpu_torch.rapids.planner import SessionPlanner
+
+            self._planner = SessionPlanner(self)
+        return self._planner
+
+    def pin_columns(self, cols) -> None:
+        """Count the input Columns a deferred statement reads, until its
+        node retires (the node also holds the Columns themselves)."""
+        for c in cols:
+            self.refcnt[c.token] = self.refcnt.get(c.token, 0) + 1
+
+    def unpin_columns(self, cols) -> None:
+        for c in cols:
+            n = self.refcnt.get(c.token, 0) - 1
+            if n <= 0:
+                self.refcnt.pop(c.token, None)
+            else:
+                self.refcnt[c.token] = n
 
     def _track(self, fr: Frame, delta: int):
         for c in fr.columns:
@@ -61,12 +89,18 @@ class Session:
         return self.refcnt.get(col.token, 0)
 
     def remove(self, key: str):
+        if self._planner is not None:
+            # a pending output under this key becomes a dead temp unless
+            # a still-deferred statement reads it
+            self._planner.note_removed(key)
         old = self.temps.pop(key, None)
         if old is not None:
             self._track(old, -1)
         DKV.remove(key)
 
     def end(self):
+        if self._planner is not None:
+            self._planner.end()      # retire the whole DAG, compute nothing
         for k in list(self.temps):
             self.remove(k)
 
@@ -797,7 +831,16 @@ def _eval(ast, env: Env):
             fn = PRIMS.get(name)
             if fn is None:
                 raise ValueError(f"unknown rapids primitive {name!r}")
-            return fn(env, *[_eval(a, env) for a in ast[1:]])
+            if name in _fusion.ROOT_OPS:
+                # the maximal fusible subtree rooted here runs as one
+                # program instead of one step per prim
+                got = _fusion.try_execute(ast, env)
+                if got is not _fusion._MISS:
+                    return got
+            args = [_eval(a, env) for a in ast[1:]]
+            if _fusion.PRIM_FUSION.get(name) == _fusion.HOST:
+                _fusion.note_host_fallback()
+            return fn(env, *args)
         if isinstance(head, Lambda):
             return _eval_lambda(env, head, [_eval(a, env) for a in ast[1:]])
         res = None          # a bare list of expressions: the last one's
@@ -823,14 +866,34 @@ def _eval_lambda(env: Env, lam, args):
 
 def exec_rapids(expr: str, session: Optional[Session] = None):
     """Parse and evaluate one Rapids statement (water/rapids/Rapids.exec).
-    A bare string literal names a DKV key."""
-    env = Env(session or Session())
+    A bare string literal names a DKV key.
+
+    With the lazy planner on, an assignment the planner can model defers
+    into the session's DAG and returns a Frame whose columns materialize
+    on first data access; any statement it cannot defer is an
+    observation point that flushes the DAG first, so statement order
+    holds. Fusible chains run as single programs (rapids/fusion.py)."""
+    session = session or Session()
+    env = Env(session)
+    _fusion.note_statement()
+    progs_before = _fusion.counters()["fused_programs"]
     ast = parse_cached(expr)
-    if isinstance(ast, StrLit):
-        return env.lookup(ast.s)
-    return _eval(ast, env)
+    try:
+        if isinstance(ast, StrLit):
+            return env.lookup(ast.s)
+        got = _planner.offer_statement(ast, env)
+        if got is not _planner._MISS:
+            return got
+        return _eval(ast, env)
+    finally:
+        _fusion.note_statement_result(progs_before)
 
 
 # the extended suites register on import (advmath, time, string, search,
 # mungers, matrix, repeaters, timeseries)
 from h2o3_tpu_torch.rapids import prims_ext as _prims_ext  # noqa: E402,F401
+# statement fusion (the classification and the planner), imported once
+# the registry is complete
+from h2o3_tpu_torch.rapids import fusion as _fusion  # noqa: E402
+# the lazy-session DAG planner (defer and flush across statements)
+from h2o3_tpu_torch.rapids import planner as _planner  # noqa: E402

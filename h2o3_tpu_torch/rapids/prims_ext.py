@@ -39,6 +39,10 @@ def _num_matrix(fr: Frame) -> np.ndarray:
             f"this operation copies the whole frame to the host "
             f"({fr.nrows} rows × {len(fr.names)} cols = {cells} cells > "
             f"cap {_HOST_MATRIX_MAX_CELLS}); subset the frame first")
+    # the exceptional host path: its cost shows on the fusion counters
+    from h2o3_tpu_torch.rapids import fusion
+
+    fusion.note_host_cells(cells)
     return np.column_stack([np.asarray(fr.col(n).to_numpy(), np.float64)
                             for n in fr.names])
 

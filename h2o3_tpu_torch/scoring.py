@@ -365,38 +365,63 @@ class ScoringSession:
         """Score a coalesced batch: entries = [(frame, dest_key,
         with_metrics)]. Returns [(prediction_frame, metrics_or_None)] in
         entry order; each prediction frame is installed in the DKV under
-        dest_key (or a fresh key). All entries' feature rows are
-        concatenated on the device and dispatched once per bucket chunk
-        of the concatenation; each entry's margins are its exact slice."""
+        dest_key (or a fresh key). A frame fed by a pending lazy Rapids
+        feature pipeline is captured first, before adapt_test touches a
+        column (a lazy column's data access would flush the DAG), and
+        scores munge and walk in one program per bucket (pipeline.py).
+        The other entries' feature rows are concatenated on the device
+        and dispatched once per bucket chunk of the concatenation; each
+        entry's margins are its exact slice."""
+        from h2o3_tpu_torch import pipeline
+
+        t0 = time.perf_counter()
+        items, piped = [], []
+        for i, (frame, dest, with_metrics) in enumerate(entries):
+            cap = pipeline.try_capture(self, frame)
+            if cap is not None:
+                piped.append((i, frame, dest, with_metrics, cap))
+                continue
+            items.append((i, frame, self.model.adapt_test(frame),
+                          frame.nrows, dest, with_metrics))
+        results: List[Any] = [None] * len(entries)
+        n_disp, n_rows = 0, 0
+        if items:
+            parts = [self._features(a)[:n] for _i, _f, a, n, _d, _w in items]
+            X = parts[0] if len(parts) == 1 else torch.cat(parts)
+            disp: list = []
+            margins = self._margin_x(X, dispatched=disp)
+            n_disp += len(disp)
+            n_rows += int(X.shape[0])
+            off = 0
+            for i, frame, _a, n, dest, with_metrics in items:
+                results[i] = self._finish(frame, margins[off: off + n], n,
+                                          dest, with_metrics)
+                off += n
+        for i, frame, dest, with_metrics, cap in piped:
+            margins, nd = pipeline.execute_margins(self, cap)
+            n_disp += nd
+            n_rows += cap.nrows
+            results[i] = self._finish(frame, margins, cap.nrows, dest,
+                                      with_metrics)
+        ms = (time.perf_counter() - t0) * 1000
+        self.stats.record_batch(len(entries), n_rows, ms,
+                                dispatches=n_disp)
+        return results
+
+    def _finish(self, frame, margins, n: int, dest, with_metrics):
+        """Margins -> (installed prediction frame, metrics or None)."""
         from h2o3_tpu_torch.core.dkv import Key
         from h2o3_tpu_torch.core.runtime import full_float32
 
-        t0 = time.perf_counter()
-        items = []
-        for frame, dest, with_metrics in entries:
-            items.append((frame, self.model.adapt_test(frame), frame.nrows,
-                          dest, with_metrics))
-        parts = [self._features(a)[:n] for _f, a, n, _d, _w in items]
-        X = parts[0] if len(parts) == 1 else torch.cat(parts)
-        disp: list = []
-        margins = self._margin_x(X, dispatched=disp)
-        results: List[Any] = []
-        off = 0
         with full_float32():
-            for frame, _a, n, dest, with_metrics in items:
-                raw = self.model._margin_to_raw(margins[off: off + n])
-                off += n
-                pred = self.model._raw_to_frame(raw, n)
-                if dest:
-                    pred._key = Key(dest)
-                pred.install()
-                mm = (self.model._make_metrics(frame, raw) if with_metrics
-                      else None)
-                results.append((pred, mm))
-        ms = (time.perf_counter() - t0) * 1000
-        self.stats.record_batch(len(entries), int(X.shape[0]), ms,
-                                dispatches=len(disp))
-        return results
+            raw = self.model._margin_to_raw(margins)
+            pred = self.model._raw_to_frame(raw, n)
+            if dest:
+                pred._key = Key(dest)
+            pred.install()
+            mm = (self.model._make_metrics(frame, raw) if with_metrics
+                  else None)
+        return pred, mm
 
     def predict(self, frame, key: Optional[str] = None):
         """Single-request convenience (no micro-batching)."""

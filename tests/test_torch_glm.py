@@ -30,7 +30,7 @@ import pytest
 import h2o3_tpu_torch as th
 from h2o3_tpu_torch import convert
 
-from torch_port_support import both_frames
+from torch_port_support import both_frames, carry_glm
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -366,27 +366,6 @@ def test_validation_errors_match_jax(cl):
     for cls, fr in ((JGLM, jf2), (th.GLM, tf2)):
         with pytest.raises(ValueError, match="3 ordered levels"):
             cls(family="ordinal").train(y="y", training_frame=fr)
-
-
-def carry_glm(jm):
-    """A JAX GLMModel's fitted state as plain values."""
-    di = jm.dinfo
-    state = {k: getattr(di, k) for k in
-             ("standardize", "cat_names", "num_names", "domains", "cards",
-              "use_all_factor_levels", "num_means", "num_sigmas",
-              "cat_modes", "impute_values")}
-    o = jm._output
-    return {"beta": np.asarray(jm.beta), "link": jm.linkname,
-            "link_power": jm.link_power, "data_info": state,
-            "residual_deviance": jm.residual_deviance,
-            "null_deviance": jm.null_deviance, "aic": jm.aic,
-            "iterations": jm.iterations,
-            "output": {"names": list(o.names), "domains": dict(o.domains),
-                       "response_domain": o.response_domain,
-                       "model_category": o.model_category,
-                       "response_name": o.response_name},
-            "parms": {k: jm._parms.get(k) for k in
-                      ("offset_column", "weights_column", "interactions")}}
 
 
 @pytest.mark.parametrize("case", ["binomial_na", "poisson_offset",

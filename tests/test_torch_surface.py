@@ -182,7 +182,9 @@ def test_assembly_fit_and_apply_match_reference(cl, tmp_path):
     with pytest.raises(ValueError, match="unknown op"):
         ta.H2OColOp(lambda x: x, col="a")
     assert ta.H2OColOp(torch.cos, col="a").op == "cos"
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+    from h2o3_tpu_torch.artifact import ArtifactError
+
+    with pytest.raises(ArtifactError, match="not a fused-path"):
         tasm.export_pipeline(None, tf, str(tmp_path))
 
 

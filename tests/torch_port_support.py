@@ -163,6 +163,27 @@ def carry_forest(jm):
 # statements through both evaluators, results compared
 # ---------------------------------------------------------------------------
 
+def carry_glm(jm):
+    """A JAX GLMModel's fitted state as plain values."""
+    di = jm.dinfo
+    state = {k: getattr(di, k) for k in
+             ("standardize", "cat_names", "num_names", "domains", "cards",
+              "use_all_factor_levels", "num_means", "num_sigmas",
+              "cat_modes", "impute_values")}
+    o = jm._output
+    return {"beta": np.asarray(jm.beta), "link": jm.linkname,
+            "link_power": jm.link_power, "data_info": state,
+            "residual_deviance": jm.residual_deviance,
+            "null_deviance": jm.null_deviance, "aic": jm.aic,
+            "iterations": jm.iterations,
+            "output": {"names": list(o.names), "domains": dict(o.domains),
+                       "response_domain": o.response_domain,
+                       "model_category": o.model_category,
+                       "response_name": o.response_name},
+            "parms": {k: jm._parms.get(k) for k in
+                      ("offset_column", "weights_column", "interactions")}}
+
+
 def install_both(key, cols):
     """cols: {name: (array, ctype or None)} -> (JAX Frame, port Frame),
     each installed in its package's DKV under `key`."""
