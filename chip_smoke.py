@@ -89,6 +89,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -248,6 +249,11 @@ CUMSUM_CVC = 1e-5
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+# numbers one phase reads from another (phase 3's in-process
+# gbm_train_s beside phase 3u's REST train)
+RUN = {}
 
 
 START = time.perf_counter()
@@ -757,6 +763,7 @@ def phase_flagship(h2o, dev):
     launches = hg.launches
     auc = float(m._output.training_metrics.auc)
     rows_per_sec = FLAGSHIP["n_rows"] * FLAGSHIP["ntrees"] / dt
+    RUN["gbm_train_s"] = dt
     print(f"gbm_train_s {dt!r}")
     print(f"gbm_rows_per_sec {rows_per_sec!r}")
     print(f"gbm_training_auc {auc!r} logloss "
@@ -1229,7 +1236,9 @@ def phase_ingest(h2o, dev, tmp, flagship_model):
     """The reference bench's run_parse file imported chunked and
     monolithic, a streaming append against a cold import, and the
     flagship trained from its CSV. Returns the imported train's kernel
-    launches and the run_parse file's path (phase 4 imports it again)."""
+    launches, the run_parse file's path (phase 4 imports it again), and
+    the flagship CSV with its imported frame and model (phase 3u's
+    reference)."""
     import os
 
     from h2o3_tpu_torch.ingest import chunked
@@ -1330,7 +1339,8 @@ def phase_ingest(h2o, dev, tmp, flagship_model):
     torch.cuda.synchronize()
     launches = hg.launches
     auc = float(m._output.training_metrics.auc)
-    print(f"gbm_train_s (imported flagship) {time.perf_counter() - t0!r}")
+    RUN["gbm_train_imported_s"] = time.perf_counter() - t0
+    print(f"gbm_train_s (imported flagship) {RUN['gbm_train_imported_s']!r}")
     print(f"imported flagship AUC {auc!r}, phase 3 AUC "
           f"{float(flagship_model._output.training_metrics.auc)!r}; "
           f"hist_gather launches {launches}")
@@ -1345,8 +1355,7 @@ def phase_ingest(h2o, dev, tmp, flagship_model):
     check(auc == float(flagship_model._output.training_metrics.auc),
           "imported flagship AUC differs from phase 3's")
     print("flagship from CSV: forest and AUC bitwise equal to phase 3's")
-    os.remove(fpath)
-    return launches, path
+    return launches, path, fpath, ifr, m
 
 
 # ---------------------------------------------------------------------------
@@ -2095,7 +2104,8 @@ def phase_fusion(h2o, dev, tmp):
     frame, its chained session lazy against eager on 4M rows, and
     run_pipeline's munge→score splice against the staged path, with a
     pipeline artifact scored by the runner in a fresh process. Returns
-    (the histogram kernel's launches, the pipeline's GBM)."""
+    (the histogram kernel's launches, the pipeline's GBM, the three
+    fused statements' results)."""
     import os
 
     from h2o3_tpu_torch import artifact, pipeline, scoring
@@ -2271,7 +2281,8 @@ def phase_fusion(h2o, dev, tmp):
           f"bytes, the runner scored {m} raw rows bitwise in a fresh "
           f"process ({t_run:.2f} s from spawn to exit)")
     psess.end()
-    return launches, model
+    return launches, model, [fused[0].col(0).data.clone(),
+                             fused[1].col(0).data.clone(), fused[2]]
 
 
 def phase_card_vs_cpu_fusion(h2o, dev, model):
@@ -4171,10 +4182,12 @@ def phase_times(dev, launches, max_err):
     return [{"name": "hist_gather", "route": "cuda",
              "source": "h2o3_tpu_torch/csrc/hist_gather.cu",
              "replaces": "h2o3_tpu/models/tree/pallas_hist.py:362",
-             # the main paths of the flagship: phase 3's numpy-built frame
-             # and phase 3l's frame imported from CSV
+             # the main paths of the flagship: phase 3's numpy-built frame,
+             # phase 3l's frame imported from CSV, and phase 3u's train
+             # over POST /3/ModelBuilders/gbm
              "launches": int(launches["gbm_flagship"]
-                             + launches["gbm_imported_csv"]),
+                             + launches["gbm_imported_csv"]
+                             + launches["rest"]),
              "max_abs_err": max_err,
              "ms": mean[0], "plain_ms": mean[1], "bound_ms": mean[3],
              "bound_by": "bytes", "library_ms": mean[2],
@@ -4185,6 +4198,459 @@ def phase_times(dev, launches, max_err):
                                   int(launches["xgboost"])),
              "isofor_shapes": _block([s[2] for s in isofor_level_shapes()],
                                      iso, int(launches["isolationforest"]))}]
+
+
+# ---------------------------------------------------------------------------
+# phase 3u: the REST server, the thin client and the observability plane
+# ---------------------------------------------------------------------------
+
+# phase 3u: run_scoring's 16 clients x 128 rows (h2o3_tpu/bench.py:180,
+# :212-246) over HTTP, 50 pings for the round trip, a 1-epoch
+# DeepLearning (the reference's default widths) on 100k flagship rows
+# trained over REST while the 16 clients post; phase 4 on 100k rows
+REST = dict(conc=16, small_rows=128, rounds=4, pings=50, dl_rows=100_000,
+            dl=dict(hidden=[200, 200], epochs=1, seed=1),
+            cvc_rows=100_000, cvc_gbm=dict(ntrees=5, max_depth=5, seed=1))
+_PROM_LINE = re.compile(
+    r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[a-zA-Z0-9_]+=\"[^\"]*\""
+    r"(,[a-zA-Z0-9_]+=\"[^\"]*\")*\})? -?\S+$")
+
+
+class _Rest:
+    """HTTP to the port's server: a timeout on every request, a deadline
+    on every job poll, and a count of the requests made (the
+    h2o3_rest_requests_total check). Any reply but the one due fails the
+    phase."""
+
+    def __init__(self, port):
+        import threading
+
+        self.base = f"http://127.0.0.1:{port}"
+        self.n = 0
+        self._lock = threading.Lock()
+
+    def call(self, method, path, data=None, query=None, status=200):
+        import urllib.error
+        import urllib.parse
+        import urllib.request
+
+        url = self.base + path
+        if query:
+            url += "?" + urllib.parse.urlencode(query)
+        body = None if data is None else json.dumps(data).encode()
+        req = urllib.request.Request(
+            url, data=body, method=method,
+            headers={"Content-Type": "application/json"} if body else {})
+        with self._lock:
+            self.n += 1
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                code, hdrs, raw = r.status, dict(r.headers), r.read()
+        except urllib.error.HTTPError as e:
+            code, hdrs, raw = e.code, dict(e.headers), e.read()
+        check(code == status, f"{method} {path}: HTTP {code}, expected "
+                              f"{status}: {raw[:300]!r}")
+        return hdrs, raw
+
+    def json(self, method, path, data=None, query=None, status=200):
+        return json.loads(self.call(method, path, data, query, status)[1])
+
+    def job(self, out, deadline_s=600):
+        key = out["job"]["key"]["name"]
+        t0 = time.perf_counter()
+        while True:
+            j = self.json("GET", f"/3/Jobs/{key}")["jobs"][0]
+            if j["status"] not in ("CREATED", "RUNNING"):
+                check(j["status"] == "DONE", f"job {key}: {j['status']} "
+                                             f"{j.get('exception')}")
+                return j
+            check(time.perf_counter() - t0 < deadline_s,
+                  f"job {key} past its {deadline_s} s deadline")
+            time.sleep(0.01)
+
+    def import_parse(self, path, dest):
+        files = self.json("GET", "/3/ImportFiles",
+                          query={"path": path})["files"]
+        self.json("POST", "/3/ParseSetup", {"source_frames": files})
+        return self.job(self.json("POST", "/3/Parse", {
+            "source_frames": files, "destination_frame": dest}))
+
+
+def _rows_frame(h2o, src, lo, hi, key):
+    fr = h2o.Frame(key=key)
+    for nm in src.names:
+        c = src.col(nm)
+        fr.add(nm, h2o.Column(c.data[lo:hi].clone(), c.ctype, hi - lo,
+                              domain=c.domain))
+    fr.install()
+    return fr
+
+
+def _p99(ms):
+    return float(np.percentile(np.asarray(ms), 99))
+
+
+def phase_rest(h2o, dev, csv_path, fr_3l, model_3l, fused_3t):
+    """Phase 3u: the port's server on the card on an ephemeral port. The
+    flagship CSV imported and trained over REST (frame and forest bitwise
+    with phase 3l's, the kernel's 100 launches on this path), 1M rows
+    scored over /3 and /4 (bitwise with in-process predict), run_rapids'
+    statements over /99/Rapids (bitwise with phase 3t's), 16 concurrent
+    128-row clients alone and during a DeepLearning train over REST
+    (weights bitwise with the same train alone), then the observability
+    routes and /3/Shutdown. Returns the kernel's launches on the REST
+    path."""
+    import threading
+
+    from h2o3_tpu_torch import scoring
+    from h2o3_tpu_torch.api.server import start_server
+    from h2o3_tpu_torch.models.tree import hist_gather as hg
+    from h2o3_tpu_torch.obs import metrics as obs_metrics
+
+    def total_requests():
+        m = obs_metrics.REGISTRY.get("h2o3_rest_requests_total")
+        return sum(s["value"] for s in m.snapshot()["samples"])
+
+    base_requests = total_requests()
+    srv = start_server(port=0)
+    R = _Rest(srv.port)
+    name = torch.cuda.get_device_name(dev)
+    cloud = R.json("GET", "/3/Cloud")
+    check(name in cloud["nodes"][0]["h2o"] and cloud["cloud_size"] == 1,
+          f"/3/Cloud names {cloud['nodes'][0]['h2o']!r}, not {name!r}")
+    pings = []
+    for _ in range(REST["pings"]):
+        t0 = time.perf_counter()
+        R.json("GET", "/3/Ping")
+        pings.append((time.perf_counter() - t0) * 1e3)
+    metric("rest_ping_ms", float(np.median(pings)),
+           f"(median of {REST['pings']} /3/Ping round trips)")
+
+    # the flagship CSV over ImportFiles / ParseSetup / Parse
+    t0 = time.perf_counter()
+    R.import_parse(csv_path, "rest_flagship.hex")
+    print(f"rest_parse_s {time.perf_counter() - t0!r}")
+    rfr = h2o.get_frame("rest_flagship.hex")
+    same_frames("REST import vs phase 3l's in-process import", rfr, fr_3l)
+    print("REST import of the flagship CSV: bitwise equal to phase 3l's")
+
+    # the flagship GBM over POST /3/ModelBuilders/gbm
+    hg.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w0 = time.time()
+    hdrs, raw = R.call("POST", "/3/ModelBuilders/gbm", {
+        "training_frame": "rest_flagship.hex", "response_column": "y",
+        "ntrees": FLAGSHIP["ntrees"], "max_depth": FLAGSHIP["max_depth"]})
+    w_reply, n0 = time.time(), R.n
+    job = R.job(json.loads(raw))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    w_done, polls = time.time(), R.n - n0
+    launches = hg.launches
+    train_trace = hdrs.get("X-H2O3-Trace-Id")
+    mid = job["dest"]["name"]
+    m = h2o.get_model(mid)
+    metric("rest_gbm_train_s", dt, f"(in-process gbm_train_s "
+           f"{RUN['gbm_train_s']!r} in phase 3)")
+    # where the REST train's wall time went: the POST's reply, the
+    # builder's own wall time (ModelBuilder.train: its start and
+    # run_time_ms), and what came after it until the last poll saw DONE
+    b0 = m._output.start_time
+    b_ms = float(m._output.run_time_ms)
+    print(f"rest_gbm_train split (ms): POST reply {(w_reply - w0) * 1e3!r}, "
+          f"POST to builder start {(b0 - w0) * 1e3!r}, builder "
+          f"{b_ms!r} (phase 3l in process on the same frame "
+          f"{RUN['gbm_train_imported_s'] * 1e3!r}), builder end to DONE "
+          f"seen {(w_done - b0) * 1e3 - b_ms!r}; {polls} polls of "
+          f"/3/Jobs")
+    check(launches == FLAGSHIP["max_depth"] * FLAGSHIP["ntrees"],
+          f"{launches} hist_gather launches on the REST train")
+    a, b = _forest_arrays(m), _forest_arrays(model_3l)
+    for k in a:
+        check(np.array_equal(a[k], b[k]), f"REST forest {k} differs from "
+                                          "phase 3l's")
+    check(np.array_equal(m.forest.leaf_val, model_3l.forest.leaf_val),
+          "REST leaf values differ from phase 3l's")
+    print(f"REST train: forest bitwise equal to phase 3l's; hist_gather "
+          f"launches {launches}")
+
+    # 1M rows over /3/Predictions and /4/Predictions
+    ref = model_3l.predict(fr_3l)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    R.json("POST", f"/3/Predictions/models/{mid}/frames/rest_flagship.hex",
+           {"predictions_frame": "rest_pred_v3"})
+    metric("rest_predict_1m_s", time.perf_counter() - t0,
+           f"({FLAGSHIP['n_rows']} rows, sync /3/Predictions)")
+    v4 = R.json("POST", f"/4/Predictions/models/{mid}/frames/"
+                        "rest_flagship.hex")
+    R.job(v4)
+    for label, key in (("/3", "rest_pred_v3"), ("/4", v4["dest"]["name"])):
+        got = h2o.get_frame(key)
+        for nm in ("N", "Y"):
+            _same_bits(f"{label}/Predictions {nm} vs in-process predict",
+                       got.col(nm).data, ref.col(nm).data)
+    print("/3 and /4 predictions of 1M rows: bitwise equal to in-process "
+          "predict")
+    del ref
+
+    # run_rapids' three statements over /99/Rapids, on phase 3t's frame
+    # made again from its seed
+    rapids_frame(h2o, dev, "rapids_fused", RAPIDS["n_rows"], RAPIDS["seed"])
+    stmts = rapids_statements("rapids_fused")
+    outs, ms = [], []
+    for _ in range(RAPIDS["reps"]):
+        outs = []
+        for st in stmts:
+            t0 = time.perf_counter()
+            outs.append(R.json("POST", "/99/Rapids",
+                               {"ast": st, "session_id": "rest_rapids"}))
+            ms.append((time.perf_counter() - t0) * 1e3)
+    metric("rest_rapids_statement_ms", float(np.mean(ms)),
+           f"(mean of {len(ms)} statements over {RAPIDS['n_rows']} rows)")
+    for i in (0, 1):
+        got = h2o.get_frame(outs[i]["key"]["name"]).col(0).data
+        _same_bits(f"REST Rapids statement {i + 1} vs phase 3t", got,
+                   fused_3t[i])
+    check(outs[2]["scalar"] == float(fused_3t[2]),
+          f"REST Rapids sum {outs[2]['scalar']!r} vs phase 3t "
+          f"{fused_3t[2]!r}")
+    print("run_rapids' statements over /99/Rapids: bitwise equal to "
+          "phase 3t's")
+
+    # run_scoring's 16 clients x 128 rows, then the same during a REST
+    # DeepLearning train
+    c = REST
+    for i in range(c["conc"]):
+        _rows_frame(h2o, rfr, i * c["small_rows"], (i + 1) * c["small_rows"],
+                    f"rest_small{i}")
+    lat, traces = [], []
+
+    def timed_post(i):
+        t0 = time.perf_counter()
+        hdrs, _raw = R.call(
+            "POST", f"/3/Predictions/models/{mid}/frames/rest_small{i}",
+            {"predictions_frame": f"rest_small_pred{i}"})
+        return (time.perf_counter() - t0) * 1e3, hdrs.get("X-H2O3-Trace-Id")
+
+    def post(i):
+        return timed_post(i)[0]
+
+    post(0)                                          # warm the bucket
+    t_all = time.perf_counter()
+    for _ in range(c["rounds"]):
+        got, errs = _concurrent(timed_post, list(range(c["conc"])))
+        check(not any(errs), f"a scoring client failed: {errs}")
+        lat += [g[0] for g in got]
+        traces += [g[1] for g in got]
+    wall = time.perf_counter() - t_all
+    metric("rest_score_p99_ms", _p99(lat), f"({c['rounds']} rounds of "
+           f"{c['conc']} concurrent {c['small_rows']}-row requests)")
+    metric("rest_predictions_per_sec", len(lat) * c["small_rows"] / wall,
+           f"(rows/s over those {len(lat)} requests)")
+    # where the requests' time went, from each one's own span tree: the
+    # server-side ingress span and, by name, the spans under it (score:
+    # admission, the batcher and the request's finish and metrics;
+    # schema: the metrics' reply schema; reply: its JSON and send). A
+    # request that led its flush holds pack/dispatch/fetch (every
+    # member's finish and metrics run in that fetch, each recorded in
+    # its member's own trace); the others hold one batch span over the
+    # flush. A handler ends its ingress span after its reply is out:
+    # let the last ones land first.
+    time.sleep(0.5)
+    per = []
+    for tid in traces:
+        root = R.json("GET", f"/3/Trace/{tid}")["tree"][0]
+        check(root["name"] == "ingress", f"trace {tid} root {root['name']}")
+        # "untraced": the ingress time outside its direct children
+        kids = {"ingress": root["ms"], "untraced": root["ms"] - sum(
+            sp["ms"] for sp in root["children"])}
+        stack = list(root["children"])
+        while stack:
+            sp = stack.pop()
+            kids[sp["name"]] = kids.get(sp["name"], 0.0) + sp["ms"]
+            stack += sp["children"]
+        per.append(kids)
+    names = sorted({k for p in per for k in p})
+    print(f"{len(per)} requests' spans, mean / max ms (at the client "
+          f"{float(np.mean(lat)):.2f} / {float(np.max(lat)):.2f}): " +
+          ", ".join(f"{k} {float(np.mean([p.get(k, 0.0) for p in per])):.2f}"
+                    f" / {max(p.get(k, 0.0) for p in per):.2f}"
+                    for k in names))
+    leads = [p for p in per if "pack" in p]
+    print(f"{len(leads)} flushes of {len(per) / max(len(leads), 1):.1f} "
+          f"requests on average")
+    slow = int(np.argmax(lat))
+    print(f"slowest request {lat[slow]:.1f} ms at the client: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(per[slow].items())) + " ms")
+    seq = [post(0) for _ in range(20)]
+    print(f"one client alone: {float(np.median(seq)):.2f} ms median of 20 "
+          f"sequential {c['small_rows']}-row requests")
+    sref = model_3l.predict(_rows_frame(h2o, rfr, 0, c["small_rows"],
+                                        "rest_small_ref"))
+    _same_bits("16-client request vs in-process predict",
+               h2o.get_frame("rest_small_pred0").col("Y").data,
+               sref.col("Y").data)
+
+    dfr = _rows_frame(h2o, rfr, 0, c["dl_rows"], "rest_dl.hex")
+    alone = h2o.DeepLearning(**c["dl"]).train(y="y", training_frame=dfr)
+    stop = threading.Event()
+    served, errors = [], []
+
+    def client(i):
+        while not stop.is_set():
+            try:
+                post(i)
+                served.append(i)
+            except Exception as e:   # noqa: BLE001 — reported below
+                errors.append(e)
+                return
+
+    ths = [threading.Thread(target=client, args=(i,))
+           for i in range(c["conc"])]
+    for t in ths:
+        t.start()
+    try:
+        dj = R.job(R.json("POST", "/3/ModelBuilders/deeplearning", {
+            "training_frame": "rest_dl.hex", "response_column": "y",
+            "hidden": json.dumps(c["dl"]["hidden"]),
+            "epochs": c["dl"]["epochs"], "seed": c["dl"]["seed"]}))
+    finally:
+        stop.set()
+        for t in ths:
+            t.join(timeout=120)
+    check(not errors, f"a client failed during the REST train: {errors[:1]}")
+    dl = h2o.get_model(dj["dest"]["name"])
+    for x, y in zip(_dl_weights(dl), _dl_weights(alone)):
+        check(np.array_equal(x, y), "DeepLearning over REST with 16 "
+                                    "concurrent clients differs from the "
+                                    "train alone")
+    print(f"DeepLearning over REST ({c['dl_rows']} rows, 1 epoch, its step "
+          f"loop a CUDA graph) during {len(served)} concurrent predictions: "
+          f"weights bitwise equal to the train alone")
+
+    # the observability routes; a request is counted as its handler
+    # ends, after its reply is out: let the last one land first
+    time.sleep(0.5)
+    mj = R.json("GET", "/3/Metrics", query={"format": "json"})
+    _h, text = R.call("GET", "/3/Metrics")
+    bad = [ln for ln in text.decode().splitlines()
+           if ln and not ln.startswith("#") and not _PROM_LINE.match(ln)]
+    check(not bad, f"/3/Metrics lines that do not parse: {bad[:3]}")
+    series = {s["name"]: s for s in mj["series"]}
+    counted = sum(s["value"] for s in
+                  series["h2o3_rest_requests_total"]["samples"])
+    # the JSON scrape counts every request before it
+    check(counted - base_requests == R.n - 2,
+          f"h2o3_rest_requests_total {counted - base_requests}, requests "
+          f"made before the scrape {R.n - 2}")
+    sm = R.json("GET", "/3/ScoringMetrics")
+    check(any(e["model"] == mid for e in sm["models"])
+          and "rapids" in sm and "pipeline" in sm,
+          "/3/ScoringMetrics lacks the flagship's session or a block")
+    tr = R.json("GET", f"/3/Trace/{train_trace}")
+    check(tr["tree"][0]["name"] == "ingress"
+          and tr["tree"][0]["attrs"]["path"] == "/3/ModelBuilders/gbm",
+          f"train trace {tr['tree'][0]}")
+    rt = R.json("GET", "/3/Runtime")
+    for p in ("backend_init", "device_discovery", "first_compile",
+              "server_start"):
+        check(p in rt["phase_report"], f"/3/Runtime lacks phase {p}")
+    fams = rt["compile_families"]
+    for f in ("kernel", "scoring", "rapids", "train"):
+        check(fams.get(f, {}).get("compiles", 0) >= 1,
+              f"/3/Runtime lists no {f} build or capture")
+    print("compile ledger: " + ", ".join(
+        f"{f} {a['compiles']} ({a['ms_total']:.1f} ms)"
+        for f, a in sorted(fams.items())))
+    torch.cuda.synchronize()
+    prof = R.json("GET", "/3/Profiler")["nodes"][0]
+    want = torch.cuda.memory_allocated(dev)
+    check(prof["bytes_in_use"] == want,
+          f"/3/Profiler bytes_in_use {prof['bytes_in_use']} vs "
+          f"torch.cuda.memory_allocated {want}")
+    pdir = tempfile.mkdtemp(prefix="chip_smoke_prof_")
+    try:
+        R.json("POST", "/3/Profiler/start", {"dir": pdir})
+        R.json("POST", f"/3/Predictions/models/{mid}/frames/rest_small0")
+        stop_reply = R.json("POST", "/3/Profiler/stop")
+        with open(stop_reply["trace"]) as f:
+            events = json.load(f).get("traceEvents", [])
+        kern = sum(1 for e in events if e.get("cat") == "kernel")
+        check(kern > 0, "the profiler's trace holds no CUDA kernel event")
+        print(f"/3/Profiler/start|stop: a Chrome trace with {kern} CUDA "
+              f"kernel events")
+    finally:
+        shutil.rmtree(pdir, ignore_errors=True)
+    bench = R.json("GET", "/3/NetworkTest", query={"size": 4096})["bench"]
+    print(f"/3/NetworkTest (size 4096): matmul {bench['matmul_gflops']:.1f} "
+          f"GFLOP/s, stream {bench['membw_gbps']:.1f} GB/s, "
+          f"{bench['psum_probe']} {bench['psum_latency_us']:.1f} us")
+    R.json("POST", "/3/Shutdown")
+    t0 = time.perf_counter()
+    while srv.httpd is not None and time.perf_counter() - t0 < 30:
+        time.sleep(0.01)
+    check(srv.httpd is None, "/3/Shutdown did not stop the server")
+    for k in list(h2o.DKV.keys()):
+        if k.startswith(("rest_", "prediction_")) or k in (mid,
+                                                           "rapids_fused"):
+            h2o.remove(k)
+    scoring.purge()
+    return launches
+
+
+def phase_card_vs_cpu_rest(h2o, dev, tmp):
+    """A 100k-row REST session on the card and on the CPU, through one
+    server: the frame summary (C2's bars) and the GBM's model-metrics
+    JSON (forest equal, metrics to PRED_ATOL)."""
+    import os
+
+    from h2o3_tpu_torch.api.server import start_server
+
+    n = REST["cvc_rows"]
+    path = os.path.join(tmp, "rest_cvc.csv")
+    write_csv(path, flagship_arrays(n), _repr_f32)
+    srv = start_server(port=0)
+    R = _Rest(srv.port)
+    got = {}
+    try:
+        for label, device in (("card", None), ("cpu", "cpu")):
+            h2o.init(device=device)
+            key = f"rest_cvc_{label}.hex"
+            R.import_parse(path, key)
+            summ = R.json("GET", f"/3/Frames/{key}/summary")["frames"][0]
+            mid = R.job(R.json("POST", "/3/ModelBuilders/gbm", dict(
+                training_frame=key, response_column="y",
+                **REST["cvc_gbm"])))["dest"]["name"]
+            mm = R.json("POST", f"/3/ModelMetrics/models/{mid}/frames/"
+                                f"{key}")["model_metrics"][0]
+            got[label] = (summ, mm, _forest_arrays(h2o.get_model(mid)))
+    finally:
+        h2o.init()
+        srv.stop()
+    (cs, cm, cf), (ps, pm, pf) = got["card"], got["cpu"]
+    for a, b in zip(cs["columns"], ps["columns"]):
+        check(a["type"] == b["type"] and a["domain"] == b["domain"]
+              and a["missing_count"] == b["missing_count"],
+              f"REST summary {a['label']}: type/domain/NA differ")
+        for k in ("mean", "sigma", "mins", "maxs", "percentiles"):
+            x = np.asarray(a[k] if a[k] is not None else np.nan, float)
+            y = np.asarray(b[k] if b[k] is not None else np.nan, float)
+            check(np.allclose(x, y, rtol=1e-6, atol=1e-6, equal_nan=True),
+                  f"REST summary {a['label']}.{k}: card {x} vs CPU {y}")
+    for k in cf:
+        check(np.array_equal(cf[k], pf[k]), f"REST GBM {k} differs "
+                                            "between card and CPU")
+    for k in ("AUC", "logloss", "MSE", "RMSE", "Gini", "pr_auc"):
+        check(abs(cm[k] - pm[k]) <= PRED_ATOL,
+              f"REST model metrics {k}: card {cm[k]} vs CPU {pm[k]}")
+    check(cm["nobs"] == pm["nobs"] == n, "REST model metrics nobs")
+    print(f"card vs cpu REST session ({n} rows): summaries within 1e-6, "
+          f"forests equal, model metrics within {PRED_ATOL}")
+    for k in list(h2o.DKV.keys()):
+        if k.startswith("rest_cvc"):
+            h2o.remove(k)
 
 
 def main() -> int:
@@ -4281,8 +4747,8 @@ def main() -> int:
           "flagship from CSV)")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ingest_")
     try:
-        launches["gbm_imported_csv"], parse_path = phase_ingest(
-            h2o, dev, tmp, flagship_model)
+        launches["gbm_imported_csv"], parse_path, flag_csv, flag_fr, \
+            flag_model = phase_ingest(h2o, dev, tmp, flagship_model)
         del flagship_model
         banner("phase 3o: Rapids and the frame ops (run_rapids' 2M-row "
               "frame, sort, joins, group-by, the verify recipe)")
@@ -4290,7 +4756,13 @@ def main() -> int:
         banner("phase 3t: statement fusion, lazy sessions and the "
                "munge→score pipeline (run_rapids' statements and chained "
                "session, run_pipeline's shape, a pipeline artifact)")
-        launches["pipeline"], pipe_model = phase_fusion(h2o, dev, tmp)
+        launches["pipeline"], pipe_model, fused = phase_fusion(h2o, dev, tmp)
+        banner("phase 3u: the REST server, the thin client and the "
+               "observability plane (the flagship over HTTP, run_rapids' "
+               "statements, serving during a REST train)")
+        launches["rest"] = phase_rest(h2o, dev, flag_csv, flag_fr,
+                                      flag_model, fused)
+        del flag_fr, flag_model, fused
         banner("phase 4: card vs CPU")
         phase_card_vs_cpu(h2o, dev, parse_path)
         phase_card_vs_cpu_framework(h2o, dev)
@@ -4300,6 +4772,7 @@ def main() -> int:
         phase_card_vs_cpu_explain(h2o, dev)
         phase_card_vs_cpu_serving(h2o, dev, serving_art)
         phase_card_vs_cpu_fusion(h2o, dev, pipe_model)
+        phase_card_vs_cpu_rest(h2o, dev, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         shutil.rmtree(serving_tmp, ignore_errors=True)

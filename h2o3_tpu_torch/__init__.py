@@ -54,6 +54,9 @@
     h2o.H2OGradientBoostingEstimator(ntrees=5)   # the h2o-py names
     h2o.get_model(key); h2o.get_frame(key); h2o.remove(key); h2o.ls()
     h2o.export_file(fr, "out.csv"); h2o.no_progress()
+    srv = h2o.start_server(port=0)       # the REST API on srv.port
+    h2o.init(port=srv.port)              # a client of a running server
+    h2o.cluster_info(); h2o.shutdown()
 
 Importing the package builds nothing: each CUDA kernel is compiled on
 its first launch (or all at once by ``kernels.build_all``), and the C++
@@ -63,7 +66,8 @@ CSV parser of ``import_file`` on its first parse (``native.build``).
 from h2o3_tpu_torch.core.dkv import DKV, Key, Scope
 from h2o3_tpu_torch.core.frame import Column, Frame
 from h2o3_tpu_torch.core.job import Job
-from h2o3_tpu_torch.core.runtime import cluster, init
+from h2o3_tpu_torch.core.runtime import cluster, cluster_info, shutdown
+from h2o3_tpu_torch.core.runtime import init as _local_init
 from h2o3_tpu_torch.frame_factory import H2OFrame, create_frame
 from h2o3_tpu_torch.ingest.parser import (import_file, parse_setup,
                                           upload_file)
@@ -101,6 +105,61 @@ from h2o3_tpu_torch.models.xgboost import XGBoost, XGBoostModel
 from h2o3_tpu_torch.rapids import Session, exec_rapids
 
 load_model = Model.load
+
+
+def init(*args, url: str = None, ip: str = None, port: int = None,
+         username: str = None, password: str = None, **kw):
+    """Boot the local runtime (`core/runtime.init`: the card, or
+    ``device="cpu"``), or, given url/ip/port, connect to a running
+    server as its client (h2o-py ``h2o.init(url=...)``) and return the
+    client module."""
+    if url or ip or port:
+        if args or kw:
+            raise ValueError(
+                f"client-mode init(url/ip/port) does not accept extra "
+                f"arguments: {list(kw) or args}")
+        from urllib.parse import urlparse
+
+        from h2o3_tpu_torch import client as _client
+
+        if url:
+            u = urlparse(url)
+            ip, port = u.hostname or "127.0.0.1", u.port or 54321
+        _client.connect(ip=ip or "127.0.0.1", port=port or 54321,
+                        username=username, password=password)
+        return _client
+    return _local_init(*args, **kw)
+
+
+def connect(ip: str = "127.0.0.1", port: int = 54321, **kw):
+    """Attach this process as a client of a REST server (h2o.connect)."""
+    from h2o3_tpu_torch import client as _client
+
+    _client.connect(ip=ip, port=port, **kw)
+    return _client
+
+
+def start_server(*args, **kw):
+    """Bind the REST server (api/server.start_server)."""
+    from h2o3_tpu_torch.api.server import start_server as _start
+
+    return _start(*args, **kw)
+
+
+def flow() -> str:
+    """The Flow page's URL on the connected server (opened in a browser
+    where there is one)."""
+    from h2o3_tpu_torch import client as _client
+
+    base = getattr(_client, "_BASE", None) or "http://127.0.0.1:54321"
+    url = f"{base}/flow/index.html"
+    try:
+        import webbrowser
+
+        webbrowser.open(url)
+    except Exception:   # noqa: BLE001 — headless
+        pass
+    return url
 
 # the h2o-py estimator surface, resolved lazily (h2o3_tpu/__init__.py:61)
 _ESTIMATORS = {
@@ -231,8 +290,9 @@ __all__ = ["Aggregator", "AggregatorModel", "BUILDERS", "Column", "CoxPH",
            "Scope", "SegmentModels", "Session", "StackedEnsemble",
            "StackedEnsembleModel", "TargetEncoder", "TargetEncoderModel",
            "Word2Vec", "Word2VecModel", "XGBoost", "XGBoostModel", "cluster",
-           "create_frame", "exec_rapids", "export_file", "frame",
-           "get_frame", "get_model", "import_file", "import_sql_select",
-           "import_sql_table", "init", "load_model", "ls", "no_progress",
-           "parse_setup", "remove", "remove_all", "show_progress",
+           "cluster_info", "connect", "create_frame", "exec_rapids",
+           "export_file", "flow", "frame", "get_frame", "get_model",
+           "import_file", "import_sql_select", "import_sql_table", "init",
+           "load_model", "ls", "no_progress", "parse_setup", "remove",
+           "remove_all", "show_progress", "shutdown", "start_server",
            "train_segments", "upload_file"]

@@ -20,8 +20,8 @@ anything beyond is rejected at once with :class:`AdmissionRejected`
 ``H2O_TPU_SCORE_QUEUE_TIMEOUT_S`` fails with 503 + Retry-After. While
 the memory ladder's pressure flag is up (``memory/budget``) every
 request is shed with 503. Both knobs at 0 (the default) disable the
-gate. The reference's admission-wait trace span comes with the
-observability port (ROADMAP A14).
+gate. A request's wait in the queue is the ``admission_wait`` span of
+its trace.
 """
 
 from __future__ import annotations
@@ -289,26 +289,29 @@ class AdmissionController:
                     self.queued += 1
                 deadline = queue_timeout_s()
                 t0 = time.monotonic()
+                from h2o3_tpu_torch.obs import tracing
+
                 # FIFO: only the queue head may take a freed slot. The
                 # limit is re-read every wakeup: the SLO controller moves
                 # it while requests wait.
-                while True:
-                    limit = self._limit(g)
-                    if g.inflight < limit and g.queue \
-                            and g.queue[0] is ticket:
-                        break
-                    left = deadline - (time.monotonic() - t0)
-                    if left <= 0:
-                        g.queue.remove(ticket)
-                        g.cond.notify_all()
-                        with self._lock:
-                            self.timed_out += 1
-                        raise AdmissionRejected(
-                            f"model {model_key!r}: queued request "
-                            f"expired after {deadline:.0f}s without a "
-                            f"free slot", status=503,
-                            retry_after_s=self._retry_after(g, limit))
-                    g.cond.wait(timeout=left)
+                with tracing.span("admission_wait", model=str(model_key)):
+                    while True:
+                        limit = self._limit(g)
+                        if g.inflight < limit and g.queue \
+                                and g.queue[0] is ticket:
+                            break
+                        left = deadline - (time.monotonic() - t0)
+                        if left <= 0:
+                            g.queue.remove(ticket)
+                            g.cond.notify_all()
+                            with self._lock:
+                                self.timed_out += 1
+                            raise AdmissionRejected(
+                                f"model {model_key!r}: queued request "
+                                f"expired after {deadline:.0f}s without "
+                                f"a free slot", status=503,
+                                retry_after_s=self._retry_after(g, limit))
+                        g.cond.wait(timeout=left)
                 g.queue.popleft()
             g.inflight += 1
             with self._lock:

@@ -17,11 +17,11 @@ turns it back into a servable model.
 from __future__ import annotations
 
 import os
-import time
 from typing import Any, Callable, Dict, List, Optional
 
 from h2o3_tpu_torch.artifact import aot, compile_cache, manifest, packer
 from h2o3_tpu_torch.artifact.manifest import ArtifactError
+from h2o3_tpu_torch.obs import compiles
 
 FOREST_FILE = "forest.npz"
 
@@ -89,10 +89,12 @@ def _programs(out_dir: str, checksum: str, variant: str,
         key = compile_cache.cache_key(checksum, b, variant, fp) \
             if compile_cache.enabled() else None
         blob = compile_cache.load(key) if key is not None else None
-        if blob is None:
-            t0 = time.perf_counter()
-            blob = build(b)
-            compile_cache.note_compile((time.perf_counter() - t0) * 1000.0)
+        if blob is not None:
+            compiles.record_hit("artifact", tier="disk")
+        else:
+            with compiles.timed("artifact", (checksum, b, variant),
+                                program=f"{variant}_b{b}"):
+                blob = build(b)
             if key is not None:
                 compile_cache.store(key, blob)
         e = manifest.write_payload(out_dir, f"program_b{b}.pt2", blob)

@@ -67,6 +67,14 @@ class _DKV:
             self._store.clear()
             self._rw.clear()
 
+    def unlock_all(self) -> int:
+        """Drop every per-key lock object (water/api/UnlockTask); returns
+        the count dropped."""
+        with self._lock:
+            n = len(self._rw)
+            self._rw.clear()
+            return n
+
     def atomic(self, key: str, fn: Callable[[Any], Any]) -> Any:
         """Replace the value under `key` by fn(old) under the store lock
         (water/TAtomic.java)."""
@@ -89,6 +97,11 @@ class _DKV:
 
 
 DKV = _DKV()
+
+
+
+def unlock_all() -> int:
+    return DKV.unlock_all()
 
 
 class Scope:

@@ -1,9 +1,11 @@
 """Runtime boot: one device (counterpart of h2o3_tpu/core/runtime.py
-`init` :270 / `cluster`).
+`init` :270, `cluster`, `Cluster.info` :184, `self_benchmark` :209,
+`cluster_info` :294 and `shutdown` :298).
 
 The reference boots a device mesh with a ``rows`` axis; the port runs on
 one device, so that axis collapses and a "cluster" is the device every
-new column is placed on.
+new column is placed on. The boot runs as the ``backend_init`` and
+``device_discovery`` lifecycle phases (obs/phases.py).
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import threading
+import time
 from typing import Optional
 
 import torch
@@ -19,10 +22,96 @@ from h2o3_tpu_torch.compat import resolve_device
 
 
 class Cluster:
-    """The booted runtime: the device new columns land on."""
+    """The booted runtime: the device new columns land on. `info` is the
+    ``GET /3/Cloud`` surface and `self_benchmark` the ``/3/NetworkTest``
+    probes."""
+
+    name = "h2o3-tpu-torch"
 
     def __init__(self, device: torch.device):
         self.device = device
+        self.devices = [device]
+        self.start_time = time.time()
+        self.locked = False
+
+    def device_name(self) -> str:
+        if self.device.type == "cuda":
+            return (f"{torch.cuda.get_device_name(self.device)} "
+                    f"({self.device})")
+        return "cpu"
+
+    def info(self) -> dict:
+        return {
+            "cloud_name": self.name,
+            "version": "h2o3_tpu_torch",
+            "cloud_size": 1,
+            "cloud_uptime_millis": int((time.time() - self.start_time)
+                                       * 1000),
+            "cloud_healthy": True,
+            "locked": self.locked,
+            "platform": self.device.type,
+            "epoch": 0,
+            "leader": 0,
+            "incarnation": 0,
+            "nodes": [{"name": self.device_name(),
+                       "platform": self.device.type,
+                       "id": self.device.index or 0}],
+        }
+
+    def self_benchmark(self, size: int = 1024) -> dict:
+        """The reference's three boot probes on this device: a float32
+        matmul (GFLOP/s), a stream ``out = a + b`` over 4·size² floats
+        (GB/s, 3 arrays moved) and a latency probe. The reference's
+        third probe is a psum over the mesh's rows axis; one device has
+        no collective, so it times a device-local reduction instead, and
+        the output says so (``psum_probe``)."""
+        dev = self.device
+        cuda = dev.type == "cuda"
+
+        def sync():
+            if cuda:
+                torch.cuda.synchronize(dev)
+
+        reps = 10
+        with full_float32():
+            x = torch.ones((size, size), dtype=torch.float32, device=dev)
+            y = x @ x
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                y = x @ x
+            sync()
+            gflops = 2 * size ** 3 * reps / (time.perf_counter() - t0) / 1e9
+        n = 4 * size * size
+        a = torch.ones(n, dtype=torch.float32, device=dev)
+        b = torch.ones(n, dtype=torch.float32, device=dev)
+        c = a + b
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            c = a + b
+        sync()
+        membw = 3 * n * 4 * reps / (time.perf_counter() - t0) / 1e9
+        vec = torch.ones(1, dtype=torch.float32, device=dev)
+        r = vec.sum()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            r = vec.sum()
+        sync()
+        psum_us = (time.perf_counter() - t0) / 50 * 1e6
+        del y, c, r
+        out = {"matmul_gflops": gflops, "membw_gbps": membw,
+               "psum_latency_us": psum_us, "size": size,
+               "device": self.device_name(),
+               "psum_probe": "device-local sum of one float32 (one "
+                             "device, no collective)"}
+        from h2o3_tpu_torch.utils import timeline
+
+        timeline.record("self_benchmark", "boot_probe", **{
+            k: round(v, 2) for k, v in out.items()
+            if isinstance(v, float)})
+        return out
 
 
 # reentrant: extension hooks run under the boot lock and may call init()
@@ -36,10 +125,21 @@ def init(device=None) -> Cluster:
     first boot runs the registered extensions' hooks
     (``extensions.register_extension``)."""
     global _CLUSTER
-    dev = resolve_device(device)
+    from h2o3_tpu_torch.obs import phases
+
     with _LOCK:
+        if _CLUSTER is not None and device is not None and \
+                _CLUSTER.device == torch.device(device):
+            return _CLUSTER
+        with phases.enter("backend_init", device=str(device or "cuda")):
+            dev = resolve_device(device)
+            if dev.type == "cuda":
+                torch.cuda.init()
         if _CLUSTER is None or _CLUSTER.device != dev:
-            _CLUSTER = Cluster(dev)
+            with phases.enter("device_discovery", device=str(dev)):
+                _CLUSTER = Cluster(dev)
+                if dev.type == "cuda":
+                    torch.cuda.get_device_properties(dev)
             from h2o3_tpu_torch import extensions
 
             extensions.run_extension_hooks(_CLUSTER)
@@ -49,6 +149,23 @@ def init(device=None) -> Cluster:
 def cluster() -> Cluster:
     """The booted runtime, booting it on CUDA if nothing was booted."""
     return _CLUSTER if _CLUSTER is not None else init()
+
+
+def cluster_info() -> dict:
+    return cluster().info()
+
+
+def shutdown() -> None:
+    """Drop the runtime and every stored key (h2o.cluster().shutdown());
+    registered extensions re-run their hooks against the next boot."""
+    global _CLUSTER
+    from h2o3_tpu_torch import extensions
+    from h2o3_tpu_torch.core.dkv import DKV
+
+    with _LOCK:
+        DKV.clear()
+        _CLUSTER = None
+    extensions._INITIALIZED.clear()
 
 
 # One CUDA-graph capture at a time in the process: the scoring sessions'

@@ -11,14 +11,18 @@ Each candidate trains through its builder's normal train on the one
 device, driven by the in-process search engine (`automl/search.py`): a
 member that fails is retried or parked and listed in `failed`, and never
 fails the grid. `parallelism` > 1 overlaps the members' host work; their
-device work takes turns (ROADMAP C27). Grid recovery (`recovery_dir`,
-`H2OGridSearch.load`) waits for the durable search state (ROADMAP A14).
+device work takes turns (ROADMAP C27). `save(dir)` writes the grid and
+its models as ``/3/Grid.bin/{grid_id}/export`` does, and `load(path)`
+reads them back through the REST layer's restricted unpickler
+(``/3/Grid.bin/import``, h2o-py ``load_grid``). Grid recovery
+(`recovery_dir`) waits for the durable search state (ROADMAP A14).
 """
 
 from __future__ import annotations
 
 import itertools
 import json
+import os
 import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence, Type
@@ -88,6 +92,38 @@ class H2OGridSearch(Keyed):
     def __setstate__(self, d):
         self.__dict__.update(d)
         self._lock = threading.Lock()
+
+    def save(self, grid_directory: str) -> str:
+        """Write the grid to ``<grid_directory>/<grid id>`` and each of
+        its models beside it under its key (h2o-py ``save_grid``);
+        returns the grid file's path."""
+        from h2o3_tpu_torch.api.routes_ext import _artifact_dump
+
+        os.makedirs(grid_directory, exist_ok=True)
+        path = os.path.join(grid_directory, str(self.key))
+        _artifact_dump(self, path)
+        for m in self.models:
+            _artifact_dump(m, os.path.join(grid_directory, str(m.key)))
+        return path
+
+    @classmethod
+    def load(cls, path: str) -> "H2OGridSearch":
+        """Read a grid `save` wrote (h2o-py ``load_grid``): the grid file
+        and the model files beside it, through the restricted unpickler,
+        all installed in the DKV. Raises TypeError when `path` holds
+        something else."""
+        from h2o3_tpu_torch.api.routes_ext import _artifact_load_file
+
+        grid = _artifact_load_file(path)
+        if not isinstance(grid, cls):
+            raise TypeError(f"{path} is not a saved grid")
+        d = os.path.dirname(path)
+        for m in grid.models:
+            mp = os.path.join(d, str(m.key))
+            if os.path.exists(mp):
+                _artifact_load_file(mp).install()
+        grid.install()
+        return grid
 
     @staticmethod
     def _combo_key(params: Dict[str, Any]) -> str:

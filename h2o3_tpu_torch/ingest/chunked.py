@@ -523,7 +523,10 @@ def parse_csv_sharded(paths: Sequence[str], setup, device=None
     kinds = column_kinds(types)
     cbytes = chunk_bytes()
 
+    from h2o3_tpu_torch.obs import metrics as obs_metrics
+
     t_wall0 = time.perf_counter()
+    ms0 = time.time() * 1000.0 - t_wall0 * 1000.0   # perf -> wall ms
     chunks: List[ByteChunk] = []
     total = 0
     for p in paths:
@@ -585,6 +588,7 @@ def parse_csv_sharded(paths: Sequence[str], setup, device=None
                 c = futs[fut]
                 staging, doms, raws, dt = fut.result()
                 t_parse_serial += dt
+                obs_metrics.observe("h2o3_ingest_parse_seconds", dt)
                 sink.land(c, staging)
                 for i in cat_idx:
                     cat_doms[i].append((c.row_offset, c.nrows, doms[i]))
@@ -637,6 +641,14 @@ def parse_csv_sharded(paths: Sequence[str], setup, device=None
     t_total = time.perf_counter() - t_wall0
     del maps
 
+    _ingest_spans(ms0, [
+        ("ingest_split", t_wall0, t_split, {"files": len(paths)}),
+        ("ingest_parse", t1, t_parse, {"chunks": len(chunks),
+                                       "rows": total}),
+        ("ingest_resolve", t2, t_resolve, {"cats": len(cat_idx),
+                                           "times": len(times)}),
+        ("ingest_ship", t3, t_ship, {"columns": len(names),
+                                     "rows": total})])
     note_chunks(len(chunks))
     note_chunk_rows(total)
     serial = t_split + t_parse_serial + t_resolve + t_ship
@@ -793,13 +805,35 @@ def append_csv(frame, text: str, separator: Optional[str] = None) -> int:
         return _append_csv_locked(frame, text, separator)
 
 
+def _ingest_spans(ms0: float, phases) -> None:
+    """The chunked parse's phases as child spans of the active trace,
+    from the perf-counter stamps the parse already takes (no span is
+    held open across the worker pool)."""
+    from h2o3_tpu_torch.obs import tracing
+
+    ctx = tracing.context()
+    if ctx is None:
+        return
+    for name, t0, dt, attrs in phases:
+        start = ms0 + t0 * 1000.0
+        tracing.record_span(name, ctx, start, start + dt * 1000.0, **attrs)
+
+
 def _append_csv_locked(frame, text: str, separator: Optional[str]) -> int:
+    from h2o3_tpu_torch.obs import tracing
+
     names = frame.names
     if not names:
         raise ValueError("cannot stream-append to an empty frame")
     b, batch = _parse_batch(frame, text, separator)
     if b == 0:
         return 0
+    with tracing.span("ingest_stream_append", rows=b,
+                      total=frame.nrows + b):
+        return _append_rows(frame, names, b, batch)
+
+
+def _append_rows(frame, names, b: int, batch) -> int:
     n = frame.nrows
     new_n = n + b
     new_cols: Dict[str, Column] = {}

@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, List
 
@@ -79,17 +80,23 @@ def _start(name: str):
     cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return out, tmp, proc
+    return out, tmp, proc, time.perf_counter()
 
 
 def _finish(name: str, job) -> None:
-    out, tmp, proc = job
-    log, _ = proc.communicate()
+    from h2o3_tpu_torch.obs import compiles, phases
+
+    out, tmp, proc, t0 = job
+    with phases.first("first_compile", build=f"nvcc {name}"):
+        log, _ = proc.communicate()
     BUILD_LOG[name] = log
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
                            f"(rc={proc.returncode}):\n{log}")
     os.replace(tmp, out)          # atomic: concurrent builds agree
+    compiles.record_compile("kernel", out.name,
+                            (time.perf_counter() - t0) * 1000.0,
+                            program=f"nvcc {name}.cu")
 
 
 def build_all() -> List[str]:

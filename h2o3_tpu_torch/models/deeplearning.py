@@ -291,11 +291,18 @@ class _StepLoop:
                 self._step(params_c, opt_c, slot_c)
         torch.cuda.current_stream().wait_stream(side)
         from h2o3_tpu_torch.core.runtime import CAPTURE_LOCK
+        from h2o3_tpu_torch.obs import compiles
 
+        # thread_local: a REST server's other threads keep launching work
+        # (predictions, Rapids) while this captures, and in the default
+        # global mode their allocations or syncs would invalidate the
+        # capture; an error in this thread's own capture still raises
         g = torch.cuda.CUDAGraph()
-        with CAPTURE_LOCK:
-            with torch.cuda.graph(g):
-                self._step(self.params, self.opt, self.slot)
+        with compiles.timed("train", (tuple(self.X.shape), self.chunk),
+                            program="deeplearning_step"):
+            with CAPTURE_LOCK:
+                with torch.cuda.graph(g, capture_error_mode="thread_local"):
+                    self._step(self.params, self.opt, self.slot)
         self.graph = g
 
     def epoch(self, key: torch.Tensor, steps: int) -> torch.Tensor:

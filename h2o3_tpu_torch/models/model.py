@@ -67,6 +67,7 @@ class ModelOutput:
         self.variable_importances: Optional[Dict[str, float]] = None
         self.scoring_history: List[dict] = []
         self.run_time_ms: int = 0
+        self.start_time: float = 0.0        # epoch seconds the train began
 
     @property
     def nclasses(self) -> int:

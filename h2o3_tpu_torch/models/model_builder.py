@@ -57,6 +57,10 @@ class ModelBuilder:
     # builders that implement training continuation set this; the rest
     # refuse a checkpoint rather than train from scratch
     supports_checkpoint = False
+    # no builder resumes a fit from durable per-iteration progress yet
+    # (ROADMAP A14): the REST train handler reads this before it arms
+    # job progress, so H2O_TPU_JOB_CKPT_ITERS changes nothing
+    supports_iteration_resume = False
 
     def __init__(self, **params):
         self.params: Dict[str, Any] = self.default_params()
@@ -159,6 +163,7 @@ class ModelBuilder:
             raise
         self.job.complete()
         model._output.run_time_ms = int((time.time() - t0) * 1000)
+        model._output.start_time = t0
         self.model = model
         return model
 

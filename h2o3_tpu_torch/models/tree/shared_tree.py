@@ -52,6 +52,7 @@ from h2o3_tpu_torch.models.tree.device_tree import (apply_packed,
                                                     build_feat_masks,
                                                     grow_tree_device,
                                                     stash_packed)
+from h2o3_tpu_torch.obs import metrics as obs_metrics
 
 
 def grow_tree(binned, hist_w, hist_y, spec, *, max_depth: int,
@@ -419,6 +420,7 @@ class SharedTree(ModelBuilder):
             packs.append(stash_packed(packed, max_depth))
             leaf_vals.append(gamma)
             leaf_wys.append(leaf4[:, :2])
+            obs_metrics.inc("h2o3_tree_trees_built_total")
             if self._should_score(t, ntrees):
                 dev = _mean_deviance(dist, w, y, f)
                 entry = {"tree": t + 1, "training_deviance": dev, **keys}
@@ -499,6 +501,7 @@ class SharedTree(ModelBuilder):
                 leaf_vals.append(gamma)
                 leaf_wys.append(leaf4[:, :2])
                 tree_class.append(k)
+                obs_metrics.inc("h2o3_tree_trees_built_total")
                 if f_valid is not None:
                     f_valid[:, k] += apply_packed(vs["binned"], packed, gamma,
                                                   max_depth, maxB)

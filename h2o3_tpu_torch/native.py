@@ -91,15 +91,19 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}"
                         ".tmp")
+    from h2o3_tpu_torch.obs import compiles, phases
+
     srcs = sources()
-    proc = subprocess.run([cxx(), *CXX_FLAGS, "-o", str(tmp),
-                           *map(str, srcs)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        names = " + ".join(s.name for s in srcs)
-        raise RuntimeError(f"building {names} failed "
-                           f"(rc={proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)           # atomic: concurrent builds agree
+    with phases.first("first_compile", build="g++ host library"), \
+            compiles.timed("kernel", out.name, program="g++ host library"):
+        proc = subprocess.run([cxx(), *CXX_FLAGS, "-o", str(tmp),
+                               *map(str, srcs)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            names = " + ".join(s.name for s in srcs)
+            raise RuntimeError(f"building {names} failed "
+                               f"(rc={proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, out)       # atomic: concurrent builds agree
     return out
 
 

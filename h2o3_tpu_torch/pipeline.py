@@ -321,7 +321,10 @@ def clear_programs() -> None:
 def _program(key, make) -> fusion.GraphProgram:
     prog = _PROGRAMS.get(key)
     if prog is not None:
+        from h2o3_tpu_torch.obs import compiles
+
         _bump("compile_cache_hits")
+        compiles.record_hit("pipeline")
         return prog
     _bump("programs_compiled")
     return _PROGRAMS.put(key, make())

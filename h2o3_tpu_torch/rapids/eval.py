@@ -872,19 +872,25 @@ def exec_rapids(expr: str, session: Optional[Session] = None):
     into the session's DAG and returns a Frame whose columns materialize
     on first data access; any statement it cannot defer is an
     observation point that flushes the DAG first, so statement order
-    holds. Fusible chains run as single programs (rapids/fusion.py)."""
+    holds. Fusible chains run as single programs (rapids/fusion.py).
+    Parse, plan, execute and fused-dispatch child spans land on the
+    active trace (wall clock only, no device syncs)."""
+    from h2o3_tpu_torch.obs import tracing
+
     session = session or Session()
     env = Env(session)
     _fusion.note_statement()
     progs_before = _fusion.counters()["fused_programs"]
-    ast = parse_cached(expr)
+    with tracing.span("parse", chars=len(expr)):
+        ast = parse_cached(expr)
     try:
         if isinstance(ast, StrLit):
             return env.lookup(ast.s)
         got = _planner.offer_statement(ast, env)
         if got is not _planner._MISS:
             return got
-        return _eval(ast, env)
+        with tracing.span("execute"):
+            return _eval(ast, env)
     finally:
         _fusion.note_statement_result(progs_before)
 

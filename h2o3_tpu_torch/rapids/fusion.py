@@ -777,8 +777,8 @@ class GraphProgram:
         return out
 
     def _first_run(self) -> torch.Tensor:
-        from h2o3_tpu_torch.artifact import compile_cache
         from h2o3_tpu_torch.memory import budget
+        from h2o3_tpu_torch.obs import compiles
 
         dev = self.device
         ks = [self.kbuf[i] for i in range(self.n_const)]
@@ -793,7 +793,11 @@ class GraphProgram:
         self.graph, self.out = capture(lambda: self.fn(self.statics, ks),
                                        dev)
         self.nbytes += self.out.numel() * self.out.element_size()
-        compile_cache.note_compile((time.perf_counter() - t0) * 1000.0)
+        compiles.record_compile(
+            self.family, (self.rows, [tuple(s.shape) for s in self.statics],
+                          [str(s.dtype) for s in self.statics]),
+            (time.perf_counter() - t0) * 1000.0,
+            program=f"{self.family}_graph", hbm_bytes=peak)
         _bump("captures")
         return out
 
@@ -850,7 +854,10 @@ def _program_for(plan: Plan, win: Optional[int] = None) -> GraphProgram:
            + (f"|w{rows}" if win is not None else ""))
     prog = _PROGRAMS.get(key)
     if prog is not None:
+        from h2o3_tpu_torch.obs import compiles
+
         _bump("compile_cache_hits")
+        compiles.record_hit("rapids")
         return prog
     specs = []
     for i, leaf in enumerate(plan.leaves):
@@ -924,8 +931,14 @@ def _run_streamed(plan: Plan) -> torch.Tensor:
 
 
 def execute_plan(plan: Plan) -> Column:
-    """Run one fused statement plan; the result stays a device column."""
-    out = _run_streamed(plan)
+    """Run one fused statement plan; the result stays a device column.
+    The ``fused_dispatch`` span times the host-side dispatch only (no
+    device sync)."""
+    from h2o3_tpu_torch.obs import tracing
+
+    with tracing.span("fused_dispatch", ops=plan.n_ops, rows=int(plan.nrows),
+                      leaves=len(plan.leaves)):
+        out = _run_streamed(plan)
     _bump("fused_rows", int(plan.nrows))
     return Column.from_device(out, T_NUM, plan.nrows)
 
@@ -940,7 +953,10 @@ def try_execute(ast, env):
     effects. Errors while running a plan propagate."""
     if not enabled():
         return _MISS
-    plan = plan_expr(ast, env)
+    from h2o3_tpu_torch.obs import tracing
+
+    with tracing.span("plan", prim=ast[0].name):
+        plan = plan_expr(ast, env)
     if plan is None:
         return _MISS
     col = execute_plan(plan)

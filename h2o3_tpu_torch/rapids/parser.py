@@ -176,3 +176,11 @@ def parse_cached(s: str):
     again and again, and the evaluator treats parsed ASTs as read-only.
     Parse errors are not cached."""
     return parse(s)
+
+
+def parse_cache_stats() -> dict:
+    """Occupancy of the bounded statement-parse memo (the
+    ``h2o3_rapids_parse_cache_entries`` gauge)."""
+    info = parse_cached.cache_info()
+    return {"size": info.currsize, "cap": info.maxsize,
+            "hits": info.hits, "misses": info.misses}

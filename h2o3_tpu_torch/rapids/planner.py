@@ -323,7 +323,10 @@ class SessionPlanner:
                 _bump("transparent_statements")
                 return _MISS
             if self._nodes:
-                self.flush()
+                from h2o3_tpu_torch.obs import tracing
+
+                with tracing.span("flush", reason="statement"):
+                    self.flush()
             return _MISS
 
     @staticmethod
@@ -679,7 +682,10 @@ class SessionPlanner:
             if node.state == "done":
                 return
             if not self._flushing and any(n is node for n in self._nodes):
-                self.flush(target=node)
+                from h2o3_tpu_torch.obs import tracing
+
+                with tracing.span("flush", reason="data_access"):
+                    self.flush(target=node)
             if node.state != "done":
                 # a re-entry mid-flush (an eager replay touching a lazy
                 # leaf) or a straggler: re-entering flush() would loop

@@ -29,9 +29,13 @@ a host tuple) and scores through one program per row bucket:
   planner's windows and the OOM ladder.
 
 ``H2O_TPU_SCORE_FAST=0`` turns the path off (`supports` is then False).
-Multi-process serving (the sharded twins, degraded local serving, the
-oplog-mirrored flush), tracing spans and the ``/3/ScoringMetrics`` route
-wait for the control plane (ROADMAP A14).
+A traced request (REST ingress) gets the reference's child spans:
+``queue_wait`` (submit to flush, in its own trace), then ``pack``,
+``dispatch`` per bucket window and ``fetch`` under the flush leader's
+trace; none adds a device sync. Flush sizes and request latency feed
+``/3/Metrics``, each flush a ``scoring`` timeline event. Multi-process
+serving (the sharded twins, degraded local serving, the oplog-mirrored
+flush) waits for the control plane (ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -270,18 +274,23 @@ class ScoringSession:
 
     # -- bucketed dispatch -------------------------------------------------
     def _program(self, kind: str, bucket: int) -> BucketProgram:
+        from h2o3_tpu_torch.obs import compiles
+
         key = (kind, bucket)
+        family = "scoring" if kind == "score" else "explain"
         prog = self._programs.get(key)
-        if prog is None:
-            from h2o3_tpu_torch.artifact import compile_cache
+        if prog is not None:
+            compiles.record_hit(family)
+        else:
             from h2o3_tpu_torch.memory import budget
 
-            family = "scoring" if kind == "score" else "explain"
             fn = self._res.margins if kind == "score" else self._res.leaves
 
             def on_capture(ms: float) -> None:
                 self.fused_compiles += 1
-                compile_cache.note_compile(ms)
+                compiles.record_compile(
+                    family, (str(self.model.key), kind, bucket), ms,
+                    program=f"{kind}_b{bucket}")
 
             prog = BucketProgram(
                 fn, bucket, self.spec.F, self.device,
@@ -315,8 +324,12 @@ class ScoringSession:
             def rows_of(pos, m):
                 return X[pos: pos + m]
 
+        from h2o3_tpu_torch.obs import tracing
+
         def dispatch(pos: int, m: int):
-            out = self._dispatch(kind, rows_of(pos, m))
+            with tracing.span("dispatch", bucket=self._bucket_for(m),
+                              rows=m, path=path):
+                out = self._dispatch(kind, rows_of(pos, m))
             note_dispatch(path)
             if dispatched is not None:
                 dispatched.append(self._bucket_for(m))
@@ -361,11 +374,14 @@ class ScoringSession:
         return len(self._traced)
 
     # -- request-level API -------------------------------------------------
-    def predict_batch(self, entries: List[Tuple[Any, Optional[str], bool]]):
+    def predict_batch(self, entries: List[Tuple[Any, Optional[str], bool]],
+                      ctxs: Optional[List[Optional[dict]]] = None):
         """Score a coalesced batch: entries = [(frame, dest_key,
         with_metrics)]. Returns [(prediction_frame, metrics_or_None)] in
         entry order; each prediction frame is installed in the DKV under
-        dest_key (or a fresh key). A frame fed by a pending lazy Rapids
+        dest_key (or a fresh key). `ctxs`, one trace context an entry,
+        puts each entry's ``finish`` span (its prediction frame and
+        metrics) in that entry's own trace. A frame fed by a pending lazy Rapids
         feature pipeline is captured first, before adapt_test touches a
         column (a lazy column's data access would flush the DAG), and
         scores munge and walk in one program per bucket (pipeline.py).
@@ -373,6 +389,9 @@ class ScoringSession:
         and dispatched once per bucket chunk of the concatenation; each
         entry's margins are its exact slice."""
         from h2o3_tpu_torch import pipeline
+        from h2o3_tpu_torch.obs import metrics as obs_metrics
+        from h2o3_tpu_torch.obs import tracing
+        from h2o3_tpu_torch.utils import timeline
 
         t0 = time.perf_counter()
         items, piped = [], []
@@ -386,41 +405,61 @@ class ScoringSession:
         results: List[Any] = [None] * len(entries)
         n_disp, n_rows = 0, 0
         if items:
-            parts = [self._features(a)[:n] for _i, _f, a, n, _d, _w in items]
-            X = parts[0] if len(parts) == 1 else torch.cat(parts)
+            with tracing.span("pack", rows=sum(it[3] for it in items),
+                              path="coalesce"):
+                parts = [self._features(a)[:n]
+                         for _i, _f, a, n, _d, _w in items]
+                X = parts[0] if len(parts) == 1 else torch.cat(parts)
             disp: list = []
             margins = self._margin_x(X, dispatched=disp)
             n_disp += len(disp)
             n_rows += int(X.shape[0])
             off = 0
-            for i, frame, _a, n, dest, with_metrics in items:
-                results[i] = self._finish(frame, margins[off: off + n], n,
-                                          dest, with_metrics)
-                off += n
+            with tracing.span("fetch", rows=int(X.shape[0]), path="host"):
+                for i, frame, _a, n, dest, with_metrics in items:
+                    results[i] = self._finish(frame, margins[off: off + n],
+                                              n, dest, with_metrics,
+                                              ctxs[i] if ctxs else None)
+                    off += n
         for i, frame, dest, with_metrics, cap in piped:
             margins, nd = pipeline.execute_margins(self, cap)
             n_disp += nd
             n_rows += cap.nrows
-            results[i] = self._finish(frame, margins, cap.nrows, dest,
-                                      with_metrics)
+            with tracing.span("fetch", rows=cap.nrows, path="pipeline"):
+                results[i] = self._finish(frame, margins, cap.nrows, dest,
+                                          with_metrics,
+                                          ctxs[i] if ctxs else None)
         ms = (time.perf_counter() - t0) * 1000
         self.stats.record_batch(len(entries), n_rows, ms,
                                 dispatches=n_disp)
+        obs_metrics.observe("h2o3_score_flush_requests",
+                            float(len(entries)))
+        timeline.record("scoring", str(self.model.key), ms=ms,
+                        requests=len(entries), rows=n_rows,
+                        dispatches=n_disp,
+                        compiles=self.traversal_compiles)
         return results
 
-    def _finish(self, frame, margins, n: int, dest, with_metrics):
-        """Margins -> (installed prediction frame, metrics or None)."""
+    def _finish(self, frame, margins, n: int, dest, with_metrics,
+                ctx: Optional[dict] = None):
+        """Margins -> (installed prediction frame, metrics or None), in
+        ``finish`` and ``metrics`` spans under `ctx` (else under the
+        active span)."""
         from h2o3_tpu_torch.core.dkv import Key
         from h2o3_tpu_torch.core.runtime import full_float32
+        from h2o3_tpu_torch.obs import tracing
 
-        with full_float32():
-            raw = self.model._margin_to_raw(margins)
-            pred = self.model._raw_to_frame(raw, n)
-            if dest:
-                pred._key = Key(dest)
-            pred.install()
-            mm = (self.model._make_metrics(frame, raw) if with_metrics
-                  else None)
+        mm = None
+        with tracing.activate(ctx), full_float32():
+            with tracing.span("finish", rows=n):
+                raw = self.model._margin_to_raw(margins)
+                pred = self.model._raw_to_frame(raw, n)
+                if dest:
+                    pred._key = Key(dest)
+                pred.install()
+            if with_metrics:
+                with tracing.span("metrics", rows=n):
+                    mm = self.model._make_metrics(frame, raw)
         return pred, mm
 
     def predict(self, frame, key: Optional[str] = None):
@@ -485,9 +524,13 @@ def metrics_snapshot() -> List[Dict[str, Any]]:
 
 class _Pending:
     __slots__ = ("frame", "dest", "with_metrics", "event", "pred", "mm",
-                 "error", "promoted")
+                 "error", "promoted", "trace_ctx", "enq_ms")
 
     def __init__(self, frame, dest, with_metrics):
+        from h2o3_tpu_torch.obs import tracing
+
+        self.trace_ctx = tracing.context()
+        self.enq_ms = time.time() * 1000.0
         self.frame = frame
         self.dest = dest
         self.with_metrics = with_metrics
@@ -498,9 +541,10 @@ class _Pending:
         self.promoted = False      # woken to take over flush leadership
 
 
-def execute_batch(model, entries: List[Tuple[Any, Optional[str], bool]]):
+def execute_batch(model, entries: List[Tuple[Any, Optional[str], bool]],
+                  ctxs: Optional[List[Optional[dict]]] = None):
     """Run one coalesced batch through the model's session."""
-    return session_for(model).predict_batch(entries)
+    return session_for(model).predict_batch(entries, ctxs)
 
 
 class ScoreBatcher:
@@ -592,16 +636,36 @@ class ScoreBatcher:
 
     @staticmethod
     def _flush(model, batch: List[_Pending]) -> None:
+        from h2o3_tpu_torch.obs import tracing
+
+        # queue_wait: submit -> flush start, one span in each request's
+        # own trace; the batch's shared phases then run under the oldest
+        # request's trace, each request's finish (its prediction frame
+        # and metrics) under its own, and every other request's trace
+        # gets one "batch" span over the whole flush
+        now_ms = time.time() * 1000.0
+        for e in batch:
+            tracing.record_span("queue_wait", e.trace_ctx, e.enq_ms, now_ms,
+                                batched_with=len(batch) - 1)
+        lead_ctx = next((e.trace_ctx for e in batch if e.trace_ctx), None)
         try:
-            results = execute_batch(
-                model, [(e.frame, e.dest, e.with_metrics) for e in batch])
+            with tracing.activate(lead_ctx):
+                results = execute_batch(
+                    model, [(e.frame, e.dest, e.with_metrics)
+                            for e in batch], [e.trace_ctx for e in batch])
             for e, (pred, mm) in zip(batch, results):
                 e.pred, e.mm = pred, mm
         except BaseException as ex:   # noqa: BLE001 — propagate per request
             for e in batch:
                 e.error = ex
         finally:
+            end_ms = time.time() * 1000.0
             for e in batch:
+                if e.trace_ctx is not lead_ctx:
+                    tracing.record_span(
+                        "batch", e.trace_ctx, now_ms, end_ms,
+                        requests=len(batch),
+                        lead_trace=(lead_ctx or {}).get("trace_id"))
                 e.event.set()
 
 
@@ -617,11 +681,16 @@ def score_request(model, frame, dest: Optional[str] = None,
     model's admission ring, from which the SLO-adaptive controller
     (``H2O_TPU_SCORE_SLO_MS``) derives its inflight limit."""
     from h2o3_tpu_torch import admission
+    from h2o3_tpu_torch.obs import metrics as obs_metrics
+    from h2o3_tpu_torch.obs import tracing
 
     mk = str(model.key)
-    with admission.CONTROLLER.slot(mk):
+    t0 = time.perf_counter()
+    with tracing.span("score", model=mk), admission.CONTROLLER.slot(mk):
         t1 = time.perf_counter()
         out = BATCHER.submit(model, frame, dest, with_metrics)
         admission.CONTROLLER.note_latency(
             mk, (time.perf_counter() - t1) * 1000.0)
+    obs_metrics.observe("h2o3_score_request_seconds",
+                        time.perf_counter() - t0, model=mk)
     return out

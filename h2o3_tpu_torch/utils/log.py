@@ -4,8 +4,8 @@ that `h2o.no_progress()` / `h2o.show_progress()` set.
 
 `H2O_TPU_LOG_LEVEL` sets the level (INFO by default). The file is
 `h2o3_tpu_torch.log` in `H2O_TPU_ICE_ROOT`, by default a folder of the
-system's temporary directory. The reference also counts warnings as a
-metric series; that comes with the observability port (ROADMAP A14).
+system's temporary directory. Warning-and-up records also count as the
+``h2o3_log_messages_total`` series of ``/3/Metrics``, by level.
 """
 
 from __future__ import annotations
@@ -19,6 +19,19 @@ PROGRESS = True
 _LOGGER = None
 
 
+class _MetricsHandler(logging.Handler):
+    """Counts warning-and-up records on ``h2o3_log_messages_total``."""
+
+    def emit(self, record):
+        try:
+            from h2o3_tpu_torch.obs import metrics
+
+            metrics.inc("h2o3_log_messages_total",
+                        level=record.levelname.lower())
+        except Exception:   # noqa: BLE001 — counting must never re-log
+            pass
+
+
 def get_logger() -> logging.Logger:
     global _LOGGER
     if _LOGGER is None:
@@ -28,6 +41,9 @@ def get_logger() -> logging.Logger:
         h.setFormatter(logging.Formatter(
             "%(asctime)s %(levelname).1s h2o3_tpu_torch: %(message)s"))
         lg.addHandler(h)
+        mh = _MetricsHandler()
+        mh.setLevel(logging.WARNING)
+        lg.addHandler(mh)
         try:
             ice = os.environ.get("H2O_TPU_ICE_ROOT") or os.path.join(
                 tempfile.gettempdir(), "h2o3_tpu_torch")

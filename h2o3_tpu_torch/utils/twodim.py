@@ -1,5 +1,5 @@
 """TwoDimTable: a named table of typed columns for small host results
-(gains/lift), the port's copy of h2o3_tpu/utils/twodim.py (the
+(gains/lift, leaderboards), the port's copy of h2o3_tpu/utils/twodim.py (the
 reference's water/util/TwoDimTable.java): header, column types, rows,
 and the {name, columns, data} wire shape."""
 
@@ -41,6 +41,19 @@ class TwoDimTable:
             "data": [[r[i] for r in self.rows]
                      for i in range(len(self.col_names))],
         }
+
+    def to_v3(self) -> dict:
+        """The water/api/schemas3/TwoDimTableV3 wire shape h2o-py parses:
+        to_dict with __meta, rowcount and a per-column format."""
+        fmt = {"int": "%d", "long": "%d", "double": "%f", "float": "%f"}
+        d = self.to_dict()
+        d["__meta"] = {"schema_version": 3, "schema_name": "TwoDimTableV3",
+                       "schema_type": "TwoDimTable"}
+        d["rowcount"] = len(self.rows)
+        for c in d["columns"]:
+            c["format"] = fmt.get(c["type"], "%s")
+            c["description"] = c["name"]
+        return d
 
     def __repr__(self):
         head = f"{self.name}: " + ", ".join(self.col_names)

@@ -89,7 +89,13 @@ def test_port_imports_with_jax_blocked_and_reference_refused():
                  "persist.spill", "utils.retry", "artifact",
                  "artifact.manifest", "artifact.packer", "artifact.aot",
                  "artifact.compile_cache", "artifact.glm",
-                 "artifact.export", "artifact.loader", "artifact.runner"):
+                 "artifact.export", "artifact.loader", "artifact.runner",
+                 "api", "api.server", "api.schemas", "api.routes_ext",
+                 "obs", "obs.metrics", "obs.tracing", "obs.flight",
+                 "obs.phases", "obs.compiles", "parallel",
+                 "parallel.distributed", "parallel.oplog",
+                 "parallel.supervisor", "parallel.ckpt",
+                 "parallel.watchdog", "client", "utils.timeline"):
         assert f"h2o3_tpu_torch.{name}" in rep["modules"], name
     assert len(rep["modules"]) >= 30, rep["modules"]
     assert rep["leaked"] == [], rep["leaked"]
