@@ -75,7 +75,18 @@ through the port's public entry points:
   counts them), and run_pipeline's shape (a 10-tree depth-5 GBM on 20k
   rows, which runs the kernel, scoring 200k raw rows through a lazy
   feature chain fused against staged, one 1M-row request, and a pipeline
-  artifact scored from raw rows by the runner in a fresh process).
+  artifact scored from raw rows by the runner in a fresh process);
+- crash-survivable training and search (phase 3v, with
+  H2O_TPU_JOB_CKPT_ITERS set): the flagship GBM saving progress every 5
+  trees, trained in a child process killed with SIGKILL after its save
+  at tree 10 and resumed in this one from the progress file (bitwise
+  with the uninterrupted forest, the resumed levels through the
+  kernel); the deep DRF, the bench GLM (1M x 32), KMeans (k=10) and
+  DeepLearning (200k rows, 3 epochs) interrupted and resumed; phase
+  3q's GBM grid capped at 2 members with a recovery_dir, loaded back
+  and finished; a REST train with durable progress and a REST grid
+  with a recovery_dir; and s3:// import of phase 3l's flagship CSV from
+  a loopback endpoint that checks the SigV4 signature.
 It checks the card's models and imports against the same port on the
 CPU and times
 the kernel at the level shapes of each configuration beside its memory
@@ -785,6 +796,7 @@ def phase_flagship(h2o, dev):
     _retrain_bitwise("flagship GBM", m, h2o.GBM(
         ntrees=FLAGSHIP["ntrees"], max_depth=FLAGSHIP["max_depth"]).train(
             y="y", training_frame=fr))
+    RUN["flagship_forest"] = _forest_bits(m)      # phase 3v's resumes
     return launches, fr, m
 
 
@@ -823,6 +835,7 @@ def phase_drf_deep(h2o, dev):
           "DRF probabilities not finite in [0, 1]")
     _retrain_bitwise("DRF", m, h2o.DRF(ntrees=c["ntrees"], **kw).train(
         y="y", training_frame=fr))
+    RUN["drf_deep"] = (_forest_bits(m), _oob_bits(m))   # phase 3v
     phase_profile("1-tree deep DRF train", lambda: h2o.DRF(
         ntrees=1, **kw).train(y="y", training_frame=fr))
     return launches
@@ -1328,6 +1341,7 @@ def phase_ingest(h2o, dev, tmp, flagship_model):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     print(f"flagship_parse_s {dt!r}")
+    RUN["flagship_parse_s"] = dt
     print(f"flagship_parse_mb_per_sec {fsize / dt!r}")
     same_frames("imported flagship vs phase 3's frame", ifr,
                 flagship_frame(h2o, dev, FLAGSHIP["n_rows"]))
@@ -2861,6 +2875,9 @@ def phase_search(h2o, dev, fr):
           "the sorted metric table is out of order")
     check(launches["grid_gbm"] == levels > 0,
           f"{launches['grid_gbm']} launches for {levels} levels grown")
+    # phase 3v resumes this grid from a recovery_dir
+    RUN["grid_gbm"] = {_combo(m): _forest_bits(m) for m in g.models}
+    RUN["grid_table"] = _grid_table(g)
 
     glm = {}
     for par in (1, 3):
@@ -3511,6 +3528,27 @@ def _forest_arrays(m):
     fo = m.forest
     return {k: np.asarray(getattr(fo, k)) for k in
             ("feat", "thresh_bin", "na_left", "left", "right", "cat_split")}
+
+
+def _forest_bits(m):
+    """A forest's arrays, leaf values included, on the host."""
+    return dict(_forest_arrays(m), leaf_val=np.asarray(m.forest.leaf_val))
+
+
+def _oob_bits(m):
+    tm = m._output.training_metrics
+    return np.array([tm.auc, tm.logloss, tm.rmse, tm.nobs], np.float64)
+
+
+def _combo(m):
+    return str(sorted(m._grid_params.items()))
+
+
+def _grid_table(g):
+    """A grid's leaderboard: (combo, training AUC) in rank order."""
+    return [(str(sorted((k, v) for k, v in r.items()
+                        if k not in ("model_id", "auc"))), r["auc"])
+            for r in g.sorted_metric_table("auc")]
 
 
 def _margins_of(sess, fr):
@@ -4183,11 +4221,13 @@ def phase_times(dev, launches, max_err):
              "source": "h2o3_tpu_torch/csrc/hist_gather.cu",
              "replaces": "h2o3_tpu/models/tree/pallas_hist.py:362",
              # the main paths of the flagship: phase 3's numpy-built frame,
-             # phase 3l's frame imported from CSV, and phase 3u's train
-             # over POST /3/ModelBuilders/gbm
+             # phase 3l's frame imported from CSV, phase 3u's train over
+             # POST /3/ModelBuilders/gbm, phase 3v's resume after the
+             # kill and its grid's members trained after load
              "launches": int(launches["gbm_flagship"]
                              + launches["gbm_imported_csv"]
-                             + launches["rest"]),
+                             + launches["rest"] + launches["resume"]
+                             + launches["grid_resume"]),
              "max_abs_err": max_err,
              "ms": mean[0], "plain_ms": mean[1], "bound_ms": mean[3],
              "bound_by": "bytes", "library_ms": mean[2],
@@ -4653,6 +4693,568 @@ def phase_card_vs_cpu_rest(h2o, dev, tmp):
             h2o.remove(k)
 
 
+# ---------------------------------------------------------------------------
+# phase 3v: crash-survivable training and search, and the S3 reader
+# ---------------------------------------------------------------------------
+
+# phase 3v: the knob's interval per builder, the tree a killed child
+# holds at, the DeepLearning rows and epochs, and the resumed
+# GLM/KMeans/DL bar (tests/test_job_resume.py:96)
+RESUME = dict(gbm_every=5, gbm_kill_at=10, drf_every=2, drf_stop_at=2,
+              glm_every=2, glm_stop_at=2, km_every=3, km_stop_at=3,
+              dl_every=1, dl_stop_at=1, dl_rows=200_000, dl_epochs=3,
+              rest_grid=dict(ntrees=5, hyper={"max_depth": [3, 5]}))
+RESUME_TOL = dict(rtol=1e-6, atol=1e-7)
+
+
+class _Interrupted(Exception):
+    """A train stopped right after a durable save (the process dying)."""
+
+
+def _progress_job(builder, fr, y="y"):
+    """A Job with a re-dispatch recipe on `builder`, as the REST train
+    handler attaches one."""
+    from h2o3_tpu_torch.core.job import Job
+
+    job = Job(description=f"{builder.algo_name} train")
+    job.resume_spec = {"algo": builder.algo_name,
+                       "params": {k: v for k, v in builder.params.items()
+                                  if isinstance(v, (int, float, str, bool,
+                                                    list, type(None)))},
+                       "training_frame": str(fr.key), "y": y}
+    builder._progress_job = job
+    return job
+
+
+@contextlib.contextmanager
+def _stop_after(at):
+    """Builders raise _Interrupted right after their durable save at
+    iteration `at`."""
+    from h2o3_tpu_torch.models.model_builder import ModelBuilder
+
+    orig = ModelBuilder._tick_job_progress
+
+    def tick(self, done, fn):
+        orig(self, done, fn)
+        if done >= at and self._progress_job is not None:
+            raise _Interrupted()
+
+    ModelBuilder._tick_job_progress = tick
+    try:
+        yield
+    finally:
+        ModelBuilder._tick_job_progress = orig
+
+
+def _interrupt_and_load(label, make, fr, at, y="y"):
+    """Train `make()` with progress until the save at `at`, interrupted
+    there; -> the saved progress record."""
+    from h2o3_tpu_torch.parallel import ckpt
+
+    b = make()
+    job = _progress_job(b, fr, y)
+    try:
+        with _stop_after(at):
+            b.train(y=y, training_frame=fr)
+        raise SmokeFailure(f"{label}: the train ran past its save at {at}")
+    except _Interrupted:
+        pass
+    data = ckpt.load_job_progress(str(job.key))
+    check(data is not None and data["iteration"] == at,
+          f"{label}: no progress saved at iteration {at}")
+    return data
+
+
+def _resumed(make, data, fr, y="y"):
+    """A fresh builder trained from the saved state, timed; the progress
+    files go after it."""
+    from h2o3_tpu_torch.parallel import ckpt
+
+    b = make()
+    b._resume_state = data["state"]
+    out = _timed(lambda: b.train(y=y, training_frame=fr))
+    ckpt.delete_job_progress(data["job"])
+    return out
+
+
+def _same_forest(label, got, want):
+    for k in want:
+        check(got[k].shape == want[k].shape
+              and np.array_equal(got[k], want[k]),
+              f"{label}: forest {k} differs")
+
+
+def _within(label, got, want):
+    """-> max |got - want|; fails beyond RESUME_TOL."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = float(np.max(np.abs(got - want))) if got.size else 0.0
+    bitwise = got.shape == want.shape and np.array_equal(got, want)
+    print(f"{label}: {'bitwise' if bitwise else 'not bitwise'}, max abs "
+          f"diff {err!r}")
+    check(got.shape == want.shape and np.allclose(got, want, **RESUME_TOL),
+          f"{label}: beyond rtol {RESUME_TOL['rtol']} / atol "
+          f"{RESUME_TOL['atol']}")
+    return err
+
+
+def resume_child(ckdir: str, keyfile: str, n_rows: int) -> None:
+    """Phase 3v's child process: the flagship GBM with durable progress
+    every RESUME['gbm_every'] trees. It writes its job's key to `keyfile`
+    and holds after its save at RESUME['gbm_kill_at'] until the parent
+    kills it (the 20 trees take well under a second, too short to aim a
+    kill at)."""
+    import os
+
+    os.environ["H2O_TPU_JOB_CKPT_ITERS"] = str(RESUME["gbm_every"])
+    os.environ["H2O_TPU_OPLOG_CKPT_DIR"] = ckdir
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.models.model_builder import ModelBuilder
+
+    dev = h2o.init().device
+    fr = flagship_frame(h2o, dev, n_rows)
+    b = h2o.GBM(ntrees=FLAGSHIP["ntrees"], max_depth=FLAGSHIP["max_depth"],
+                seed=1)
+    job = _progress_job(b, fr)
+    orig = ModelBuilder._tick_job_progress
+
+    def tick(self, done, fn):
+        orig(self, done, fn)
+        if done >= RESUME["gbm_kill_at"]:
+            print(f"child: saved at tree {done}, holding", flush=True)
+            time.sleep(3600)
+
+    ModelBuilder._tick_job_progress = tick
+    with open(keyfile + ".part", "w") as f:
+        f.write(str(job.key))
+    os.replace(keyfile + ".part", keyfile)
+    b.train(y="y", training_frame=fr)
+
+
+def _kill_child_at_save(tmp, ckdir):
+    """Run resume_child in a fresh process, SIGKILL it once its sidecar
+    reports a save at tree >= RESUME['gbm_kill_at']; -> the job key."""
+    import os
+    import signal
+
+    from h2o3_tpu_torch.parallel import ckpt
+
+    keyfile = os.path.join(tmp, "child_job_key")
+    log = open(os.path.join(tmp, "child.log"), "w")
+    root = str(Path(__file__).resolve().parent)
+    child = subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.resume_child("
+         f"{ckdir!r}, {keyfile!r}, {FLAGSHIP['n_rows']})"], cwd=root,
+        stdout=log,
+        stderr=subprocess.STDOUT)
+    try:
+        t0, key, it = time.perf_counter(), None, 0
+        while it < RESUME["gbm_kill_at"]:
+            check(child.poll() is None, "the resume child ended on its own "
+                                        f"(code {child.returncode})")
+            check(time.perf_counter() - t0 < 600, "the resume child saved "
+                                                  "no progress in 600 s")
+            if key is None and os.path.exists(keyfile):
+                with open(keyfile) as f:
+                    key = f.read().strip()
+            if key is not None:
+                try:
+                    with open(ckpt._job_path(key) + ".json") as f:
+                        it = int(json.load(f)["iteration"])
+                except (OSError, ValueError, KeyError):
+                    pass
+            time.sleep(0.01)
+        child.send_signal(signal.SIGKILL)
+        child.wait(60)
+        print(f"child killed (SIGKILL, code {child.returncode}) after its "
+              f"save at tree {it}, {time.perf_counter() - t0:.1f} s after "
+              "its start")
+        check(child.returncode == -signal.SIGKILL, "the child was not "
+                                                   "killed by SIGKILL")
+        return key
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(60)
+        log.close()
+
+
+def _gbm_with_saves(h2o, fr, ckdir):
+    """The flagship GBM uninterrupted with a progress job: every save
+    timed (state taken and written) and the files' bytes after the last.
+    -> (model, seconds, save ms list, bytes)."""
+    import os
+
+    from h2o3_tpu_torch.models.model_builder import ModelBuilder
+    from h2o3_tpu_torch.parallel import ckpt
+
+    b = h2o.GBM(ntrees=FLAGSHIP["ntrees"], max_depth=FLAGSHIP["max_depth"],
+                seed=1)
+    job = _progress_job(b, fr)
+    orig, saves, size = ModelBuilder._tick_job_progress, [], [0]
+    prefix = os.path.basename(ckpt._job_path(str(job.key)))[:-4]
+
+    def tick(self, done, fn):
+        n0 = getattr(self, "_jp_last", 0)
+        t0 = time.perf_counter()
+        orig(self, done, fn)
+        if getattr(self, "_jp_last", 0) != n0:
+            saves.append((time.perf_counter() - t0) * 1e3)
+            size[0] = sum(os.path.getsize(os.path.join(ckdir, n))
+                          for n in os.listdir(ckdir) if n.startswith(prefix))
+
+    ModelBuilder._tick_job_progress = tick
+    try:
+        m, dt = _timed(lambda: b.train(y="y", training_frame=fr))
+    finally:
+        ModelBuilder._tick_job_progress = orig
+    check(not ckpt.has_job_progress(str(job.key))
+          and not [n for n in os.listdir(ckdir) if n.startswith(prefix)],
+          "a completed train left its progress files")
+    return m, dt, saves, size[0]
+
+
+def _resume_gbm(h2o, dev, fr, tmp, ckdir, launches):
+    from h2o3_tpu_torch.models.tree import hist_gather as hg
+    from h2o3_tpu_torch.parallel import ckpt
+
+    c = RESUME
+    want = RUN["flagship_forest"]
+    with _env(H2O_TPU_JOB_CKPT_ITERS=c["gbm_every"]):
+        def plain():
+            return _timed(lambda: h2o.GBM(
+                ntrees=FLAGSHIP["ntrees"], max_depth=FLAGSHIP["max_depth"],
+                seed=1).train(y="y", training_frame=fr))[1]
+
+        h2o.GBM(ntrees=2, max_depth=FLAGSHIP["max_depth"]).train(
+            y="y", training_frame=fr)                   # warm-up
+        # plain, saving, saving, plain: the saves' cost against trains
+        # of the same moment, not only against phase 3's
+        p1 = plain()
+        m0, dt, saves, nbytes = _gbm_with_saves(h2o, fr, ckdir)
+        _, dt2, saves2, _ = _gbm_with_saves(h2o, fr, ckdir)
+        p2 = plain()
+        metric("gbm_train_ckpt_s", dt, f"(again {dt2!r}; without saves "
+               f"beside it {p1!r}, {p2!r}; phase 3's gbm_train_s "
+               f"{RUN['gbm_train_s']!r}; {len(saves)} saves a train)")
+        metric("gbm_train_ckpt_extra_s", (dt + dt2 - p1 - p2) / 2,
+               "(mean of the saving trains less the plain ones beside)")
+        metric("job_ckpt_save_ms", float(np.mean(saves + saves2)),
+               f"(each: {[round(v, 3) for v in saves + saves2]})")
+        metric("job_ckpt_bytes", nbytes, "(progress pickle, sidecar and "
+               "tree chunks after the last save)")
+        check(len(saves) == len(saves2)
+              == FLAGSHIP["ntrees"] // c["gbm_every"],
+              f"{len(saves)} saves in a {FLAGSHIP['ntrees']}-tree train")
+        _same_forest("flagship with durable progress vs phase 3",
+                     _forest_bits(m0), want)
+        key = _kill_child_at_save(tmp, ckdir)
+        data = ckpt.load_job_progress(key)
+        check(data is not None, "no readable progress after the kill")
+        it = int(data["iteration"])
+        hg.launches = 0
+        m, dt = _resumed(lambda: h2o.GBM(ntrees=FLAGSHIP["ntrees"],
+                                         max_depth=FLAGSHIP["max_depth"],
+                                         seed=1), data, fr)
+        launches["resume"] = hg.launches
+    metric("gbm_resume_train_s", dt, f"(from tree {it} of "
+           f"{FLAGSHIP['ntrees']})")
+    expect = (FLAGSHIP["ntrees"] - it) * FLAGSHIP["max_depth"]
+    print(f"resumed flagship: hist_gather launches {launches['resume']} "
+          f"(expected {expect})")
+    check(it >= c["gbm_kill_at"] and launches["resume"] == expect,
+          f"{launches['resume']} launches resuming from tree {it}")
+    _same_forest("flagship resumed after SIGKILL vs uninterrupted",
+                 _forest_bits(m), want)
+    check(same_bits(torch.from_numpy(_forest_margin(m, fr)),
+                    torch.from_numpy(_forest_margin(m0, fr))),
+          "resumed flagship margins differ")
+    print("flagship resumed after SIGKILL: forest and margins bitwise "
+          "equal to the uninterrupted train (and to phase 3's)")
+
+
+def _resume_drf(h2o, dev, launches):
+    from h2o3_tpu_torch.models.tree import hist_gather as hg
+
+    c, d = RESUME, DRF_DEEP
+    fr = drf_deep_frame(h2o, dev, d["n_rows"], seed=d["seed"])
+    kw = dict(ntrees=d["ntrees"], max_depth=d["max_depth"], seed=d["seed"])
+    with _env(H2O_TPU_JOB_CKPT_ITERS=c["drf_every"]):
+        data = _interrupt_and_load("deep DRF", lambda: h2o.DRF(**kw), fr,
+                                   c["drf_stop_at"])
+        hg.launches = 0
+        m, dt = _resumed(lambda: h2o.DRF(**kw), data, fr)
+        launches["resume_drf"] = hg.launches
+    metric("drf_resume_train_s", dt, f"(from tree {c['drf_stop_at']} of "
+           f"{d['ntrees']})")
+    want_forest, want_oob = RUN["drf_deep"]
+    _same_forest("deep DRF resumed vs phase 3c", _forest_bits(m),
+                 want_forest)
+    got = _oob_bits(m)
+    check(got.tobytes() == want_oob.tobytes(),
+          f"deep DRF resumed OOB metrics {got} vs phase 3c's {want_oob}")
+    expect = (d["ntrees"] - c["drf_stop_at"]) * d["max_depth"]
+    check(launches["resume_drf"] == expect,
+          f"{launches['resume_drf']} launches resuming the deep DRF")
+    print(f"deep DRF resumed from tree {c['drf_stop_at']}: forest and OOB "
+          f"metrics (AUC {got[0]!r}) bitwise equal to phase 3c's; "
+          f"hist_gather launches {launches['resume_drf']}")
+
+
+def _resume_glm_kmeans_dl(h2o, dev, fr):
+    c = RESUME
+    gfr, _ = glm_bench_frame(h2o, dev, GLM_BENCH["n_rows"], GLM_BENCH["p"],
+                             GLM_BENCH["seed"])
+    kw = dict(family="binomial", lambda_=0.0)
+    with _env(H2O_TPU_JOB_CKPT_ITERS=c["glm_every"]):
+        m0 = h2o.GLM(**kw).train(y="y", training_frame=gfr)
+        data = _interrupt_and_load("GLM", lambda: h2o.GLM(**kw), gfr,
+                                   c["glm_stop_at"])
+        m, dt = _resumed(lambda: h2o.GLM(**kw), data, gfr)
+    metric("glm_resume_train_s", dt, f"(from IRLS iteration "
+           f"{c['glm_stop_at']} of {m0.iterations})")
+    _within("GLM 1M x 32 resumed vs uninterrupted (knob on), beta",
+            m.beta.cpu().numpy(), m0.beta.cpu().numpy())
+    check(m.iterations == m0.iterations, "resumed GLM iterations differ")
+    del gfr
+
+    kw = dict(k=BUILDERS["k"], init="Furthest", standardize=True,
+              max_iterations=10, seed=1)
+    with _env(H2O_TPU_JOB_CKPT_ITERS=c["km_every"]):
+        m0 = h2o.KMeans(**kw).train(training_frame=fr)
+        data = _interrupt_and_load("KMeans", lambda: h2o.KMeans(**kw), fr,
+                                   c["km_stop_at"], y=None)
+        m, dt = _resumed(lambda: h2o.KMeans(**kw), data, fr, y=None)
+    metric("kmeans_resume_train_s", dt, f"(k={kw['k']}, from Lloyd step "
+           f"{c['km_stop_at']})")
+    _within("KMeans resumed vs uninterrupted (knob on), centers",
+            m.centers, m0.centers)
+
+    dfr = flagship_frame(h2o, dev, c["dl_rows"])
+    kw = dict(epochs=c["dl_epochs"], seed=DL["seed"])
+    with _env(H2O_TPU_JOB_CKPT_ITERS=c["dl_every"]):
+        m0 = h2o.DeepLearning(**kw).train(y="y", training_frame=dfr)
+        data = _interrupt_and_load("DeepLearning",
+                                   lambda: h2o.DeepLearning(**kw), dfr,
+                                   c["dl_stop_at"])
+        m, dt = _resumed(lambda: h2o.DeepLearning(**kw), data, dfr)
+    metric("dl_resume_train_s", dt, f"({c['dl_rows']} rows, from epoch "
+           f"{c['dl_stop_at']} of {c['dl_epochs']})")
+    check(m.epochs_trained == m0.epochs_trained == c["dl_epochs"],
+          "resumed DeepLearning epochs")
+    _within("DeepLearning resumed vs uninterrupted, weights",
+            np.concatenate([w.ravel() for w in _dl_weights(m)]),
+            np.concatenate([w.ravel() for w in _dl_weights(m0)]))
+
+
+def _resume_grid(h2o, fr, tmp, launches):
+    import os
+
+    from h2o3_tpu_torch.models.tree import hist_gather as hg
+
+    c = SEARCH
+    rec = os.path.join(tmp, "grid_recovery")
+    kw = dict(y="y", training_frame=fr, ntrees=c["grid_ntrees"],
+              seed=c["seed"], recovery_dir=rec)
+    g = h2o.H2OGridSearch(h2o.GBM, c["grid_hyper"],
+                          search_criteria={"max_models": 2})
+    gid = str(g.key)
+    g.train(**kw)
+    first = sorted(str(m.key) for m in g.models)
+    check(len(first) == 2, f"the capped grid built {len(first)} models")
+    for k in first + [gid]:
+        h2o.DKV.remove(k)
+    del g
+    g2 = h2o.H2OGridSearch.load(rec)
+    check(sorted(g2.model_ids) == first, "load(recovery_dir) did not "
+                                         "restore the two done members")
+    g2.search_criteria["max_models"] = 0
+    hg.launches = 0
+    _, dt = _timed(lambda: g2.train(**kw))
+    launches["grid_resume"] = hg.launches
+    metric("grid_resume_train_s", dt, "(the 2 members left of 4)")
+    new = [m for m in g2.models if str(m.key) not in first]
+    levels = sum(_levels(m) for m in new)
+    print(f"grid resumed: {len(g2)} models, {len(new)} trained after "
+          f"load; hist_gather launches {launches['grid_resume']}, levels "
+          f"grown by those {levels}")
+    check(len(g2) == 4 and len(new) == 2 and not g2.failed,
+          f"resumed grid: {len(g2)} models, {len(new)} new, failed "
+          f"{g2.failed}")
+    check(launches["grid_resume"] == levels > 0,
+          f"{launches['grid_resume']} launches for {levels} levels")
+    want = RUN["grid_gbm"]
+    check(sorted(want) == sorted(_combo(m) for m in g2.models),
+          "the resumed grid's combos differ from phase 3q's")
+    for m in g2.models:
+        _same_forest(f"resumed grid member {_combo(m)} vs phase 3q",
+                     _forest_bits(m), want[_combo(m)])
+    check(_grid_table(g2) == RUN["grid_table"],
+          f"resumed grid leaderboard {_grid_table(g2)} vs phase 3q's "
+          f"{RUN['grid_table']}")
+    check(any(n.startswith("searchckpt_") for n in os.listdir(rec))
+          and len(os.listdir(os.path.join(rec, "models"))) == 4,
+          "the recovery_dir lost its snapshot or a model file")
+    print("grid resumed from its recovery_dir: all 4 members bitwise "
+          "equal to phase 3q's by combo, the leaderboard the same")
+
+
+def _resume_rest(h2o, fr, tmp):
+    import os
+
+    from h2o3_tpu_torch.api.server import start_server
+    from h2o3_tpu_torch.parallel import ckpt
+
+    fr.install()
+    srv = start_server(port=0)
+    try:
+        R = _Rest(srv.port)
+        with _env(H2O_TPU_JOB_CKPT_ITERS=RESUME["gbm_every"]):
+            out = R.json("POST", "/3/ModelBuilders/gbm", data={
+                "training_frame": str(fr.key), "response_column": "y",
+                "ntrees": FLAGSHIP["ntrees"],
+                "max_depth": FLAGSHIP["max_depth"], "seed": 1})
+            jid = out["job"]["key"]["name"]
+            seen, t0 = None, time.perf_counter()
+            while seen is None:
+                cs = R.json("GET", "/3/CloudStatus")
+                if any(r["job"] == jid for r in cs["job_progress"]):
+                    seen = R.json("GET", f"/3/Jobs/{jid}")["jobs"][0]
+                    break
+                j = R.json("GET", f"/3/Jobs/{jid}")["jobs"][0]
+                check(j["status"] in ("CREATED", "RUNNING"),
+                      f"the REST train ended {j['status']} before "
+                      "/3/CloudStatus listed its progress")
+                check(time.perf_counter() - t0 < 600, "no progress listed")
+            print(f"REST train after its first save: /3/Jobs status "
+                  f"{seen['status']}, auto_recoverable "
+                  f"{seen['auto_recoverable']}; /3/CloudStatus lists it "
+                  "under job_progress")
+            check(seen["status"] == "RUNNING" and seen["auto_recoverable"],
+                  f"/3/Jobs after the first save: {seen}")
+            done = R.job(out)
+            check(not done["auto_recoverable"], "a DONE job reads "
+                                                "auto_recoverable")
+            check(not ckpt.has_job_progress(jid)
+                  and all(r["job"] != jid for r in
+                          R.json("GET", "/3/CloudStatus")["job_progress"]),
+                  "the REST train's progress outlived DONE")
+        rec = os.path.join(tmp, "rest_grid_recovery")
+        g = RESUME["rest_grid"]
+        out = R.json("POST", "/99/Grid/gbm", data={
+            "training_frame": str(fr.key), "response_column": "y",
+            "ntrees": g["ntrees"], "seed": 1,
+            "hyper_parameters": g["hyper"], "recovery_dir": rec})
+        R.job(out)
+        nmod = len(os.listdir(os.path.join(rec, "models")))
+        check(nmod == len(g["hyper"]["max_depth"])
+              and any(n.startswith("searchckpt_") for n in os.listdir(rec)),
+              f"the REST grid's recovery_dir holds {nmod} models")
+        print(f"POST /99/Grid/gbm with recovery_dir: done, the directory "
+              f"keeps its snapshot and {nmod} model files")
+    finally:
+        srv.stop()
+
+
+def _s3_handler(objects, access_key, secret, seen):
+    """A loopback S3 endpoint's handler class: GET /bucket/key serves
+    `objects` ({path: bytes}) and answers 403 unless the request carries
+    a well-formed SigV4 Authorization whose signature checks out for
+    `access_key`/`secret` at its x-amz-date; each verdict goes to
+    `seen`."""
+    import datetime
+    import hashlib
+    import http.server
+
+    from h2o3_tpu_torch.persist import s3
+
+    pat = re.compile(
+        r"^AWS4-HMAC-SHA256 Credential=" + re.escape(access_key)
+        + r"/\d{8}/us-east-1/s3/aws4_request, SignedHeaders=host;"
+        r"x-amz-content-sha256;x-amz-date, Signature=[0-9a-f]{64}$")
+    empty = hashlib.sha256(b"").hexdigest()
+
+    class H(http.server.BaseHTTPRequestHandler):
+        def do_GET(self):
+            auth = self.headers.get("Authorization", "")
+            ok = bool(pat.match(auth)) and \
+                self.headers.get("x-amz-content-sha256") == empty
+            if ok:
+                when = datetime.datetime.strptime(
+                    self.headers.get("x-amz-date", ""),
+                    "%Y%m%dT%H%M%SZ").replace(tzinfo=datetime.timezone.utc)
+                url = f"http://{self.headers['Host']}{self.path}"
+                ok = s3._sign_v4("GET", url, "us-east-1", access_key,
+                                 secret, None, now=when)["Authorization"] \
+                    == auth
+            seen.append(ok)
+            body = objects.get(self.path)
+            if not ok or body is None:
+                self.send_response(404 if ok else 403)
+                self.end_headers()
+                return
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *a):
+            pass
+
+    return H
+
+
+def _s3_import(h2o, dev, csv_path, fr_3l):
+    import http.server
+    import threading
+
+    with open(csv_path, "rb") as f:
+        body = f.read()
+    seen = []
+    srv = http.server.ThreadingHTTPServer(
+        ("127.0.0.1", 0), _s3_handler({"/smoke/flagship.csv": body},
+                                      "AKIASMOKE", "smoke-secret", seen))
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        with _env(H2O_TPU_S3_ENDPOINT=f"http://127.0.0.1:{srv.server_port}",
+                  AWS_ACCESS_KEY_ID="AKIASMOKE",
+                  AWS_SECRET_ACCESS_KEY="smoke-secret",
+                  AWS_REGION="us-east-1"):
+            sfr, dt = _timed(lambda: h2o.import_file(
+                "s3://smoke/flagship.csv"))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(60)
+    mb = len(body) / 1e6
+    metric("s3_import_s", dt, f"({mb:.3f} MB; phase 3l's flagship_parse_s "
+           f"{RUN['flagship_parse_s']!r})")
+    metric("s3_mb_per_sec", mb / dt)
+    check(seen == [True], f"the S3 endpoint saw requests {seen}")
+    same_frames("S3 import vs phase 3l's local import", sfr, fr_3l)
+    print("s3:// import: one signed GET (SigV4 checked by the endpoint), "
+          "the frame bitwise equal to phase 3l's")
+
+
+def phase_resume(h2o, dev, tmp, csv_path, fr_3l):
+    """Durable job progress, grid recovery and the S3 reader through the
+    port's entry points. Returns the kernel's launches per path."""
+    import os
+
+    launches = {}
+    ckdir = os.path.join(tmp, "ckpt")
+    os.makedirs(ckdir, exist_ok=True)
+    fr = flagship_frame(h2o, dev, FLAGSHIP["n_rows"])
+    with _env(H2O_TPU_OPLOG_CKPT_DIR=ckdir):
+        _resume_gbm(h2o, dev, fr, tmp, ckdir, launches)
+        _resume_drf(h2o, dev, launches)
+        _resume_glm_kmeans_dl(h2o, dev, fr)
+        _resume_grid(h2o, fr, tmp, launches)
+        _resume_rest(h2o, fr, tmp)
+    _s3_import(h2o, dev, csv_path, fr_3l)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -4762,7 +5364,13 @@ def main() -> int:
                "statements, serving during a REST train)")
         launches["rest"] = phase_rest(h2o, dev, flag_csv, flag_fr,
                                       flag_model, fused)
-        del flag_fr, flag_model, fused
+        del flag_model, fused
+        banner("phase 3v: crash-survivable training and search (the "
+               "flagship GBM killed and resumed, the deep DRF, the bench "
+               "GLM, KMeans, DeepLearning, a grid's recovery_dir, REST) "
+               "and the S3 reader")
+        launches.update(phase_resume(h2o, dev, tmp, flag_csv, flag_fr))
+        del flag_fr
         banner("phase 4: card vs CPU")
         phase_card_vs_cpu(h2o, dev, parse_path)
         phase_card_vs_cpu_framework(h2o, dev)

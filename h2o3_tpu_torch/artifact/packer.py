@@ -5,8 +5,12 @@ across packs to the same bytes and the same checksum in both packages).
 
 The exporter packs a trained forest and its BinSpec into one
 ``forest.npz`` (``allow_pickle=False`` end to end: arrays are the whole
-payload). The reference's tree-progress chunk codec serves the durable
-job store, which waits for the control plane (ROADMAP A14).
+payload). `pack_tree_chunk`/`unpack_tree_chunk` (reference :132, :150)
+carry a tree loop's durable progress (parallel/ckpt.py): a run of
+per-tree tables stacked into one npz. The reference rounds the leaf
+values and leaf (w, w·y) sums to float32; the port keeps each array's
+own dtype, so a resumed forest is the uninterrupted one bit for bit
+whatever the tables hold.
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ from __future__ import annotations
 import hashlib
 import io
 import json
-from typing import Any, Dict
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -99,3 +103,36 @@ def padded_edges(edges_flat: np.ndarray, edges_len: np.ndarray,
         ep[i, :ln] = np.asarray(edges_flat[pos: pos + ln], np.float32)
         pos += ln
     return ep
+
+
+# ---------------------------------------------------------------------------
+# tree-progress chunks (append-only job-progress files)
+# ---------------------------------------------------------------------------
+
+def pack_tree_chunk(packs: Sequence[np.ndarray],
+                    leaf_vals: Sequence[np.ndarray],
+                    leaf_wys: Sequence[np.ndarray]) -> bytes:
+    """A contiguous run of trees' tables, stacked (every tree of a run
+    has the same shapes) and npz-encoded, with their count `n`."""
+    n = len(packs)
+    if not (n == len(leaf_vals) == len(leaf_wys)):
+        raise ValueError("tree chunk lists disagree in length")
+    return dump_npz({"n": np.asarray([n], np.int64),
+                     "packs": np.stack([np.asarray(p) for p in packs]),
+                     "leaf_vals": np.stack([np.asarray(v)
+                                            for v in leaf_vals]),
+                     "leaf_wys": np.stack([np.asarray(w)
+                                           for w in leaf_wys])})
+
+
+def unpack_tree_chunk(data: bytes) -> Tuple[List[np.ndarray],
+                                            List[np.ndarray],
+                                            List[np.ndarray]]:
+    arrays = load_npz(data)
+    n = int(arrays["n"][0])
+    if any(arrays[k].shape[0] != n for k in ("packs", "leaf_vals",
+                                             "leaf_wys")):
+        raise ValueError("torn tree chunk: stack lengths disagree with n")
+    return ([arrays["packs"][i] for i in range(n)],
+            [arrays["leaf_vals"][i] for i in range(n)],
+            [arrays["leaf_wys"][i] for i in range(n)])

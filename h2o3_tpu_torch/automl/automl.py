@@ -89,6 +89,7 @@ class H2OAutoML:
     def __getstate__(self):
         d = dict(self.__dict__)
         d.pop("_search_engine", None)
+        d.pop("_search_job", None)
         return d
 
     def _apply_target_encoding(self, y, train, valid, lb):
@@ -167,10 +168,32 @@ class H2OAutoML:
         self._leaderboard_frame = leaderboard_frame
         self._lb_cache: Dict[str, float] = {}
 
-        engine = SearchEngine(self.project_name, "automl", {
-            "kind": "automl", "description": "AutoML",
-            "dest": self.project_name,
-            "x": list(x) if isinstance(x, (list, tuple)) else x, "y": y})
+        # durable search state: a search run under a Job (the REST
+        # handler's) saves its snapshot under the Job's key while
+        # H2O_TPU_SEARCH_CKPT is on; the spec names the frames by key
+        job = getattr(self, "_search_job", None)
+        engine = SearchEngine(
+            str(job.key) if job is not None else self.project_name,
+            "automl", {
+                "kind": "automl", "description": "AutoML",
+                "dest": self.project_name,
+                "spec": {"max_models": self.max_models,
+                         "max_runtime_secs": self.max_runtime_secs,
+                         "seed": self.seed, "nfolds": self.nfolds,
+                         "sort_metric": self.sort_metric,
+                         "include_algos": self.include_algos,
+                         "exclude_algos": self.exclude_algos,
+                         "project_name": self.project_name,
+                         "preprocessing": self.preprocessing},
+                "x": list(x) if isinstance(x, (list, tuple)) else x, "y": y,
+                "training_frame": str(training_frame.key),
+                "validation_frame": (str(validation_frame.key)
+                                     if validation_frame is not None
+                                     else None),
+                "leaderboard_frame": (str(leaderboard_frame.key)
+                                      if leaderboard_frame is not None
+                                      else None)},
+            job=job)
         self._search_engine = engine
 
         def _note_failure(mem, attempt):
@@ -301,6 +324,7 @@ class H2OAutoML:
             or "stackedensemble" in self.include_algos)
         if se_wanted:
             self._build_ensembles(y, training_frame)
+        engine.finish()
         self._log(f"AutoML done: {len(self.models)} models")
         return self
 

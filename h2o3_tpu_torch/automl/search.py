@@ -1,8 +1,10 @@
 """The in-process search engine of AutoML and grid search (counterpart
 of h2o3_tpu/automl/search.py: `MAX_ATTEMPTS` :40, `_DEVICE_LANE` :53,
-`stats` :76, `member_deadline_s` :108, `search_concurrency` :123,
-`_scrub_params` :156, `SearchEngine` :176, `member` :246, `counts`
-:266, `state` :275, `run` :324, `_run` :342, `_build_one` :376).
+`stats` :76, `search_ckpt_enabled` :102, `member_deadline_s` :108,
+`search_concurrency` :123, `_scrub_params` :156, `SearchEngine` :176
+with its restored state :184-230, `member` :246, `counts` :266, `state`
+:262, `save` :273, `finish` :295, `run` :324, `_run` :342, `_build_one`
+:376, `_progress` :466).
 
 Both `H2OAutoML.train` and `H2OGridSearch.train` drive their members
 through one :class:`SearchEngine`:
@@ -31,13 +33,16 @@ takes the lane (the reference's runs from its start, queueing
 included); a member failed at its deadline keeps the lane until its
 thread ends.
 
-Not ported until the control plane (ROADMAP A14): the durable search
-state (`save`, `finish`, restoring an engine from a snapshot, the
-`reattach` of done members), `resume_orphaned`, `run_from_state`,
-`apply_resume_op`, `_scrub_params`' oplog rule, and the search's own
-Job, which the reference's REST handlers attach (`job`, `_progress`).
-The port's search runs as the reference's does in library mode with
-``H2O_TPU_SEARCH_CKPT=0``.
+Durable search state: an engine with a directory of its own (a grid's
+`recovery_dir`), or with a Job while ``H2O_TPU_SEARCH_CKPT`` is on (the
+default), saves its snapshot (parallel/ckpt.save_search_state) after
+every member's attempt and at the end of `run`. An engine built from a
+snapshot keeps each member's status and attempts; a member that was
+running when its process died counts as failed, its attempt spent.
+`run` skips done and parked members. `finish` drops the snapshot, except
+in a directory the caller chose. Not ported until the multi-process
+control plane (ROADMAP A14.5): `resume_orphaned`, `run_from_state`,
+`apply_resume_op` and `_scrub_params`' oplog rule.
 """
 
 from __future__ import annotations
@@ -62,7 +67,8 @@ _STATS: Dict[str, int] = {}
 
 def _zero() -> Dict[str, int]:
     return dict(members_done=0, members_failed=0, members_parked=0,
-                attempts=0, running=0, overlap=0)
+                attempts=0, running=0, overlap=0, state_saves=0,
+                state_save_errors=0)
 
 
 _STATS.update(_zero())
@@ -94,6 +100,11 @@ def _env_float(name: str, default: float) -> float:
         return float(os.environ.get(name, "") or default)
     except ValueError:
         return default
+
+
+def search_ckpt_enabled() -> bool:
+    """``H2O_TPU_SEARCH_CKPT=0`` turns durable search state off."""
+    return _env_float("H2O_TPU_SEARCH_CKPT", 1) > 0
 
 
 def member_deadline_s() -> float:
@@ -142,16 +153,39 @@ class SearchEngine:
     attempt burned, retried) | ``parked`` (at MAX_ATTEMPTS, past its
     deadline, or a configuration error; never fails the search)."""
 
-    def __init__(self, key: str, kind: str, spec: Optional[dict] = None):
+    def __init__(self, key: str, kind: str, spec: Optional[dict] = None,
+                 job=None, state: Optional[dict] = None,
+                 sdir: Optional[str] = None):
         self.key = str(key)
         self.kind = str(kind)
         self.spec = dict(spec or {})
+        self.job = job
+        self.sdir = sdir
+        self.persist = sdir is not None or (job is not None
+                                            and search_ckpt_enabled())
         # optional owner hook, called with (member, attempt) after a
         # failed or parked attempt (AutoML's event log)
         self.on_member_failure = None
         self._lock = threading.RLock()
+        # one save at a time, so snapshots reach the disk in order
+        self._save_lock = threading.Lock()
         self.members: Dict[str, dict] = {}
         self.order: List[str] = []
+        restored = state or {}
+        self.resumed = bool(restored.get("members"))
+        for name in restored.get("order") or sorted(
+                restored.get("members") or {}):
+            m = dict((restored.get("members") or {}).get(name) or {})
+            if not m:
+                continue
+            if m.get("status") == "running":
+                # in flight when its process died: that attempt is spent
+                m["status"] = "failed"
+                m["attempts"] = int(m.get("attempts") or 0) + 1
+                m["error"] = "member was in flight when its process died"
+            self.members[name] = m
+            self.order.append(name)
+        self.saves = int(restored.get("saves") or 0)
 
     # -- plan -------------------------------------------------------------
     def member(self, name: str, algo: Optional[str] = None,
@@ -186,8 +220,43 @@ class SearchEngine:
                        for n, m in self.members.items()}
             return {"search": self.key, "kind": self.kind,
                     "spec": dict(self.spec), "members": members,
-                    "order": list(self.order),
+                    "order": list(self.order), "saves": self.saves,
                     "dest": self.spec.get("dest")}
+
+    # -- persistence ------------------------------------------------------
+    def save(self) -> None:
+        """Save the snapshot. Never raises: after a failed save the
+        previous snapshot stands and the next save tries again."""
+        if not self.persist:
+            return
+        from h2o3_tpu_torch.core import failure
+        from h2o3_tpu_torch.parallel import ckpt
+
+        try:
+            failure.faultpoint("search.state_save")
+            with self._save_lock:
+                with self._lock:
+                    self.saves += 1
+                    snap = self.state()
+                ckpt.save_search_state(self.key, snap, sdir=self.sdir)
+            _bump(state_saves=1)
+        except Exception as e:   # noqa: BLE001 — best effort per save
+            _bump(state_save_errors=1)
+            from h2o3_tpu_torch.utils.log import get_logger
+
+            get_logger().error(
+                "search %s: state save failed (%s: %s); the previous "
+                "snapshot stands", self.key, type(e).__name__, e)
+
+    def finish(self) -> None:
+        """The finished search supersedes its snapshot; a directory the
+        caller chose (a grid's recovery_dir) keeps its files."""
+        if not self.persist:
+            return
+        from h2o3_tpu_torch.parallel import ckpt
+
+        ckpt.delete_search_state(self.key, sdir=self.sdir,
+                                 keep_files=self.sdir is not None)
 
     # -- scheduling -------------------------------------------------------
     def run(self, members: List[dict], build_fn: Callable[[dict], Any],
@@ -196,10 +265,13 @@ class SearchEngine:
             concurrency: Optional[int] = None) -> bool:
         """Drive `members` (plan order) to a terminal state. ``build_fn``
         trains one member and returns its model; ``can_start(inflight)``
-        is the budget gate, asked before every dispatch. Returns False
-        when the gate stopped the search with members still pending."""
+        is the budget gate, asked before every dispatch. Done and
+        parked members are skipped. Returns False when the gate stopped
+        the search with members still pending."""
         conc = int(concurrency) if concurrency else search_concurrency()
-        return self._run(members, build_fn, can_start, score_fn, conc)
+        ok = self._run(members, build_fn, can_start, score_fn, conc)
+        self.save()
+        return ok
 
     def _run(self, members, build_fn, can_start, score_fn, conc) -> bool:
         todo = [m for m in members
@@ -289,6 +361,8 @@ class SearchEngine:
                             # hiccup must not undo a finished member
                             m["score"] = None
                 _bump(members_done=1)
+                self._progress()
+                self.save()
                 return
             err = (job.exception if wedged else
                    f"{type(exc).__name__}: {exc}")
@@ -312,5 +386,20 @@ class SearchEngine:
                     cb(dict(m), attempt)
                 except Exception:   # noqa: BLE001 — an owner's log hook
                     pass            # must never undo the parking
+            self._progress()
+            self.save()
             if m["status"] == "parked":
                 return
+
+    def _progress(self) -> None:
+        """The search Job's progress: the share of settled members."""
+        if self.job is None:
+            return
+        c = self.counts()
+        total = max(1, len(self.members))
+        done = c.get("done", 0) + c.get("parked", 0)
+        try:
+            self.job.update(min(0.99, done / total),
+                            f"{done}/{total} members settled")
+        except Exception:   # noqa: BLE001 — a cancel reaches the members
+            pass            # through their own ticks, not through this one

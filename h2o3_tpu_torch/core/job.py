@@ -14,8 +14,11 @@ cancel point: it raises JobCancelled once `cancel` was asked for.
 A job failed from outside (`fail`, as a search member past its deadline
 is) keeps that verdict even if its worker later finishes. The resume
 fields (`resume_spec`, `attempt`, `resumed_from_iteration`, `restart`)
-are kept as the reference has them; nothing in the port re-dispatches a
-job yet (ROADMAP A14). Pickling drops the thread and the lock.
+are kept as the reference has them: a builder saves durable progress
+against a job's `resume_spec` (models/model_builder.py), and a user
+resumes from it by hand; the watchdog that re-dispatches a failed job
+comes with the multi-process control plane (ROADMAP A14.4). Pickling
+drops the thread and the lock.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """Grid search: hyperparameter sweeps with Cartesian and RandomDiscrete
 walkers (counterpart of h2o3_tpu/grid.py: `H2OGridSearch` :53,
-`_candidates` :99, `train` :206, `get_grid` :328, `sorted_metric_table`
-:348, `best_model` :355).
+`_candidates` :99, `_persist_model` :116, `load` :123, `_record` :197,
+`train` :206, `get_grid` :328, `sorted_metric_table` :348, `best_model`
+:355).
 
 Reference: hex/grid/GridSearch.java + HyperSpaceWalker.java (Cartesian
 and RandomDiscrete with max_models / max_runtime_secs budgets and a
@@ -14,8 +15,14 @@ fails the grid. `parallelism` > 1 overlaps the members' host work; their
 device work takes turns (ROADMAP C27). `save(dir)` writes the grid and
 its models as ``/3/Grid.bin/{grid_id}/export`` does, and `load(path)`
 reads them back through the REST layer's restricted unpickler
-(``/3/Grid.bin/import``, h2o-py ``load_grid``). Grid recovery
-(`recovery_dir`) waits for the durable search state (ROADMAP A14).
+(``/3/Grid.bin/import``, h2o-py ``load_grid``).
+
+Grid recovery (Grid.exportBinary and the resume of GridSearchHandler):
+`train(recovery_dir=d)` writes each finished model to ``d/models/<key>
+.bin`` and the search engine's snapshot to ``d`` after every member.
+After a crash `load(d)` (a directory, where `save`'s grid is a file)
+rebuilds the grid and its done models from there, and `train` walks on
+through the members that are not done; no done member trains again.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ from typing import Any, Dict, List, Optional, Sequence, Type
 
 import numpy as np
 
-from h2o3_tpu_torch.core.dkv import Keyed
+from h2o3_tpu_torch.core.dkv import DKV, Keyed
 from h2o3_tpu_torch.core.frame import Frame
 from h2o3_tpu_torch.models.model import Model
 from h2o3_tpu_torch.models.model_builder import (BUILDERS, ModelBuilder,
@@ -81,12 +88,14 @@ class H2OGridSearch(Keyed):
         self.failed: List[Dict[str, Any]] = []
         self._done: set = set()            # combo keys already trained
         self._lock = threading.Lock()
+        self.recovery_dir: Optional[str] = None
         self.install()
 
     def __getstate__(self):
         d = dict(self.__dict__)
         d.pop("_lock", None)
         d.pop("_search_engine", None)
+        d.pop("_search_job", None)
         return d
 
     def __setstate__(self, d):
@@ -110,10 +119,13 @@ class H2OGridSearch(Keyed):
     def load(cls, path: str) -> "H2OGridSearch":
         """Read a grid `save` wrote (h2o-py ``load_grid``): the grid file
         and the model files beside it, through the restricted unpickler,
-        all installed in the DKV. Raises TypeError when `path` holds
+        all installed in the DKV. A directory is a `recovery_dir` and
+        takes `_load_recovery`. Raises TypeError when `path` holds
         something else."""
         from h2o3_tpu_torch.api.routes_ext import _artifact_load_file
 
+        if os.path.isdir(path):
+            return cls._load_recovery(path)
         grid = _artifact_load_file(path)
         if not isinstance(grid, cls):
             raise TypeError(f"{path} is not a saved grid")
@@ -124,6 +136,69 @@ class H2OGridSearch(Keyed):
                 _artifact_load_file(mp).install()
         grid.install()
         return grid
+
+    @classmethod
+    def _load_recovery(cls, recovery_dir: str) -> "H2OGridSearch":
+        """A grid from its recovery directory: the search snapshot (the
+        newest sidecar's, the previous generation if the current one is
+        torn), then every done member's model file, installed. A done
+        member whose model is neither in its file nor in the DKV goes
+        back to pending, so `train` builds it again. The
+        reference's older ``grid.json`` layout is not read: the port
+        never wrote it, and the JAX package's model files are not the
+        port's (ROADMAP C37)."""
+        from h2o3_tpu_torch.api.routes_ext import _artifact_load_file
+        from h2o3_tpu_torch.parallel import ckpt
+
+        names = sorted(n for n in os.listdir(recovery_dir)
+                       if n.startswith("searchckpt_")
+                       and n.endswith(".pkl.json"))
+        if not names:
+            raise FileNotFoundError(
+                f"{recovery_dir} holds no grid search snapshot")
+        with open(os.path.join(recovery_dir, names[-1]),
+                  encoding="utf-8") as f:
+            sk = json.load(f)["search"]
+        data = ckpt.load_search_state(sk, sdir=recovery_dir)
+        if data is None:
+            raise RuntimeError(
+                f"grid recovery dir {recovery_dir}: the search state of "
+                f"{sk!r} is unreadable (current and previous snapshots)")
+        state = data.get("state") or {}
+        spec = state.get("spec") or {}
+        base = BUILDERS[spec["algo"]](**(spec.get("params") or {}))
+        g = cls(base, spec["hyper"], grid_id=spec.get("grid_id"),
+                search_criteria=spec.get("criteria"))
+        g.recovery_dir = recovery_dir
+        g._resume_search_state = state
+        for name, mem in (state.get("members") or {}).items():
+            if mem.get("status") == "done" and mem.get("model_id"):
+                path = os.path.join(recovery_dir, "models",
+                                    f"{mem['model_id']}.bin")
+                if os.path.exists(path):
+                    m = _artifact_load_file(path)
+                    m.install()
+                else:
+                    m = DKV.get(mem["model_id"])
+                if m is None:
+                    mem["status"], mem["model_id"] = "pending", None
+                    continue
+                m._grid_params = dict(mem.get("params") or {})
+                g.models.append(m)
+                g._done.add(name)
+            elif mem.get("status") == "parked":
+                g.failed.append({"params": dict(mem.get("params") or {}),
+                                 "error": mem.get("error"),
+                                 "combo_key": name})
+        g.install()
+        return g
+
+    def _persist_model(self, model: Model) -> None:
+        from h2o3_tpu_torch.api.routes_ext import _artifact_dump
+
+        mdir = os.path.join(self.recovery_dir, "models")
+        os.makedirs(mdir, exist_ok=True)
+        _artifact_dump(model, os.path.join(mdir, f"{model.key}.bin"))
 
     @staticmethod
     def _combo_key(params: Dict[str, Any]) -> str:
@@ -151,6 +226,8 @@ class H2OGridSearch(Keyed):
             model._grid_params = dict(combo_params)
             self.models.append(model)
             self._done.add(self._combo_key(combo_params))
+            if self.recovery_dir:
+                self._persist_model(model)
 
     def train(self, x=None, y=None, training_frame: Optional[Frame] = None,
               validation_frame: Optional[Frame] = None,
@@ -160,24 +237,39 @@ class H2OGridSearch(Keyed):
         is the member-scheduling width (GridSearch.java parallelism);
         None takes ``H2O_TPU_SEARCH_CONCURRENCY``. Combos already trained
         by an earlier train() of this grid are skipped. `recovery_dir`
-        is not supported yet (ROADMAP A14)."""
+        keeps every finished model and the search's snapshot there, for
+        `load` after a crash; the directory keeps its files when the
+        grid ends."""
         from h2o3_tpu_torch.automl.search import SearchEngine
 
-        if recovery_dir:
-            raise NotImplementedError(
-                "grid recovery_dir needs the durable search state, which "
-                "the port does not have yet (ROADMAP A14)")
         keys, combos = self._candidates()
+        if recovery_dir:
+            self.recovery_dir = recovery_dir
+            os.makedirs(recovery_dir, exist_ok=True)
         max_models = int(self.search_criteria.get("max_models", 0) or 0)
         max_secs = float(self.search_criteria.get("max_runtime_secs", 0)
                          or 0)
         t0 = time.time()
 
-        engine = SearchEngine(str(self.key), "grid", {
-            "kind": "grid", "description": f"Grid {self.key} Build",
-            "dest": str(self.key), "algo": self.builder_cls.algo_name,
-            "hyper": self.hyper_params, "criteria": self.search_criteria,
-            "x": list(x) if isinstance(x, (list, tuple)) else x, "y": y})
+        wire_kw = {k: v for k, v in {**self.base_params, **kw}.items()
+                   if isinstance(v, (str, int, float, bool, list, tuple,
+                                     type(None)))}
+        job = getattr(self, "_search_job", None)
+        engine = SearchEngine(
+            str(job.key) if job is not None else str(self.key), "grid", {
+                "kind": "grid", "description": f"Grid {self.key} Build",
+                "dest": str(self.key), "algo": self.builder_cls.algo_name,
+                "params": wire_kw, "hyper": self.hyper_params,
+                "grid_id": str(self.key), "criteria": self.search_criteria,
+                "x": list(x) if isinstance(x, (list, tuple)) else x, "y": y,
+                "training_frame": (str(training_frame.key)
+                                   if training_frame is not None else None),
+                "validation_frame": (str(validation_frame.key)
+                                     if validation_frame is not None
+                                     else None),
+                "recovery_dir": self.recovery_dir},
+            job=job, state=getattr(self, "_resume_search_state", None),
+            sdir=self.recovery_dir)
         self._search_engine = engine
 
         members = []
@@ -222,6 +314,7 @@ class H2OGridSearch(Keyed):
                     self.failed.append({"params": dict(mem["_combo"]),
                                         "error": mem.get("error"),
                                         "combo_key": mem["name"]})
+        engine.finish()
         if not self.models:
             raise RuntimeError(f"grid produced no models; failures: "
                                f"{self.failed[:3]}")

@@ -35,7 +35,14 @@ there is no fallback.
 One device, so the reference's synchronous path: its per-device model
 averaging (`train_samples_per_iteration`, :381-433) runs only on a mesh
 of more than one device, and the port reads the parameter as the
-reference does on one. Durable job progress waits for ROADMAP A14.
+reference does on one.
+
+Durable job progress (reference :170, :457-489): every
+``H2O_TPU_JOB_CKPT_ITERS`` epochs the weights, the optimizer's state,
+the live key and the histories are saved as host arrays. A resumed
+train copies them into the step loop's own tensors before its first
+step (the CUDA graph reads those addresses, so they are never rebound)
+and walks the key chain on from the saved key.
 """
 
 from __future__ import annotations
@@ -342,6 +349,7 @@ class DeepLearning(ModelBuilder):
     algo_name = "deeplearning"
     model_class = DeepLearningModel
     supports_checkpoint = True
+    supports_iteration_resume = True
     # the eager loop on the card too, to hold the graph loop against it
     _force_eager = False
 
@@ -511,6 +519,20 @@ class DeepLearning(ModelBuilder):
         tol = float(p.get("stopping_tolerance", 1e-3))
         history: List[float] = []
         ep_done = ep_start
+        rs = self._take_resume_state("dl_epochs")
+        if rs is not None:
+            # the saved weights and optimizer state go into the loop's own
+            # tensors, the key chain resumes at the saved key
+            ep_start = ep_done = int(rs["epoch"])
+            with torch.no_grad():
+                for t, a in zip(params + opt.state(),
+                                rs["params"] + rs["opt_state"]):
+                    t.copy_(torch.from_numpy(np.asarray(a)))
+            key = torch.from_numpy(np.array(rs["key"]))
+            history = [float(v) for v in rs["history"]]
+            model._output.scoring_history = [dict(h) for h in
+                                             rs["scoring_history"]]
+        every = self._job_ckpt_every()
         for ep in range(ep_start, n_epochs):
             key = loop.epoch(key, steps_per_epoch)
             ep_done = ep + 1
@@ -524,6 +546,14 @@ class DeepLearning(ModelBuilder):
                 self.job.update(progress=(ep + 1) / n_epochs,
                                 msg=f"epoch {ep + 1}/{n_epochs} "
                                     f"loss={tr_loss:.5f}")
+            if every and (ep + 1) % every == 0:
+                self._tick_job_progress(ep + 1, lambda: {
+                    "phase": "dl_epochs", "epoch": ep_done,
+                    "params": [t.detach().cpu().numpy() for t in params],
+                    "opt_state": [t.cpu().numpy() for t in opt.state()],
+                    "key": key.numpy(), "history": list(history),
+                    "scoring_history": [dict(h) for h in
+                                        model._output.scoring_history]})
             if stop_rounds > 0 and len(history) > stop_rounds:
                 best_recent = min(history[-stop_rounds:])
                 best_before = min(history[:-stop_rounds])

@@ -27,8 +27,15 @@ through math.erfc.
 `GLMModel.predict` first offers the frame to the munge-to-score splice
 (pipeline.try_glm_raw): a frame fed by a pending lazy Rapids pipeline
 scores without making its engineered columns; any other frame takes the
-staged adapt -> expand path. Not ported here: durable IRLS chunks and job
-progress (ROADMAP A14).
+staged adapt -> expand path.
+
+Durable job progress (reference :637, :828-890): with
+``H2O_TPU_JOB_CKPT_ITERS`` = k set, the single-lambda IRLS runs in
+warm-started chunks of k Newton steps and saves beta after each, and
+the lambda search saves its warm start and stall-stop bookkeeping every
+k lambdas; a resumed train continues the same trajectory. The chunk
+shape depends on the knob alone, so a resumed GLM equals an
+uninterrupted run with the same knob, not an unchunked one.
 """
 
 from __future__ import annotations
@@ -553,6 +560,7 @@ class GLMModel(Model):
 class GLM(ModelBuilder):
     algo_name = "glm"
     model_class = GLMModel
+    supports_iteration_resume = True
 
     @classmethod
     def default_params(cls):
@@ -682,12 +690,13 @@ class GLM(ModelBuilder):
             lam = 0.0 if p.get("compute_p_values") else 1e-5
         beta_eps = _f32(p.get("beta_epsilon", 1e-4))
 
-        def fit_one(lam_val, beta_init):
+        def fit_one(lam_val, beta_init, max_it=None):
             return _irls_fit(
                 X, y, wts, offset, beta_init,
                 _f32(float(lam_val) * (1 - alpha) * nobs),
                 _f32(float(lam_val) * alpha * nobs), beta_eps,
-                famname=fam, linkname=linkname, max_iter=max_iter,
+                famname=fam, linkname=linkname,
+                max_iter=max_iter if max_it is None else int(max_it),
                 var_power=float(p["tweedie_variance_power"]),
                 link_power=model.link_power, with_intercept=with_icpt,
                 non_negative=bool(p.get("non_negative", False)))
@@ -700,7 +709,7 @@ class GLM(ModelBuilder):
             model.iterations = fitted
             p["lambda_"] = float(chosen)
         else:
-            beta, iters, dev = fit_one(lam, b0)
+            beta, iters, dev = self._irls_chunked(fit_one, lam, b0, max_iter)
             dev = float(dev)
             model.iterations = int(iters)
 
@@ -728,6 +737,30 @@ class GLM(ModelBuilder):
             self._p_values(model, X, y, wts, offset, fam, linkname)
         return model
 
+    def _irls_chunked(self, fit_one, lam, b0, max_iter: int):
+        """One lambda's IRLS -> (beta, iterations, deviance), from b0 or
+        a saved state, in warm-started chunks of `_job_ckpt_every()`
+        steps (one chunk of max_iter without the knob) with beta saved
+        after each; a chunk that converges early ends the fit."""
+        every = self._job_ckpt_every()
+        rs = self._take_resume_state("glm_irls")
+        beta, it_done = b0, 0
+        if rs is not None:
+            beta = torch.from_numpy(np.array(rs["beta"])).to(b0.device)
+            it_done = int(rs["iters_done"])
+        chunk = every if every > 0 else max_iter
+        while True:
+            step = max(0, min(chunk, max_iter - it_done))
+            beta, its, dev = fit_one(lam, beta, max_it=step)
+            it_done += int(its)
+            self._tick_job_progress(it_done, lambda: {
+                "phase": "glm_irls", "beta": _host(beta),
+                "iters_done": it_done})
+            if it_done >= max_iter or int(its) < step \
+                    or self._out_of_time():
+                break    # all steps, converged inside the chunk, or the budget
+        return beta, it_done, dev
+
     def _lambda_path(self, X, y, wts, nobs, alpha, fit_one, b0):
         """Lambda search (glm.py:812-866): a geometric path down from
         lambda_max (the smallest lambda that zeroes every coefficient),
@@ -743,8 +776,20 @@ class GLM(ModelBuilder):
         path = lam_max * np.power(float(p["lambda_min_ratio"]),
                                   np.linspace(0, 1, nl))
         beta, prev_dev, chosen = b0, np.inf, path[0]
-        fitted, null_dev_est = 0, None
-        for lv in path:
+        fitted, null_dev_est, start = 0, None, 0
+        rs = self._take_resume_state("glm_lambda_path")
+        if rs is not None:
+            # the warm start and the stall-stop bookkeeping at the saved
+            # position; the path itself follows from the data
+            beta = torch.from_numpy(np.array(rs["beta"])).to(b0.device)
+            prev_dev = float(rs["prev_dev"])
+            chosen = float(rs["chosen"])
+            fitted = int(rs["fitted"])
+            null_dev_est = rs.get("null_dev_est")
+            start = int(rs["next_index"])
+        every = self._job_ckpt_every()
+        for li in range(start, len(path)):
+            lv = path[li]
             beta_new, _, dev = fit_one(lv, beta)
             fitted += 1
             dev = float(dev)
@@ -754,6 +799,12 @@ class GLM(ModelBuilder):
             if prev_dev < np.inf and started and dev > prev_dev * (1 - 1e-4):
                 break       # the gain stalled: keep the previous fit
             beta, prev_dev, chosen = beta_new, dev, lv
+            if every and (li + 1) % every == 0:
+                self._tick_job_progress(li + 1, lambda: {
+                    "phase": "glm_lambda_path", "beta": _host(beta),
+                    "prev_dev": float(prev_dev), "chosen": float(chosen),
+                    "fitted": fitted, "null_dev_est": null_dev_est,
+                    "next_index": li + 1})
             if self._out_of_time():
                 break
         return beta, prev_dev, fitted, chosen

@@ -16,6 +16,13 @@ improvement above 1e-6, at least two steps, at most max_iterations).
 The initial centers are drawn on the host with the reference's numpy
 Generator calls in the reference's order, so both packages start from
 the same rows.
+
+Durable job progress (reference :105, :138-170): with
+``H2O_TPU_JOB_CKPT_ITERS`` = k set, Lloyd runs in chunks of k steps,
+saving the centers after each and stopping when a chunk improves the
+within-cluster SS by no more than 1e-6 relative; a resumed train
+continues from the saved centers. As for GLM, the chunk shape depends
+on the knob alone.
 """
 
 from __future__ import annotations
@@ -84,6 +91,7 @@ class KMeans(ModelBuilder):
     algo_name = "kmeans"
     model_class = KMeansModel
     supervised = False
+    supports_iteration_resume = True
 
     @classmethod
     def default_params(cls):
@@ -108,14 +116,14 @@ class KMeans(ModelBuilder):
         X = di.expand(*(c.data for c in di.cols(train)))
         seed = self._seed()
         max_iter = int(p.get("max_iterations", 10))
+        every = self._job_ckpt_every()
+        rs = self._take_resume_state("kmeans_lloyd")
         if p.get("estimate_k"):
             k, centers = self._estimate_k(X, seed, max_iter,
                                           int(p.get("max_k", 100)))
         else:
-            centers = _init_centers(X, int(p["k"]), p.get("init", "Furthest"),
-                                    seed, di, p.get("user_points"))
+            centers = self._lloyd_chunked(X, di, seed, max_iter, every, rs)
             k = int(centers.shape[0])   # init='User' sets k by its rows
-            centers, _ = _lloyd(X, centers, max_iter)
 
         model = KMeansModel(parms=dict(p))
         self._init_output(model, train)
@@ -126,6 +134,37 @@ class KMeans(ModelBuilder):
         model.centers_raw = _destandardize(model.centers, di)
         model._parms["k"] = k
         return model
+
+    def _lloyd_chunked(self, X, di, seed: int, max_iter: int, every: int,
+                       rs: Optional[dict]) -> torch.Tensor:
+        """Lloyd in chunks of `every` steps (all of max_iter without the
+        knob) from the initial or the saved centers, saving the centers
+        after each chunk; the reference's relative-improvement stop at
+        chunk granularity."""
+        p = self.params
+        if rs is not None:
+            centers = torch.from_numpy(np.array(rs["centers"])).to(X.device)
+            it_done, prev_wss = int(rs["iters_done"]), rs.get("wss")
+        else:
+            centers = _init_centers(X, int(p["k"]), p.get("init", "Furthest"),
+                                    seed, di, p.get("user_points"))
+            it_done, prev_wss = 0, None
+        chunk = every if every > 0 else max_iter
+        while it_done < max_iter:
+            step = min(chunk, max_iter - it_done)
+            centers, wss = _lloyd(X, centers, step)
+            it_done += step
+            wss = float(wss)
+            self._tick_job_progress(it_done, lambda: {
+                "phase": "kmeans_lloyd", "centers": centers.cpu().numpy(),
+                "iters_done": it_done, "wss": wss})
+            if prev_wss is not None and \
+                    (prev_wss - wss) <= 1e-6 * max(prev_wss, 1e-12):
+                break
+            prev_wss = wss
+            if self._out_of_time():
+                break
+        return centers
 
     def _estimate_k(self, X: torch.Tensor, seed: int, max_iter: int,
                     max_k: int):

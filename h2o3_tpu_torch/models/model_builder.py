@@ -17,8 +17,17 @@ A tree builder may calibrate its binomial probabilities on a
 calibration frame (Platt scaling or isotonic regression), and a builder
 that supports it continues training from a checkpoint model. The
 preconditions of all three raise before anything trains. A checkpoint
-may be the Model or its DKV key. Durable job progress waits for the
-cross-process DKV (ROADMAP A14).
+may be the Model or its DKV key.
+
+Durable job progress (reference :167-246): a builder whose fit loop can
+continue from saved loop state sets `supports_iteration_resume`. When
+``H2O_TPU_JOB_CKPT_ITERS`` is set and the builder holds a
+`_progress_job` with a `resume_spec` (the REST train handler attaches
+both), the loop saves its state every that many iterations
+(`_tick_job_progress`, parallel/ckpt.py); a completed train deletes it
+(`_clear_job_progress`), unless an external FAILED won the race. A
+fresh builder given the saved state as `_resume_state` continues the
+run where it stopped (`_take_resume_state`).
 """
 
 from __future__ import annotations
@@ -57,9 +66,9 @@ class ModelBuilder:
     # builders that implement training continuation set this; the rest
     # refuse a checkpoint rather than train from scratch
     supports_checkpoint = False
-    # no builder resumes a fit from durable per-iteration progress yet
-    # (ROADMAP A14): the REST train handler reads this before it arms
-    # job progress, so H2O_TPU_JOB_CKPT_ITERS changes nothing
+    # builders whose fit loops save durable per-iteration progress and
+    # continue from it (_tick_job_progress / _take_resume_state); the
+    # REST train handler reads this before it arms job progress
     supports_iteration_resume = False
 
     def __init__(self, **params):
@@ -69,6 +78,11 @@ class ModelBuilder:
         # builders of cross-validation, which bypass train()
         self.job: Optional[Job] = None
         self.model: Optional[Model] = None
+        # the job durable progress is saved against (None: library-mode
+        # training saves nothing) and the loop state a resumed train
+        # continues from
+        self._progress_job: Optional[Job] = None
+        self._resume_state: Optional[dict] = None
 
     def __init_subclass__(cls, **kw):
         # a subclass's own train() runs in full float32 too (C26)
@@ -161,11 +175,79 @@ class ModelBuilder:
         except Exception:
             self.job.fail_local(traceback.format_exc())
             raise
-        self.job.complete()
+        if self.job.complete():
+            # only a completion that won the verdict supersedes the
+            # durable progress: after an external FAILED the progress is
+            # what a resume needs
+            self._clear_job_progress()
         model._output.run_time_ms = int((time.time() - t0) * 1000)
         model._output.start_time = t0
         self.model = model
         return model
+
+    # -- durable job progress ------------------------------------------------
+    def _job_ckpt_every(self) -> int:
+        """The save interval in completed iterations; 0 when the knob is
+        off or the builder cannot resume. It reads only the env and the
+        capability: the value shapes the loop itself (chunked IRLS and
+        Lloyd), whether or not this train saves."""
+        if not self.supports_iteration_resume:
+            return 0
+        from h2o3_tpu_torch.parallel import ckpt
+
+        return max(ckpt.job_ckpt_iters(), 0)
+
+    def _tick_job_progress(self, done: int, state_fn) -> None:
+        """Called by a fit loop after `done` completed iterations; every
+        ``H2O_TPU_JOB_CKPT_ITERS`` saves `state_fn()` when the builder
+        holds a progress job with a resume spec. Never raises: a failed
+        save is logged and training goes on."""
+        every = self._job_ckpt_every()
+        if every <= 0 or done <= 0 or done % every != 0:
+            return
+        job = self._progress_job
+        if job is None or not getattr(job, "resume_spec", None):
+            return
+        if done == getattr(self, "_jp_last", 0):
+            return
+        from h2o3_tpu_torch.parallel import ckpt
+
+        try:
+            ckpt.save_job_progress(str(job.key), done, job.resume_spec,
+                                   state_fn())
+            self._jp_last = done
+        except Exception as e:   # noqa: BLE001 — best effort by contract
+            from h2o3_tpu_torch.utils.log import get_logger
+
+            get_logger().warning(
+                "job %s: progress save at iteration %d failed (training "
+                "goes on): %s", job.key, done, e)
+
+    def _clear_job_progress(self) -> None:
+        """Delete the progress of a completed train, under the progress
+        job's status lock: an external FAILED already recorded there
+        keeps it."""
+        job = self._progress_job
+        if job is None or not getattr(job, "resume_spec", None):
+            return
+        from h2o3_tpu_torch.parallel import ckpt
+
+        try:
+            with job._status_lock:
+                if job.status == Job.FAILED and job.failed_externally:
+                    return
+                ckpt.delete_job_progress(str(job.key))
+        except Exception:   # noqa: BLE001 — clean-up stays best effort
+            pass
+
+    def _take_resume_state(self, phase: str) -> Optional[dict]:
+        """The saved loop state for the loop tagged `phase`, once: a
+        second call (a CV fold's builder, another loop) gets None."""
+        rs = self._resume_state
+        if isinstance(rs, dict) and rs.get("phase") == phase:
+            self._resume_state = None
+            return rs
+        return None
 
     def _train_impl(self, train: Frame, valid: Optional[Frame]) -> Model:
         nfolds = int(self.params.get("nfolds") or 0)

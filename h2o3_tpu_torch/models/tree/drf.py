@@ -19,6 +19,12 @@ count, so the validation sum restarts at its mean times that count, and
 the joined forest rescales both parts to their share of the new total.
 The out-of-bag sums restart at zero: the bagging masks are not part of
 a model, so the continued model's OOB metrics cover the new trees only.
+
+Durable job progress (reference :184-250, :314-355) saves what the
+SharedTree loops save plus the OOB sums and counts (and the validation
+sum), so a resumed forest and its OOB metrics are the uninterrupted
+run's bit for bit; the host Generator carries the per-node mtries draws
+and, for per-class trees, the row samples.
 """
 
 from __future__ import annotations
@@ -36,8 +42,8 @@ from h2o3_tpu_torch.models.tree.device_tree import (apply_packed,
                                                     grow_tree_device,
                                                     stash_packed)
 from h2o3_tpu_torch.models.tree.shared_tree import (SharedTree,
-                                                    SharedTreeModel,
-                                                    _leaf_update,
+                                                    SharedTreeModel, _device,
+                                                    _host, _leaf_update,
                                                     sample_mask)
 
 
@@ -144,7 +150,23 @@ class DRF(SharedTree):
         history, stop_metric = [], []
         packs, leaf_means, leaf_wys = [], [], []
         mask = None
-        for t in range(t_base, ntrees):
+        t_start = t_base
+        rs = self._take_resume_state("drf_single")
+        if rs is not None:
+            # the saved loop state, the OOB sums and the host Generator
+            # (the mtries masks) included
+            t_start = int(rs["t_done"])
+            oob_sum = _device(rs["oob_sum"], dev)
+            oob_cnt = _device(rs["oob_cnt"], dev)
+            if v_sum is not None and rs.get("v_sum") is not None:
+                v_sum = _device(rs["v_sum"], dev)
+            stop_metric = list(rs["stop_metric"])
+            history = [dict(h) for h in rs["history"]]
+            packs, leaf_means, leaf_wys = self._load_tree_progress(
+                rs, dev, max_depth)
+            rng.bit_generator.state = rs["rng_state"]
+        jp_every = self._job_ckpt_every()
+        for t in range(t_start, ntrees):
             if rate < 1.0:
                 mask = sample_mask(root_key, t, N, rate, dev)
                 w_t = torch.where(mask, w, 0.0)
@@ -194,6 +216,16 @@ class DRF(SharedTree):
                 break
             if self.job:
                 self.job.update(progress=(t + 1) / ntrees, msg=f"tree {t + 1}")
+            if jp_every and (t + 1) % jp_every == 0:
+                done = t + 1
+                self._tick_job_progress(done, lambda: {
+                    "phase": "drf_single", "t_done": done,
+                    "oob_sum": _host(oob_sum), "oob_cnt": _host(oob_cnt),
+                    "v_sum": _host(v_sum),
+                    "stop_metric": list(stop_metric),
+                    "history": [dict(h) for h in history],
+                    **self._tree_progress_ref(packs, leaf_means, leaf_wys),
+                    "rng_state": rng.bit_generator.state})
 
         # scale by the trees actually grown (early stopping may cut)
         total = t_base + len(packs)
@@ -235,7 +267,19 @@ class DRF(SharedTree):
         oob_sum = torch.zeros(N, K, dtype=torch.float32, device=dev)
         oob_cnt = torch.zeros(N, dtype=torch.float32, device=dev)
         packs, leaf_means, leaf_wys = [], [], []
-        for t in range(t_base, ntrees):
+        t_start = t_base
+        rs = self._take_resume_state("drf_multi")
+        if rs is not None:
+            # the saved loop state, as in _fit_single
+            t_start = int(rs["t_done"])
+            oob_sum = _device(rs["oob_sum"], dev)
+            oob_cnt = _device(rs["oob_cnt"], dev)
+            tree_class = list(rs["tree_class"])
+            packs, leaf_means, leaf_wys = self._load_tree_progress(
+                rs, dev, max_depth)
+            rng.bit_generator.state = rs["rng_state"]
+        jp_every = self._job_ckpt_every()
+        for t in range(t_start, ntrees):
             mask, w_t = self._sample_rows(rng, N, w)
             for k in range(K):
                 masks = build_feat_masks(max_depth, feat_mask_fn, spec.F,
@@ -258,6 +302,14 @@ class DRF(SharedTree):
                 break
             if self.job:
                 self.job.update(progress=(t + 1) / ntrees, msg=f"iter {t + 1}")
+            if jp_every and (t + 1) % jp_every == 0:
+                done = t + 1
+                self._tick_job_progress(done, lambda: {
+                    "phase": "drf_multi", "t_done": done,
+                    "oob_sum": _host(oob_sum), "oob_cnt": _host(oob_cnt),
+                    "tree_class": list(tree_class),
+                    **self._tree_progress_ref(packs, leaf_means, leaf_wys),
+                    "rng_state": rng.bit_generator.state})
 
         total = t_base + len(packs) // K
         trees = assemble_trees(packs, leaf_means, leaf_wys, spec, max_depth,

@@ -58,6 +58,7 @@ class IsolationForest(SharedTree):
     model_class = IsolationForestModel
     supervised = False
     supports_checkpoint = False      # the reference's has no continuation
+    supports_iteration_resume = False   # nor durable progress
 
     @classmethod
     def default_params(cls):

@@ -26,6 +26,15 @@ row-sample key and the learning-rate annealing) runs on from its tree
 count, the host Generator is seeded with (seed, its tree count), split
 gains accumulate onto its raw importances, and the new trees append to
 its forest (`CompressedForest.concat`).
+
+Durable job progress (reference :242, :300-340, :528-607, :712-790):
+every ``H2O_TPU_JOB_CKPT_ITERS`` iterations a loop saves the margins
+(training and validation), the trees grown since the last save as one
+append-only chunk (`_tree_progress_ref`), the scoring history and the
+host Generator's `bit_generator.state`. Row samples need no state: tree
+t's is keyed by fold_in(root_key, t). A resumed loop puts the margins
+back on the frame's device with their dtype and continues at the saved
+tree, so its forest is the uninterrupted run's bit for bit.
 """
 
 from __future__ import annotations
@@ -180,6 +189,7 @@ class SharedTree(ModelBuilder):
 
     model_class = SharedTreeModel
     supports_checkpoint = True
+    supports_iteration_resume = True
 
     @classmethod
     def default_params(cls):
@@ -273,6 +283,49 @@ class SharedTree(ModelBuilder):
         split gains go on accumulating."""
         prev = getattr(self, "_ckpt", None)
         return dict(getattr(prev, "_varimp_raw", {}) or {}) if prev else {}
+
+    # durable progress -------------------------------------------------------
+    def _tree_progress_ref(self, packs, leaf_vals, leaf_wys) -> Dict:
+        """The per-tree part of a progress state: the trees grown since
+        the last save go to one new chunk (one host copy per list), and
+        the state lists every chunk's path. Called only while a save
+        happens."""
+        from h2o3_tpu_torch.parallel import ckpt
+
+        saved = getattr(self, "_jp_entries", 0)
+        chunks = list(getattr(self, "_jp_chunks", []))
+        if len(packs) > saved:
+            new = [list(torch.stack(lst[saved:]).cpu().numpy())
+                   for lst in (packs, leaf_vals, leaf_wys)]
+            chunks.append(ckpt.append_job_tree_chunk(
+                str(self._progress_job.key), len(chunks), *new))
+            self._jp_chunks = chunks
+            self._jp_entries = len(packs)
+        return {"tree_chunks": chunks, "n_tree_entries": len(packs)}
+
+    def _load_tree_progress(self, rs: Dict, device, max_depth: int):
+        """(packs, leaf values, leaf (w, w·y)) of a progress state, on
+        `device` (deep tables on the host, as `stash_packed` keeps them);
+        later saves append after the loaded chunks. A missing or torn
+        chunk, or a count that disagrees with the state, raises."""
+        from h2o3_tpu_torch.parallel import ckpt
+
+        packs, lv, lw = ckpt.load_job_tree_chunks(rs["tree_chunks"])
+        n = int(rs["n_tree_entries"])
+        if len(packs) != n:
+            raise RuntimeError(
+                f"tree-progress chunks hold {len(packs)} trees but the "
+                f"state expects {n}: the durable progress is torn")
+        self._jp_chunks = list(rs["tree_chunks"])
+        self._jp_entries = n
+
+        def put(arrs):
+            if not arrs:
+                return []
+            return list(torch.from_numpy(np.stack(arrs)).to(device).unbind(0))
+
+        return ([stash_packed(p, max_depth) for p in put(packs)], put(lv),
+                put(lw))
 
     # fit loops -------------------------------------------------------------
     def _fit(self, train: Frame) -> SharedTreeModel:
@@ -402,7 +455,23 @@ class SharedTree(ModelBuilder):
         root_key = rnd.PRNGKey(self._seed())
         history, stop_metric = [], []
         packs, leaf_vals, leaf_wys = [], [], []
-        for t in range(t_base, ntrees):
+        t_start = t_base
+        rs = self._take_resume_state("tree_single")
+        if rs is not None:
+            # the saved loop state, exactly: margins, trees, the host
+            # Generator
+            t_start = int(rs["t_done"])
+            init_f = float(rs["init_f"])
+            f = _device(rs["f"], binned.device)
+            if f_valid is not None and rs.get("f_valid") is not None:
+                f_valid = _device(rs["f_valid"], binned.device)
+            stop_metric = [float(v) for v in rs["stop_metric"]]
+            history = [dict(h) for h in rs["history"]]
+            packs, leaf_vals, leaf_wys = self._load_tree_progress(
+                rs, binned.device, max_depth)
+            rng.bit_generator.state = rs["rng_state"]
+        jp_every = self._job_ckpt_every()
+        for t in range(t_start, ntrees):
             f_used, lr, keys = self._tree_margin(rng, t, f)
             z, w_t, num_r, den_r = self._pre(dist, y, f_used, w, root_key, t,
                                              rate)
@@ -437,6 +506,16 @@ class SharedTree(ModelBuilder):
                 break
             if self.job:
                 self.job.update(progress=(t + 1) / ntrees, msg=f"tree {t + 1}")
+            if jp_every and (t + 1) % jp_every == 0:
+                done = t + 1
+                self._tick_job_progress(done, lambda: {
+                    "phase": "tree_single", "t_done": done,
+                    "init_f": float(init_f), "f": _host(f),
+                    "f_valid": _host(f_valid),
+                    "stop_metric": list(stop_metric),
+                    "history": [dict(h) for h in history],
+                    **self._tree_progress_ref(packs, leaf_vals, leaf_wys),
+                    "rng_state": rng.bit_generator.state})
 
         trees = assemble_trees(packs, leaf_vals, leaf_wys, spec, max_depth)
         self._set_varimp(model, trees, history)
@@ -479,7 +558,23 @@ class SharedTree(ModelBuilder):
         rate = float(self.params.get("sample_rate", 1.0) or 1.0)
         tree_class, history, stop_metric = [], [], []
         packs, leaf_vals, leaf_wys = [], [], []
-        for t in range(t_base, ntrees):
+        t_start = t_base
+        rs = self._take_resume_state("tree_multi")
+        if rs is not None:
+            # the saved loop state, as in _fit_single
+            t_start = int(rs["t_done"])
+            init = np.asarray(rs["init"], np.float32)
+            f = _device(rs["f"], dev)
+            if f_valid is not None and rs.get("f_valid") is not None:
+                f_valid = _device(rs["f_valid"], dev)
+            stop_metric = [float(v) for v in rs["stop_metric"]]
+            history = [dict(h) for h in rs["history"]]
+            tree_class = list(rs["tree_class"])
+            packs, leaf_vals, leaf_wys = self._load_tree_progress(
+                rs, dev, max_depth)
+            rng.bit_generator.state = rs["rng_state"]
+        jp_every = self._job_ckpt_every()
+        for t in range(t_start, ntrees):
             masks = build_feat_masks(max_depth, self._feat_mask_fn(rng, spec),
                                      spec.F, maxB)
             w_t = sampled_weights(w, root_key, t, rate)
@@ -523,6 +618,17 @@ class SharedTree(ModelBuilder):
                 break
             if self.job:
                 self.job.update(progress=(t + 1) / ntrees, msg=f"iter {t + 1}")
+            if jp_every and (t + 1) % jp_every == 0:
+                done = t + 1
+                self._tick_job_progress(done, lambda: {
+                    "phase": "tree_multi", "t_done": done,
+                    "init": np.asarray(init), "f": _host(f),
+                    "f_valid": _host(f_valid),
+                    "stop_metric": list(stop_metric),
+                    "history": [dict(h) for h in history],
+                    "tree_class": list(tree_class),
+                    **self._tree_progress_ref(packs, leaf_vals, leaf_wys),
+                    "rng_state": rng.bit_generator.state})
 
         trees = assemble_trees(packs, leaf_vals, leaf_wys, spec, max_depth)
         self._set_varimp(model, trees, history)
@@ -643,6 +749,17 @@ def _leaf_matrix(model, adapted: Frame, n: int) -> np.ndarray:
         return scoring.session_for(model).leaf_matrix(adapted, n)
     return model.forest.leaf_index(
         model.spec.bin_columns(adapted)).cpu().numpy()
+
+
+def _host(t) -> Optional[np.ndarray]:
+    """A loop tensor as a host array of its dtype (None stays None)."""
+    return None if t is None else t.detach().cpu().numpy()
+
+
+def _device(a: np.ndarray, device) -> torch.Tensor:
+    """A saved host array back on the loop's device, a tensor of its own
+    (the multinomial loops update their margins in place)."""
+    return torch.from_numpy(np.array(a)).to(device)
 
 
 def _leaf_update(vals, row_leaf):

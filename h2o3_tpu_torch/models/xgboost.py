@@ -131,6 +131,13 @@ class XGBoost(GBM):
             raise ValueError("booster='dart' does not support checkpoints")
         return done
 
+    def _job_ckpt_every(self) -> int:
+        # dart's dropped-tree margins are not in the saved loop state (the
+        # reference's dart loop saves none either), so dart never saves
+        if self._booster() == "dart":
+            return 0
+        return super()._job_ckpt_every()
+
     def _tree_margin(self, rng, t, f):
         """booster='dart' (XGBoost's DartBooster, normalize_type 'tree'):
         each iteration drops a random subset D of the existing trees

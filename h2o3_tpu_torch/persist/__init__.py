@@ -2,11 +2,11 @@
 of h2o3_tpu/persist/__init__.py, water/persist/PersistManager.java).
 
 Schemes resolve to local file paths: plain paths and ``file://`` URIs
-directly, ``http(s)://`` objects fetched once into a process-local cache
+directly, ``http(s)://`` and ``s3://`` objects (persist/s3.py, SigV4
+signing over the stdlib) fetched once into a process-local cache
 directory; the parse then runs on the local copy. `register_scheme`
-installs a backend at run time. Cloud schemes raise: ``s3://`` until the
-port's S3 client lands (ROADMAP A14), ``gs://`` and ``hdfs://`` because
-their SDKs are not installed, as in the reference.
+installs a backend at run time. ``gs://`` and ``hdfs://`` raise
+CapabilityGate, as in the reference: their SDKs are not installed.
 """
 
 from __future__ import annotations
@@ -74,8 +74,9 @@ def _gated(scheme: str, what: str):
 register_scheme("http", _fetch_http)
 register_scheme("https", _fetch_http)
 register_scheme("file", _fetch_file)
-register_scheme("s3", _gated("s3", "the S3 client, which the port has not "
-                                   "yet (ROADMAP A14)"))
+from h2o3_tpu_torch.persist.s3 import fetch_s3  # noqa: E402
+
+register_scheme("s3", fetch_s3)
 register_scheme("gs", _gated("gs", "the google-cloud-storage SDK, which is "
                                    "not installed"))
 register_scheme("hdfs", _gated("hdfs", "the pyarrow HadoopFileSystem SDK, "

@@ -248,7 +248,14 @@ def test_search_concurrency_knob(monkeypatch, raw, want):
 
 
 def test_grid_recovery_waits_for_the_durable_search_state(tmp_path):
+    """The durable search state has landed: recovery_dir keeps the
+    snapshot and the model, and load(dir) reads them back (the kill and
+    resume itself is in test_torch_search_resume.py)."""
+    import os
+
     _, tf = both_frames(train_cols(n=128, seed=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        th.H2OGridSearch("glm", {"alpha": [0.0]}).train(
-            y="y", training_frame=tf, recovery_dir=str(tmp_path))
+    g = th.H2OGridSearch("glm", {"alpha": [0.0]}).train(
+        y="y", training_frame=tf, recovery_dir=str(tmp_path))
+    assert any(n.startswith("searchckpt_") for n in os.listdir(tmp_path))
+    assert os.listdir(tmp_path / "models") == [f"{g.model_ids[0]}.bin"]
+    assert th.H2OGridSearch.load(str(tmp_path)).model_ids == g.model_ids

@@ -95,7 +95,8 @@ def test_port_imports_with_jax_blocked_and_reference_refused():
                  "obs.phases", "obs.compiles", "parallel",
                  "parallel.distributed", "parallel.oplog",
                  "parallel.supervisor", "parallel.ckpt",
-                 "parallel.watchdog", "client", "utils.timeline"):
+                 "parallel.watchdog", "client", "utils.timeline",
+                 "persist.s3"):
         assert f"h2o3_tpu_torch.{name}" in rep["modules"], name
     assert len(rep["modules"]) >= 30, rep["modules"]
     assert rep["leaked"] == [], rep["leaked"]

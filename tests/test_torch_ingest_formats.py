@@ -229,8 +229,13 @@ def test_gated_schemes_and_custom_scheme(tmp_path):
 
     with pytest.raises(NotImplementedError, match="google-cloud"):
         persist.resolve("gs://bucket/key.csv")
-    with pytest.raises(NotImplementedError, match="S3"):
-        persist.resolve("s3://bucket/key.csv")
+    with pytest.raises(NotImplementedError, match="HadoopFileSystem"):
+        persist.resolve("hdfs://nn/key.csv")
+    # s3:// has its reader now (test_torch_s3.py drives it against a
+    # loopback endpoint; nothing here may reach the network)
+    from h2o3_tpu_torch.persist import s3
+
+    assert persist._SCHEMES["s3"] is s3.fetch_s3
     with pytest.raises(ValueError, match="no persist backend"):
         persist.resolve("weird://x")
     p = tmp_path / "c.csv"

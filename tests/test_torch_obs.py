@@ -364,19 +364,27 @@ def test_one_process_control_plane():
     assert ckpt.latest_seq() is None and ckpt.job_progress_records() == []
 
 
-def test_job_ckpt_knob_arms_nothing(env, monkeypatch):
+def test_job_ckpt_knob_arms_nothing(env, monkeypatch, tmp_path):
+    """Durable job progress has landed: the knob now arms it on the
+    builders that resume (test_torch_job_resume.py drives it); a REST
+    train that completes leaves no progress behind and reads
+    auto_recoverable False once DONE."""
     import h2o3_tpu_torch as th
     from h2o3_tpu_torch.parallel import ckpt
 
     monkeypatch.setenv("H2O_TPU_JOB_CKPT_ITERS", "1")
+    monkeypatch.setenv("H2O_TPU_OPLOG_CKPT_DIR", str(tmp_path))
     assert ckpt.job_ckpt_iters() == 1
-    assert all(not cls.supports_iteration_resume
-               for cls in th.BUILDERS.values())
+    assert {a for a, cls in th.BUILDERS.items()
+            if cls.supports_iteration_resume} == {
+        "gbm", "drf", "xgboost", "glm", "kmeans", "deeplearning"}
     T = env["T"]
     out = T.json("POST", "/3/ModelBuilders/gbm", data={
         "training_frame": "obs_fr", "response_column": "y", "ntrees": 2,
         "max_depth": 2, "nbins": 16, "seed": 1})
     job = T.done_job(out)
     assert job["auto_recoverable"] is False
+    assert ckpt.job_progress_records() == []
+    assert not list(tmp_path.iterdir())
     assert np.isfinite(T.json("GET", f"/3/Models/{job['dest']['name']}")
                        ["models"][0]["output"]["training_metrics"]["AUC"])
