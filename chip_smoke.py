@@ -86,7 +86,15 @@ through the port's public entry points:
   3q's GBM grid capped at 2 members with a recovery_dir, loaded back
   and finished; a REST train with durable progress and a REST grid
   with a recovery_dir; and s3:// import of phase 3l's flagship CSV from
-  a loopback endpoint that checks the SigV4 signature.
+  a loopback endpoint that checks the SigV4 signature;
+- bf16 numeric storage (phase 3w, `numeric_dtype="bfloat16"`): the
+  flagship frame stored at half the numeric bytes, the flagship GBM
+  trained on it through the kernel, scored eagerly and by a scoring
+  session on CUDA graphs of its own (bitwise), the bench GLM, phase 3l's
+  run_parse file imported, a fused Rapids statement on bf16 leaves
+  (bitwise with eager), and a 100k-row bf16 GBM card against CPU.
+Before the build, phase 0b runs the port's invariant analyzer
+(`python -m h2o3_tpu_torch.analysis --json`) and requires exit 0.
 It checks the card's models and imports against the same port on the
 CPU and times
 the kernel at the level shapes of each configuration beside its memory
@@ -261,6 +269,10 @@ CUMSUM_CVC = 1e-5
 class SmokeFailure(RuntimeError):
     pass
 
+
+# phase 3w: bf16 storage; the card-vs-CPU GBM on 100k flagship rows
+BF16 = dict(cvc_rows=100_000, cvc_trees=5, pred_atol=1e-6,
+            glm_p=32)
 
 # numbers one phase reads from another (phase 3's in-process
 # gbm_train_s beside phase 3u's REST train)
@@ -4223,11 +4235,12 @@ def phase_times(dev, launches, max_err):
              # the main paths of the flagship: phase 3's numpy-built frame,
              # phase 3l's frame imported from CSV, phase 3u's train over
              # POST /3/ModelBuilders/gbm, phase 3v's resume after the
-             # kill and its grid's members trained after load
+             # kill and its grid's members trained after load, phase 3w's
+             # bf16 frame
              "launches": int(launches["gbm_flagship"]
                              + launches["gbm_imported_csv"]
                              + launches["rest"] + launches["resume"]
-                             + launches["grid_resume"]),
+                             + launches["grid_resume"] + launches["bf16"]),
              "max_abs_err": max_err,
              "ms": mean[0], "plain_ms": mean[1], "bound_ms": mean[3],
              "bound_by": "bytes", "library_ms": mean[2],
@@ -4238,6 +4251,210 @@ def phase_times(dev, launches, max_err):
                                   int(launches["xgboost"])),
              "isofor_shapes": _block([s[2] for s in isofor_level_shapes()],
                                      iso, int(launches["isolationforest"]))}]
+
+
+# ---------------------------------------------------------------------------
+# phase 0b: the port's invariant analyzer
+# ---------------------------------------------------------------------------
+
+def phase_analysis():
+    """`python -m h2o3_tpu_torch.analysis --json` from the checkout's
+    root (where triton and nvcc exist): exit 0, no finding."""
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "h2o3_tpu_torch.analysis",
+                          "--json"], cwd=root, capture_output=True,
+                         text=True, timeout=300)
+    dt = time.perf_counter() - t0
+    print(out.stderr[-2000:], end="")
+    check(out.returncode == 0,
+          f"the invariant analyzer exited {out.returncode}: "
+          f"{out.stdout[-2000:]}")
+    rep = json.loads(out.stdout)
+    check(rep["findings"] == [] and rep["baseline_problems"] == [],
+          f"analyzer findings {rep['findings'][:3]}")
+    print(f"analysis_s {dt!r} (passes {rep['elapsed_s']} s, "
+          f"{len(rep['baselined'])} baselined)")
+
+
+# ---------------------------------------------------------------------------
+# phase 3w: bf16 numeric storage (numeric_dtype="bfloat16")
+# ---------------------------------------------------------------------------
+
+def _frame_bytes(fr):
+    """(numeric bytes, enum-code bytes) of a frame's device columns."""
+    num = sum(c.device_nbytes for c in fr.columns if not c.is_categorical)
+    cat = sum(c.device_nbytes for c in fr.columns if c.is_categorical)
+    return num, cat
+
+
+def _built(make):
+    """(frame, rise of torch.cuda.memory_allocated while it was built)."""
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    fr = make()
+    torch.cuda.synchronize()
+    return fr, torch.cuda.memory_allocated() - m0
+
+
+def _bf16_bits_equal(label, want32, got16):
+    """`got16` (bf16) holds `want32` rounded to bf16: NaN as a mask, the
+    other values bitwise."""
+    want = want32.to(torch.bfloat16)
+    na = torch.isnan(want)
+    check(torch.equal(na, torch.isnan(got16)), f"{label}: NaN masks differ")
+    check(torch.equal(want[~na].view(torch.int16),
+                      got16[~na].view(torch.int16)),
+          f"{label}: values differ from the float32 parse rounded to bf16")
+
+
+def phase_bf16(h2o, dev, parse_path):
+    """The storage opt-in at full width: the flagship frame, GBM and its
+    scoring, the bench GLM, an import, a fused statement, card vs CPU.
+    The opt-in is set on the runtime's options, as the reference's
+    tests set it, and restored after."""
+    from h2o3_tpu_torch import scoring
+    from h2o3_tpu_torch.models.tree import hist_gather as hg
+    from h2o3_tpu_torch.rapids import Env, fusion, planner
+    from h2o3_tpu_torch.rapids.parser import parse
+
+    args = h2o.cluster().args
+    saved = args.numeric_dtype
+    c = FLAGSHIP
+    try:
+        args.numeric_dtype = "float32"
+        fr32, d32 = _built(lambda: flagship_frame(h2o, dev, c["n_rows"]))
+        args.numeric_dtype = "bfloat16"
+        fr16, d16 = _built(lambda: flagship_frame(h2o, dev, c["n_rows"]))
+        (n32, k32), (n16, k16) = _frame_bytes(fr32), _frame_bytes(fr16)
+        check(all(fr16.col(f"n{i}").data.dtype == torch.bfloat16
+                  for i in range(c["n_num"])), "flagship numerics not bf16")
+        metric("bf16_frame_bytes", n16 + k16,
+               f"(float32 twin {n32 + k32}; numeric {n16} vs {n32}, enum "
+               f"codes {k16} vs {k32}; memory_allocated rise {d16} vs "
+               f"{d32})")
+        check(2 * n16 == n32 and n32 == 4 * c["n_num"] * c["n_rows"],
+              f"numeric bytes {n16} not half of {n32}")
+        check(k16 == k32, f"enum code bytes changed: {k16} vs {k32}")
+
+        # in turns (twin, bf16, bf16, twin), so neither side runs only
+        # first; the launches counted are the first bf16 train's
+        kw = dict(ntrees=c["ntrees"], max_depth=c["max_depth"])
+        m32, t32a = _timed(lambda: h2o.GBM(**kw).train(
+            y="y", training_frame=fr32))
+        hg.launches = 0
+        m16, t16a = _timed(lambda: h2o.GBM(**kw).train(
+            y="y", training_frame=fr16))
+        launches = hg.launches
+        _m, t16b = _timed(lambda: h2o.GBM(**kw).train(
+            y="y", training_frame=fr16))
+        _m, t32b = _timed(lambda: h2o.GBM(**kw).train(
+            y="y", training_frame=fr32))
+        del _m
+        t16, t32 = (t16a + t16b) / 2, (t32a + t32b) / 2
+        auc = float(m16._output.training_metrics.auc)
+        metric("gbm_bf16_train_s", t16,
+               f"(mean of {t16a!r}, {t16b!r}; float32 twin {t32!r}, the "
+               f"mean of {t32a!r}, {t32b!r})")
+        print(f"gbm_bf16_training_auc {auc!r} (float32 twin "
+              f"{float(m32._output.training_metrics.auc)!r}); "
+              f"hist_gather launches {launches}")
+        check(np.isfinite(auc) and auc > 0.5, f"bf16 AUC {auc} not > 0.5")
+        check(launches == c["ntrees"] * c["max_depth"],
+              f"{launches} hist_gather launches on the bf16 frame, "
+              f"expected {c['ntrees'] * c['max_depth']}")
+        del m32
+
+        eager = m16.predict(fr16).col("Y").data
+        sess = scoring.session_for(m16)
+        sess.predict(fr16)                              # captures
+        got, dt = _timed(lambda: sess.predict(fr16).col("Y").data)
+        metric("bf16_score_1m_s", dt, "(scoring session, graph replay)")
+        check(torch.equal(got.view(torch.int32), eager.view(torch.int32)),
+              "bf16 session replay differs from eager predict")
+        own = [k for k, prog in sess._programs.items()
+               if k[2] == torch.bfloat16 and prog.graph is not None]
+        sess.predict(fr32)
+        f32 = [k for k, prog in sess._programs.items()
+               if k[2] == torch.float32]
+        print(f"bf16 session programs {sorted(own)}; float32 programs "
+              f"{sorted(f32)}")
+        check(own and f32, "the bf16 frame did not get graphs of its own")
+        del fr32, eager, got, sess
+
+        gfr, _b = glm_bench_frame(h2o, dev, GLM_BENCH["n_rows"],
+                                  BF16["glm_p"], GLM_BENCH["seed"])
+        check(gfr.col("x0").data.dtype == torch.bfloat16,
+              "bench GLM frame not bf16")
+        g, dt = _timed(lambda: h2o.GLM(family="binomial", lambda_=0.0)
+                       .train(y="y", training_frame=gfr))
+        gauc = float(g._output.training_metrics.auc)
+        metric("glm_bf16_train_s", dt, f"(training AUC {gauc!r})")
+        check(np.isfinite(gauc) and gauc > 0.5 and
+              bool(torch.isfinite(g.beta).all()), "bf16 GLM not finite")
+        del gfr, g
+
+        args.numeric_dtype = "float32"
+        p32 = h2o.import_file(parse_path)
+        args.numeric_dtype = "bfloat16"
+        p16, dt = _timed(lambda: h2o.import_file(parse_path))
+        metric("parse_bf16_s", dt, f"({p16.nrows} rows, the run_parse "
+               f"file)")
+        nums = [n for n, t in p16.types.items() if t == "real"]
+        check(nums and all(p16.col(n).data.dtype == torch.bfloat16
+                           for n in nums), "imported reals not bf16")
+        for n in nums:
+            _bf16_bits_equal(f"import {n}", p32.col(n).data,
+                             p16.col(n).data)
+        print(f"bf16 import: {len(nums)} real columns equal to the "
+              f"float32 parse rounded to bf16")
+        del p32, p16
+
+        key = "bf16_rapids.hex"
+        rapids_frame(h2o, dev, key, RAPIDS["n_rows"], RAPIDS["seed"])
+        stmt = rapids_statements(key)[1]
+        sess = h2o.Session("bf16_fusion")
+        sig = fusion.plan_expr(parse(stmt), Env(sess)).signature
+        c0 = fusion.counters()["captures"]
+        with fusion.force(True), planner.force(True):
+            fused = h2o.exec_rapids(stmt, sess).col(0).data
+        caps = fusion.counters()["captures"] - c0
+        with fusion.force(False), planner.force(False):
+            eager = h2o.exec_rapids(stmt, sess).col(0).data
+        print(f"bf16 fused statement: {caps} new capture(s), signature "
+              f"{sig[:120]}")
+        check("bfloat16" in sig, "bf16 leaves not in the plan signature")
+        check(caps >= 1, "the bf16 statement replayed another capture")
+        check(fused.dtype == torch.float32 and torch.equal(
+            fused.view(torch.int32), eager.view(torch.int32)),
+            "bf16 fused statement differs from its eager run")
+        sess.end()
+        del fused, eager
+
+        n = BF16["cvc_rows"]
+        gkw = dict(ntrees=BF16["cvc_trees"], max_depth=c["max_depth"],
+                   seed=1)
+        out = {}
+        for d in (dev, torch.device("cpu")):
+            f = flagship_frame(h2o, d, n)
+            m = h2o.GBM(**gkw).train(y="y", training_frame=f)
+            out[d.type] = (m, m.spec.bin_columns(f).cpu(),
+                           m.predict(f).col("Y").data.cpu())
+        (mc, bc, pc), (mh, bh, ph) = out["cuda"], out["cpu"]
+        fc, fh = _forest_arrays(mc), _forest_arrays(mh)
+        check(all(np.array_equal(fc[k], fh[k]) for k in fc),
+              "bf16 card vs CPU: forest structure differs")
+        check(all(np.array_equal(a, b) for a, b in
+                  zip(mc.spec.edges, mh.spec.edges)) and
+              torch.equal(bc, bh), "bf16 card vs CPU: bins differ")
+        err = float((pc - ph).abs().max())
+        print(f"bf16 card vs CPU ({n} rows): forest and bins bitwise, "
+              f"predictions max abs diff {err!r}")
+        check(err <= BF16["pred_atol"], f"bf16 card vs CPU predictions "
+              f"{err} > {BF16['pred_atol']}")
+    finally:
+        args.numeric_dtype = saved
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -5263,6 +5480,8 @@ def main() -> int:
     import h2o3_tpu_torch as h2o
 
     dev = h2o.init().device
+    banner("phase 0b: the port's invariant analyzer")
+    phase_analysis()
     banner("phase 1: build")
     phase_build()
     banner("phase 2: kernels vs plain versions")
@@ -5371,6 +5590,10 @@ def main() -> int:
                "and the S3 reader")
         launches.update(phase_resume(h2o, dev, tmp, flag_csv, flag_fr))
         del flag_fr
+        banner("phase 3w: bf16 numeric storage (the flagship frame, GBM "
+               "and scoring session, the bench GLM, an import, a fused "
+               "statement, card vs CPU)")
+        launches["bf16"] = phase_bf16(h2o, dev, parse_path)
         banner("phase 4: card vs CPU")
         phase_card_vs_cpu(h2o, dev, parse_path)
         phase_card_vs_cpu_framework(h2o, dev)

@@ -39,11 +39,11 @@ from h2o3_tpu_torch.models.model import Model
 from h2o3_tpu_torch.utils.unpickle import RestrictedUnpickler
 
 
-class _ArtifactUnpickler(RestrictedUnpickler):
-    """Unpickler restricted to the port's own types, numpy, and the torch
-    rebuild functions `utils/unpickle.py` admits — binary artifacts must
-    not be able to smuggle arbitrary callables (pickle RCE). Applied to
-    every load path, including the network-facing upload route."""
+# binary artifacts load through the restricted unpickler (the port's own
+# types, numpy, and the rebuild functions utils/unpickle.py admits) on
+# every path, the network-facing upload route included: they must not be
+# able to smuggle arbitrary callables (pickle RCE)
+_ArtifactUnpickler = RestrictedUnpickler
 
 
 def _artifact_dumps(obj) -> bytes:

@@ -29,7 +29,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from h2o3_tpu_torch.core.frame import Column, Frame, T_CAT, T_STR
+from h2o3_tpu_torch.core.frame import Column, Frame, T_CAT, T_STR, widen
 from h2o3_tpu_torch.models import metrics as M
 from h2o3_tpu_torch.models.model import Model, ModelCategory
 
@@ -101,6 +101,20 @@ def dict_table(name: str, d: Dict[str, Sequence], types: Optional[Dict[str, str]
 # Cloud
 # ---------------------------------------------------------------------------
 
+def frame_byte_size(fr) -> int:
+    """A frame's byte size as the reference reports it, 4 bytes a value,
+    except that a bfloat16 column counts the 2 bytes a value it stores
+    (the `numeric_dtype` opt-in)."""
+    import torch
+
+    size = 0
+    for c in fr.columns:
+        d = c._data
+        size += (2 if d is not None and d.dtype == torch.bfloat16
+                 else 4) * fr.nrows
+    return size
+
+
 def cloud_v3(info: Dict[str, Any]) -> dict:
     size = int(info.get("cloud_size", 1))
     node = {
@@ -113,7 +127,8 @@ def cloud_v3(info: Dict[str, Any]) -> dict:
         "healthy": True, "last_ping": int(time.time() * 1000),
         "pid": 0, "num_cpus": 1, "cpus_allowed": 1, "nthreads": 1,
         "sys_load": 0.0, "my_cpu_pct": 0, "sys_cpu_pct": 0,
-        "mem_value_size": 0, "pojo_mem": 0, "swap_mem": 0,
+        "mem_value_size": int(info.get("mem_value_size", 0)),
+        "pojo_mem": 0, "swap_mem": 0,
         "free_mem": 0, "max_mem": 0, "num_keys": 0,
         "free_disk": 0, "max_disk": 0,
         "rpcs_active": 0, "fjthrds": [], "fjqueue": [],
@@ -251,7 +266,7 @@ def col_v3(name: str, col: Column, offset: int, count: int) -> dict:
     out["maxs"] = [float(r.max)] if r.max == r.max else []
     out["mean"] = float(r.mean) if r.mean == r.mean else None
     out["sigma"] = float(r.sigma) if r.sigma == r.sigma else None
-    arr = col.data[lo:hi].cpu().numpy().astype(np.float64)
+    arr = widen(col.data[lo:hi]).cpu().numpy().astype(np.float64)
     data = []
     for v in arr.tolist():
         if v != v:
@@ -278,7 +293,7 @@ def frame_v3(fr: Frame, row_count: int = 10, row_offset: int = 0,
     return {
         "__meta": meta("FrameV3"),
         "frame_id": key_ref(str(fr.key), "Key<Frame>"),
-        "byte_size": sum(4 * fr.nrows for _ in names),
+        "byte_size": frame_byte_size(fr),
         "is_text": False,
         "row_offset": row_offset, "row_count": min(row_count, fr.nrows),
         "column_offset": column_offset, "column_count": len(sel),

@@ -26,6 +26,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from h2o3_tpu_torch import compat
 from h2o3_tpu_torch.artifact import packer
 
 
@@ -108,7 +109,8 @@ def export_forest_bucket(bucket: int, meta: Dict[str, Any],
                         tuple(np.asarray(arrays["tree_class"]).tolist()),
                         n_margins(meta))
     X = torch.zeros((int(bucket), F), dtype=torch.float32)
-    return _save(torch.export.export(mod, (X,) + inputs, strict=False))
+    return _save(compat.torch_export().export(mod, (X,) + inputs,
+                                              strict=False))
 
 
 # -- GLMs --------------------------------------------------------------------
@@ -167,7 +169,8 @@ def export_glm_bucket(bucket: int, meta: Dict[str, Any],
                       arrays: Dict[str, np.ndarray]) -> bytes:
     """The serialized ExportedProgram of one row bucket's GLM scoring."""
     args = glm_columns(meta, bucket) + glm_inputs(arrays)
-    return _save(torch.export.export(GLMProgram(meta), args, strict=False))
+    return _save(compat.torch_export().export(GLMProgram(meta), args,
+                                              strict=False))
 
 
 # -- (de)serialization ---------------------------------------------------------
@@ -177,7 +180,7 @@ def _save(ep) -> bytes:
     # forest's arrays that the loader would unpickle: drop them
     ep.example_inputs = None
     buf = io.BytesIO()
-    torch.export.save(ep, buf)
+    compat.torch_export().save(ep, buf)
     return buf.getvalue()
 
 
@@ -185,4 +188,4 @@ def load_program(data: bytes) -> torch.nn.Module:
     """Bytes of a saved ExportedProgram -> its callable module. A
     program saved by `_save` holds no tensors, so loading it unpickles
     nothing; callers still pass only bytes whose digest they checked."""
-    return torch.export.load(io.BytesIO(data)).module()
+    return compat.torch_export().load(io.BytesIO(data)).module()

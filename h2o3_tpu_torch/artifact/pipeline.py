@@ -38,6 +38,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from h2o3_tpu_torch import compat
 from h2o3_tpu_torch.artifact import aot, manifest, packer
 from h2o3_tpu_torch.artifact.manifest import ArtifactError
 from h2o3_tpu_torch.core.frame import T_CAT, Frame
@@ -246,7 +247,7 @@ def export_pipeline_bucket(bucket: int, cap, inner: str, model,
     Xr = torch.zeros((int(bucket), len(cap.plan.leaves)),
                      dtype=torch.float32)
     args = (Xr,) + _model_inputs(model, inner, arrays)
-    return aot._save(torch.export.export(mod, args, strict=False))
+    return aot._save(compat.torch_export().export(mod, args, strict=False))
 
 
 # ---------------------------------------------------------------------------

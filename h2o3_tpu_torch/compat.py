@@ -12,6 +12,15 @@ from typing import Optional, Union
 import torch
 
 
+def torch_export():
+    """The ``torch.export`` module, imported on first use: its save/load
+    format and passes are version-mobile, so the port reaches it only
+    here (the invariant analyzer's compat-routing pass)."""
+    import torch.export
+
+    return torch.export
+
+
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
     """`device` as a torch.device; None means the current CUDA device.

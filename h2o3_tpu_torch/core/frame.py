@@ -2,9 +2,11 @@
 h2o3_tpu/core/frame.py).
 
 Storage rules are the reference's: one dense tensor per column, numeric
-columns float32 with NaN as NA, categorical columns integer codes of the
-narrowest dtype that fits the domain (`code_dtype`) with -1 as NA, and
-domains kept on the host. Time columns are float32 epoch milliseconds
+columns float32 with NaN as NA (T_NUM columns bfloat16 when the
+runtime's `numeric_dtype` opts in: `numeric_store_dtype`), categorical
+columns integer codes of the narrowest dtype that fits the domain
+(`code_dtype`) with -1 as NA, and domains kept on the host. Time
+columns are float32 epoch milliseconds
 (NaN = NA); a column built from datetime64 or integer input also keeps
 the exact values on the host (`host_data`, datetime64[ms] or the
 integers), since float32 holds epoch milliseconds only to ~2e5 ms.
@@ -63,7 +65,10 @@ def numeric_host(arr, ctype: str) -> np.ndarray:
     counterpart of the reference's pad_numeric_host
     (h2o3_tpu/core/frame.py:72) on one device, where nothing is padded.
     Values round through float64 to nearest float32; datetime64 input
-    becomes epoch milliseconds, NaT becomes NaN."""
+    becomes epoch milliseconds, NaT becomes NaN. A bfloat16 column is
+    stored from these float32 values (`store_numeric`): the reference's
+    float64 -> bfloat16 cast rounds through float32 too, so the bits
+    agree (NaN payloads aside)."""
     a = np.asarray(arr)
     if a.dtype.kind == "M":
         ms = a.astype("datetime64[ms]")
@@ -71,6 +76,42 @@ def numeric_host(arr, ctype: str) -> np.ndarray:
         out[np.isnat(ms)] = np.nan
         return out.astype(np.float32)
     return a.astype(np.float64).astype(np.float32)
+
+
+def numeric_store_dtype(ctype: str) -> torch.dtype:
+    """The one numeric storage rule (the reference's numeric_store_dtype,
+    h2o3_tpu/core/frame.py:65): T_NUM follows the runtime's
+    `numeric_dtype` opt-in; T_TIME and T_INT stay float32."""
+    return _numeric_dtype() if ctype == T_NUM else torch.float32
+
+
+def _numeric_dtype() -> torch.dtype:
+    """The T_NUM storage dtype of the booted runtime's options (of the
+    environment's, before a boot)."""
+    from h2o3_tpu_torch.core import runtime
+
+    cl = runtime._CLUSTER
+    args = cl.args if cl is not None else runtime.OptArgs.from_env()
+    return runtime.numeric_torch_dtype(args.numeric_dtype)
+
+
+def store_numeric(buf, ctype: str, device=None) -> torch.Tensor:
+    """float32 values (a host array or a tensor) -> the column tensor of
+    `ctype` on `device` (default: a tensor's own device, else the
+    runtime's): copied there, then cast on the device to
+    `numeric_store_dtype(ctype)`."""
+    if isinstance(buf, torch.Tensor):
+        t = buf if device is None else buf.to(torch.device(device))
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(buf)).to(_device(device))
+    dt = numeric_store_dtype(ctype)
+    return t if t.dtype == dt else t.to(dt)
+
+
+def widen(d: torch.Tensor) -> torch.Tensor:
+    """A bfloat16 tensor widened exactly to float32; any other tensor as
+    it is."""
+    return d.float() if d.dtype == torch.bfloat16 else d
 
 
 def _device(device):
@@ -82,8 +123,9 @@ def _device(device):
 
 
 class Column:
-    """One column: `data` is an (nrows,) tensor (float32 for real/int, a
-    narrow integer code dtype for enum) or None for host-only strings,
+    """One column: `data` is an (nrows,) tensor (float32 for real/int,
+    bfloat16 for real under the bf16 opt-in, a narrow integer code dtype
+    for enum) or None for host-only strings,
     whose values live in `host_data`."""
 
     __slots__ = ("_data", "_evicted", "_loader", "_touch", "ctype", "domain",
@@ -212,10 +254,12 @@ class Column:
                     else int(max(codes.max(initial=0) + 1, 1)))
             buf = codes.astype(code_dtype(card))
         elif ctype in (T_NUM, T_INT, T_TIME):
-            buf = numeric_host(arr, ctype)
             if ctype == T_TIME and arr.dtype.kind in "Mi":
                 host = (arr.astype("datetime64[ms]") if arr.dtype.kind == "M"
                         else arr)          # exact epoch-millis on the host
+            return Column(store_numeric(numeric_host(arr, ctype), ctype,
+                                        device),
+                          ctype, n, domain=domain, host_data=host)
         else:
             raise TypeError(f"cannot store ctype {ctype} on a device")
         data = torch.from_numpy(np.ascontiguousarray(buf)).to(_device(device))
@@ -292,9 +336,13 @@ class Column:
         return self._rollups
 
     def to_numpy(self) -> np.ndarray:
+        """The column's values on the host. numpy has no bfloat16, so a
+        bfloat16 column comes back widened exactly to float32 (the
+        reference returns an ml_dtypes bfloat16 array of the same
+        values; ROADMAP C38)."""
         if self.data is None:
             return self.host_data[: self.nrows]
-        return self.data.cpu().numpy()
+        return widen(self.data).cpu().numpy()
 
     def values(self) -> np.ndarray:
         """User-facing values (enum codes -> labels, NA -> None)."""

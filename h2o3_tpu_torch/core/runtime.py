@@ -12,8 +12,10 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import os
 import threading
 import time
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -21,15 +23,58 @@ import torch
 from h2o3_tpu_torch.compat import resolve_device
 
 
+# numeric_dtype names -> the torch storage dtype of T_NUM columns
+NUMERIC_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                  "bf16": torch.bfloat16}
+
+
+def numeric_torch_dtype(name: str) -> torch.dtype:
+    """The storage dtype a `numeric_dtype` name selects; an unknown name
+    raises (it never falls back to float32)."""
+    try:
+        return NUMERIC_DTYPES[name]
+    except KeyError:
+        raise ValueError(f"numeric_dtype {name!r} is not one of "
+                         f"{sorted(NUMERIC_DTYPES)}") from None
+
+
+@dataclass
+class OptArgs:
+    """The runtime's options (the reference's OptArgs,
+    h2o3_tpu/core/runtime.py:25). `numeric_dtype` is the device storage
+    dtype of T_NUM columns: "float32" (default) or "bfloat16"/"bf16",
+    which halves their bytes; ops widen at their boundaries as the
+    reference's do."""
+
+    numeric_dtype: str = "float32"
+
+    def __setattr__(self, name, value):
+        # the dataclass __init__ sets fields through here too
+        if name == "numeric_dtype":
+            numeric_torch_dtype(value)
+        object.__setattr__(self, name, value)
+
+    @staticmethod
+    def from_env() -> "OptArgs":
+        """Defaults overridden by ``H2O_TPU_<NAME>`` environment
+        variables (``H2O_TPU_NUMERIC_DTYPE``)."""
+        args = OptArgs()
+        v = os.environ.get("H2O_TPU_NUMERIC_DTYPE")
+        if v is not None:
+            args.numeric_dtype = v
+        return args
+
+
 class Cluster:
-    """The booted runtime: the device new columns land on. `info` is the
-    ``GET /3/Cloud`` surface and `self_benchmark` the ``/3/NetworkTest``
-    probes."""
+    """The booted runtime: the device new columns land on and its
+    options (`args`). `info` is the ``GET /3/Cloud`` surface and
+    `self_benchmark` the ``/3/NetworkTest`` probes."""
 
     name = "h2o3-tpu-torch"
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, args: Optional[OptArgs] = None):
         self.device = device
+        self.args = args if args is not None else OptArgs.from_env()
         self.devices = [device]
         self.start_time = time.time()
         self.locked = False
@@ -41,6 +86,11 @@ class Cluster:
         return "cpu"
 
     def info(self) -> dict:
+        """The cluster's status; `mem_value_size` is the bytes frame
+        columns hold on the device, as stored (bfloat16 columns at 2
+        bytes a value)."""
+        from h2o3_tpu_torch.core import cleaner
+
         return {
             "cloud_name": self.name,
             "version": "h2o3_tpu_torch",
@@ -56,6 +106,8 @@ class Cluster:
             "nodes": [{"name": self.device_name(),
                        "platform": self.device.type,
                        "id": self.device.index or 0}],
+            "numeric_dtype": self.args.numeric_dtype,
+            "mem_value_size": cleaner.device_bytes_in_use(),
         }
 
     def self_benchmark(self, size: int = 1024) -> dict:
@@ -119,17 +171,30 @@ _LOCK = threading.RLock()
 _CLUSTER: Optional[Cluster] = None
 
 
-def init(device=None) -> Cluster:
+def init(device=None, args: Optional[OptArgs] = None, **kw) -> Cluster:
     """Boot (or re-point) the runtime. `device` None means CUDA and raises
-    when there is none; ``device="cpu"`` runs everything on the CPU. The
-    first boot runs the registered extensions' hooks
-    (``extensions.register_extension``)."""
+    when there is none; ``device="cpu"`` runs everything on the CPU.
+    `args` (default: `OptArgs.from_env()`) and keyword options such as
+    ``numeric_dtype="bfloat16"`` set the runtime's options; given to a
+    booted runtime they replace its options. The first boot runs the
+    registered extensions' hooks (``extensions.register_extension``)."""
     global _CLUSTER
     from h2o3_tpu_torch.obs import phases
 
+    if args is not None or kw:
+        a = OptArgs(**vars(args)) if args is not None \
+            else OptArgs.from_env()
+        for k, v in kw.items():
+            if not hasattr(a, k):
+                raise TypeError(f"init() got an unknown option {k!r}")
+            setattr(a, k, v)
+    else:
+        a = None
     with _LOCK:
         if _CLUSTER is not None and device is not None and \
                 _CLUSTER.device == torch.device(device):
+            if a is not None:
+                _CLUSTER.args = a
             return _CLUSTER
         with phases.enter("backend_init", device=str(device or "cuda")):
             dev = resolve_device(device)
@@ -137,12 +202,15 @@ def init(device=None) -> Cluster:
                 torch.cuda.init()
         if _CLUSTER is None or _CLUSTER.device != dev:
             with phases.enter("device_discovery", device=str(dev)):
-                _CLUSTER = Cluster(dev)
+                _CLUSTER = Cluster(dev, a if a is not None else (
+                    _CLUSTER.args if _CLUSTER is not None else None))
                 if dev.type == "cuda":
                     torch.cuda.get_device_properties(dev)
             from h2o3_tpu_torch import extensions
 
             extensions.run_extension_hooks(_CLUSTER)
+        elif a is not None:
+            _CLUSTER.args = a
         return _CLUSTER
 
 

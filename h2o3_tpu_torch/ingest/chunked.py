@@ -50,7 +50,8 @@ import torch
 from h2o3_tpu_torch import native
 from h2o3_tpu_torch.core.frame import (NA_CAT, T_CAT, T_INT, T_NUM, T_STR,
                                        T_TIME, Column, code_dtype,
-                                       torch_code_dtype)
+                                       store_numeric, torch_code_dtype,
+                                       widen)
 
 
 class ChunkLayoutError(Exception):
@@ -634,7 +635,8 @@ def parse_csv_sharded(paths: Sequence[str], setup, device=None
     t3 = time.perf_counter()
     sink.finish()
     for i in num_idx:
-        out[names[i]] = Column(sink.num[i], T_NUM, total)
+        out[names[i]] = Column(store_numeric(sink.num[i], T_NUM), T_NUM,
+                               total)
     for i, data in times.items():
         out[names[i]] = Column(data, T_TIME, total)
     t_ship = time.perf_counter() - t3
@@ -862,8 +864,12 @@ def _append_rows(frame, names, b: int, batch) -> int:
             stats = bcodes
         else:
             old = c.data
-            bvals = val[1].astype(np.float32)
-            data = torch.cat([old, torch.from_numpy(bvals).to(old.device)])
+            # the batch in the column's storage dtype; the merged stats
+            # describe those stored values, as a recompute would
+            bnew = torch.from_numpy(val[1].astype(np.float32)).to(
+                old.device, old.dtype)
+            data = torch.cat([old, bnew])
+            bvals = widen(bnew).cpu().numpy()
             newc = Column(data, c.ctype, new_n)
             if c.ctype == T_TIME and c.host_data is not None and \
                     c.host_data.dtype.kind in "Mi":

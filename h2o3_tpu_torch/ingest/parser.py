@@ -322,16 +322,14 @@ class _ParquetBatchLoader:
         self._inflight: set = set()
 
     def load(self, name: str, ctype: str):
-        from h2o3_tpu_torch.core.frame import _device, numeric_host
+        from h2o3_tpu_torch.core.frame import numeric_host, store_numeric
         from h2o3_tpu_torch.ingest import chunked, formats
-
-        import torch
 
         with self._lock:
             while True:
                 buf = self._cache.pop(name, None)
                 if buf is not None:
-                    return torch.from_numpy(buf).to(_device(self._device))
+                    return store_numeric(buf, ctype, self._device)
                 if name not in self._inflight:
                     break
                 self._cond.wait()          # another read covers it
@@ -363,7 +361,7 @@ class _ParquetBatchLoader:
                 while len(self._cache) > cap:
                     self._cache.pop(next(iter(self._cache)))
                 self._cond.notify_all()
-        return torch.from_numpy(got[name]).to(_device(self._device))
+        return store_numeric(got[name], ctype, self._device)
 
 
 def lazy_import_parquet(path: str, destination_frame: Optional[str] = None,

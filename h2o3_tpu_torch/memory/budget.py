@@ -15,7 +15,9 @@
 - **bytes/row**: per program family, the larger of the caller's static
   hint and what was measured: a scoring session reports the rise of
   ``torch.cuda.max_memory_allocated`` over a bucket's first (eager) run
-  divided by the bucket's rows (`note_compiled`).
+  divided by the bucket's rows (`note_compiled`). Programs over
+  bfloat16 rows are a family of their own (`family_key`), measured on
+  their own runs.
 
 An exhausted ladder calls :func:`note_pressure`; admission sheds with
 503 + Retry-After for ``H2O_TPU_MEM_PRESSURE_COOLDOWN_S`` seconds.
@@ -88,6 +90,13 @@ def live_bytes() -> int:
     from h2o3_tpu_torch.core import cleaner
 
     return int(cleaner.device_bytes_in_use())
+
+
+def family_key(family: str, dtype) -> str:
+    """The planner's family for programs over rows of `dtype`: the
+    family itself for float32, ``family/<dtype>`` otherwise."""
+    name = str(dtype).replace("torch.", "")
+    return family if name == "float32" else f"{family}/{name}"
 
 
 def note_compiled(family: str, rows: int,

@@ -19,7 +19,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from h2o3_tpu_torch.core.frame import Column, Frame, T_NUM
+from h2o3_tpu_torch.core.frame import Column, Frame, T_NUM, widen
 from h2o3_tpu_torch.models.glm import GLM
 from h2o3_tpu_torch.models.model import Model
 from h2o3_tpu_torch.models.model_builder import ModelBuilder, register
@@ -147,7 +147,9 @@ class GAMModel(Model):
         for nm in frame.names:
             out.add(nm, frame.col(nm))
         for gcol in self.knots:
-            B = self._basis_for(gcol)(frame.col(gcol).data)
+            # the reference's basis takes float32 knots, so a bf16
+            # column computes in float32
+            B = self._basis_for(gcol)(widen(frame.col(gcol).data))
             for j in range(B.shape[1]):
                 out.add(f"{gcol}_gam{j}",
                         Column(B[:, j].contiguous(), T_NUM, frame.nrows))

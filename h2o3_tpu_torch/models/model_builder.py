@@ -43,7 +43,7 @@ from typing import Any, Dict, List, Optional, Sequence, Type
 import numpy as np
 
 from h2o3_tpu_torch.core.dkv import DKV
-from h2o3_tpu_torch.core.frame import Frame
+from h2o3_tpu_torch.core.frame import Frame, widen
 from h2o3_tpu_torch.core.job import Job, JobCancelled
 from h2o3_tpu_torch.core.runtime import in_full_float32
 from h2o3_tpu_torch.models.model import Model, ModelCategory
@@ -319,7 +319,7 @@ class ModelBuilder:
         raw = model._predict_raw(model.adapt_test(frame))
         p = raw["probs"][:, 1].cpu().numpy().astype(np.float64)
         y_col = model._adapt_response(frame.col(model._output.response_name))
-        y = DataInfo.clean_response(y_col.data).cpu().numpy()
+        y = widen(DataInfo.clean_response(y_col.data)).cpu().numpy()
         wc = self.params.get("weights_column")
         w_user = frame.col(wc).data if wc and wc in frame else None
         w = DataInfo.response_weight(y_col.data, w_user).cpu().numpy()

@@ -116,12 +116,17 @@ class NaiveBayes(ModelBuilder):
             tables.append(((Y * (codes >= 0)[:, None]).T @ C).cpu().numpy())
         sums, sqs, cnts = [], [], []
         for j in range(len(di.num_names)):
-            x = arrs[ncat + j].double()
+            x = arrs[ncat + j]
             ok = ~torch.isnan(x)
             xv = torch.where(ok, x, 0.0)
+            # a bf16 column squares in bf16: the reference's matmul takes
+            # the bf16 product as its operand
+            sq = ((xv * xv).double() if xv.dtype == torch.bfloat16
+                  else xv.double() * xv.double())
+            xv = xv.double()
             Yv = Y * ok[:, None]
             sums.append((Yv.T @ xv).cpu().numpy())
-            sqs.append((Yv.T @ (xv * xv)).cpu().numpy())
+            sqs.append((Yv.T @ sq).cpu().numpy())
             cnts.append(Yv.sum(dim=0).cpu().numpy())
 
         model = NaiveBayesModel(parms=dict(p))

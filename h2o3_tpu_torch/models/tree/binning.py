@@ -19,7 +19,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from h2o3_tpu_torch.core.frame import Frame
+from h2o3_tpu_torch.core.frame import Frame, widen
 
 
 def _nanquantile(data: torch.Tensor, qs: np.ndarray) -> np.ndarray:
@@ -27,7 +27,10 @@ def _nanquantile(data: torch.Tensor, qs: np.ndarray) -> np.ndarray:
     computed exactly as the reference's ``jnp.nanquantile`` on the CPU
     (float32 throughout): position q*(count-1) in float32, and the
     interpolation low*(1-h) rounded, then high*h + that as one fused
-    multiply-add. Returns float64 values of the float32 results."""
+    multiply-add. jnp.nanquantile returns its input's dtype, so the
+    quantiles of a bfloat16 column are those float32 results rounded to
+    bfloat16. Returns float64 values of the results."""
+    half = data.dtype == torch.bfloat16
     v = data[~torch.isnan(data)].float().cpu()
     q = torch.as_tensor(qs, dtype=torch.float32)
     if v.numel() == 0:
@@ -44,6 +47,8 @@ def _nanquantile(data: torch.Tensor, qs: np.ndarray) -> np.ndarray:
     # f64 holds the f32 product high*hw exactly, so one f64 add and one
     # rounding to f32 give the fused multiply-add
     out = (v[high].double() * hw.double() + lo_part).float()
+    if half:
+        out = out.to(torch.bfloat16)
     return out.double().numpy()
 
 
@@ -155,7 +160,7 @@ class BinSpec:
                 codes = c.data.int()
                 b = torch.where((codes < 0) | (codes >= na_bin), na_bin, codes)
             else:
-                x = c.data
+                x = widen(c.data)   # float32 edges: bf16 widens exactly
                 e = torch.as_tensor(self.edges[i], device=x.device)
                 b = torch.searchsorted(e, x, side="left")
                 b = torch.where(torch.isnan(x), na_bin, b)

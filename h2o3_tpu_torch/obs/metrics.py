@@ -533,8 +533,8 @@ def _install_default_metrics() -> None:
         return float(rapids_parser.parse_cache_stats()["size"])
 
     r.gauge_fn("h2o3_rapids_parse_cache_entries",
-               "entries in the bounded statement-parse memo "
-               "(H2O_TPU_RAPIDS_PARSE_CACHE)", _parse_cache_size)
+               "entries in the bounded statement-parse memo",
+               _parse_cache_size)
 
     def _adm(field):
         def fn():

@@ -23,6 +23,20 @@ the reference's definition is written out here:
 are single correctly rounded float32 operations in both packages; `sqrt`
 (on the CPU neither library rounds it correctly every time) and the
 transcendental functions agree to about an ulp (ROADMAP C2).
+
+bfloat16 columns (the `numeric_dtype` opt-in) take the dtypes of the
+reference's compiled programs, not torch's promotion. Arithmetic,
+comparisons and unary ops widen bf16 operands exactly and compute in
+float32: with a float32 column or a scalar (strongly typed float32, as
+the reference's ``jnp.float32(v)`` is) JAX promotes to float32, and
+with bf16 on both sides the reference computes ``a + b`` in bf16 and
+casts to float32 in one program, whose bf16 round trip XLA removes, so
+it too computes in float32. torch alone would keep bf16 for a bf16
+tensor with a 0-dim float32 one. lgamma and digamma are the exception:
+XLA lowers them for half types as float32 rounded to bf16, a rounding
+that stays (`_HALF_UNOPS`). `ifelse` only selects: bf16 branches
+stay bf16 (`promote`), as the reference's where keeps them.
+Arithmetic, comparison and unary results are float32 columns.
 """
 
 from __future__ import annotations
@@ -32,7 +46,7 @@ import math
 import numpy as np
 import torch
 
-from h2o3_tpu_torch.core.frame import Column, T_CAT, T_NUM
+from h2o3_tpu_torch.core.frame import Column, T_CAT, T_NUM, widen
 
 _PI = np.float32(math.pi)
 
@@ -47,6 +61,15 @@ def _as_f32(col: Column) -> torch.Tensor:
     if col.ctype == T_CAT:
         return cat_to_f32(col.data)
     return col.data
+
+
+def promote(a: torch.Tensor, b: torch.Tensor):
+    """The operands in JAX's common dtype for {bfloat16, float32}:
+    unchanged when the dtypes agree, else each widened exactly to
+    float32."""
+    if a.dtype == b.dtype:
+        return a, b
+    return widen(a), widen(b)
 
 
 def _scalar_like(v, like: torch.Tensor) -> torch.Tensor:
@@ -200,8 +223,10 @@ _UNOPS = {
 
 
 def binop_expr(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Binary op with H2O NA semantics on float32 tensors: arithmetic
-    lets NaN propagate; comparisons make NA rows NA."""
+    """Binary op with H2O NA semantics: arithmetic lets NaN propagate;
+    comparisons make NA rows NA. bfloat16 operands widen exactly; the
+    op computes in float32."""
+    a, b = widen(a), widen(b)
     if op in _CMPOPS:
         na = torch.isnan(a) | torch.isnan(b)
         return torch.where(na, torch.nan, _CMPOPS[op](a, b).float())
@@ -225,9 +250,26 @@ def binop(op: str, left, right) -> Column:
     return Column.from_device(binop_expr(op, a, b), T_NUM, ref.nrows)
 
 
+def _bf16_rounded(fn):
+    def run(x):
+        return fn(x.float()).to(torch.bfloat16).float()
+    return run
+
+
+# unary ops of a bfloat16 tensor whose float32 results the reference
+# rounds to bf16 (see the module docstring)
+_HALF_UNOPS = {
+    "lgamma": _bf16_rounded(_lgamma),
+    "digamma": _bf16_rounded(_digamma),
+    "gamma": lambda x: torch.exp(_bf16_rounded(_lgamma)(x)),
+}
+
+
 def unop_expr(op: str, x: torch.Tensor) -> torch.Tensor:
-    """Unary math op on a float32 tensor."""
-    return _UNOPS[op](x).float()
+    """Unary math op in float32 (a bfloat16 tensor widens exactly)."""
+    if x.dtype == torch.bfloat16 and op in _HALF_UNOPS:
+        return _HALF_UNOPS[op](x)
+    return _UNOPS[op](widen(x)).float()
 
 
 def unop(op: str, col: Column) -> Column:
@@ -235,7 +277,10 @@ def unop(op: str, col: Column) -> Column:
 
 
 def ifelse_expr(c, a, b):
-    """(ifelse cond yes no): an NA cond gives NA."""
+    """(ifelse cond yes no): an NA cond gives NA. The branches take their
+    common dtype (`promote`): bfloat16 when both are, as the reference's
+    where keeps it."""
+    a, b = promote(a, b)
     return torch.where(torch.isnan(c), torch.nan, torch.where(c != 0, a, b))
 
 
@@ -257,8 +302,7 @@ def ifelse(cond: Column, yes, no) -> Column:
     c = _as_f32(cond)
     a = _as_f32(yes) if isinstance(yes, Column) else _scalar_like(yes, c)
     b = _as_f32(no) if isinstance(no, Column) else _scalar_like(no, c)
-    return Column.from_device(ifelse_expr(c, a, b).float(), T_NUM,
-                              cond.nrows)
+    return Column.from_device(ifelse_expr(c, a, b), T_NUM, cond.nrows)
 
 
 def logical(op: str, left, right) -> Column:

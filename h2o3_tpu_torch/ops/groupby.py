@@ -19,7 +19,7 @@ from typing import List, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from h2o3_tpu_torch.core.frame import Column, Frame, T_CAT
+from h2o3_tpu_torch.core.frame import Column, Frame, T_CAT, widen
 from h2o3_tpu_torch.core.ops import fixed_point_segment_sum
 
 
@@ -56,7 +56,11 @@ def _codes_and_levels(frame: Frame, by: Sequence[str]
 def group_aggregates(codes: torch.Tensor, x: torch.Tensor, ngroups: int):
     """Per group of `codes` (-1 = no group): (count of valid x, sum, sum
     of squares, min, max) of the float32 values x, on x's device. NA rows
-    land in an extra slot that is dropped."""
+    land in an extra slot that is dropped. A bfloat16 x is widened
+    exactly first: the reference's program squares it in float32 too
+    (XLA drops the bfloat16 round trip of x * x before the float32
+    scatter-add)."""
+    x = widen(x)
     valid = (codes >= 0) & ~torch.isnan(x)
     seg = torch.where(valid, codes, ngroups)
     xv = torch.where(valid, x, 0.0)

@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from h2o3_tpu_torch.core.frame import Column, Frame, T_CAT
+from h2o3_tpu_torch.core.frame import Column, Frame, T_CAT, widen
 
 
 def impute(frame: Frame, column=-1, method: str = "mean"):
@@ -44,10 +44,12 @@ def impute(frame: Frame, column=-1, method: str = "mean"):
                 v = float(u[cnts.argmax()]) if len(u) else np.nan
             else:
                 raise ValueError(f"method {method!r}")
-            fill = torch.tensor(np.float32(v), device=c.data.device)
+            # a float32 fill promotes a bf16 column to float32, as the
+            # reference's jnp.float32 fill does
+            d = widen(c.data)
+            fill = torch.tensor(np.float32(v), device=d.device)
             frame.replace(name, Column.from_device(
-                torch.where(torch.isnan(c.data), fill, c.data), c.ctype,
-                c.nrows))
+                torch.where(torch.isnan(d), fill, d), c.ctype, c.nrows))
             values.append(float(v))
         else:
             values.append(None)

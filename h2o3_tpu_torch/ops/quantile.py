@@ -21,6 +21,8 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from h2o3_tpu_torch.core.frame import widen
+
 NBINS = 1024
 
 
@@ -78,6 +80,9 @@ def quantile_column(col, probs: Sequence[float]) -> List[float]:
     if n == 0:
         return [float("nan")] * len(probs)
     out = []
+    # the reference's bounds are float32 scalars, so a bf16 column
+    # compares and bins in float32
+    data = widen(col.data)
     for p in probs:
         h = (n - 1) * float(p)
         k = int(np.floor(h))
@@ -86,11 +91,11 @@ def quantile_column(col, probs: Sequence[float]) -> List[float]:
         if lo == hi:
             out.append(lo)
             continue
-        v_k = _select_kth(col.data, lo, hi, k)
+        v_k = _select_kth(data, lo, hi, k)
         if frac == 0.0:
             out.append(v_k)
         else:
-            v_k1 = _select_kth(col.data, lo, hi, k + 1)
+            v_k1 = _select_kth(data, lo, hi, k + 1)
             out.append(v_k * (1 - frac) + v_k1 * frac)
     return out
 

@@ -40,7 +40,7 @@ import time
 from typing import Any, Dict, List, Optional, Tuple
 
 from h2o3_tpu_torch.utils import retry
-from h2o3_tpu_torch.utils.unpickle import RestrictedUnpickler
+from h2o3_tpu_torch.utils.unpickle import CheckpointUnpickler
 
 
 def interval_ops() -> int:
@@ -66,8 +66,7 @@ def latest_seq() -> Optional[int]:
     return None
 
 
-class _CkptUnpickler(RestrictedUnpickler):
-    what = "checkpoint"
+_CkptUnpickler = CheckpointUnpickler
 
 
 def _safe(key: str) -> str:

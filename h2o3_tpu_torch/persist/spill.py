@@ -53,10 +53,12 @@ def spill_array(arr: np.ndarray, name: str) -> tuple:
     return path, digest
 
 
-def loader_for(path: str, digest: str, what: str):
+def loader_for(path: str, digest: str, what: str,
+               dtype: Optional[torch.dtype] = None):
     """A Column loader (the file_backed contract: returns the column's
     tensor, here on the host) that reads through the bounded retry and
-    the checksum gate."""
+    the checksum gate; `dtype` bfloat16 views the spilled int16 bits
+    back (numpy has no bfloat16)."""
     from h2o3_tpu_torch.memory import stream
 
     def _read() -> Optional[bytes]:
@@ -78,7 +80,8 @@ def loader_for(path: str, digest: str, what: str):
             raise SpillCorrupt(
                 f"spilled column {what} failed its checksum gate at "
                 f"{path}: wrote sha256 {digest[:16]}…, read {got[:16]}…")
-        return torch.from_numpy(buf)
+        t = torch.from_numpy(buf)
+        return t.view(dtype) if dtype is not None else t
 
     return load
 
@@ -94,8 +97,12 @@ def spill_column(col, name: Optional[str] = None) -> int:
     if src is None or callable(src):
         return freed
     what = name or f"col{col._token}"
-    path, digest = spill_array(src.numpy(), what)
-    loader = loader_for(path, digest, what)
+    # a bfloat16 column spills its bits as int16 (numpy has no bfloat16)
+    half = src.dtype == torch.bfloat16
+    path, digest = spill_array(
+        (src.view(torch.int16) if half else src).numpy(), what)
+    loader = loader_for(path, digest, what,
+                        torch.bfloat16 if half else None)
     with cleaner.SWAP_LOCK:
         # only if the column still holds the host copy we spilled: a
         # racing fault-in keeps its device tensor

@@ -543,7 +543,7 @@ def _split_rewrite_edges(plan: Plan) -> None:
         ix = len(plan.leaves)
         plan.leaves.append(sub)
         plan.leaf_ctypes.append(T_NUM)
-        plan.leaf_dtypes.append("float32")
+        plan.leaf_dtypes.append(_out_dtype(sub, sub.root))
         return ("L", ix)
 
     plan.root = walk(plan.root)
@@ -598,8 +598,9 @@ def _finish_signature(plan: Plan) -> None:
 
 def eval_tree(node, leaf: Callable[[int], torch.Tensor],
               const: Callable[[int], torch.Tensor]) -> torch.Tensor:
-    """Evaluate a plan tree: `leaf(i)` gives leaf i as float32 (enum codes
-    through cat_to_f32), `const(i)` constant i as a 0-dim float32 tensor.
+    """Evaluate a plan tree: `leaf(i)` gives leaf i in its storage dtype
+    (enum codes through cat_to_f32), `const(i)` constant i as a 0-dim
+    float32 tensor.
     Every node is the ops/elementwise expression its eager prim calls."""
     k = node[0]
     if k == "L":
@@ -617,7 +618,7 @@ def eval_tree(node, leaf: Callable[[int], torch.Tensor],
     if k == "ifelse":
         return E.ifelse_expr(eval_tree(node[1], leaf, const),
                              eval_tree(node[2], leaf, const),
-                             eval_tree(node[3], leaf, const)).float()
+                             eval_tree(node[3], leaf, const))
     if k == "isna":
         return E.isna_expr(eval_tree(node[1], leaf, const))
     raise AssertionError(f"bad fused node {k!r}")
@@ -846,6 +847,20 @@ _PROGRAMS = ProgramCache(256, 2 << 30)
 def clear_programs() -> None:
     """Drop every cached program (and its graph)."""
     _PROGRAMS.clear()
+
+
+def _out_dtype(plan: Plan, node) -> str:
+    """The dtype name a plan node evaluates to: a numeric leaf's own, an
+    ifelse's branches' common dtype (ops/elementwise `promote`), float32
+    for everything else."""
+    k = node[0]
+    if k == "L":
+        return ("float32" if plan.leaf_ctypes[node[1]] == T_CAT
+                else plan.leaf_dtypes[node[1]])
+    if k == "ifelse":
+        a, b = _out_dtype(plan, node[2]), _out_dtype(plan, node[3])
+        return a if a == b else "float32"
+    return "float32"
 
 
 def _program_for(plan: Plan, win: Optional[int] = None) -> GraphProgram:

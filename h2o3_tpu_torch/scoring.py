@@ -49,6 +49,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from h2o3_tpu_torch.core.frame import widen
+
 _DEFAULT_BUCKETS = (256, 1024, 4096, 16384)
 
 # one increment per scoring-program execution, by path label (host:
@@ -150,8 +152,9 @@ class SessionStats:
 
 
 class BucketProgram:
-    """One row bucket of one program: a static (bucket, F) float32 input
-    on the device and, on the card, the CUDA graph of `fn` over it.
+    """One row bucket of one program: a static (bucket, F) input of
+    `dtype` (float32, or bfloat16 for rows staged from bf16 frames) on
+    the device and, on the card, the CUDA graph of `fn` over it.
 
     `run(rows)` copies the (m, F) rows into the static input (rows past
     m zeroed) and returns `fn`'s first m output rows as a tensor nobody
@@ -163,11 +166,12 @@ class BucketProgram:
     def __init__(self, fn: Callable[[torch.Tensor], torch.Tensor],
                  bucket: int, F: int, device,
                  on_first: Callable[[Optional[int]], None],
-                 on_capture: Callable[[float], None]):
+                 on_capture: Callable[[float], None],
+                 dtype: torch.dtype = torch.float32):
         self.fn = fn
         self.bucket = int(bucket)
         self.device = torch.device(device)
-        self.x = torch.zeros((self.bucket, F), dtype=torch.float32,
+        self.x = torch.zeros((self.bucket, F), dtype=dtype,
                              device=self.device)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.out: Optional[torch.Tensor] = None
@@ -234,7 +238,8 @@ class ScoringSession:
         self.device = cluster().device
         self._res = ResidentForest(self.forest, self.spec, self.device)
         self.buckets = tuple(sorted(set(_env_buckets())))
-        self._programs: Dict[Tuple[str, int], BucketProgram] = {}
+        self._programs: Dict[Tuple[str, int, torch.dtype],
+                             BucketProgram] = {}
         self._lock = threading.Lock()     # static inputs, graphs, replays
         self._traced: set = set()         # score buckets activated so far
         self.fused_compiles = 0           # CUDA-graph captures
@@ -242,9 +247,19 @@ class ScoringSession:
 
     # -- feature packing ---------------------------------------------------
     def _features(self, adapted) -> torch.Tensor:
-        """(n, F) float32 features of an adapted frame on the session's
-        device, in training-column order (numerics as-is, NaN = NA;
-        categoricals as their codes, NA negative)."""
+        """(n, F) features of an adapted frame on the session's device, in
+        training-column order (numerics as-is, NaN = NA; categoricals as
+        their codes, NA negative). Rows of a bf16 frame stage in
+        bfloat16, half the bytes, when every other feature column is an
+        enum whose codes bfloat16 holds exactly (at most 256 levels);
+        else in float32. The programs widen them exactly, so both score
+        alike, and each dtype has programs of its own."""
+        cols = [adapted.col(n) for n in self.spec.names]
+        half = [c.data.dtype == torch.bfloat16 for c in cols]
+        if any(half) and all(h or (c.is_categorical and c.cardinality <= 256)
+                             for h, c in zip(half, cols)):
+            return torch.stack([c.data.to(torch.bfloat16) for c in cols],
+                               dim=1).to(self.device)
         return self.model._features(adapted).to(self.device)
 
     def _bucket_for(self, m: int) -> int:
@@ -265,18 +280,20 @@ class ScoringSession:
     def _out_k(self) -> int:
         return self._res.K
 
-    def _row_bytes_hint(self) -> float:
+    def _row_bytes_hint(self, itemsize: int = 4) -> float:
         """Static working-set bytes/row of one dispatch: the features in
-        and out of packing plus the margin lanes; the planner takes the
-        larger of this and the measured estimate."""
+        and out of packing (`itemsize` bytes a value) plus the float32
+        margin lanes; the planner takes the larger of this and the
+        measured estimate."""
         F = max(len(self.spec.names), 1)
-        return 4.0 * (2 * F + self._out_k() + 2)
+        return 2.0 * itemsize * F + 4.0 * (self._out_k() + 2)
 
     # -- bucketed dispatch -------------------------------------------------
-    def _program(self, kind: str, bucket: int) -> BucketProgram:
+    def _program(self, kind: str, bucket: int,
+                 dtype: torch.dtype = torch.float32) -> BucketProgram:
         from h2o3_tpu_torch.obs import compiles
 
-        key = (kind, bucket)
+        key = (kind, bucket, dtype)
         family = "scoring" if kind == "score" else "explain"
         prog = self._programs.get(key)
         if prog is not None:
@@ -284,19 +301,22 @@ class ScoringSession:
         else:
             from h2o3_tpu_torch.memory import budget
 
-            fn = self._res.margins if kind == "score" else self._res.leaves
+            res = self._res.margins if kind == "score" else self._res.leaves
+
+            def fn(x):
+                return res(widen(x))
 
             def on_capture(ms: float) -> None:
                 self.fused_compiles += 1
                 compiles.record_compile(
-                    family, (str(self.model.key), kind, bucket), ms,
-                    program=f"{kind}_b{bucket}")
+                    family, (str(self.model.key), kind, bucket, str(dtype)),
+                    ms, program=f"{kind}_b{bucket}")
 
             prog = BucketProgram(
                 fn, bucket, self.spec.F, self.device,
                 on_first=lambda nbytes: budget.note_compiled(
-                    family, bucket, nbytes),
-                on_capture=on_capture)
+                    budget.family_key(family, dtype), bucket, nbytes),
+                on_capture=on_capture, dtype=dtype)
             self._programs[key] = prog
             if kind == "score":
                 self._traced.add(bucket)
@@ -304,8 +324,8 @@ class ScoringSession:
 
     def _dispatch(self, kind: str, rows: torch.Tensor) -> torch.Tensor:
         with self._lock:
-            return self._program(kind, self._bucket_for(rows.shape[0])
-                                 ).run(rows)
+            return self._program(kind, self._bucket_for(rows.shape[0]),
+                                 rows.dtype).run(rows)
 
     def _windows(self, family: str, kind: str, X, path: str,
                  row_bytes: float,
@@ -314,12 +334,18 @@ class ScoringSession:
         an (n, F) host array (staged double-buffered) or a tensor."""
         from h2o3_tpu_torch.memory import stream
 
+        from h2o3_tpu_torch.memory import budget
+
         n = X.shape[0]
         maxb = self.buckets[-1]
         if isinstance(X, np.ndarray):
             rows_of = stream.HostStager(X, self.device, maxb).stage
+            dtype = torch.float32
         else:
-            X = X.to(self.device, torch.float32)
+            if X.dtype != torch.bfloat16:
+                X = X.to(torch.float32)
+            X = X.to(self.device)
+            dtype = X.dtype
 
             def rows_of(pos, m):
                 return X[pos: pos + m]
@@ -335,8 +361,8 @@ class ScoringSession:
                 dispatched.append(self._bucket_for(m))
             return out
 
-        return stream.run_windows(family, n, dispatch, maxb,
-                                  row_bytes=row_bytes,
+        return stream.run_windows(budget.family_key(family, dtype), n,
+                                  dispatch, maxb, row_bytes=row_bytes,
                                   window_sizer=self._window_snap)
 
     def _margin_x(self, X, dispatched: Optional[list] = None
@@ -348,7 +374,9 @@ class ScoringSession:
         len(buckets) score programs. `dispatched` receives one bucket
         per dispatch."""
         outs = self._windows("scoring", "score", X, "host",
-                             self._row_bytes_hint(), dispatched)
+                             self._row_bytes_hint(
+                                 2 if getattr(X, "dtype", None)
+                                 == torch.bfloat16 else 4), dispatched)
         if not outs:
             K = self._out_k()
             return torch.zeros((0,) if K == 1 else (0, K),

@@ -30,10 +30,12 @@ _LOCK = threading.Lock()
 # the API layer's request ring merge, not by record().
 KINDS = frozenset({
     "flight",           # flight-recorder dumps (obs/flight.py)
+    "job",              # durable job-progress saves (parallel/ckpt.py)
     "phase",            # lifecycle phase begin/end (obs/phases.py)
     "profiler",         # /3/Profiler start/stop captures
     "rest",             # REST request ring (api/server.py merge)
     "scoring",          # fused serving dispatches
+    "search",           # durable AutoML/grid search-state saves
     "self_benchmark",   # device probes (/3/NetworkTest)
 })
 

@@ -52,6 +52,12 @@ class RestrictedUnpickler(pickle.Unpickler):
             "refusing to unpickle (restricted loader)")
 
 
+class CheckpointUnpickler(RestrictedUnpickler):
+    """The restricted loader of durable job progress and search state
+    (parallel/ckpt.py)."""
+    what = "checkpoint"
+
+
 def restricted_load(fileobj: BinaryIO, what: str = "payload") -> Any:
     up = RestrictedUnpickler(fileobj)
     up.what = what

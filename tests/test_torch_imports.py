@@ -1,8 +1,9 @@
 """The PyTorch port (h2o3_tpu_torch) stands alone: it imports with JAX,
-optax, scipy and pandas blocked and the JAX package and its standalone
-MOJO runtime (h2o3_genmodel) refused, its entry points default to CUDA,
+optax, scipy, pandas and ml_dtypes blocked and the JAX package and its
+standalone MOJO runtime (h2o3_genmodel) refused (its bf16 storage and
+its invariant analyzer run so too), its entry points default to CUDA,
 and no source file of it (nor chip_smoke.py) imports JAX, optax, scipy,
-pandas, h2o3_tpu or h2o3_genmodel. The one exception is
+pandas, ml_dtypes, h2o3_tpu or h2o3_genmodel. The one exception is
 Frame.to_pandas, which imports pandas inside the method and raises
 ImportError where pandas is absent."""
 
@@ -32,6 +33,7 @@ sys.meta_path.insert(0, RefuseReference())
 sys.modules["optax"] = None
 sys.modules["scipy"] = None
 sys.modules["pandas"] = None
+sys.modules["ml_dtypes"] = None
 import h2o3_tpu_torch
 mods = sorted(m.name for m in pkgutil.walk_packages(
     h2o3_tpu_torch.__path__, "h2o3_tpu_torch."))
@@ -39,18 +41,33 @@ for m in mods:
     importlib.import_module(m)
 leaked = [k for k in sys.modules
           if k.split(".")[0] in ("h2o3_tpu", "h2o3_genmodel")
-          or (k in ("jax", "optax", "scipy", "pandas")
+          or (k in ("jax", "optax", "scipy", "pandas", "ml_dtypes")
               and sys.modules[k] is not None)]
 from h2o3_tpu_torch import kernels
 from h2o3_tpu_torch import native
-h2o3_tpu_torch.init(device="cpu")
+h2o3_tpu_torch.init(device="cpu", numeric_dtype="bfloat16")
+import numpy as np
+from h2o3_tpu_torch.models.tree.binning import BinSpec
+fr = h2o3_tpu_torch.Frame()
+fr.add("x", h2o3_tpu_torch.Column.from_numpy(np.linspace(-1, 1, 64)))
+bf16 = str(fr.col("x").data.dtype)
+BinSpec.build(fr, ["x"]).bin_columns(fr)
+fr.col("x").mean()
+from h2o3_tpu_torch.analysis import core as acore
+acore.make_context()
+h2o3_tpu_torch.init(device="cpu", numeric_dtype="float32")
+leaked += [k for k in sys.modules
+           if k.split(".")[0] in ("h2o3_tpu", "h2o3_genmodel")
+           or (k in ("jax", "optax", "scipy", "pandas", "ml_dtypes")
+               and sys.modules[k] is not None)]
 try:
     h2o3_tpu_torch.H2OFrame({"a": [1.0]}).to_pandas()
     to_pandas = "ran"
 except ImportError:
     to_pandas = "ImportError"
 print(json.dumps({"modules": mods, "leaked": leaked, "to_pandas": to_pandas,
-                  "built": len(kernels._LIBS) + (native._LIB is not None)}))
+                  "built": len(kernels._LIBS) + (native._LIB is not None),
+                  "bf16": bf16}))
 '''
 
 
@@ -96,13 +113,18 @@ def test_port_imports_with_jax_blocked_and_reference_refused():
                  "parallel.distributed", "parallel.oplog",
                  "parallel.supervisor", "parallel.ckpt",
                  "parallel.watchdog", "client", "utils.timeline",
-                 "persist.s3"):
+                 "persist.s3", "analysis", "analysis.__main__",
+                 "analysis.core", "analysis.callgraph",
+                 "analysis.registry", "analysis.passes_locks",
+                 "analysis.passes_mirrored", "analysis.passes_misc",
+                 "analysis.passes_registries"):
         assert f"h2o3_tpu_torch.{name}" in rep["modules"], name
     assert len(rep["modules"]) >= 30, rep["modules"]
     assert rep["leaked"] == [], rep["leaked"]
     assert rep["to_pandas"] == "ImportError"
     assert rep["built"] == 0, "importing the port built a kernel or a " \
         "host library"
+    assert rep["bf16"] == "torch.bfloat16"
 
 
 def test_builders_list_every_ported_algorithm():
@@ -133,7 +155,7 @@ def test_init_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 _FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|optax|scipy|pandas|h2o3_tpu|"
+    r"^\s*(?:import|from)\s+(?:jax|optax|scipy|pandas|ml_dtypes|h2o3_tpu|"
     r"h2o3_genmodel)"
     r"(?:[.\s,]|$)",
     re.MULTILINE)
@@ -149,8 +171,8 @@ def test_no_source_names_jax_or_the_reference(path):
         # Frame.to_pandas's import, inside the method
         found = [f for f in found if f != "        import pandas "]
     assert not found, \
-        f"{path} imports jax, optax, scipy, pandas, h2o3_tpu or " \
-        "h2o3_genmodel"
+        f"{path} imports jax, optax, scipy, pandas, ml_dtypes, h2o3_tpu " \
+        "or h2o3_genmodel"
 
 
 def test_runner_imports_only_torch_numpy_and_the_standard_library():
