@@ -4240,7 +4240,9 @@ def phase_times(dev, launches, max_err):
              "launches": int(launches["gbm_flagship"]
                              + launches["gbm_imported_csv"]
                              + launches["rest"] + launches["resume"]
-                             + launches["grid_resume"] + launches["bf16"]),
+                             + launches["grid_resume"] + launches["bf16"]
+                             + launches["cloud"]
+                             + launches["cloud_resume"]),
              "max_abs_err": max_err,
              "ms": mean[0], "plain_ms": mean[1], "bound_ms": mean[3],
              "bound_by": "bytes", "library_ms": mean[2],
@@ -4608,6 +4610,7 @@ def phase_rest(h2o, dev, csv_path, fr_3l, model_3l, fused_3t):
     train_trace = hdrs.get("X-H2O3-Trace-Id")
     mid = job["dest"]["name"]
     m = h2o.get_model(mid)
+    RUN["rest_gbm_train_s"] = dt                # phase 3x prints it
     metric("rest_gbm_train_s", dt, f"(in-process gbm_train_s "
            f"{RUN['gbm_train_s']!r} in phase 3)")
     # where the REST train's wall time went: the POST's reply, the
@@ -5472,6 +5475,542 @@ def phase_resume(h2o, dev, tmp, csv_path, fr_3l):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 3x: the cross-process control plane (two processes on the card)
+# ---------------------------------------------------------------------------
+
+# short knobs for the phase: both processes read them from the env
+CLOUD = dict(H2O_TPU_HEARTBEAT_STALE_S="2", H2O_TPU_OP_ACK_TIMEOUT_S="10",
+             H2O_TPU_OPLOG_CHECKPOINT_OPS="3", H2O_TPU_JOB_CKPT_ITERS="2",
+             H2O_TPU_OPLOG_CKPT_ASYNC="0", H2O_TPU_SUPERVISE_INTERVAL_S="0.25",
+             H2O_TPU_AUTO_RECOVER="1", H2O_TPU_ELECTION_GRACE_S="3600")
+CLOUD_KILL_AT = 10          # SIGKILL the follower past this durable tree
+CLOUD_DEADLINE_S = 120      # each wait of the phase
+
+
+def _digest(obj) -> str:
+    """sha256 over a tree model's forest bits, or over a frame's columns'
+    device bytes (both processes hash alike)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    if getattr(obj, "forest", None) is not None:
+        arrays = _forest_bits(obj)
+    else:
+        arrays = {n: obj.col(n).data.detach().cpu().contiguous().numpy()
+                  for n in obj.names}
+    for k in sorted(arrays):
+        a = np.ascontiguousarray(arrays[k])
+        h.update(f"{k}{a.dtype}{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def _write_json(path, obj) -> None:
+    import os
+
+    with open(path + ".part", "w") as f:
+        json.dump(obj, f)
+    os.replace(path + ".part", path)
+
+
+def cloud_child(outdir: str, rejoin: bool) -> None:
+    """Phase 3x's follower process (process 1), on the card as the
+    coordinator is. It joins the cloud from ``H2O_TPU_COORDINATOR``,
+    ``H2O_TPU_NUM_PROCESSES`` and ``H2O_TPU_PROCESS_ID``, rejoins from the
+    latest control-plane checkpoint when asked, and replays ops until the
+    coordinator's shutdown op. After every op it writes ``status.json``:
+    each op's kind and its hist_gather launches, and the digest of every
+    ``cloud_*`` model and frame in its DKV."""
+    import os
+
+    t0 = time.perf_counter()
+    from h2o3_tpu_torch.parallel import distributed as D
+
+    D.initialize()
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.core.dkv import DKV
+    from h2o3_tpu_torch.models.tree import hist_gather as hg
+    from h2o3_tpu_torch.parallel import oplog
+
+    dev = h2o.init().device
+    if dev.type != "cuda" or D.process_count() != 2 \
+            or D.process_index() != 1:
+        raise SystemExit(f"cloud child on {dev}, process "
+                         f"{D.process_index()} of {D.process_count()}")
+    ops = []
+    last = [0]
+
+    def status(kind, payload):
+        ops.append({"kind": kind, "resume": bool(payload.get("resume_job")),
+                    "launches": hg.launches - last[0]})
+        last[0] = hg.launches
+        digests = {}
+        for k in DKV.keys():
+            if str(k).startswith("cloud_"):
+                obj = DKV.get(k)
+                if hasattr(obj, "names") or hasattr(obj, "forest"):
+                    digests[str(k)] = _digest(obj)
+        torch.cuda.synchronize()
+        _write_json(os.path.join(outdir, "status.json"),
+                    {"ops": ops, "digests": digests})
+
+    hg.launches = 0
+    cursor = D.rejoin() if rejoin else 0
+    status("rejoin" if rejoin else "boot", {})
+    _write_json(os.path.join(outdir, "ready.json"),
+                {"cursor": cursor, "device": torch.cuda.get_device_name(dev),
+                 "boot_s": time.perf_counter() - t0})
+    oplog.follower_loop(idle_timeout_s=900, on_op=status, start_seq=cursor)
+
+
+class _Follower:
+    """Phase 3x's child: spawned on the card, its files read, killed in
+    the end whatever happened."""
+
+    def __init__(self, store_port, outdir, rejoin):
+        import os
+
+        self.out = outdir
+        for n in ("ready.json", "status.json"):
+            if os.path.exists(os.path.join(outdir, n)):
+                os.unlink(os.path.join(outdir, n))
+        env = dict(os.environ, H2O_TPU_COORDINATOR=f"127.0.0.1:{store_port}",
+                   H2O_TPU_NUM_PROCESSES="2", H2O_TPU_PROCESS_ID="1",
+                   TORCH_CPP_LOG_LEVEL="ERROR")
+        self.log = open(os.path.join(outdir, "child.log"), "a")
+        root = str(Path(__file__).resolve().parent)
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; chip_smoke.cloud_child("
+             f"{outdir!r}, {rejoin!r})"], cwd=root, env=env, stdout=self.log,
+            stderr=subprocess.STDOUT)
+
+    def read(self, name):
+        import os
+
+        try:
+            with open(os.path.join(self.out, name)) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return None
+
+    def wait(self, name, pred=lambda d: True, what=""):
+        while True:
+            d = self.read(name)
+            if d is not None and pred(d):
+                return d
+            if self.proc.poll() is not None:
+                self.log.flush()
+                raise SmokeFailure(f"the cloud child ended (code "
+                                   f"{self.proc.returncode}) waiting for "
+                                   f"{what or name}: {self.tail()}")
+            check(time.perf_counter() - self.t0 < CLOUD_DEADLINE_S,
+                  f"the cloud child: no {what or name} within "
+                  f"{CLOUD_DEADLINE_S} s: {self.tail()}")
+            time.sleep(0.01)
+
+    def tail(self):
+        import os
+
+        self.log.flush()
+        try:
+            with open(os.path.join(self.out, "child.log")) as f:
+                return f.read()[-3000:]
+        except OSError:
+            return ""
+
+    def kill(self):
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGKILL)
+        self.proc.wait(60)
+        self.log.close()
+
+
+def _until(cond, what, deadline_s=CLOUD_DEADLINE_S):
+    t0 = time.perf_counter()
+    while not cond():
+        check(time.perf_counter() - t0 < deadline_s,
+              f"{what} within {deadline_s} s")
+        time.sleep(0.01)
+    return time.perf_counter() - t0
+
+
+def _cloud_replay(h2o, R, fol, csv_path, launches, ack_ms):
+    """Part A: the flagship imported, trained, scored and munged over
+    REST on the two-process cloud; the follower's copies bitwise."""
+    from h2o3_tpu_torch.models.tree import hist_gather as hg
+    from h2o3_tpu_torch.parallel import ckpt, oplog
+    from h2o3_tpu_torch.parallel import distributed as D
+
+    hg.launches = 0
+    R.import_parse(csv_path, "cloud_flagship.hex")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    R.job(R.json("POST", "/3/ModelBuilders/gbm", {
+        "training_frame": "cloud_flagship.hex", "response_column": "y",
+        "ntrees": FLAGSHIP["ntrees"], "max_depth": FLAGSHIP["max_depth"],
+        "model_id": "cloud_gbm"}))
+    torch.cuda.synchronize()
+    metric("cloud_train_s", time.perf_counter() - t0,
+           f"(REST flagship train on the two-process cloud; one process "
+           f"over REST, phase 3u: rest_gbm_train_s "
+           f"{RUN.get('rest_gbm_train_s')!r})")
+    launches["cloud"] = hg.launches
+    check(hg.launches == FLAGSHIP["max_depth"] * FLAGSHIP["ntrees"],
+          f"{hg.launches} hist_gather launches in the coordinator's cloud "
+          "train")
+    t0 = time.perf_counter()
+    R.json("POST", "/3/Predictions/models/cloud_gbm/frames/"
+           "cloud_flagship.hex", {"predictions_frame": "cloud_pred"})
+    metric("cloud_predict_1m_s", time.perf_counter() - t0,
+           f"({FLAGSHIP['n_rows']} rows, /3/Predictions mirrored)")
+    A, B, C = (f"(cols cloud_flagship.hex [{i}])" for i in range(3))
+    R.json("POST", "/99/Rapids", {
+        "ast": f"(tmp= cloud_rapids (- (+ (abs (- (* {A} 0.5) {C})) "
+               f"(* {B} 0.25)) (* {A} 0.125)))", "session_id": "cloud"})
+    keys = ("cloud_flagship.hex", "cloud_gbm", "cloud_pred", "cloud_rapids")
+    mine = {k: _digest(h2o.get_frame(k) if k != "cloud_gbm"
+                       else h2o.get_model(k)) for k in keys}
+    st = fol.wait("status.json", lambda d: all(k in d["digests"]
+                                               for k in keys),
+                  "the replayed frame, forest, predictions and statement")
+    for k in keys:
+        check(st["digests"][k] == mine[k],
+              f"the follower's {k} is not bitwise the coordinator's")
+    print("cloud replay: the follower's frame, forest, 1M predictions and "
+          "Rapids result are bitwise the coordinator's")
+    train_ops = [o for o in st["ops"] if o["kind"] == "train"]
+    print(f"follower hist_gather launches (cloud train) "
+          f"{train_ops[0]['launches']}")
+    check(len(train_ops) == 1 and train_ops[0]["launches"]
+          == FLAGSHIP["max_depth"] * FLAGSHIP["ntrees"],
+          f"follower's launches on the cloud train: {train_ops}")
+    lag = {r["process"]: r for r in oplog.follower_lag()}
+    check(lag.get(1, {}).get("ack_lag") == 0, f"follower lag {lag}")
+    recs = ckpt.records()
+    check(bool(recs), "no control-plane checkpoint was written")
+    seq = recs[-1][0]
+    check(ckpt.truncated_through() >= seq
+          and D.kv_try_get("oplog/0") is None
+          and D.kv_try_get(f"oplog/ack/{seq}/1") is None,
+          f"the prefix before checkpoint {seq} was not truncated")
+    print(f"cloud checkpoint at op {seq} (keys that did not pickle: "
+          f"{recs[-1][1].get('skipped', [])}); ops 0..{seq} truncated; "
+          "follower ack lag 0")
+    metric("op_ack_ms", float(np.median(ack_ms)),
+           f"(median of {len(ack_ms)} ops' follower-ack waits)")
+    return mine
+
+
+def _cloud_kill_resume(h2o, R, store_port, tmp, fol, launches, mine):
+    """Part B: the follower killed mid-train, the job failed from
+    outside, the follower rejoined from the checkpoint, the job resumed
+    by the watchdog: bitwise with the uninterrupted flagship in both."""
+    from h2o3_tpu_torch.models.tree import hist_gather as hg
+    from h2o3_tpu_torch.parallel import distributed as D
+    from h2o3_tpu_torch.parallel import supervisor
+
+    out = R.json("POST", "/3/ModelBuilders/gbm", {
+        "training_frame": "cloud_flagship.hex", "response_column": "y",
+        "ntrees": FLAGSHIP["ntrees"], "max_depth": FLAGSHIP["max_depth"],
+        "model_id": "cloud_gbm2"})
+    jk = out["job"]["key"]["name"]
+
+    def saved():
+        raw = D.kv_try_get(f"oplog/jobckpt/{jk}")
+        return json.loads(raw)["iteration"] if raw else 0
+
+    _until(lambda: saved() >= CLOUD_KILL_AT, "a durable save past tree "
+                                             f"{CLOUD_KILL_AT}")
+    t_kill = time.perf_counter()
+    fol.kill()
+    print(f"cloud follower killed (SIGKILL) after the coordinator's save "
+          f"at tree {saved()}")
+
+    def job():
+        return R.json("GET", f"/3/Jobs/{jk}")["jobs"][0]
+
+    _until(lambda: job()["status"] == "FAILED", "the train's job FAILED")
+    j = job()
+    check(supervisor.state() != supervisor.HEALTHY
+          and "stopped at its durable save" in (j.get("exception") or ""),
+          f"job {jk} failed with {j.get('exception')!r} on a "
+          f"{supervisor.state()} cloud")
+    check(j.get("auto_recoverable") is True, f"job {jk}: {j}")
+    print(f"cloud job {jk} FAILED from outside: "
+          f"{(j.get('exception') or '').splitlines()[0][:300]}")
+    print(f"cloud state {supervisor.state()}: "
+          f"{supervisor.status()['reason'][:200]}")
+    R.call("POST", "/99/Rapids", {"ast": "(+ 1 1)", "session_id": "cloud"},
+           status=503)
+    print("a REST request meanwhile: 503")
+    # the killed train is over: from here the coordinator launches only
+    # for the resume, which the watchdog may start the moment the rejoin
+    # turns the cloud HEALTHY
+    hg.launches = 0
+    fol2 = _Follower(store_port, tmp, rejoin=True)
+    ready = fol2.wait("ready.json", what="the rejoin")
+    metric("rejoin_s", time.perf_counter() - fol2.t0,
+           f"(spawn to caught up at op {ready['cursor']}: boot, "
+           f"checkpoint restore onto {ready['device']}, suffix replay)")
+    st = fol2.read("status.json")
+    check(st["digests"].get("cloud_gbm") == mine["cloud_gbm"],
+          "the rejoined follower's Part A forest differs")
+    _until(lambda: supervisor.state() == supervisor.HEALTHY,
+           "the cloud HEALTHY again")
+    trans = supervisor.status()["transitions"]
+    arc = [t["to"] for t in trans]
+    print(f"cloud transitions: {arc}")
+    check(arc[-3:] == ["FAILED", "RECOVERING", "HEALTHY"],
+          f"the supervisor's arc {arc}")
+    metric("secs_to_healthy", time.perf_counter() - t_kill,
+           "(SIGKILL to HEALTHY, the rejoin included)")
+    _until(lambda: job()["status"] == "DONE", "the resumed job DONE")
+    metric("job_resume_s", time.time() - trans[-1]["ts"],
+           "(the cloud HEALTHY again to the resumed job DONE seen, by "
+           "the watchdog)")
+    j = job()
+    k = int(j["resumed_from_iteration"])
+    check(j["attempt"] == 2 and CLOUD_KILL_AT <= k < FLAGSHIP["ntrees"],
+          f"resumed job {j}")
+    launches["cloud_resume"] = hg.launches
+    want = FLAGSHIP["max_depth"] * (FLAGSHIP["ntrees"] - k)
+    check(hg.launches == want, f"{hg.launches} coordinator launches on "
+                               f"the resume from tree {k}, not {want}")
+    m2 = h2o.get_model("cloud_gbm2")
+    got = _forest_bits(m2)
+    for a in RUN["flagship_forest"]:
+        check(np.array_equal(got[a], RUN["flagship_forest"][a]),
+              f"the resumed cloud forest's {a} differs from phase 3's")
+    st = fol2.wait("status.json", lambda d: "cloud_gbm2" in d["digests"]
+                   and any(o["resume"] for o in d["ops"]),
+                   "the follower's resumed train")
+    check(st["digests"]["cloud_gbm2"] == _digest(m2),
+          "the follower's resumed forest is not the coordinator's")
+    res = [o for o in st["ops"] if o["resume"]]
+    print(f"follower hist_gather launches (cloud resume) "
+          f"{res[0]['launches']}")
+    check(res[0]["launches"] == want, f"follower resume launches {res}")
+    print(f"cloud resume from tree {k}: forest bitwise with phase 3's in "
+          f"both processes; {want} launches each")
+    R.json("POST", "/3/Predictions/models/cloud_gbm/frames/"
+           "cloud_flagship.hex", {"predictions_frame": "cloud_pred_after"})
+    st = fol2.wait("status.json", lambda d: "cloud_pred_after"
+                   in d["digests"], "the rejoined follower's predict")
+    check(st["digests"]["cloud_pred_after"]
+          == _digest(h2o.get_frame("cloud_pred_after"))
+          == mine["cloud_pred"], "the rejoined follower's predictions of "
+                                 "Part A's model differ")
+    print("the rejoined follower's Part A model predicts bitwise with the "
+          "coordinator's")
+    return fol2
+
+
+def drill_recover():
+    """The reference's recovery drill (h2o3_tpu/bench.py:427 run_recover)
+    on the port: seconds from a silent coordinator to HEALTHY, the
+    watchdog electing this process and the ex-coordinator's rejoin the
+    only outside event. Memory KV: the control plane alone."""
+    import os
+
+    from h2o3_tpu_torch.core import failure
+    from h2o3_tpu_torch.parallel import distributed as D
+    from h2o3_tpu_torch.parallel import oplog, supervisor, watchdog
+
+    knobs = dict(H2O_TPU_OPLOG_CKPT_DIR=tempfile.mkdtemp(
+        prefix="chip_smoke_recover_"), H2O_TPU_ELECTION_GRACE_S="0.2",
+        H2O_TPU_HEARTBEAT_STALE_S="1.0", H2O_TPU_AUTO_RECOVER="1",
+        H2O_TPU_OPLOG_CHECKPOINT_OPS="0")
+    count = D.process_count
+    with _env(**knobs), D.memory_kv() as kv:
+        D.process_count = lambda: 2
+        wd = None
+        try:
+            D.write_epoch_record(0, 1)
+            D.set_leader(1, 0)
+            kv["h2o3/heartbeat/1"] = json.dumps({"ts": time.time() - 999,
+                                                 "proc": 1})
+            failure.heartbeat()
+            oplog.reset()
+            supervisor.reset()
+            watchdog.reset()
+            t0 = time.perf_counter()
+            wd = watchdog.Watchdog(interval=0.05, follow=False).start()
+            _until(D.is_coordinator, "the drill's election", 30)
+            kv["h2o3/heartbeat/1"] = json.dumps({"ts": time.time(),
+                                                 "proc": 1, "inc": 1})
+            _until(lambda: supervisor.evaluate() == supervisor.HEALTHY,
+                   "the drill's HEALTHY", 30)
+            dt = time.perf_counter() - t0
+        finally:
+            if wd is not None:
+                wd.stop()
+            D.process_count = count
+            oplog.reset()
+            supervisor.reset()
+            watchdog.reset()
+            D.reset_leadership()
+            shutil.rmtree(knobs["H2O_TPU_OPLOG_CKPT_DIR"],
+                          ignore_errors=True)
+    metric("recover_secs_to_healthy", dt, "(run_recover, memory KV)")
+
+
+def drill_search_recover(h2o, dev, n_rows=1_500):
+    """The reference's search-recovery drill (h2o3_tpu/bench.py:490
+    run_search_recover) on the port and the card: a GLM grid loses its
+    coordinator after two members; the watchdog rebuilds its job under
+    the original key and finishes the leaderboard from durable state."""
+    from h2o3_tpu_torch.automl import search
+    from h2o3_tpu_torch.core.dkv import DKV
+    from h2o3_tpu_torch.core.job import Job
+    from h2o3_tpu_torch.parallel import distributed as D
+    from h2o3_tpu_torch.parallel import oplog, supervisor, watchdog
+
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(n_rows, 3))
+    yv = np.where(X[:, 0] + 0.5 * X[:, 1]
+                  + rng.normal(scale=0.3, size=n_rows) > 0, "Y", "N")
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_search_recover_")
+    orig = search.SearchEngine._build_one
+    with _env(H2O_TPU_OPLOG_CKPT_DIR=ckdir, H2O_TPU_AUTO_RECOVER="1",
+              H2O_TPU_SEARCH_CONCURRENCY="2"), D.memory_kv():
+        wd = None
+        try:
+            oplog.reset()
+            supervisor.reset()
+            watchdog.reset()
+            search.reset_stats()
+            fr = h2o.Frame()
+            for i, n in enumerate("abc"):
+                fr.add(n, h2o.Column.from_numpy(X[:, i], device=dev))
+            fr.add("y", h2o.Column.from_numpy(yv, ctype="enum", device=dev))
+            fr.install()
+            gid = "chip_smoke_search_recover_grid"
+            job = Job(description="glm Grid Build", dest=gid)
+            grid = h2o.H2OGridSearch(h2o.GLM(family="binomial"),
+                                     {"alpha": [0.0, 0.3, 0.6, 1.0]},
+                                     grid_id=gid)
+            grid._search_job = job
+            settled = {"n": 0}
+
+            def dying(self, m, build_fn, score_fn=None):
+                if settled["n"] >= 2:
+                    raise RuntimeError("simulated coordinator loss")
+                settled["n"] += 1
+                return orig(self, m, build_fn, score_fn)
+
+            search.SearchEngine._build_one = dying
+            try:
+                grid.train(y="y", training_frame=fr)
+                raise SmokeFailure("the drill's grid outlived its loss")
+            except RuntimeError as e:
+                check("simulated coordinator loss" in str(e), str(e))
+            finally:
+                search.SearchEngine._build_one = orig
+            DKV.remove(str(job.key))
+            t0 = time.perf_counter()
+            wd = watchdog.Watchdog(interval=0.05, follow=False).start()
+
+            def done():
+                j = DKV.get(str(job.key))
+                return isinstance(j, Job) and j.status == Job.DONE
+
+            _until(done, "the drill's resumed grid DONE", 60)
+            dt = time.perf_counter() - t0
+        finally:
+            search.SearchEngine._build_one = orig
+            if wd is not None:
+                wd.stop()
+            oplog.reset()
+            supervisor.reset()
+            watchdog.reset()
+            shutil.rmtree(ckdir, ignore_errors=True)
+    st = search.stats()
+    check(st.get("searches_resumed", 0) >= 1
+          and st.get("members_done", 0) >= 4, f"search drill stats {st}")
+    print(f"search_members_overlap {st.get('overlap', 0)}")
+    metric("search_recover_secs", dt, "(run_search_recover, GLM grid on "
+                                      "the card)")
+
+
+def phase_cloud(h2o, dev, tmp, csv_path):
+    """Phase 3x: this process is the coordinator of a two-process cloud
+    (the store's host, the REST server); a child process on the same card
+    is the follower. Part A replays the flagship over REST, Part B kills
+    the follower mid-train and lets the watchdog resume the job after
+    the follower's rejoin, Part C runs the reference's two recovery
+    drills. Returns the kernel's launches per path of this process."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from h2o3_tpu_torch.api.server import start_server
+    from h2o3_tpu_torch.parallel import distributed as D
+    from h2o3_tpu_torch.parallel import oplog, supervisor, watchdog
+
+    launches = {}
+    ctmp = os.path.join(tmp, "cloud")
+    os.makedirs(ctmp, exist_ok=True)
+    ack_ms = []
+    wait_acks = oplog.wait_acks
+
+    def timed_wait(seq, timeout_s=None):
+        t0 = time.perf_counter()
+        wait_acks(seq, timeout_s)
+        if seq is not None:
+            ack_ms.append((time.perf_counter() - t0) * 1e3)
+
+    folls, srv = [], None
+    with _env(H2O_TPU_OPLOG_CKPT_DIR=os.path.join(ctmp, "ckpt"), **CLOUD):
+        store = dist.TCPStore("127.0.0.1", 0, 2, True,
+                              timeout=datetime.timedelta(seconds=60),
+                              wait_for_workers=False)
+        D.initialize(store=store, num_processes=2, process_id=0)
+        oplog.reset()
+        supervisor.reset()
+        watchdog.reset()
+        oplog.wait_acks = timed_wait
+        try:
+            srv = start_server(port=0)
+            R = _Rest(srv.port)
+            folls.append(_Follower(store.port, ctmp, rejoin=False))
+            ready = folls[0].wait("ready.json", what="the follower's boot")
+            check("H100" in ready["device"] or ready["device"]
+                  == torch.cuda.get_device_name(dev),
+                  f"the follower runs on {ready['device']}")
+            metric("follower_boot_s", time.perf_counter() - folls[0].t0,
+                   f"(spawn to replaying, on {ready['device']})")
+            _until(lambda: supervisor.state() == supervisor.HEALTHY,
+                   "the two-process cloud HEALTHY")
+            mine = _cloud_replay(h2o, R, folls[0], csv_path, launches,
+                                 ack_ms)
+            folls.append(_cloud_kill_resume(h2o, R, store.port, ctmp,
+                                            folls[0], launches, mine))
+            oplog.publish("shutdown", {})
+            folls[-1].proc.wait(60)
+            check(folls[-1].proc.returncode == 0, "the follower did not end "
+                  f"cleanly: {folls[-1].tail()}")
+        finally:
+            oplog.wait_acks = wait_acks
+            for f in folls:
+                f.kill()
+            if srv is not None:
+                srv.stop()
+            D.shutdown()
+            oplog.reset()
+            supervisor.reset()
+            watchdog.reset()
+    for k in [k for k in h2o.DKV.keys() if str(k).startswith("cloud_")]:
+        h2o.DKV.remove(k)
+    drill_recover()
+    drill_search_recover(h2o, dev)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -5594,6 +6133,11 @@ def main() -> int:
                "and scoring session, the bench GLM, an import, a fused "
                "statement, card vs CPU)")
         launches["bf16"] = phase_bf16(h2o, dev, parse_path)
+        banner("phase 3x: the cross-process control plane (a follower "
+               "process on the same card: the flagship replayed over REST, "
+               "the follower killed mid-train, rejoined from a checkpoint "
+               "and the job resumed by the watchdog; the recovery drills)")
+        launches.update(phase_cloud(h2o, dev, tmp, flag_csv))
         banner("phase 4: card vs CPU")
         phase_card_vs_cpu(h2o, dev, parse_path)
         phase_card_vs_cpu_framework(h2o, dev)

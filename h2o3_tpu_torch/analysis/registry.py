@@ -22,6 +22,7 @@ from __future__ import annotations
 # ---------------------------------------------------------------------------
 
 MIRRORED_ROOTS = (
+    "h2o3_tpu_torch.parallel.oplog._apply",      # every op's replay
     "h2o3_tpu_torch.models.model_builder.ModelBuilder.train",
     "h2o3_tpu_torch.scoring.execute_batch",
     "h2o3_tpu_torch.rapids.eval.exec_rapids",
@@ -40,8 +41,17 @@ KNOB_HELPERS = frozenset({
     "h2o3_tpu_torch.rapids.planner.enabled",
     "h2o3_tpu_torch.pipeline.enabled",
     "h2o3_tpu_torch.scoring._env_buckets",
+    # H2O_TPU_SCORE_FAST: the fused leaf routing of a replayed
+    # leaf_assignment/staged_proba op reads it; the multi-process
+    # contract sets it alike on every process (README)
+    "h2o3_tpu_torch.scoring.enabled",
     "h2o3_tpu_torch.automl.search._env_float",
     "h2o3_tpu_torch.automl.search.search_concurrency",
+    # chunked ingest: read inside a replayed import_file/parse_stream;
+    # the chunk layout is a pure function of (bytes, knobs), and the
+    # multi-process contract sets the knobs alike
+    "h2o3_tpu_torch.ingest.chunked.enabled",
+    "h2o3_tpu_torch.ingest.chunked.ingest_workers",
     "h2o3_tpu_torch.kernels.nvcc",                   # toolchain path
     "h2o3_tpu_torch.native.cxx",                     # toolchain path
 })
@@ -82,6 +92,17 @@ HOST_SIDE_MODULES = {
                                   "status); the device work lives in the "
                                   "builders",
     "h2o3_tpu_torch/core/failure.py": "heartbeat and health evidence",
+    "h2o3_tpu_torch/parallel/oplog.py": "turnstile, ack and barrier "
+                                        "deadlines are the hosts' waiting; "
+                                        "the replay handlers' callees are "
+                                        "the mirrored surface",
+    "h2o3_tpu_torch/parallel/distributed.py": "store transport and "
+                                              "leadership",
+    "h2o3_tpu_torch/parallel/supervisor.py": "the health state machine",
+    "h2o3_tpu_torch/parallel/watchdog.py": "the recovery daemon",
+    "h2o3_tpu_torch/parallel/ckpt.py": "checkpoint and progress I/O; a "
+                                       "restored state is shared through "
+                                       "one file",
     "h2o3_tpu_torch/persist/": "storage backends (host I/O)",
     "h2o3_tpu_torch/admission.py": "serving admission happens before a "
                                    "request is published",
@@ -102,6 +123,18 @@ LOCK_ORDER = (
     # whose first run captures the CUDA graph under the process-wide
     # capture lock (ROADMAP C27)
     ("scoring.ScoringSession._lock", "runtime.CAPTURE_LOCK"),
+    # the control plane. oplog.publish holds its sequence lock across the
+    # op's put and its span, which closes into the trace store
+    ("oplog._PUB_LOCK", "tracing._LOCK"),
+    # a transition is recorded (timeline, the transitions counter) under
+    # the supervisor's state lock
+    ("supervisor._LOCK", "timeline._LOCK"),
+    ("supervisor._LOCK", "metrics.Metric._lock"),
+    # a completed train deletes its progress (and its KV record) under
+    # the job's status lock, so an external FAILED cannot slip between
+    ("job.Job._status_lock", "distributed._INDEX_LOCK"),
+    # oplog._EXEC_COND (the turnstile) and ckpt._LOCK (the checkpoint
+    # counters) are leaves: nothing is acquired while either is held
 )
 
 # ---------------------------------------------------------------------------
@@ -170,25 +203,15 @@ TEST_FILES = ("test_torch_*.py", "torch_*_support.py")
 # declared names nothing in the port emits or enters yet, each kept with
 # its reason (the registry passes flag every other one)
 METRICS_RESERVED = {
-    name: "the multi-process control plane (ROADMAP A14.4-A14.7) emits "
-          "it; one process publishes, replays and transitions nothing, "
-          "and /3/Metrics keeps the reference's series set "
-          "(tests/test_torch_obs.py)"
-    for name in ("h2o3_oplog_ops_published_total",
-                 "h2o3_oplog_ops_replayed_total",
-                 "h2o3_oplog_errors_total", "h2o3_oplog_rejoins_total",
-                 "h2o3_cloud_transitions_total")
+    "h2o3_phase_cpu_fallbacks_total":
+        "the port never falls back to the CPU when a phase's deadline "
+        "expires (it records and, on request, exits); kept for the "
+        "reference's series set",
 }
-METRICS_RESERVED["h2o3_phase_cpu_fallbacks_total"] = (
-    "the port never falls back to the CPU when a phase's deadline "
-    "expires (it records and, on request, exits); kept for the "
-    "reference's series set")
 PHASES_RESERVED = {
     "mesh_init": "one card has no device mesh to build",
     "compile_cache_load": "nothing loads a persistent compile cache at "
                           "boot; the export cache loads per artifact",
-    "cloud_form": "multi-process cloud formation comes with ROADMAP "
-                  "A14.4",
 }
 
 # test files whose strings quote faultpoints on purpose

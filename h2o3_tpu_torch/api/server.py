@@ -92,7 +92,8 @@ def frame_csv_bytes(fr: Frame) -> bytes:
     """The frame as CSV, in the bytes pandas' ``to_csv(index=False)``
     writes for the reference's ``to_pandas()``: a header, enum labels,
     strings, numbers as their dtype's shortest repr
-    (``ndarray.astype(str)``, as pandas formats them), NA as an empty
+    (``ndarray.astype(str)``, as pandas formats them; a bf16 column's as
+    float64 reprs), NA as an empty
     field, ``\\n`` line ends, minimal quoting. No pandas."""
     import csv
 
@@ -104,7 +105,11 @@ def frame_csv_bytes(fr: Frame) -> bytes:
                          else str(v) for v in c.values()])
         else:
             arr = c.to_numpy()
-            txt = arr.astype(str)
+            # a bf16 column reaches pandas as ml_dtypes bfloat16, which it
+            # writes as each value's float64 repr; to_numpy widened it to
+            # float32 exactly, and float64 widens that exactly again
+            txt = (arr.astype(np.float64) if c.data.dtype == torch.bfloat16
+                   else arr).astype(str)
             if arr.dtype.kind == "f":
                 txt[np.isnan(arr)] = ""
             cols.append(txt.tolist())
@@ -233,9 +238,15 @@ def h_cloud(ctx: Ctx):
     out = S.cloud_v3(cluster_info())
     hb = cluster_health()
     if hb:          # multi-process cloud: liveness table per process
+        from h2o3_tpu_torch.parallel import ckpt, oplog
+        from h2o3_tpu_torch.parallel import distributed as D
+
         out["process_health"] = hb
         out["cloud_healthy"] = bool(out.get("cloud_healthy", True)) and \
             all(r["healthy"] for r in hb)
+        out.update(epoch=D.epoch(), leader=D.leader(),
+                   checkpoint_seq=ckpt.latest_seq(),
+                   rejoins=oplog.rejoin_records())
     # supervised health state machine (HEALTHY/DEGRADED/FAILED); detail at
     # GET /3/CloudStatus
     out["cloud_status"] = supervisor.state()
@@ -901,19 +912,22 @@ def h_modelbuilder_train(ctx: Ctx):
         with oplog.turn(op_seq):
             model = builder.train(y=y, training_frame=train,
                                   validation_frame=valid)
-        if j.status == Job.FAILED:
-            # supervisor failed this job from outside mid-train: don't
-            # install the result at dest — Job.start's wrapper is about to
-            # discard it, and a pre-installed model would outlive that
-            return model
-        # the client captured dest at submit time (h2o-py H2OJob.__init__
-        # reads dest.name once) — re-home the model under the advertised key
-        old = str(model.key)
-        if old != dest:
-            DKV.remove(old)
-            model._key = Key(dest)
-        DKV.put(dest, model)
-        model._parms.setdefault("training_frame", str(train.key))
+            if j.status == Job.FAILED:
+                # supervisor failed this job from outside mid-train: don't
+                # install the result at dest — Job.start's wrapper is about
+                # to discard it, and a pre-installed model would outlive it
+                return model
+            # the client captured dest at submit time (h2o-py
+            # H2OJob.__init__ reads dest.name once) — re-home the model
+            # under the advertised key, inside the op's turn, so a
+            # control-plane checkpoint taken right after the op holds it
+            # under the key the followers replayed it to
+            old = str(model.key)
+            if old != dest:
+                DKV.remove(old)
+                model._key = Key(dest)
+            DKV.put(dest, model)
+            model._parms.setdefault("training_frame", str(train.key))
         return model
 
     job.start(run, background=True)
@@ -1074,7 +1088,9 @@ def h_predict_v3(ctx: Ctx):
     dest = dest or f"prediction_{m.key}_on_{fr.key}"
     from h2o3_tpu_torch import scoring
 
-    if scoring.supports(m):
+    # on a multi-process cloud the mirrored predict op below runs the
+    # request: the micro-batcher's coalesced op is ROADMAP A14.7
+    if scoring.supports(m) and not oplog.active():
         # serving fast path: compile-once bucketed traversal; concurrent
         # requests for the same model coalesce into ONE dispatch (and ONE
         # "score_batch" oplog op on a multi-process cloud) inside the
@@ -2138,6 +2154,9 @@ class ApiServer:
         self.port = port
         self.httpd: Optional[ThreadingHTTPServer] = None
         self.thread: Optional[threading.Thread] = None
+        # a multi-process cloud's beater and supervisor (start_server)
+        self.heartbeat_thread = None
+        self.supervisor = None
         # TLS on the REST bind (reference: water/network/SSLProperties +
         # jetty h2o_ssl_jks options; here a PEM cert/key pair, the
         # standard python-stack equivalent)
@@ -2212,6 +2231,12 @@ class ApiServer:
         if self.thread is not None:
             self.thread.join(timeout=10)
             self.thread = None
+        if self.heartbeat_thread is not None:
+            self.heartbeat_thread.stop()
+            self.heartbeat_thread = None
+        if self.supervisor is not None:
+            self.supervisor.stop()
+            self.supervisor = None
         from h2o3_tpu_torch.parallel import oplog
 
         oplog.REST_SERVING = False
@@ -2225,11 +2250,13 @@ def start_server(port: int = 54321, auth_file: Optional[str] = None,
     """Bind the REST server (``port=0``: an ephemeral port, read back
     from ``.port``) on a background thread. It serves the runtime
     `core/runtime.init` booted; with none booted it boots `device`
-    (None: the card, raising when there is none). The reference's
-    multi-process supervision wiring (heartbeat thread, supervisor) comes
-    with the multi-process control plane."""
+    (None: the card, raising when there is none). On a cloud of more than
+    one process (`parallel/distributed.initialize`) it also starts this
+    process's heartbeat thread and the supervisor (which owns the
+    recovery watchdog), both stopped by ``stop()``."""
     from h2o3_tpu_torch.core import runtime
     from h2o3_tpu_torch.obs import flight, phases
+    from h2o3_tpu_torch.parallel import distributed as D
     from h2o3_tpu_torch.parallel import oplog
 
     if runtime._CLUSTER is None or device is not None:
@@ -2239,18 +2266,35 @@ def start_server(port: int = 54321, auth_file: Optional[str] = None,
     # off the main thread)
     flight.install_signal_hooks()
     with phases.enter("server_start", port=port):
-        return ApiServer(port, auth_file=auth_file, host=host,
-                         ssl_certfile=ssl_certfile,
-                         ssl_keyfile=ssl_keyfile).start()
+        srv = ApiServer(port, auth_file=auth_file, host=host,
+                        ssl_certfile=ssl_certfile,
+                        ssl_keyfile=ssl_keyfile).start()
+        if D.process_count() > 1:
+            from h2o3_tpu_torch.core.failure import HeartbeatThread
+            from h2o3_tpu_torch.parallel import supervisor
+
+            # a restarted cloud starts from evidence, not from an earlier
+            # verdict: the first evaluate() re-derives FAILED from any
+            # error records still in the KV
+            supervisor.reset()
+            # a runtime booted on the cloud already beats (its beater
+            # outlives stop(): the process stays a cloud member)
+            if getattr(runtime._CLUSTER, "_heartbeat", None) is None:
+                srv.heartbeat_thread = HeartbeatThread().start()
+            srv.supervisor = supervisor.Supervisor().start()
+        return srv
 
 
 def assume_coordination(port: int = 54321, caught_up_seq=None,
                         force: bool = False, **server_kw) -> ApiServer:
-    """Standby-coordinator handoff, REST side: win the election, then
-    bind this process's REST server. In one process there is no
-    coordinator to take over from: ``oplog.assume_coordination`` raises
-    ``oplog.ElectionLost`` without side effects, as the reference's does
-    when this process is not the winner."""
+    """Standby-coordinator handoff, REST side: win the election
+    (``oplog.assume_coordination``: the lowest live process wins, only
+    past ``H2O_TPU_ELECTION_GRACE_S`` of coordinator silence), then bind
+    this process's REST server so ``/3/*`` is served under the new
+    epoch. Raises ``oplog.ElectionLost`` without side effects when this
+    process is not the winner, the coordinator is not silent long
+    enough, or (in one process) there is no coordinator to take over
+    from."""
     from h2o3_tpu_torch.parallel import oplog
 
     oplog.assume_coordination(caught_up_seq=caught_up_seq, force=force)

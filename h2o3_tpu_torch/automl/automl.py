@@ -90,6 +90,7 @@ class H2OAutoML:
         d = dict(self.__dict__)
         d.pop("_search_engine", None)
         d.pop("_search_job", None)
+        d.pop("_resume_search_state", None)
         return d
 
     def _apply_target_encoding(self, y, train, valid, lb):
@@ -193,7 +194,7 @@ class H2OAutoML:
                 "leaderboard_frame": (str(leaderboard_frame.key)
                                       if leaderboard_frame is not None
                                       else None)},
-            job=job)
+            job=job, state=getattr(self, "_resume_search_state", None))
         self._search_engine = engine
 
         def _note_failure(mem, attempt):
@@ -212,7 +213,8 @@ class H2OAutoML:
             self._leaderboard_frame = leaderboard_frame
 
         t0 = time.time()
-        self._log(f"AutoML start: project={self.project_name}")
+        self._log(f"AutoML start: project={self.project_name}"
+                  + (" (resumed)" if engine.resumed else ""))
         plan = self._steps(classification)
         self._plan = plan
 
@@ -230,6 +232,10 @@ class H2OAutoML:
             for st in steps:
                 mem = engine.member(st["name"], st["algo"], st["params"])
                 mem["_step"] = st
+                if mem.get("status") == "done" and mem.get("model_id"):
+                    st["model_id"] = mem["model_id"]
+                if mem.get("status") == "parked":
+                    st["failed"] = True
                 members.append(mem)
 
             def can_start(inflight):
@@ -270,8 +276,19 @@ class H2OAutoML:
                           f"{_metric(m, self._metric_name):.4f}")
                 return m
 
+            def reattach(mem):
+                from h2o3_tpu_torch.core.dkv import DKV
+
+                m = DKV.get(mem["model_id"]) if mem.get("model_id") else None
+                if m is not None:
+                    self.models.append(m)
+                    mem["_step"]["model_id"] = mem["model_id"]
+                    self._log(f"reattached {mem['name']} from durable "
+                              f"search state")
+                return m
+
             ok = engine.run(members, build, can_start=can_start,
-                            score_fn=score)
+                            score_fn=score, reattach=reattach)
             for mem in members:
                 st = mem["_step"]
                 if mem.get("status") == "parked" and not st.get("failed"):

@@ -39,10 +39,21 @@ default), saves its snapshot (parallel/ckpt.save_search_state) after
 every member's attempt and at the end of `run`. An engine built from a
 snapshot keeps each member's status and attempts; a member that was
 running when its process died counts as failed, its attempt spent.
-`run` skips done and parked members. `finish` drops the snapshot, except
-in a directory the caller chose. Not ported until the multi-process
-control plane (ROADMAP A14.5): `resume_orphaned`, `run_from_state`,
-`apply_resume_op` and `_scrub_params`' oplog rule.
+`run` skips parked members and re-attaches done ones (`reattach`); one
+process rebuilds a done member whose model is gone, a multi-process
+cloud never does (the extra build would fork the replayed programs).
+`finish` drops the snapshot, except in a directory the caller chose.
+
+Mirrored decisions: on an oplog-active cloud (or any multi-process one)
+members run one at a time with no deadline, and a member's recorded
+parameters never keep a wall-clock budget, so every process walks the
+same members from the same durable state.
+
+Watchdog resume (reference :502-691): after a coordinator's loss the
+watchdog calls `resume_orphaned`, which re-dispatches every externally
+failed search that left durable state, under its original key
+(`run_from_state`), broadcasting a ``search_resume`` op that followers
+replay through `apply_resume_op`.
 """
 
 from __future__ import annotations
@@ -52,8 +63,7 @@ import threading
 from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
 from typing import Any, Callable, Dict, List, Optional
 
-# attempts per member before it parks (h2o3_tpu/parallel/watchdog.py:55)
-MAX_ATTEMPTS = 5
+from h2o3_tpu_torch.parallel.watchdog import MAX_ATTEMPTS
 
 _WIRE_TYPES = (str, int, float, bool, list, tuple, type(None))
 
@@ -67,8 +77,8 @@ _STATS: Dict[str, int] = {}
 
 def _zero() -> Dict[str, int]:
     return dict(members_done=0, members_failed=0, members_parked=0,
-                attempts=0, running=0, overlap=0, state_saves=0,
-                state_save_errors=0)
+                attempts=0, running=0, overlap=0, searches_resumed=0,
+                state_saves=0, state_save_errors=0)
 
 
 _STATS.update(_zero())
@@ -76,8 +86,9 @@ _STATS.update(_zero())
 
 def stats() -> Dict[str, int]:
     """Process-wide search counters: members done, failed and parked,
-    attempts dispatched, members running now, and the high-water mark of
-    members running at once (`overlap`)."""
+    attempts dispatched, members running now, the high-water mark of
+    members running at once (`overlap`) and searches the watchdog
+    resumed."""
     with _LOCK:
         return dict(_STATS)
 
@@ -107,10 +118,21 @@ def search_ckpt_enabled() -> bool:
     return _env_float("H2O_TPU_SEARCH_CKPT", 1) > 0
 
 
+def _mirrored() -> bool:
+    from h2o3_tpu_torch.parallel import distributed as D
+    from h2o3_tpu_torch.parallel import oplog
+
+    return oplog.active() or D.process_count() > 1
+
+
 def member_deadline_s() -> float:
     """Per-member wall-clock deadline in seconds
     (``H2O_TPU_SEARCH_MEMBER_DEADLINE_S``, 0 = none). A member past it is
-    failed from outside and parked, and the search moves on."""
+    failed from outside and parked, and the search moves on. Only in one
+    process: a per-process timer would fire at different moments in the
+    replays."""
+    if _mirrored():
+        return 0.0
     return _env_float("H2O_TPU_SEARCH_MEMBER_DEADLINE_S", 0.0)
 
 
@@ -121,6 +143,9 @@ def search_concurrency() -> int:
     4) and stays 1 while admission runs uncapped: width is worth paying
     for only when the operator has said how much device pressure is
     safe."""
+    if _mirrored():
+        # every process must finish members in the same order
+        return 1
     raw = (os.environ.get("H2O_TPU_SEARCH_CONCURRENCY") or "auto").strip()
     if raw.lower() != "auto":
         try:
@@ -140,9 +165,15 @@ def search_concurrency() -> int:
 
 def _scrub_params(params: Optional[dict]) -> dict:
     """A member's parameters as plain values only (what its record
-    keeps)."""
-    return {k: v for k, v in (params or {}).items()
-            if isinstance(v, _WIRE_TYPES)}
+    keeps), and never a live wall-clock budget on an oplog-active cloud:
+    per-process time would fork the replayed fit loops of a resume."""
+    from h2o3_tpu_torch.parallel import oplog
+
+    out = {k: v for k, v in (params or {}).items()
+           if isinstance(v, _WIRE_TYPES)}
+    if oplog.active() and float(out.get("max_runtime_secs") or 0.0) > 0:
+        out["max_runtime_secs"] = 0.0
+    return out
 
 
 class SearchEngine:
@@ -163,6 +194,11 @@ class SearchEngine:
         self.sdir = sdir
         self.persist = sdir is not None or (job is not None
                                             and search_ckpt_enabled())
+        # a mirrored cloud never rebuilds a done member whose model left
+        # a DKV: the extra build would fork the replayed programs
+        from h2o3_tpu_torch.parallel import oplog
+
+        self.retrain_lost = not oplog.active()
         # optional owner hook, called with (member, attempt) after a
         # failed or parked attempt (AutoML's event log)
         self.on_member_failure = None
@@ -262,20 +298,35 @@ class SearchEngine:
     def run(self, members: List[dict], build_fn: Callable[[dict], Any],
             can_start: Optional[Callable[[int], bool]] = None,
             score_fn: Optional[Callable[[dict, Any], Any]] = None,
-            concurrency: Optional[int] = None) -> bool:
+            concurrency: Optional[int] = None,
+            reattach: Optional[Callable[[dict], Any]] = None) -> bool:
         """Drive `members` (plan order) to a terminal state. ``build_fn``
         trains one member and returns its model; ``can_start(inflight)``
-        is the budget gate, asked before every dispatch. Done and
-        parked members are skipped. Returns False when the gate stopped
-        the search with members still pending."""
+        is the budget gate, asked before every dispatch. Parked members
+        are skipped; a done member is handed to ``reattach`` (which
+        returns its model, or None when it is gone). Returns False when
+        the gate stopped the search with members still pending."""
         conc = int(concurrency) if concurrency else search_concurrency()
-        ok = self._run(members, build_fn, can_start, score_fn, conc)
+        ok = self._run(members, build_fn, can_start, score_fn, conc,
+                       reattach)
         self.save()
         return ok
 
-    def _run(self, members, build_fn, can_start, score_fn, conc) -> bool:
-        todo = [m for m in members
-                if m.get("status") not in ("done", "parked")]
+    def _run(self, members, build_fn, can_start, score_fn, conc,
+             reattach=None) -> bool:
+        todo: List[dict] = []
+        for m in members:
+            st = m.get("status")
+            if st == "done":
+                if reattach is not None and reattach(m) is None \
+                        and self.retrain_lost and m.get("model_id"):
+                    # the finished model did not survive: one process
+                    # rebuilds it
+                    m["status"] = "pending"
+                    todo.append(m)
+                continue
+            if st != "parked":
+                todo.append(m)
         if conc <= 1:
             for m in todo:
                 if can_start is not None and not can_start(0):
@@ -403,3 +454,202 @@ class SearchEngine:
                             f"{done}/{total} members settled")
         except Exception:   # noqa: BLE001 — a cancel reaches the members
             pass            # through their own ticks, not through this one
+
+
+# ---------------------------------------------------------------------------
+# watchdog resume: orphaned search state re-dispatched under its key
+# ---------------------------------------------------------------------------
+
+# records whose Job is gone and whose state is unreadable: a few looks,
+# then the record is dropped (watchdog._strike's rule)
+_STRIKES: Dict[str, int] = {}
+
+
+def _strike(search_key: str) -> None:
+    from h2o3_tpu_torch.parallel import ckpt
+
+    _STRIKES[search_key] = _STRIKES.get(search_key, 0) + 1
+    if _STRIKES[search_key] >= MAX_ATTEMPTS:
+        ckpt.delete_search_state(search_key)
+        _STRIKES.pop(search_key, None)
+        from h2o3_tpu_torch.utils.log import get_logger
+
+        get_logger().warning(
+            "watchdog: durable search state for %s was unreadable %d "
+            "times; record dropped", search_key, MAX_ATTEMPTS)
+
+
+def _recreate_search_job(search_key: str, state: dict):
+    """The search's Job under its original key (the object lived on the
+    dead coordinator), so clients keep polling the same id."""
+    from h2o3_tpu_torch.core.dkv import DKV, Key
+    from h2o3_tpu_torch.core.job import Job
+
+    spec = state.get("spec") or {}
+    job = Job(description=spec.get("description")
+              or f"{state.get('kind', 'search')} search",
+              dest=spec.get("dest"))
+    DKV.remove(str(job.key))
+    job._key = Key(search_key)
+    job.status = Job.FAILED
+    job.failed_externally = True
+    job.exception = ("search was in flight when its coordinator died; "
+                     "recreated from durable search state for resume")
+    job.install()
+    return job
+
+
+def resume_orphaned() -> List[str]:
+    """Re-dispatch every externally failed search with durable state;
+    returns the search keys resumed (the watchdog's tick calls it after
+    the job resume, with the same verdict, clean-up and attempt cap)."""
+    from h2o3_tpu_torch.core.dkv import DKV
+    from h2o3_tpu_torch.core.job import Job
+    from h2o3_tpu_torch.parallel import ckpt
+
+    resumed: List[str] = []
+    for rec in ckpt.search_state_records():
+        sk = str(rec.get("search"))
+        job = DKV.get(sk)
+        data = None
+        if job is None:
+            data = ckpt.load_search_state(sk)
+            if data is None:
+                _strike(sk)
+                continue
+            st = data.get("state") or {}
+            if not (st.get("spec") or {}).get("kind"):
+                ckpt.delete_search_state(sk)     # nothing can act on it
+                continue
+            job = _recreate_search_job(sk, st)
+        if not isinstance(job, Job):
+            continue
+        if job.status in (Job.DONE, Job.CANCELLED) or \
+                (job.status == Job.FAILED and not job.failed_externally):
+            ckpt.delete_search_state(sk)
+            continue
+        if not (job.status == Job.FAILED and job.failed_externally):
+            continue                     # running or resuming: leave it
+        if job.attempt >= MAX_ATTEMPTS:
+            ckpt.delete_search_state(sk)
+            continue
+        if data is None:
+            data = ckpt.load_search_state(sk)
+        if data is None:
+            job.attempt += 1
+            job.exception = (f"search resume pass {job.attempt}: durable "
+                             f"search state for {sk} is unreadable")
+            continue
+        if _dispatch_search_resume(job, data.get("state") or {}):
+            resumed.append(sk)
+    return resumed
+
+
+def _dispatch_search_resume(job, state: dict) -> bool:
+    """One re-dispatch: RESUMING (atomic), the ``search_resume`` op
+    broadcast so followers reload the same state file, and the search
+    rebuilt on the job's new worker thread under its original key."""
+    from h2o3_tpu_torch.core.dkv import DKV
+    from h2o3_tpu_torch.parallel import oplog
+
+    spec = state.get("spec") or {}
+    kind = spec.get("kind")
+    train = DKV.get(str(spec.get("training_frame") or ""))
+    if not kind or train is None:
+        job.attempt += 1
+        what = ("no re-dispatch recipe in the durable state" if not kind
+                else f"training frame {spec.get('training_frame')!r} is "
+                     f"not in this process's DKV")
+        job.exception = f"search resume pass {job.attempt}: {what}"
+        return False
+    members = state.get("members") or {}
+    ndone = sum(1 for m in members.values() if m.get("status") == "done")
+    if not job.restart(resumed_from_iteration=ndone):
+        return False
+    inner = dict(spec.get("spec") or {})
+    if oplog.active() and float(inner.get("max_runtime_secs") or 0.0) > 0:
+        # a wall-clock budget in a re-broadcast spec would fork the
+        # replayed member loops
+        inner["max_runtime_secs"] = 0.0
+        spec = dict(spec, spec=inner)
+        state = dict(state, spec=spec)
+    op_seq = None
+    if oplog.active():
+        try:
+            op_seq = oplog.broadcast("search_resume",
+                                     {"search": str(job.key), "kind": kind})
+        except Exception as e:   # noqa: BLE001 — the cloud relapsed
+            job.fail(f"search resume could not broadcast: {e}")
+            return False
+
+    def run(j):
+        with oplog.turn(op_seq):
+            return run_from_state(state, job=j)
+
+    job.start(run, background=True)
+    _bump(searches_resumed=1)
+    from h2o3_tpu_torch.utils import timeline
+    from h2o3_tpu_torch.utils.log import get_logger
+
+    timeline.record("search", "resumed", search=str(job.key),
+                    attempt=job.attempt, members_done=ndone)
+    get_logger().warning(
+        "watchdog: resumed %s search %s (attempt %d) with %d/%d members "
+        "already done", kind, job.key, job.attempt, ndone, len(members))
+    return True
+
+
+def run_from_state(state: dict, job=None):
+    """Rebuild the AutoML or grid object from its durable spec and train
+    it with the restored member records: done members re-attach,
+    pending and failed ones run, parked ones stay parked."""
+    from h2o3_tpu_torch.core.dkv import DKV
+
+    spec = state.get("spec") or {}
+    kind = spec.get("kind")
+    train = DKV.get(spec["training_frame"])
+    valid = DKV.get(spec["validation_frame"]) \
+        if spec.get("validation_frame") else None
+    if kind == "automl":
+        from h2o3_tpu_torch.automl.automl import H2OAutoML
+
+        lb = DKV.get(spec["leaderboard_frame"]) \
+            if spec.get("leaderboard_frame") else None
+        aml = H2OAutoML(**(spec.get("spec") or {}))
+        aml._search_job = job
+        aml._resume_search_state = state
+        aml.train(x=spec.get("x"), y=spec["y"], training_frame=train,
+                  validation_frame=valid, leaderboard_frame=lb)
+        DKV.put((spec.get("spec") or {}).get("project_name"), aml)
+        return aml
+    if kind == "grid":
+        from h2o3_tpu_torch.grid import H2OGridSearch
+        from h2o3_tpu_torch.models.model_builder import BUILDERS
+
+        base = BUILDERS[spec["algo"]](**(spec.get("params") or {}))
+        g = H2OGridSearch(base, spec["hyper"], grid_id=spec.get("grid_id"),
+                          search_criteria=spec.get("criteria"))
+        g._search_job = job
+        g._resume_search_state = state
+        g.train(x=spec.get("x"), y=spec.get("y"), training_frame=train,
+                validation_frame=valid,
+                recovery_dir=spec.get("recovery_dir"))
+        return g
+    raise ValueError(f"unknown search kind {kind!r}")
+
+
+def apply_resume_op(p: dict) -> None:
+    """The follower's side of a ``search_resume`` op: reload the same
+    durable state from this process's checkpoint dir and replay the
+    remaining members. Raises when it is unreadable: training on from
+    nothing would fork the replayed programs."""
+    from h2o3_tpu_torch.parallel import ckpt
+
+    data = ckpt.load_search_state(p["search"])
+    if data is None:
+        raise RuntimeError(
+            f"resumed {p.get('kind', 'search')} search {p['search']}: "
+            f"durable search state is not readable on this process; "
+            f"H2O_TPU_OPLOG_CKPT_DIR must be shared storage for a "
+            f"cross-host search resume")
+    run_from_state(data.get("state") or {})

@@ -1,17 +1,20 @@
-"""DKV, the local half (counterpart of h2o3_tpu/core/dkv.py `Key` :25,
-`_DKV` :36-77 and :235-255, `Scope` :265, `Keyed` :295).
+"""DKV (counterpart of h2o3_tpu/core/dkv.py `Key` :25, `_DKV` :36-77,
+`snapshot_control_plane`/`restore_control_plane` :179-233 and :235-255,
+`Scope` :265, `Keyed` :295).
 
 One process holds frames and models by key: `DKV.put/get/remove`,
 `atomic` updates under the store lock, per-key write locks, `Scope` for
 keys that die with a block, and `Keyed`, the base of every object that
 lives under a key. Big data stays in the objects' tensors; the store
-holds references. The cross-process half of the reference (publish,
-fetch_remote, control-plane snapshots) waits for multi-GPU work
-(ROADMAP A14).
+holds references. A control-plane checkpoint (parallel/ckpt.py) takes
+`snapshot_control_plane`, and a rejoining process installs it with
+`restore_control_plane`, its tensors on its own device. The reference's
+publish/fetch_remote of announced keys is ROADMAP A14.5.
 """
 
 from __future__ import annotations
 
+import io
 import random
 import threading
 from typing import Any, Callable, Dict, List, Optional
@@ -67,14 +70,6 @@ class _DKV:
             self._store.clear()
             self._rw.clear()
 
-    def unlock_all(self) -> int:
-        """Drop every per-key lock object (water/api/UnlockTask); returns
-        the count dropped."""
-        with self._lock:
-            n = len(self._rw)
-            self._rw.clear()
-            return n
-
     def atomic(self, key: str, fn: Callable[[Any], Any]) -> Any:
         """Replace the value under `key` by fn(old) under the store lock
         (water/TAtomic.java)."""
@@ -89,11 +84,66 @@ class _DKV:
             return self._rw.setdefault(str(key), threading.RLock())
 
     def unlock_all(self) -> int:
-        """Drop every per-key lock; returns how many were dropped."""
+        """Drop every per-key lock object (water/api/UnlockTask: force-
+        unlock all Lockables after a failed job). Returns count dropped."""
         with self._lock:
             n = len(self._rw)
             self._rw.clear()
             return n
+
+    # -- control-plane checkpoints (parallel/ckpt.py) ---------------------
+    def snapshot_control_plane(self) -> dict:
+        """Every DKV object that pickles (models, frames, job metadata),
+        each pickled on its own with its tensors as numpy arrays, so one
+        object that does not pickle cannot sink the checkpoint: it is
+        listed in ``skipped``."""
+        from h2o3_tpu_torch.models.model import _ModelPickler
+
+        objects: Dict[str, bytes] = {}
+        skipped: List[str] = []
+        with self._lock:
+            items = list(self._store.items())
+        for k, v in items:
+            buf = io.BytesIO()
+            try:
+                _ModelPickler(buf, protocol=4).dump(v)
+            except Exception:   # noqa: BLE001 — per-key isolation
+                skipped.append(k)
+                continue
+            objects[k] = buf.getvalue()
+        return {"objects": objects, "skipped": sorted(skipped), "kv": {}}
+
+    def restore_control_plane(self, snap: dict, loads=None,
+                              device=None) -> List[str]:
+        """Install a snapshot in this process's store (a rejoin or a
+        standby takeover), its tensors on `device` (default: this
+        process's runtime device, never the writer's). `loads` defaults
+        to the restricted loader: a snapshot came off shared storage.
+        Returns the keys restored; a key that fails is skipped (the
+        oplog suffix or a re-import rebuilds it). The snapshot's KV
+        entries are put only where the KV lost them (first writer wins:
+        the live cloud's copy is at least as new)."""
+        from h2o3_tpu_torch.models.model import load_device
+        from h2o3_tpu_torch.parallel import distributed as D
+        from h2o3_tpu_torch.utils.unpickle import restricted_loads
+
+        if device is None:
+            from h2o3_tpu_torch.core.runtime import cluster
+
+            device = cluster().device
+        loads = loads or (lambda b: restricted_loads(b, what="checkpoint"))
+        restored: List[str] = []
+        with load_device(device):
+            for k, blob in (snap.get("objects") or {}).items():
+                try:
+                    value = loads(blob)
+                except Exception:   # noqa: BLE001 — per-key isolation
+                    continue
+                self.put(k, value)
+                restored.append(k)
+        for kk, vv in (snap.get("kv") or {}).items():
+            D.kv_put_if_absent(kk, vv)
+        return restored
 
 
 DKV = _DKV()

@@ -11,14 +11,20 @@ progress fraction and message. `start` runs the work on a host thread
 `fail_local` and `cancelled_local` instead. `update` is the cooperative
 cancel point: it raises JobCancelled once `cancel` was asked for.
 
-A job failed from outside (`fail`, as a search member past its deadline
-is) keeps that verdict even if its worker later finishes. The resume
-fields (`resume_spec`, `attempt`, `resumed_from_iteration`, `restart`)
-are kept as the reference has them: a builder saves durable progress
-against a job's `resume_spec` (models/model_builder.py), and a user
-resumes from it by hand; the watchdog that re-dispatches a failed job
-comes with the multi-process control plane (ROADMAP A14.4). Pickling
-drops the thread and the lock.
+A job failed from outside keeps that verdict even if its worker later
+finishes: a search member past its deadline, or every running job when
+the cloud supervisor FAILs the cloud (`parallel/supervisor.fail`, with
+the follower's traceback). Work that raises
+:class:`~h2o3_tpu_torch.core.failure.CloudUnhealthyError` (a follower
+lost mid-op) fails its job externally too: the cloud failed it, not the
+work. A builder saves durable progress against a job's `resume_spec`
+(models/model_builder.py); the recovery watchdog
+(`parallel/watchdog.resume_failed_jobs`) re-dispatches an externally
+failed job with progress through RESUMING (`restart`: FAILED ->
+RESUMING -> RUNNING -> DONE, `attempt` counting the dispatches and
+`resumed_from_iteration` naming where training went on). Pickling drops
+the thread and the lock, so a job's metadata survives a control-plane
+checkpoint.
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ class JobCancelled(Exception):
 class Job(Keyed):
     CREATED, RUNNING, DONE, FAILED, CANCELLED = (
         "CREATED", "RUNNING", "DONE", "FAILED", "CANCELLED")
-    # an externally failed job being re-dispatched (ROADMAP A14)
+    # an externally failed job being re-dispatched by the watchdog
     RESUMING = "RESUMING"
 
     def __init__(self, description: str = "", dest: Optional[str] = None):
@@ -113,11 +119,17 @@ class Job(Keyed):
                 with self._status_lock:
                     if self.status != Job.FAILED and self.attempt == gen:
                         self.status = Job.CANCELLED
-            except Exception:
+            except Exception as e:
+                from h2o3_tpu_torch.core.failure import CloudUnhealthyError
+
                 with self._status_lock:
                     if self.status != Job.FAILED and self.attempt == gen:
                         self.exception = traceback.format_exc()
                         self.status = Job.FAILED
+                        # the cloud, not the work, failed (a follower
+                        # lost mid-op): the watchdog may resume it
+                        self.failed_externally = isinstance(
+                            e, CloudUnhealthyError)
             finally:
                 if self.attempt == gen:
                     self.end_time = time.time()

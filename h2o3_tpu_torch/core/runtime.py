@@ -78,6 +78,15 @@ class Cluster:
         self.devices = [device]
         self.start_time = time.time()
         self.locked = False
+        # a process of a multi-process cloud beats (HeartBeatThread), so
+        # /3/Cloud's liveness rows stay fresh
+        from h2o3_tpu_torch.parallel import distributed as D
+
+        self._heartbeat = None
+        if D.process_count() > 1:
+            from h2o3_tpu_torch.core.failure import HeartbeatThread
+
+            self._heartbeat = HeartbeatThread().start()
 
     def device_name(self) -> str:
         if self.device.type == "cuda":
@@ -89,20 +98,21 @@ class Cluster:
         """The cluster's status; `mem_value_size` is the bytes frame
         columns hold on the device, as stored (bfloat16 columns at 2
         bytes a value)."""
-        from h2o3_tpu_torch.core import cleaner
+        from h2o3_tpu_torch.core import cleaner, failure
+        from h2o3_tpu_torch.parallel import distributed as D
 
         return {
             "cloud_name": self.name,
             "version": "h2o3_tpu_torch",
-            "cloud_size": 1,
+            "cloud_size": D.process_count(),
             "cloud_uptime_millis": int((time.time() - self.start_time)
                                        * 1000),
             "cloud_healthy": True,
             "locked": self.locked,
             "platform": self.device.type,
-            "epoch": 0,
-            "leader": 0,
-            "incarnation": 0,
+            "epoch": D.epoch(),
+            "leader": D.leader(),
+            "incarnation": failure.incarnation(),
             "nodes": [{"name": self.device_name(),
                        "platform": self.device.type,
                        "id": self.device.index or 0}],
@@ -231,6 +241,8 @@ def shutdown() -> None:
     from h2o3_tpu_torch.core.dkv import DKV
 
     with _LOCK:
+        if _CLUSTER is not None and _CLUSTER._heartbeat is not None:
+            _CLUSTER._heartbeat.stop()
         DKV.clear()
         _CLUSTER = None
     extensions._INITIALIZED.clear()

@@ -96,6 +96,7 @@ class H2OGridSearch(Keyed):
         d.pop("_lock", None)
         d.pop("_search_engine", None)
         d.pop("_search_job", None)
+        d.pop("_resume_search_state", None)
         return d
 
     def __setstate__(self, d):
@@ -305,8 +306,18 @@ class H2OGridSearch(Keyed):
         def score(mem, model):
             return _metric_value(model, _default_metric(model))
 
+        def reattach(mem: dict) -> Optional[Model]:
+            # a done member of a resumed search (watchdog, or a snapshot
+            # handed in): its model from the DKV
+            m = DKV.get(mem["model_id"]) if mem.get("model_id") else None
+            if isinstance(m, Model):
+                self._record(dict(mem["_combo"]), m)
+                return m
+            return None
+
         engine.run(members, build, can_start=can_start, score_fn=score,
-                   concurrency=int(parallelism) if parallelism else None)
+                   concurrency=int(parallelism) if parallelism else None,
+                   reattach=reattach)
         for mem in members:
             if mem.get("status") == "parked" and not any(
                     f.get("combo_key") == mem["name"] for f in self.failed):

@@ -18,6 +18,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from h2o3_tpu_torch.core.frame import widen
 from h2o3_tpu_torch.core.ops import segment_sum
 
 NBINS = 400
@@ -148,6 +149,11 @@ class ModelMetrics:
     nobs: float = 0.0
     description: str = ""
 
+    def to_dict(self):
+        """The shared fields under their wire names (the REST schema's
+        fallback for a family it has no schema of, as an autoencoder's)."""
+        return {"MSE": self.mse, "RMSE": self.rmse, "nobs": self.nobs}
+
 
 @dataclass
 class ModelMetricsRegression(ModelMetrics):
@@ -240,7 +246,9 @@ def make_regression_metrics(y, f, w, distribution=None
                             ) -> ModelMetricsRegression:
     """Regression metrics; y/f/w are (N,) tensors, f on the response
     scale. The mean residual deviance is the distribution's (gaussian:
-    the MSE)."""
+    the MSE). A bf16 response widens first: torch would keep bf16 for
+    its terms with Python-scalar exponents (ROADMAP C41)."""
+    y = widen(y)
     parts = {k: float(v) for k, v in _regression_partials(y, f, w).items()}
     wsum = parts["wsum"]
     if wsum == 0:

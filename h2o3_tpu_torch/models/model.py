@@ -15,9 +15,11 @@ booted device, and installs the model under its key.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import pickle
 import struct
+import threading
 import uuid
 from typing import Any, Dict, List, Optional
 
@@ -84,12 +86,37 @@ def _remap_to_domain(data, from_dom: List[str], to_dom: List[str]):
                        NA_CAT)
 
 
-def _tensor_from_numpy(arr: np.ndarray) -> torch.Tensor:
-    """A saved tensor back on the booted device (the one callable a
-    model file may name, utils/unpickle.REBUILD)."""
-    from h2o3_tpu_torch.core.runtime import cluster
+# the device saved tensors load onto, when a loader names one
+# (core/dkv.restore_control_plane); else the booted device
+_LOAD_DEVICE = threading.local()
 
-    return torch.from_numpy(np.array(arr)).to(cluster().device)
+
+@contextlib.contextmanager
+def load_device(device):
+    """Saved tensors unpickled in this block land on `device`."""
+    prev = getattr(_LOAD_DEVICE, "device", None)
+    _LOAD_DEVICE.device = torch.device(device)
+    try:
+        yield
+    finally:
+        _LOAD_DEVICE.device = prev
+
+
+def _tensor_from_numpy(arr: np.ndarray, dtype: Optional[str] = None
+                       ) -> torch.Tensor:
+    """A saved tensor back on the loader's device, else the booted one
+    (the one callable a model file may name, utils/unpickle.REBUILD).
+    numpy has no bfloat16: a bf16 tensor is saved as its exact float32
+    widening and `dtype` "bfloat16" narrows it back, bit for bit."""
+    dev = getattr(_LOAD_DEVICE, "device", None)
+    if dev is None:
+        from h2o3_tpu_torch.core.runtime import cluster
+
+        dev = cluster().device
+    t = torch.from_numpy(np.array(arr))
+    if dtype is not None:
+        t = t.to({"bfloat16": torch.bfloat16}[dtype])
+    return t.to(dev)
 
 
 class _ModelPickler(pickle.Pickler):
@@ -99,6 +126,9 @@ class _ModelPickler(pickle.Pickler):
 
     def reducer_override(self, obj):
         if isinstance(obj, torch.Tensor):
+            if obj.dtype == torch.bfloat16:
+                return _tensor_from_numpy, (
+                    obj.detach().float().cpu().numpy(), "bfloat16")
             return _tensor_from_numpy, (obj.detach().cpu().numpy(),)
         return NotImplemented
 

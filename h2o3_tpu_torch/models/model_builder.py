@@ -200,28 +200,35 @@ class ModelBuilder:
     def _tick_job_progress(self, done: int, state_fn) -> None:
         """Called by a fit loop after `done` completed iterations; every
         ``H2O_TPU_JOB_CKPT_ITERS`` saves `state_fn()` when the builder
-        holds a progress job with a resume spec. Never raises: a failed
-        save is logged and training goes on."""
+        holds a progress job with a resume spec. A failed save is logged
+        and training goes on. Inside a train op of a multi-process cloud
+        each save point is first the op's progress barrier
+        (`oplog.progress_barrier`), which raises CloudUnhealthyError when
+        a follower was lost: the train stops at its last durable save."""
         every = self._job_ckpt_every()
         if every <= 0 or done <= 0 or done % every != 0:
             return
-        job = self._progress_job
-        if job is None or not getattr(job, "resume_spec", None):
-            return
         if done == getattr(self, "_jp_last", 0):
             return
-        from h2o3_tpu_torch.parallel import ckpt
+        self._jp_last = done
+        from h2o3_tpu_torch.parallel import ckpt, oplog
 
-        try:
-            ckpt.save_job_progress(str(job.key), done, job.resume_spec,
-                                   state_fn())
-            self._jp_last = done
-        except Exception as e:   # noqa: BLE001 — best effort by contract
-            from h2o3_tpu_torch.utils.log import get_logger
+        # inside a train op of a multi-process cloud: keep step with the
+        # followers at each save point, before the save, so the progress
+        # file never runs ahead of a follower that has yet to read it for
+        # a resume (raises when a follower was lost)
+        oplog.progress_barrier(done)
+        job = self._progress_job
+        if job is not None and getattr(job, "resume_spec", None):
+            try:
+                ckpt.save_job_progress(str(job.key), done, job.resume_spec,
+                                       state_fn())
+            except Exception as e:   # noqa: BLE001 — best effort by
+                from h2o3_tpu_torch.utils.log import get_logger  # contract
 
-            get_logger().warning(
-                "job %s: progress save at iteration %d failed (training "
-                "goes on): %s", job.key, done, e)
+                get_logger().warning(
+                    "job %s: progress save at iteration %d failed "
+                    "(training goes on): %s", job.key, done, e)
 
     def _clear_job_progress(self) -> None:
         """Delete the progress of a completed train, under the progress

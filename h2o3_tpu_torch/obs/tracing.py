@@ -11,14 +11,17 @@ host wall clock around calls the path already makes.
 Cost model: ``span()`` is a no-op unless the calling thread has an
 active trace, so library-mode calls pay one thread-local read. The
 store is bounded (``H2O_TPU_OBS_TRACE_CAP`` traces x ``_SPAN_CAP``
-spans, oldest trace evicted). One process holds every span of its
-traces; the spans other processes publish come with the multi-process
-control plane (ROADMAP A14).
+spans, oldest trace evicted). On a cloud of several processes a
+follower records its replay and ack spans of an op under the trace the
+op carries and publishes them to the cloud KV (``obs/span/{trace}/``,
+the newest ``_KV_KEEP`` kept), so the coordinator's ``/3/Trace/{id}``
+shows publish -> replay -> ack as one tree.
 """
 
 from __future__ import annotations
 
 import collections
+import json
 import os
 import threading
 import time
@@ -26,11 +29,15 @@ import uuid
 from typing import Any, Dict, List, Optional
 
 _SPAN_CAP = 512                 # spans kept per trace
+_KV_PREFIX = "obs/span/"
+_KV_KEEP = 512                  # published span keys kept in the KV
 
 _TLS = threading.local()        # .stack: list of active span dicts
 _LOCK = threading.Lock()
 # trace_id -> list of finished span dicts (insertion-ordered eviction)
 _STORE: "collections.OrderedDict[str, List[dict]]" = collections.OrderedDict()
+# this process's published span keys, oldest first
+_PUBLISHED: "collections.deque[str]" = collections.deque()
 
 
 def trace_cap() -> int:
@@ -92,6 +99,24 @@ def _store(span: dict) -> None:
     from h2o3_tpu_torch.obs import metrics
 
     metrics.inc("h2o3_trace_spans_total")
+
+
+def _kv_publish(span: dict) -> None:
+    """Ship a finished span to the cloud KV for the coordinator's
+    ``/3/Trace/{id}``; the oldest published keys past `_KV_KEEP` are
+    deleted. Best effort: tracing never fails the op it observes."""
+    from h2o3_tpu_torch.parallel import distributed as D
+
+    key = f"{_KV_PREFIX}{span['trace_id']}/{span['proc']}_{span['span_id']}"
+    if not D.kv_put(key, json.dumps(span)):
+        return
+    expired = []
+    with _LOCK:
+        _PUBLISHED.append(key)
+        while len(_PUBLISHED) > _KV_KEEP:
+            expired.append(_PUBLISHED.popleft())
+    for old in expired:         # store round trips outside the lock
+        D.kv_delete(old)
 
 
 def _finish(span: dict) -> None:
@@ -187,12 +212,13 @@ class activate:
 
 
 def record_span(name: str, ctx: Optional[Dict[str, str]], start_ms: float,
-                end_ms: Optional[float] = None, status: str = "ok",
-                **attrs) -> Optional[dict]:
+                end_ms: Optional[float] = None, publish: bool = False,
+                status: str = "ok", **attrs) -> Optional[dict]:
     """Append an already-timed span (explicit wall-clock ms timestamps)
     under `ctx`, returning it: the flush leader records the queue-wait
-    and batch spans this way on behalf of each waiting request's
-    trace."""
+    and batch spans this way on behalf of each waiting request's trace,
+    and a follower its replay and ack spans, after the ack, with
+    `publish` so they reach the trace's home process."""
     if not isinstance(ctx, dict) or not ctx.get("trace_id"):
         return None
     sp = _new_span(name, str(ctx["trace_id"]), ctx.get("span_id"), attrs)
@@ -202,13 +228,27 @@ def record_span(name: str, ctx: Optional[Dict[str, str]], start_ms: float,
                                else _now_ms()), 3)
     sp["ms"] = round(sp["end_ms"] - sp["start_ms"], 3)
     _store(sp)
+    if publish:
+        _kv_publish(sp)
     return sp
 
 
-def get_trace(trace_id: str) -> List[dict]:
-    """Every finished span recorded for `trace_id`, start-ordered."""
+def get_trace(trace_id: str, include_remote: bool = True) -> List[dict]:
+    """Every finished span recorded for `trace_id`: this process's, and
+    on a cloud the spans followers published, start-ordered."""
     with _LOCK:
         spans = list(_STORE.get(trace_id, ()))
+    if include_remote:
+        from h2o3_tpu_torch.parallel import distributed as D
+
+        seen = {s["span_id"] for s in spans}
+        for _k, v in D.kv_dir(f"{_KV_PREFIX}{trace_id}/"):
+            try:
+                sp = json.loads(v)
+            except (ValueError, TypeError):
+                continue
+            if isinstance(sp, dict) and sp.get("span_id") not in seen:
+                spans.append(sp)
     return sorted(spans, key=lambda s: s.get("start_ms", 0.0))
 
 

@@ -32,9 +32,12 @@ the reference's ``jnp.float32(v)`` is) JAX promotes to float32, and
 with bf16 on both sides the reference computes ``a + b`` in bf16 and
 casts to float32 in one program, whose bf16 round trip XLA removes, so
 it too computes in float32. torch alone would keep bf16 for a bf16
-tensor with a 0-dim float32 one. lgamma and digamma are the exception:
-XLA lowers them for half types as float32 rounded to bf16, a rounding
-that stays (`_HALF_UNOPS`). `ifelse` only selects: bf16 branches
+tensor with a 0-dim float32 one. lgamma, digamma, sinh and cosh are
+the exception: XLA lowers them for half types as float32 rounded to
+bf16, a rounding that stays (`_HALF_UNOPS`), and so the remainder of
+two bf16 columns. asin, acos, asinh, acosh and atanh XLA expands into
+several bf16 steps, each rounded; the port computes them in float32
+(ROADMAP C40). `ifelse` only selects: bf16 branches
 stay bf16 (`promote`), as the reference's where keeps them.
 Arithmetic, comparison and unary results are float32 columns.
 """
@@ -225,12 +228,17 @@ _UNOPS = {
 def binop_expr(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Binary op with H2O NA semantics: arithmetic lets NaN propagate;
     comparisons make NA rows NA. bfloat16 operands widen exactly; the
-    op computes in float32."""
+    op computes in float32. The remainder of two bfloat16 columns is
+    that float32 result rounded to bfloat16, as the reference's is (XLA
+    keeps jnp.remainder's bf16 round trip; a scalar operand makes it
+    float32)."""
+    half = op == "%" and a.dtype == b.dtype == torch.bfloat16
     a, b = widen(a), widen(b)
     if op in _CMPOPS:
         na = torch.isnan(a) | torch.isnan(b)
         return torch.where(na, torch.nan, _CMPOPS[op](a, b).float())
-    return _BINOPS[op](a, b).float()
+    out = _BINOPS[op](a, b).float()
+    return out.to(torch.bfloat16).float() if half else out
 
 
 def _operands(left, right):
@@ -261,6 +269,8 @@ def _bf16_rounded(fn):
 _HALF_UNOPS = {
     "lgamma": _bf16_rounded(_lgamma),
     "digamma": _bf16_rounded(_digamma),
+    "sinh": _bf16_rounded(torch.sinh),
+    "cosh": _bf16_rounded(torch.cosh),
     "gamma": lambda x: torch.exp(_bf16_rounded(_lgamma)(x)),
 }
 

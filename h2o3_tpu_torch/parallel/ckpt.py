@@ -1,8 +1,17 @@
-"""Durable job progress, durable search state and tree-progress chunks,
-one process (counterpart of h2o3_tpu/parallel/ckpt.py: `job_ckpt_iters`
-:81, `ckpt_dir` :88, the job store :393-528, the search store :530-675,
-the tree chunks :677-714).
+"""Control-plane checkpoints, durable job progress, durable search state
+and tree-progress chunks (counterpart of h2o3_tpu/parallel/ckpt.py).
 
+- Control-plane checkpoints (reference :69-391). Every
+  ``H2O_TPU_OPLOG_CHECKPOINT_OPS`` fully acknowledged ops the coordinator
+  publishes a ``checkpoint`` op; inside its turn (no other op changes
+  the DKV) it writes a snapshot of the DKV's objects, the next oplog
+  sequence and the recent op tokens to a file, booked at
+  ``oplog/ckpt/{seq}``. Once every follower acknowledged it, the
+  acknowledged prefix (``oplog/{s}``, ``oplog/ack/{s}/*`` and
+  ``oplog/progress/{s}/*`` for s <= seq) is deleted, so the live oplog
+  stays O(interval). A restarted follower readmits from the newest
+  snapshot (`load_latest`, oplog.rejoin); ``H2O_TPU_OPLOG_CKPT_KEEP``
+  snapshots are kept, and one a rejoiner is restoring is pinned.
 - Job progress. An iterative builder whose job carries a re-dispatch
   recipe (`Job.resume_spec`) saves its loop state every
   ``H2O_TPU_JOB_CKPT_ITERS`` completed iterations (0, the default, saves
@@ -17,15 +26,12 @@ the tree chunks :677-714).
 
 Files live in ``H2O_TPU_OPLOG_CKPT_DIR``, else ``oplog_ckpt`` under
 ``H2O_TPU_ICE_ROOT``, else under the process's temp directory. Every
-write is atomic (a ``.part`` file of its own, then ``os.replace``; a
-search's rotation and replace run under one lock) and has a small
-JSON sidecar, and discovery reads the sidecars, so no reader unpickles
-a full state to list records. Progress and search files are the port's
-own, read only through the restricted unpickler. The reference also
-books each record in the cloud's KV; that half, and the control-plane
-checkpoints (`note_acked_op`, `checkpoint_now`, `write_checkpoint`,
-`truncate_through`, `load_latest`), come with the multi-process control
-plane (ROADMAP A14.4), so `latest_seq` is None.
+write is atomic (a ``.part`` file of its own, then ``os.replace``) and
+job and search records have a small JSON sidecar. Each record is booked
+twice: in the cloud KV (``oplog/jobckpt/{job}``,
+``oplog/searchckpt/{search}``), which is what lets a new coordinator find
+a failed job, and in the sidecar, which is what one process or a wiped
+KV still has. Every file is read only through the restricted unpickler.
 """
 
 from __future__ import annotations
@@ -43,8 +49,42 @@ from h2o3_tpu_torch.utils import retry
 from h2o3_tpu_torch.utils.unpickle import CheckpointUnpickler
 
 
+_CKPT_PREFIX = "oplog/ckpt/"
+_JOB_PREFIX = "oplog/jobckpt/"
+_SEARCH_PREFIX = "oplog/searchckpt/"
+
+# acked ops since the last checkpoint and its single-flight guard: two
+# handler threads crossing the threshold together must not both publish
+# a checkpoint op
+_LOCK = threading.Lock()
+_ACKED_SINCE = 0
+_IN_CKPT = False
+_CKPT_THREAD: Optional[threading.Thread] = None
+# the seq of the in-flight (or last) checkpoint op: its own ack does not
+# count toward the next interval
+_CKPT_SEQ: Optional[int] = None
+# highest seq whose records were truncated: every op at or below it was
+# acknowledged cloud-wide first, so oplog.wait_acks reads it as acked
+_TRUNCATED_THROUGH = -1
+
+
 def interval_ops() -> int:
+    """Checkpoint every N fully acknowledged ops (env
+    ``H2O_TPU_OPLOG_CHECKPOINT_OPS``, default 64; <= 0 disables)."""
     return retry.env_int("H2O_TPU_OPLOG_CHECKPOINT_OPS", 64)
+
+
+def keep_ckpts() -> int:
+    """Snapshots kept once a newer one is acknowledged (env
+    ``H2O_TPU_OPLOG_CKPT_KEEP``, default 3; <= 0 keeps all)."""
+    return retry.env_int("H2O_TPU_OPLOG_CKPT_KEEP", 3)
+
+
+def async_enabled() -> bool:
+    """Interval checkpoints on a thread of their own (env
+    ``H2O_TPU_OPLOG_CKPT_ASYNC``, default on): the request that crossed
+    the threshold does not wait for the snapshot and its ack."""
+    return retry.env_int("H2O_TPU_OPLOG_CKPT_ASYNC", 1) != 0
 
 
 def job_ckpt_iters() -> int:
@@ -60,10 +100,6 @@ def ckpt_dir() -> str:
         "oplog_ckpt")
     os.makedirs(d, exist_ok=True)
     return d
-
-
-def latest_seq() -> Optional[int]:
-    return None
 
 
 _CkptUnpickler = CheckpointUnpickler
@@ -126,6 +162,228 @@ def _unlink(paths) -> None:
             pass
 
 
+def reset() -> None:
+    """Clear the coordinator-side counters (cloud restart, tests)."""
+    global _ACKED_SINCE, _TRUNCATED_THROUGH, _CKPT_SEQ
+    with _LOCK:
+        _ACKED_SINCE = 0
+        _TRUNCATED_THROUGH = -1
+        _CKPT_SEQ = None
+
+
+def truncated_through() -> int:
+    """Highest seq compacted away (-1: none)."""
+    return _TRUNCATED_THROUGH
+
+
+def wait_idle(timeout_s: float = 30.0) -> bool:
+    """Join an in-flight background checkpoint; True when none runs."""
+    t = _CKPT_THREAD
+    if t is not None and t.is_alive():
+        t.join(timeout_s)
+        return not t.is_alive()
+    return True
+
+
+# ---------------------------------------------------------------------------
+# control-plane checkpoints: the coordinator writes and truncates
+# ---------------------------------------------------------------------------
+
+def note_acked_op(seq: int) -> None:
+    """Called by the coordinator once op `seq` is acknowledged cloud-wide
+    (oplog.turn's tail); every `interval_ops()` such ops it checkpoints
+    and truncates the acknowledged prefix. Never raises: a failed
+    checkpoint must not fail the user op that crossed the threshold."""
+    global _ACKED_SINCE, _IN_CKPT, _CKPT_THREAD
+    n = interval_ops()
+    if n <= 0:
+        return
+    with _LOCK:
+        if seq == _CKPT_SEQ:            # the checkpoint op's own ack
+            return
+        _ACKED_SINCE += 1
+        if _ACKED_SINCE < n or _IN_CKPT:
+            return
+        _IN_CKPT = True
+        _ACKED_SINCE = 0
+    if async_enabled():
+        t = threading.Thread(target=_run_checkpoint, daemon=True,
+                             name="h2o3-oplog-ckpt")
+        with _LOCK:
+            _CKPT_THREAD = t
+        t.start()
+    else:
+        _run_checkpoint()
+
+
+def _run_checkpoint() -> None:
+    global _IN_CKPT
+    try:
+        checkpoint_now()
+    except Exception as e:   # noqa: BLE001 — best effort by contract
+        from h2o3_tpu_torch.utils.log import get_logger
+
+        get_logger().warning("oplog checkpoint failed (the next interval "
+                             "tries again): %s", e)
+    finally:
+        with _LOCK:
+            _IN_CKPT = False
+
+
+def checkpoint_now() -> Optional[int]:
+    """Publish and run one ``checkpoint`` op: the snapshot under the
+    turnstile, then, once every follower acknowledged it, the truncation
+    of the acknowledged prefix. Returns the checkpoint's seq; None when
+    this process is not broadcasting or no longer leads (a checkpoint
+    thread resuming on a stalled ex-coordinator must not publish or
+    truncate under an epoch it lost)."""
+    global _CKPT_SEQ
+    from h2o3_tpu_torch.parallel import distributed as D
+    from h2o3_tpu_torch.parallel import oplog
+
+    oplog.maybe_demote()
+    if oplog.demoted() or not oplog.active():
+        return None
+    epoch0 = D.epoch()
+    seq = oplog.publish("checkpoint", {})
+    with _LOCK:
+        _CKPT_SEQ = seq
+    with oplog.turn(seq):
+        write_checkpoint(seq)
+    oplog.maybe_demote()
+    if oplog.demoted() or not D.is_coordinator() or D.epoch() != epoch0:
+        return None
+    truncate_through(seq)
+    return seq
+
+
+def write_checkpoint(seq: int) -> str:
+    """Write the control-plane snapshot of checkpoint op `seq` and book
+    it at ``oplog/ckpt/{seq}``. Its ``next_seq`` is seq + 1: the state
+    holds ops < seq, and op seq is the checkpoint itself."""
+    from h2o3_tpu_torch.core import failure
+    from h2o3_tpu_torch.core.dkv import DKV
+    from h2o3_tpu_torch.parallel import distributed as D
+    from h2o3_tpu_torch.parallel import oplog
+    from h2o3_tpu_torch.utils import timeline
+
+    failure.faultpoint("ckpt.write")
+    snap = {"seq": int(seq), "next_seq": int(seq) + 1, "epoch": D.epoch(),
+            "ts": time.time(), "op_ids": oplog.snapshot_op_ids(),
+            "dkv": DKV.snapshot_control_plane()}
+    path = os.path.join(ckpt_dir(), f"ckpt_{int(seq):012d}.pkl")
+    _atomic_write(path, pickle.dumps(snap, protocol=4))
+    if not D.kv_put(_CKPT_PREFIX + str(int(seq)),
+                    json.dumps({"seq": int(seq), "next_seq": int(seq) + 1,
+                                "path": path, "epoch": D.epoch(),
+                                "ts": snap["ts"],
+                                "skipped": snap["dkv"].get("skipped", [])})):
+        raise RuntimeError(f"checkpoint {seq}: its KV record did not land")
+    _prune_old()
+    timeline.record("oplog", "checkpoint", seq=int(seq),
+                    objects=len(snap["dkv"].get("objects", {})),
+                    skipped=len(snap["dkv"].get("skipped", [])))
+    return path
+
+
+def records() -> List[Tuple[int, dict]]:
+    """Every checkpoint record, sorted by seq."""
+    from h2o3_tpu_torch.parallel import distributed as D
+
+    out = []
+    for k, v in D.kv_dir(_CKPT_PREFIX):
+        try:
+            out.append((int(k.rsplit("/", 1)[-1]), json.loads(v)))
+        except (ValueError, TypeError):
+            continue
+    return sorted(out, key=lambda t: t[0])
+
+
+def latest() -> Optional[Tuple[int, dict]]:
+    recs = records()
+    return recs[-1] if recs else None
+
+
+def latest_seq() -> Optional[int]:
+    rec = latest()
+    return rec[0] if rec else None
+
+
+def _prune_old(keep: Optional[int] = None) -> None:
+    """Drop all but the newest `keep` snapshots (records and files). A
+    snapshot a live rejoiner is restoring (its ``replaying`` record
+    names the snapshot's ``next_seq``) is pinned; a stale heartbeat
+    proves such a restore died, and ends the pin."""
+    from h2o3_tpu_torch.core import failure
+    from h2o3_tpu_torch.parallel import distributed as D
+    from h2o3_tpu_torch.parallel import oplog
+
+    if keep is None:
+        keep = keep_ckpts()
+    if keep <= 0:
+        return
+    health = {r["process"]: r for r in failure.cluster_health()}
+
+    def _maybe_alive(proc: int) -> bool:
+        row = health.get(proc)
+        return row is None or bool(row.get("healthy", True))
+
+    pinned = {int(r.get("seq", -1)) for r in oplog.rejoin_records()
+              if r.get("phase") == "replaying"
+              and _maybe_alive(int(r.get("proc", -1)))}
+    for seq, rec in records()[:-keep]:
+        if int(rec.get("next_seq", seq + 1)) in pinned:
+            continue
+        D.kv_delete(_CKPT_PREFIX + str(seq))
+        if rec.get("path"):
+            _unlink((rec["path"],))
+
+
+def truncate_through(seq: int) -> int:
+    """Delete the acknowledged oplog slots, acks and progress marks for
+    seqs <= `seq`; returns the keys deleted. Error records stay: they
+    are failure evidence, which only a successful rejoin supersedes."""
+    global _TRUNCATED_THROUGH
+    from h2o3_tpu_torch.parallel import distributed as D
+
+    # the floor rises before the deletes: a wait_acks poller racing them
+    # sees either its ack records or the floor
+    with _LOCK:
+        _TRUNCATED_THROUGH = max(_TRUNCATED_THROUGH, int(seq))
+    n = 0
+    for k, _v in D.kv_dir("oplog/"):
+        parts = k[len("oplog/"):].split("/")
+        s = None
+        if len(parts) == 1 and parts[0].isdigit():           # oplog/{s}
+            s = int(parts[0])
+        elif len(parts) >= 2 and parts[0] in ("ack", "progress") \
+                and parts[1].isdigit():                        # .../{s}/..
+            s = int(parts[1])
+        if s is not None and s <= seq:
+            D.kv_delete(k)
+            n += 1
+    return n
+
+
+def load_latest(restore_dkv: bool = True) -> Tuple[int, Optional[dict]]:
+    """The newest checkpoint as ``(next_seq, snapshot)``: the oplog
+    cursor to replay from, and the snapshot (``(0, None)`` when there is
+    none). With `restore_dkv` its objects are installed in this
+    process's DKV first, their tensors on this process's device."""
+    from h2o3_tpu_torch import persist
+    from h2o3_tpu_torch.core.dkv import DKV
+
+    rec = latest()
+    if rec is None:
+        return 0, None
+    seq, meta = rec
+    with open(persist.resolve(meta["path"]), "rb") as f:
+        snap = _CkptUnpickler(f).load()
+    if restore_dkv:
+        DKV.restore_control_plane(snap.get("dkv") or {})
+    return int(snap.get("next_seq", seq + 1)), snap
+
+
 # ---------------------------------------------------------------------------
 # job progress
 # ---------------------------------------------------------------------------
@@ -144,25 +402,68 @@ def save_job_progress(job_key: str, iteration: int, spec: Dict[str, Any],
 
     payload = {"job": str(job_key), "iteration": int(iteration),
                "spec": dict(spec or {}), "state": state, "ts": time.time()}
+    from h2o3_tpu_torch.parallel import distributed as D
+
     path = _job_path(job_key)
     _atomic_write(path, pickle.dumps(payload, protocol=4))
-    _write_sidecar(path, {"job": str(job_key), "iteration": int(iteration),
-                          "path": path, "algo": (spec or {}).get("algo"),
-                          "dest": (spec or {}).get("model_id"),
-                          "ts": payload["ts"]})
+    meta = {"job": str(job_key), "iteration": int(iteration),
+            "path": path, "algo": (spec or {}).get("algo"),
+            "dest": (spec or {}).get("model_id"), "ts": payload["ts"]}
+    _write_sidecar(path, meta)
+    D.kv_put(_JOB_PREFIX + str(job_key), json.dumps(meta))
     timeline.record("job", "progress_saved", job=str(job_key),
                     iteration=int(iteration))
     return path
 
 
+def _kv_records(prefix: str, key: str) -> List[dict]:
+    from h2o3_tpu_torch.parallel import distributed as D
+
+    out = []
+    for _k, v in D.kv_dir(prefix):
+        try:
+            rec = json.loads(v)
+        except (ValueError, TypeError):
+            continue
+        if isinstance(rec, dict) and rec.get(key):
+            out.append(rec)
+    return out
+
+
+def _merged(prefix: str, file_prefix: str, key: str) -> List[dict]:
+    """The KV's records, then the sidecars the KV does not know (one
+    process, or a wiped KV), sorted by `key`."""
+    out = _kv_records(prefix, key)
+    seen = {r[key] for r in out}
+    out += [r for r in _sidecars(file_prefix, key) if r[key] not in seen]
+    return sorted(out, key=lambda r: r[key])
+
+
+def _kv_path(prefix: str, key: str) -> Optional[str]:
+    from h2o3_tpu_torch.parallel import distributed as D
+
+    raw = D.kv_try_get(prefix + str(key))
+    if raw is None:
+        return None
+    try:
+        return json.loads(raw).get("path")
+    except (ValueError, TypeError, AttributeError):
+        return None
+
+
 def job_progress_records() -> List[dict]:
     """Every progress record ({job, iteration, path, algo, dest, ts}),
-    sorted by job key, from the sidecars."""
-    return _sidecars("jobckpt_", "job")
+    sorted by job key: the cloud KV's, then the sidecars it lacks."""
+    return _merged(_JOB_PREFIX, "jobckpt_", "job")
 
 
 def has_job_progress(job_key: str) -> bool:
-    """A sidecar exists (no unpickling: ``/3/Jobs`` asks per job)."""
+    """A KV record or a sidecar exists (no unpickling: ``/3/Jobs`` asks
+    per job)."""
+    from h2o3_tpu_torch.parallel import distributed as D
+
+    if D.kv_try_get(_JOB_PREFIX + str(job_key)) is not None:
+        return True
     return os.path.exists(_job_path(job_key) + ".json")
 
 
@@ -171,8 +472,9 @@ def load_job_progress(job_key: str) -> Optional[dict]:
     there is none or the file is unreadable or refused."""
     from h2o3_tpu_torch import persist
 
+    path = _kv_path(_JOB_PREFIX, job_key) or _job_path(job_key)
     try:
-        with open(persist.resolve(_job_path(job_key)), "rb") as f:
+        with open(persist.resolve(path), "rb") as f:
             return _CkptUnpickler(f).load()
     except (OSError, pickle.UnpicklingError, EOFError, ValueError):
         return None
@@ -181,6 +483,9 @@ def load_job_progress(job_key: str) -> Optional[dict]:
 def delete_job_progress(job_key: str) -> None:
     """Drop a job's progress and its tree chunks (the finished model
     supersedes them)."""
+    from h2o3_tpu_torch.parallel import distributed as D
+
+    D.kv_delete(_JOB_PREFIX + str(job_key))
     path = _job_path(job_key)
     paths = [path, path + ".json"]
     prefix = f"jobckpt_{_safe(job_key)}_trees_"
@@ -229,19 +534,22 @@ def save_search_state(search_key: str, state: Dict[str, Any],
             except OSError:
                 pass
         os.replace(tmp, path)
-        _write_sidecar(path, {"search": str(search_key),
-                              "kind": state.get("kind"),
-                              "dest": state.get("dest"), "path": path,
-                              "members": counts, "ts": payload["ts"]})
+        meta = {"search": str(search_key), "kind": state.get("kind"),
+                "dest": state.get("dest"), "path": path,
+                "members": counts, "ts": payload["ts"]}
+        _write_sidecar(path, meta)
+    from h2o3_tpu_torch.parallel import distributed as D
+
+    D.kv_put(_SEARCH_PREFIX + str(search_key), json.dumps(meta))
     timeline.record("search", "state_saved", search=str(search_key),
                     done=counts.get("done", 0))
     return path
 
 
 def search_state_records() -> List[dict]:
-    """Every search record in the checkpoint dir ({search, kind, dest,
-    path, members, ts}), sorted by search key."""
-    return _sidecars("searchckpt_", "search")
+    """Every search record ({search, kind, dest, path, members, ts}),
+    sorted by search key: the cloud KV's, then the sidecars it lacks."""
+    return _merged(_SEARCH_PREFIX, "searchckpt_", "search")
 
 
 def load_search_state(search_key: str,
@@ -252,7 +560,8 @@ def load_search_state(search_key: str,
     from h2o3_tpu_torch import persist
     from h2o3_tpu_torch.utils.log import get_logger
 
-    path = _search_path(search_key, sdir)
+    path = (_kv_path(_SEARCH_PREFIX, search_key) if sdir is None
+            else None) or _search_path(search_key, sdir)
     for i, p in enumerate((path, path + ".prev")):
         try:
             with open(persist.resolve(p), "rb") as f:
@@ -277,8 +586,11 @@ def load_search_state(search_key: str,
 
 def delete_search_state(search_key: str, sdir: Optional[str] = None,
                         keep_files: bool = False) -> None:
-    """Drop a search's state; `keep_files` keeps it (a grid's
-    recovery_dir is also the user's export directory)."""
+    """Drop a search's state; `keep_files` drops only its KV record (a
+    grid's recovery_dir is also the user's export directory)."""
+    from h2o3_tpu_torch.parallel import distributed as D
+
+    D.kv_delete(_SEARCH_PREFIX + str(search_key))
     if keep_files:
         return
     path = _search_path(search_key, sdir)

@@ -742,8 +742,10 @@ def _binprim(op):
         rv = _one_col(r) if _is_fr(r) else r
         if isinstance(lv, Column) or isinstance(rv, Column):
             return _colfr(E.binop(op, lv, rv), op)
-        return float(E.binop(op, Column.from_numpy(np.asarray([float(lv)])),
-                             float(rv)).to_numpy()[0])
+        # two scalars: float32 operands, as the fused path folds them (a
+        # stored column would round the left one to the bf16 opt-in)
+        a = torch.tensor([float(np.float32(lv))], dtype=torch.float32)
+        return float(E.binop_expr(op, a, E._scalar_like(rv, a))[0])
     return impl
 
 

@@ -29,13 +29,16 @@ _LOCK = threading.Lock()
 # kind drift makes the ring un-queryable. "rest" is emitted by
 # the API layer's request ring merge, not by record().
 KINDS = frozenset({
+    "cloud",            # cloud joins, supervision transitions, elections,
+                        # rejoins, demotions, job resumes
     "flight",           # flight-recorder dumps (obs/flight.py)
     "job",              # durable job-progress saves (parallel/ckpt.py)
+    "oplog",            # control-plane checkpoints (parallel/ckpt.py)
     "phase",            # lifecycle phase begin/end (obs/phases.py)
     "profiler",         # /3/Profiler start/stop captures
     "rest",             # REST request ring (api/server.py merge)
     "scoring",          # fused serving dispatches
-    "search",           # durable AutoML/grid search-state saves
+    "search",           # durable AutoML/grid search-state saves, resumes
     "self_benchmark",   # device probes (/3/NetworkTest)
 })
 

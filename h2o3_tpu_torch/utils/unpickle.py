@@ -18,6 +18,7 @@ would reach a class the port merely imports.
 
 from __future__ import annotations
 
+import io
 import pickle
 from typing import Any, BinaryIO
 
@@ -62,3 +63,7 @@ def restricted_load(fileobj: BinaryIO, what: str = "payload") -> Any:
     up = RestrictedUnpickler(fileobj)
     up.what = what
     return up.load()
+
+
+def restricted_loads(data: bytes, what: str = "payload") -> Any:
+    return restricted_load(io.BytesIO(data), what=what)

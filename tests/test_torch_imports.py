@@ -1,7 +1,8 @@
 """The PyTorch port (h2o3_tpu_torch) stands alone: it imports with JAX,
 optax, scipy, pandas and ml_dtypes blocked and the JAX package and its
-standalone MOJO runtime (h2o3_genmodel) refused (its bf16 storage and
-its invariant analyzer run so too), its entry points default to CUDA,
+standalone MOJO runtime (h2o3_genmodel) refused (its bf16 storage, its
+invariant analyzer and its control plane run so too), its entry points
+default to CUDA (a `distributed.initialize()` without an address too),
 and no source file of it (nor chip_smoke.py) imports JAX, optax, scipy,
 pandas, ml_dtypes, h2o3_tpu or h2o3_genmodel. The one exception is
 Frame.to_pandas, which imports pandas inside the method and raises
@@ -55,6 +56,12 @@ BinSpec.build(fr, ["x"]).bin_columns(fr)
 fr.col("x").mean()
 from h2o3_tpu_torch.analysis import core as acore
 acore.make_context()
+from h2o3_tpu_torch.parallel import distributed as D, oplog, supervisor
+with D.memory_kv():
+    D.process_count = lambda: 2
+    oplog.publish("noop", {})
+    supervisor.evaluate()
+D.process_count = lambda: 1
 h2o3_tpu_torch.init(device="cpu", numeric_dtype="float32")
 leaked += [k for k in sys.modules
            if k.split(".")[0] in ("h2o3_tpu", "h2o3_genmodel")
@@ -152,6 +159,30 @@ def test_init_defaults_to_cuda_and_raises_without_it(monkeypatch):
     with pytest.raises(RuntimeError):
         h2o.init(device="cuda")
     assert h2o.init(device="cpu").device == torch.device("cpu")
+
+
+def test_initialize_without_an_address_leaves_one_process_on_the_card(
+        monkeypatch):
+    """`distributed.initialize()` with no coordinator address is a no-op:
+    one process, index 0, its own coordinator, no store and no oplog;
+    the runtime still defaults to the card."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.core import runtime
+    from h2o3_tpu_torch.parallel import distributed as D
+    from h2o3_tpu_torch.parallel import oplog
+
+    monkeypatch.delenv("H2O_TPU_COORDINATOR", raising=False)
+    monkeypatch.setenv("H2O_TPU_NUM_PROCESSES", "4")    # no address: unread
+    monkeypatch.setenv("H2O_TPU_PROCESS_ID", "2")
+    D.initialize()
+    assert (D.process_count(), D.process_index()) == (1, 0)
+    assert D.is_coordinator() and D._STORE is None
+    assert not oplog.active() and oplog.broadcast("noop", {}) is None
+    assert D.kv_put("k", "v") is False and D.kv_try_get("k") is None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(runtime, "_CLUSTER", None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        h2o.init()
 
 
 _FORBIDDEN = re.compile(
