@@ -809,6 +809,11 @@ def phase_flagship(h2o, dev):
         ntrees=FLAGSHIP["ntrees"], max_depth=FLAGSHIP["max_depth"]).train(
             y="y", training_frame=fr))
     RUN["flagship_forest"] = _forest_bits(m)      # phase 3v's resumes
+    # phase 3y's references: the one-process predictions, AUC and frame
+    # bytes of the flagship
+    RUN["flagship_pred"] = p.cpu().numpy()
+    RUN["flagship_auc"] = auc
+    RUN["flagship_frame_bytes"] = sum(_frame_bytes(fr))
     return launches, fr, m
 
 
@@ -1111,6 +1116,7 @@ def phase_glm_bench(h2o, dev):
     check(np.isfinite(se).all() and worst <= COEF_SE_BOUND,
           f"GLM coefficients {worst:.2f} standard errors from b_true")
     check(bool(np.isfinite(pv.p_values).all()), "GLM p-values not finite")
+    RUN["glm_bench_beta"] = m.beta.cpu().numpy()      # phase 3y
     return fr
 
 
@@ -3536,6 +3542,62 @@ def phase_profile(label, train, top=12, wall_s=None):
     return busy_us, n_ops
 
 
+def phase_leaf_sums(h2o, fr, reps=5):
+    """The grower's two per-tree sums at the flagship's inputs (those of
+    its first tree, captured from a one-tree train): the leaf sums and
+    the response mean, as the grower computes them since the row mesh
+    (order-free int64 fixed-point sums, core/ops.fixed_point_group_sums)
+    and as it did before (a sorted float64 scan, core/ops.segment_sum,
+    and two float64 torch.sum calls), each the median
+    device-busy time of `reps` calls under torch.profiler. Returns the
+    two totals (ms a tree: fixed point, scan)."""
+    from h2o3_tpu_torch.core import ops
+    from h2o3_tpu_torch.models.tree import device_tree as dtree
+
+    seen = {}
+    real_leaf, real_sums = dtree.leaf_sums, dtree.fixed_point_sums
+
+    def grab_leaf(row_leaf, cols, tot_slots, mesh=None):
+        seen.setdefault("leaf", (row_leaf.clone(), cols.clone(), tot_slots))
+        return real_leaf(row_leaf, cols, tot_slots, mesh)
+
+    def grab_sums(vals, mesh=None):
+        seen.setdefault("ymean", vals.clone())
+        return real_sums(vals, mesh)
+
+    dtree.leaf_sums, dtree.fixed_point_sums = grab_leaf, grab_sums
+    try:
+        h2o.GBM(ntrees=1, max_depth=FLAGSHIP["max_depth"]).train(
+            y="y", training_frame=fr)
+    finally:
+        dtree.leaf_sums, dtree.fixed_point_sums = real_leaf, real_sums
+    row_leaf, cols, tot = seen["leaf"]
+    wy_w = seen["ymean"]
+    idx = torch.clamp_max(torch.where(row_leaf >= 0, row_leaf, tot),
+                          tot).long()
+    calls = {
+        "leaf_sums fixed point": lambda: real_leaf(row_leaf, cols, tot),
+        "leaf_sums float64 scan": lambda: ops.segment_sum(
+            idx, cols, tot + 1)[:tot],
+        "ymean fixed point": lambda: real_sums(wy_w),
+        "ymean float64 torch.sum": lambda: (
+            torch.sum(wy_w[:, 0]) / torch.clamp_min(torch.sum(wy_w[:, 1]),
+                                                    1e-12)),
+    }
+    ms = {}
+    for name, fn in calls.items():
+        fn()
+        ms[name] = float(np.median([device_time(fn)[0]
+                                    for _ in range(reps)])) / 1e3
+        print(f"time {name} ({cols.shape[0]} rows, {cols.shape[1]} "
+              f"columns, {tot} slots): {ms[name]!r} ms device")
+    fixed = ms["leaf_sums fixed point"] + ms["ymean fixed point"]
+    scan = ms["leaf_sums float64 scan"] + ms["ymean float64 torch.sum"]
+    print(f"leaf sums + response mean a tree: fixed point {fixed!r} ms, "
+          f"float64 scan {scan!r} ms (device)")
+    return fixed, scan
+
+
 def _forest_arrays(m):
     fo = m.forest
     return {k: np.asarray(getattr(fo, k)) for k in
@@ -4229,6 +4291,7 @@ def phase_times(dev, launches, max_err):
     iso = _means(dev, lib, flush, rate, "isofor",
                  levels(120, isofor_level_shapes()))
     mean = flag[0]
+    cross = _cross_rank_block(flag)
     return [{"name": "hist_gather", "route": "cuda",
              "source": "h2o3_tpu_torch/csrc/hist_gather.cu",
              "replaces": "h2o3_tpu/models/tree/pallas_hist.py:362",
@@ -4242,7 +4305,8 @@ def phase_times(dev, launches, max_err):
                              + launches["rest"] + launches["resume"]
                              + launches["grid_resume"] + launches["bf16"]
                              + launches["cloud"]
-                             + launches["cloud_resume"]),
+                             + launches["cloud_resume"]
+                             + launches["sharded"] + launches["nccl"]),
              "max_abs_err": max_err,
              "ms": mean[0], "plain_ms": mean[1], "bound_ms": mean[3],
              "bound_by": "bytes", "library_ms": mean[2],
@@ -4252,7 +4316,33 @@ def phase_times(dev, launches, max_err):
              "xgb_shapes": _block([s[2] for s in xgb_level_shapes()], xgb,
                                   int(launches["xgboost"])),
              "isofor_shapes": _block([s[2] for s in isofor_level_shapes()],
-                                     iso, int(launches["isolationforest"]))}]
+                                     iso, int(launches["isolationforest"])),
+             "cross_rank_shapes": cross}]
+
+
+def _cross_rank_block(flag):
+    """Phase 3y's cross-rank histogram times (n = 500k a rank, S = 1..16,
+    two ranks on the card over gloo) beside the one-rank kernel at
+    n = 1M: the three passes on the device clock, the two all-reduces on
+    the host clock (staged through the host, the other rank's arrival
+    included)."""
+    rows0, rows1 = RUN["cross_rank_times"]
+    steps = ("scale", "all_reduce_max", "accumulate", "all_reduce_sum",
+             "finalise")
+    for r0, r1 in zip(rows0, rows1):
+        print(f"time hist_gather cross-rank n={r0['n']} a rank S={r0['S']}: "
+              + ", ".join(f"{k} {r0['ms'][k] * 1e3:.1f}/{r1['ms'][k] * 1e3:.1f}"
+                          for k in steps) + " us (rank 0/rank 1); bitwise "
+              f"with the plain version {r0['bitwise'] and r1['bitwise']}")
+    mean = {k: float(np.mean([r["ms"][k] for r in rows0])) for k in steps}
+    print("hist_gather cross-rank mean per launch (rank 0): "
+          + ", ".join(f"{k} {v * 1e3:.1f} us" for k, v in mean.items())
+          + f"; passes {sum(mean[k] for k in steps[::2]) * 1e3:.1f} us "
+          f"beside the one-rank kernel at n=1M {flag[0][0] * 1e3:.1f} us")
+    return {"S": [r["S"] for r in rows0], "n_per_rank": rows0[0]["n"],
+            "ms_mean": mean, "ms_by_S": [r["ms"] for r in rows0],
+            "one_rank_ms": flag[0][0], "bitwise": all(
+                r["bitwise"] for r in rows0 + rows1)}
 
 
 # ---------------------------------------------------------------------------
@@ -5481,6 +5571,7 @@ def phase_resume(h2o, dev, tmp, csv_path, fr_3l):
 
 # short knobs for the phase: both processes read them from the env
 CLOUD = dict(H2O_TPU_HEARTBEAT_STALE_S="2", H2O_TPU_OP_ACK_TIMEOUT_S="10",
+             H2O_TPU_MESH_TIMEOUT_S="30",
              H2O_TPU_OPLOG_CHECKPOINT_OPS="3", H2O_TPU_JOB_CKPT_ITERS="2",
              H2O_TPU_OPLOG_CKPT_ASYNC="0", H2O_TPU_SUPERVISE_INTERVAL_S="0.25",
              H2O_TPU_AUTO_RECOVER="1", H2O_TPU_ELECTION_GRACE_S="3600")
@@ -5488,17 +5579,20 @@ CLOUD_KILL_AT = 10          # SIGKILL the follower past this durable tree
 CLOUD_DEADLINE_S = 120      # each wait of the phase
 
 
-def _digest(obj) -> str:
+def _digest(obj, rows=None) -> str:
     """sha256 over a tree model's forest bits, or over a frame's columns'
-    device bytes (both processes hash alike)."""
+    device bytes (on a row-sharded cloud the process's own rows; `rows`
+    = (lo, hi) hashes those rows of a one-process frame): both processes
+    hash alike."""
     import hashlib
 
     h = hashlib.sha256()
+    lo, hi = rows if rows is not None else (None, None)
     if getattr(obj, "forest", None) is not None:
         arrays = _forest_bits(obj)
     else:
-        arrays = {n: obj.col(n).data.detach().cpu().contiguous().numpy()
-                  for n in obj.names}
+        arrays = {n: obj.col(n).data[lo:hi].detach().cpu().contiguous()
+                  .numpy() for n in obj.names}
     for k in sorted(arrays):
         a = np.ascontiguousarray(arrays[k])
         h.update(f"{k}{a.dtype}{a.shape}".encode())
@@ -5638,12 +5732,44 @@ def _until(cond, what, deadline_s=CLOUD_DEADLINE_S):
     return time.perf_counter() - t0
 
 
-def _cloud_replay(h2o, R, fol, csv_path, launches, ack_ms):
+CLOUD_STATEMENT = ("(tmp= {dst} (- (+ (abs (- (* {A} 0.5) {C})) (* {B} 0.25)) "
+                   "(* {A} 0.125)))")
+
+
+def _cloud_refs(h2o, csv_path):
+    """Part A's one-process references, made before the cloud forms: the
+    flagship imported, trained, scored and munged in this process, each
+    frame's digest of the rows each rank of two holds."""
+    from h2o3_tpu_torch.parallel import mesh as M
+
+    fr = h2o.import_file(csv_path, destination_frame="cloud_ref.hex")
+    m = h2o.GBM(ntrees=FLAGSHIP["ntrees"],
+                max_depth=FLAGSHIP["max_depth"]).train(y="y",
+                                                       training_frame=fr)
+    pred = m.predict(fr)
+    A, B, C = (f"(cols cloud_ref.hex [{i}])" for i in range(3))
+    h2o.exec_rapids(CLOUD_STATEMENT.format(dst="cloud_ref_rapids", A=A, B=B,
+                                           C=C), h2o.Session("cloud_ref"))
+    stmt = h2o.get_frame("cloud_ref_rapids")
+    n = fr.nrows
+    refs = {k: [_digest(f, M.row_block(n, r, 2)) for r in (0, 1)]
+            for k, f in (("cloud_flagship.hex", fr), ("cloud_pred", pred),
+                         ("cloud_rapids", stmt))}
+    for k in ("cloud_ref.hex", str(m.key), str(pred.key),
+              "cloud_ref_rapids"):
+        h2o.DKV.remove(k)
+    return refs
+
+
+def _cloud_replay(h2o, R, fol, csv_path, launches, ack_ms, refs):
     """Part A: the flagship imported, trained, scored and munged over
-    REST on the two-process cloud; the follower's copies bitwise."""
+    REST on the two-process cloud, each process holding its rows; the
+    follower's forest bitwise the coordinator's and phase 3's, each
+    process's rows of the frames bitwise the one-process rows."""
     from h2o3_tpu_torch.models.tree import hist_gather as hg
     from h2o3_tpu_torch.parallel import ckpt, oplog
     from h2o3_tpu_torch.parallel import distributed as D
+    from h2o3_tpu_torch.parallel import mesh as M
 
     hg.launches = 0
     R.import_parse(csv_path, "cloud_flagship.hex")
@@ -5669,19 +5795,30 @@ def _cloud_replay(h2o, R, fol, csv_path, launches, ack_ms):
            f"({FLAGSHIP['n_rows']} rows, /3/Predictions mirrored)")
     A, B, C = (f"(cols cloud_flagship.hex [{i}])" for i in range(3))
     R.json("POST", "/99/Rapids", {
-        "ast": f"(tmp= cloud_rapids (- (+ (abs (- (* {A} 0.5) {C})) "
-               f"(* {B} 0.25)) (* {A} 0.125)))", "session_id": "cloud"})
+        "ast": CLOUD_STATEMENT.format(dst="cloud_rapids", A=A, B=B, C=C),
+        "session_id": "cloud"})
     keys = ("cloud_flagship.hex", "cloud_gbm", "cloud_pred", "cloud_rapids")
     mine = {k: _digest(h2o.get_frame(k) if k != "cloud_gbm"
                        else h2o.get_model(k)) for k in keys}
     st = fol.wait("status.json", lambda d: all(k in d["digests"]
                                                for k in keys),
                   "the replayed frame, forest, predictions and statement")
-    for k in keys:
-        check(st["digests"][k] == mine[k],
-              f"the follower's {k} is not bitwise the coordinator's")
-    print("cloud replay: the follower's frame, forest, 1M predictions and "
-          "Rapids result are bitwise the coordinator's")
+    check(st["digests"]["cloud_gbm"] == mine["cloud_gbm"],
+          "the follower's forest is not bitwise the coordinator's")
+    _same_forest_bits("the cloud flagship", _forest_bits(
+        h2o.get_model("cloud_gbm")), RUN["flagship_forest"])
+    check(h2o.get_frame("cloud_flagship.hex").shard
+          == M.row_block(FLAGSHIP["n_rows"], 0, 2),
+          "the coordinator does not hold its block of the rows")
+    for k in keys[:1] + keys[2:]:
+        check(mine[k] == refs[k][0],
+              f"the coordinator's rows of {k} are not the one-process rows")
+        check(st["digests"][k] == refs[k][1],
+              f"the follower's rows of {k} are not the one-process rows")
+    print("cloud replay: each process holds its half of the rows; the "
+          "forest is bitwise phase 3's in both; each process's rows of the "
+          "frame, the 1M predictions and the Rapids result are bitwise the "
+          "one-process rows")
     train_ops = [o for o in st["ops"] if o["kind"] == "train"]
     print(f"follower hist_gather launches (cloud train) "
           f"{train_ops[0]['launches']}")
@@ -5736,9 +5873,12 @@ def _cloud_kill_resume(h2o, R, store_port, tmp, fol, launches, mine):
     _until(lambda: job()["status"] == "FAILED", "the train's job FAILED")
     j = job()
     check(supervisor.state() != supervisor.HEALTHY
-          and "stopped at its durable save" in (j.get("exception") or ""),
+          and "row mesh" in (j.get("exception") or ""),
           f"job {jk} failed with {j.get('exception')!r} on a "
           f"{supervisor.state()} cloud")
+    metric("collective_fail_s", time.perf_counter() - t_kill,
+           "(SIGKILL to the coordinator's train FAILED by its collective; "
+           f"mesh timeout {CLOUD['H2O_TPU_MESH_TIMEOUT_S']} s)")
     check(j.get("auto_recoverable") is True, f"job {jk}: {j}")
     print(f"cloud job {jk} FAILED from outside: "
           f"{(j.get('exception') or '').splitlines()[0][:300]}")
@@ -5759,6 +5899,8 @@ def _cloud_kill_resume(h2o, R, store_port, tmp, fol, launches, mine):
     st = fol2.read("status.json")
     check(st["digests"].get("cloud_gbm") == mine["cloud_gbm"],
           "the rejoined follower's Part A forest differs")
+    check(st["digests"].get("cloud_flagship.hex") == mine["fol_frame"],
+          "the rejoined follower does not hold its own rows of the frame")
     _until(lambda: supervisor.state() == supervisor.HEALTHY,
            "the cloud HEALTHY again")
     trans = supervisor.status()["transitions"]
@@ -5800,8 +5942,8 @@ def _cloud_kill_resume(h2o, R, store_port, tmp, fol, launches, mine):
            "cloud_flagship.hex", {"predictions_frame": "cloud_pred_after"})
     st = fol2.wait("status.json", lambda d: "cloud_pred_after"
                    in d["digests"], "the rejoined follower's predict")
-    check(st["digests"]["cloud_pred_after"]
-          == _digest(h2o.get_frame("cloud_pred_after"))
+    check(st["digests"]["cloud_pred_after"] == mine["fol_pred"]
+          and _digest(h2o.get_frame("cloud_pred_after"))
           == mine["cloud_pred"], "the rejoined follower's predictions of "
                                  "Part A's model differ")
     print("the rejoined follower's Part A model predicts bitwise with the "
@@ -5964,6 +6106,7 @@ def phase_cloud(h2o, dev, tmp, csv_path):
         if seq is not None:
             ack_ms.append((time.perf_counter() - t0) * 1e3)
 
+    refs = _cloud_refs(h2o, csv_path)
     folls, srv = [], None
     with _env(H2O_TPU_OPLOG_CKPT_DIR=os.path.join(ctmp, "ckpt"), **CLOUD):
         store = dist.TCPStore("127.0.0.1", 0, 2, True,
@@ -5987,7 +6130,9 @@ def phase_cloud(h2o, dev, tmp, csv_path):
             _until(lambda: supervisor.state() == supervisor.HEALTHY,
                    "the two-process cloud HEALTHY")
             mine = _cloud_replay(h2o, R, folls[0], csv_path, launches,
-                                 ack_ms)
+                                 ack_ms, refs)
+            mine["fol_frame"] = refs["cloud_flagship.hex"][1]
+            mine["fol_pred"] = refs["cloud_pred"][1]
             folls.append(_cloud_kill_resume(h2o, R, store.port, ctmp,
                                             folls[0], launches, mine))
             oplog.publish("shutdown", {})
@@ -6008,6 +6153,372 @@ def phase_cloud(h2o, dev, tmp, csv_path):
         h2o.DKV.remove(k)
     drill_recover()
     drill_search_recover(h2o, dev)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 3y: frame rows sharded across two processes (the row mesh)
+# ---------------------------------------------------------------------------
+
+SHARD = dict(drf_trees=10, drf_depth=5, glm_rtol=1e-6, mesh_timeout_s="120",
+             time_reps=5)
+
+
+def _shard_steps(h2o, dev, rank, csv_path, out):
+    """Phase 3y's steps, run alike by both ranks (this process is rank 0,
+    `shard_child` rank 1); the collectives keep them in step. Returns
+    what each rank checks or reports."""
+    from h2o3_tpu_torch.core import sharded_frame
+    from h2o3_tpu_torch.core.dkv import DKV
+    from h2o3_tpu_torch.models.tree import hist_gather as hg
+    from h2o3_tpu_torch.obs import metrics as obs_metrics
+    from h2o3_tpu_torch.parallel import mesh as M
+
+    m = M.current()
+    res = {"rank": rank, "backend": m.backend, "device":
+           torch.cuda.get_device_name(dev)}
+    t0 = time.perf_counter()
+    fr = h2o.import_file(csv_path, destination_frame="shard_flagship.hex")
+    torch.cuda.synchronize()
+    res["import_s"] = time.perf_counter() - t0
+    res["shard"] = list(fr.shard)
+    res["local_rows"] = fr.local_rows
+    res["on_card"] = all(c.data.device.type == "cuda" for c in fr.columns)
+    res["frame_bytes"] = sum(_frame_bytes(fr))
+    sharded_frame.reset_counters()
+    kw = dict(ntrees=FLAGSHIP["ntrees"], max_depth=FLAGSHIP["max_depth"])
+    h2o.GBM(ntrees=2, max_depth=FLAGSHIP["max_depth"]).train(
+        y="y", training_frame=fr)                    # warm-up
+    torch.cuda.synchronize()
+    hg.launches = 0
+    st0 = m.stats()
+    t0 = time.perf_counter()
+    gbm = h2o.GBM(**kw).train(y="y", training_frame=fr)
+    torch.cuda.synchronize()
+    res["sharded_gbm_train_s"] = time.perf_counter() - t0
+    st1 = m.stats()
+    res["gbm_launches"] = hg.launches
+    levels = FLAGSHIP["ntrees"] * FLAGSHIP["max_depth"]
+    res["allreduce_ms_per_level"] = (st1["seconds"] - st0["seconds"]) \
+        * 1e3 / levels
+    res["collectives_per_level"] = (st1["collectives"]
+                                    - st0["collectives"]) / levels
+    res["staged_bytes"] = st1["staged_bytes"] - st0["staged_bytes"]
+    res["gbm_forest"] = _forest_bits(gbm)
+    res["gbm_auc"] = float(gbm._output.training_metrics.auc)
+    hg.launches = 0
+    drf = h2o.DRF(ntrees=SHARD["drf_trees"], max_depth=SHARD["drf_depth"],
+                  seed=1).train(y="y", training_frame=fr)
+    res["drf_launches"] = hg.launches
+    res["drf_forest"] = _forest_bits(drf)
+    res["gathered_in_train"] = sharded_frame.counters()["gathered_rows"]
+    gfr, _b = glm_bench_frame(h2o, dev, GLM_BENCH["n_rows"], GLM_BENCH["p"],
+                              GLM_BENCH["seed"])
+    glm, res["sharded_glm_train_s"] = _timed(lambda: h2o.GLM(
+        family="binomial", lambda_=0.0).train(y="y", training_frame=gfr))
+    res["glm_beta"] = glm.beta.cpu().numpy()
+    del gfr
+    t0 = time.perf_counter()
+    pred = gbm.predict(fr)
+    torch.cuda.synchronize()
+    res["sharded_predict_s"] = time.perf_counter() - t0
+    res["pred"] = pred.col("Y").to_numpy()            # gathered
+    res["gathered_after_predict"] = sharded_frame.counters()["gathered_rows"]
+    DKV.publish(str(gbm.key))
+    if rank == 0:
+        DKV.put("shard_cfg", {"alpha": 0.5, "rank": 0})
+        DKV.publish("shard_cfg", {"alpha": 0.5, "rank": 0}, replicate=True)
+    m.barrier()
+    res["fetched"] = DKV.fetch_remote("shard_cfg", timeout_ms=30000)
+    res["global_keys"] = [k for k in DKV.global_keys()
+                          if k in ("shard_cfg", str(gbm.key))]
+    res["trees_built"] = [s["value"] for mm in obs_metrics.REGISTRY.snapshot()
+                          if mm["name"] == "h2o3_tree_trees_built_total"
+                          for s in mm["samples"]][0]
+    obs_metrics.publish_snapshot()
+    m.barrier()
+    res["merged_trees_built"] = [
+        s["value"] for mm in obs_metrics.cluster_aggregate()
+        if mm["name"] == "h2o3_tree_trees_built_total"
+        for s in mm["samples"]][0]
+    res["kernel_times"] = _cross_rank_times(dev, m)
+    for k in ("shard_flagship.hex", str(gbm.key), str(drf.key),
+              str(glm.key), str(pred.key), "shard_cfg"):
+        DKV.remove(k)
+    m.barrier()
+    return res
+
+
+def _cross_rank_times(dev, m):
+    """The cross-rank histogram at a rank's flagship level shapes (n =
+    500k, S = 1..16): its three passes and two all-reduces timed apart
+    (CUDA events around each launch, the host clock around each
+    all-reduce, which stages through the host on gloo and includes
+    waiting for the other rank), and the result held bitwise against the
+    cross-rank plain version on the same rows. Both ranks run it in
+    step; timing launches are not main-path launches."""
+    from h2o3_tpu_torch import kernels
+    from h2o3_tpu_torch.models.tree import hist_gather as hg
+
+    lib = kernels.load("hist_gather")
+    rows = []
+    n_all = FLAGSHIP["n_rows"]
+    for i, (n, F, maxB, S) in enumerate(flagship_level_shapes()):
+        case = hist_case(200 + i, n_all, F, maxB, S)
+        lo, hi = m.rows(n_all)
+        *arrays, TB = case
+        b, nd, w, y, off = _to(dev, *(a[lo:hi] if j < 4 else a
+                                      for j, a in enumerate(arrays)),
+                               bin_dtype=np.uint8)
+        saved = hg.launches
+        got = hg.hist_gather(b, nd, w, y, offsets=off, TB=TB, S=S, mesh=m,
+                             n_global=n_all)
+        hg.launches = saved
+        ref = hg.hist_gather_ref(b, nd, w, y, offsets=off, TB=TB, S=S,
+                                 mesh=m, n_global=n_all)
+        same = bool(torch.equal(got.view(torch.int32),
+                                ref.view(torch.int32)))
+        tile_S, n_tiles = hg.plan_tiles(TB, S)
+        kwl = dict(TB=TB, S=S, tile_S=tile_S, n_tiles=n_tiles,
+                   n_global=n_all)
+        best = None
+        for _ in range(SHARD["time_reps"]):
+            scratch = torch.zeros(2 + S * TB * 3, dtype=torch.int64,
+                                  device=dev)
+            out = torch.empty(S * TB, 3, dtype=torch.float32, device=dev)
+            t = []
+            for step in ("scale", "max", "accumulate", "sum", "finalise"):
+                torch.cuda.synchronize()
+                if step in ("max", "sum"):
+                    t0 = time.perf_counter()
+                    if step == "max":
+                        m.all_reduce(scratch.view(torch.int32)[:3], "max")
+                    else:
+                        m.all_reduce(scratch[2:], "sum")
+                    torch.cuda.synchronize()
+                    t.append((time.perf_counter() - t0) * 1e3)
+                    continue
+                passes = {"scale": hg.PASS_SCALE,
+                          "accumulate": hg.PASS_ACCUMULATE,
+                          "finalise": hg.PASS_FINALISE}[step]
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                err = hg.launch(lib, b, nd, w, y, off, scratch, out,
+                                passes=passes, **kwl)
+                e1.record()
+                torch.cuda.synchronize()
+                check(err == 0, f"cross-rank {step}: CUDA error {err}")
+                t.append(e0.elapsed_time(e1))
+            best = t if best is None or sum(t) < sum(best) else best
+        check(torch.equal(out.view(torch.int32), got.view(torch.int32)),
+              f"the timed cross-rank steps at S={S} differ from "
+              "hist_gather's")
+        rows.append({"n": hi - lo, "S": S, "bitwise": same,
+                     "ms": dict(zip(("scale", "all_reduce_max",
+                                     "accumulate", "all_reduce_sum",
+                                     "finalise"), best))})
+    return rows
+
+
+def shard_child(outdir: str, csv_path: str) -> None:
+    """Phase 3y's rank 1, on the card as rank 0 is: it joins the cloud
+    from ``H2O_TPU_COORDINATOR``, ``H2O_TPU_NUM_PROCESSES`` and
+    ``H2O_TPU_PROCESS_ID``, runs `_shard_steps` in step with rank 0 and
+    writes its results to ``shard.npz``/``shard.json``."""
+    import os
+
+    t0 = time.perf_counter()
+    from h2o3_tpu_torch.parallel import distributed as D
+
+    D.initialize()
+    import h2o3_tpu_torch as h2o
+
+    dev = h2o.init().device
+    if dev.type != "cuda" or D.process_index() != 1:
+        raise SystemExit(f"shard child on {dev}, process "
+                         f"{D.process_index()} of {D.process_count()}")
+    boot_s = time.perf_counter() - t0
+    res = _shard_steps(h2o, dev, 1, csv_path, outdir)
+    res["boot_s"] = boot_s
+    arrays = {"pred": res.pop("pred"), "glm_beta": res.pop("glm_beta")}
+    for k in ("gbm_forest", "drf_forest"):
+        for a, v in res.pop(k).items():
+            arrays[f"{k}_{a}"] = v
+    np.savez(os.path.join(outdir, "shard.npz"), **arrays)
+    _write_json(os.path.join(outdir, "shard.json"), res)
+
+
+def _same_forest_bits(label, got, want):
+    for a in want:
+        check(np.array_equal(np.asarray(got[a]), np.asarray(want[a])),
+              f"{label}: the forest's {a} differs")
+
+
+def phase_sharded(h2o, dev, tmp, csv_path):
+    """Phase 3y: this process is rank 0 of a two-rank row mesh on the one
+    card (gloo: NCCL refuses two ranks on one device), a child process
+    rank 1; then a one-rank NCCL mesh trains the flagship. Returns the
+    kernel's launches per path of this process."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from h2o3_tpu_torch.core import sharded_frame
+    from h2o3_tpu_torch.models.tree import hist_gather as hg
+    from h2o3_tpu_torch.parallel import distributed as D
+    from h2o3_tpu_torch.parallel import mesh as M
+
+    sdir = os.path.join(tmp, "sharded")
+    os.makedirs(sdir, exist_ok=True)
+    # the one-process DRF the sharded one must equal (built first: once
+    # the mesh is current every new column is a shard)
+    ref_fr = h2o.import_file(csv_path, destination_frame="shard_ref.hex")
+    drf_ref = _forest_bits(h2o.DRF(ntrees=SHARD["drf_trees"],
+                                   max_depth=SHARD["drf_depth"],
+                                   seed=1).train(y="y",
+                                                 training_frame=ref_fr))
+    h2o.DKV.remove("shard_ref.hex")
+    del ref_fr
+    launches = {}
+    with _env(H2O_TPU_MESH_TIMEOUT_S=SHARD["mesh_timeout_s"]):
+        store = dist.TCPStore("127.0.0.1", 0, 2, True,
+                              timeout=datetime.timedelta(seconds=60),
+                              wait_for_workers=False)
+        env = dict(os.environ, H2O_TPU_COORDINATOR=f"127.0.0.1:{store.port}",
+                   H2O_TPU_NUM_PROCESSES="2", H2O_TPU_PROCESS_ID="1",
+                   TORCH_CPP_LOG_LEVEL="ERROR")
+        root = str(Path(__file__).resolve().parent)
+        log = open(os.path.join(sdir, "child.log"), "w")
+        t_spawn = time.perf_counter()
+        child = subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; chip_smoke."
+             f"shard_child({sdir!r}, {csv_path!r})"], cwd=root, env=env,
+            stdout=log, stderr=subprocess.STDOUT)
+        try:
+            D.initialize(store=store, num_processes=2, process_id=0)
+            m = M.current()
+            check(m is not None and m.size == 2 and m.rank == 0,
+                  f"row mesh {m and m.describe()}")
+            print(f"row mesh: {m.describe()}")
+            mine = _shard_steps(h2o, dev, 0, csv_path, sdir)
+            child.wait(120)
+            log.close()
+            check(child.returncode == 0, "the shard child failed: "
+                  + open(os.path.join(sdir, "child.log")).read()[-3000:])
+            with open(os.path.join(sdir, "shard.json")) as f:
+                theirs = json.load(f)
+            arr = dict(np.load(os.path.join(sdir, "shard.npz")))
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait(30)
+            D.shutdown()
+    print(f"child boot {theirs['boot_s']!r} s; spawn to done "
+          f"{time.perf_counter() - t_spawn!r} s")
+    n = FLAGSHIP["n_rows"]
+    for r in (mine, theirs):
+        rk = r["rank"]
+        check(r["backend"] == "gloo", f"rank {rk} backend {r['backend']}")
+        check(r["shard"] == list(M.row_block(n, rk, 2)) and r["on_card"]
+              and r["local_rows"] == n // 2,
+              f"rank {rk} holds {r['shard']} ({r['local_rows']} rows)")
+        ratio = r["frame_bytes"] / RUN["flagship_frame_bytes"]
+        print(f"rank {rk}: rows {r['shard']} on the card, {r['frame_bytes']} "
+              f"device bytes = {ratio:.3f} of phase 3's frame")
+        check(0.45 <= ratio <= 0.55, f"rank {rk} frame bytes ratio {ratio}")
+        check(r["gbm_launches"] == FLAGSHIP["ntrees"] * FLAGSHIP["max_depth"],
+              f"rank {rk}: {r['gbm_launches']} hist_gather launches")
+        check(r["gathered_in_train"] == 0,
+              f"rank {rk} gathered {r['gathered_in_train']} rows in the "
+              "train")
+        check(r["fetched"] == {"alpha": 0.5, "rank": 0}
+              and len(r["global_keys"]) == 2,
+              f"rank {rk} DKV: {r['fetched']} {r['global_keys']}")
+        print(f"rank {rk}: sharded_gbm_train_s {r['sharded_gbm_train_s']!r} "
+              f"(phase 3 gbm_train_s {RUN.get('gbm_train_s')!r}); "
+              f"all-reduce ms per level {r['allreduce_ms_per_level']!r} "
+              f"({r['collectives_per_level']!r} collectives a level, "
+              f"{r['staged_bytes']} bytes staged through the host); "
+              f"hist_gather launches {r['gbm_launches']} (DRF "
+              f"{r['drf_launches']})")
+        print(f"rank {rk}: sharded_glm_train_s {r['sharded_glm_train_s']!r}"
+              f", sharded_predict_s {r['sharded_predict_s']!r}, import_s "
+              f"{r['import_s']!r}")
+    metric("sharded_gbm_train_s", mine["sharded_gbm_train_s"],
+           f"(rank 0 of 2 on one card; phase 3: gbm_train_s "
+           f"{RUN.get('gbm_train_s')!r})")
+    metric("allreduce_ms_per_level", mine["allreduce_ms_per_level"],
+           "(rank 0, host clock over the train's collectives / levels)")
+    _same_forest_bits("the sharded flagship (rank 0)", mine["gbm_forest"],
+                      RUN["flagship_forest"])
+    _same_forest_bits("the sharded flagship (rank 1)",
+                      {a: arr[f"gbm_forest_{a}"] for a in mine["gbm_forest"]},
+                      RUN["flagship_forest"])
+    print("sharded flagship forest bitwise with phase 3's on both ranks")
+    _same_forest_bits("the sharded DRF (rank 0)", mine["drf_forest"],
+                      drf_ref)
+    _same_forest_bits("the sharded DRF (rank 1)",
+                      {a: arr[f"drf_forest_{a}"] for a in drf_ref}, drf_ref)
+    print(f"sharded {SHARD['drf_trees']}-tree DRF bitwise with the "
+          "one-process DRF on both ranks")
+    want = RUN["glm_bench_beta"]
+    for rk, beta in ((0, mine["glm_beta"]), (1, arr["glm_beta"])):
+        gap = float(np.max(np.abs(beta - want) / np.maximum(np.abs(want),
+                                                             1e-12)))
+        print(f"rank {rk}: sharded bench GLM coefficients "
+              f"{'bitwise' if np.array_equal(beta, want) else 'differ'}"
+              f" from phase 3i's; max relative gap {gap!r} (C46)")
+        check(gap <= SHARD["glm_rtol"], f"GLM coefficient gap {gap}")
+    for rk, pred in ((0, mine["pred"]), (1, arr["pred"])):
+        check(np.array_equal(pred.view(np.int32),
+                             RUN["flagship_pred"].view(np.int32)),
+              f"rank {rk}: the gathered 1M predictions differ from "
+              "phase 3's")
+    check(mine["gbm_auc"] == theirs["gbm_auc"] == RUN["flagship_auc"],
+          f"sharded AUC {mine['gbm_auc']!r} / {theirs['gbm_auc']!r} vs "
+          f"phase 3's {RUN['flagship_auc']!r}")
+    print(f"gathered 1M predictions bitwise with phase 3's on both ranks; "
+          f"AUC {mine['gbm_auc']!r} equals phase 3's")
+    check(mine["merged_trees_built"] == mine["trees_built"]
+          + theirs["trees_built"], f"/3/Metrics merge: "
+          f"{mine['merged_trees_built']} != {mine['trees_built']} + "
+          f"{theirs['trees_built']}")
+    print(f"/3/Metrics merged h2o3_tree_trees_built_total "
+          f"{mine['merged_trees_built']!r} = {mine['trees_built']!r} + "
+          f"{theirs['trees_built']!r}")
+    for row in mine["kernel_times"]:
+        check(row["bitwise"], f"cross-rank kernel at S={row['S']} differs "
+                              "from its plain version")
+    RUN["cross_rank_times"] = (mine["kernel_times"], theirs["kernel_times"])
+    launches["sharded"] = mine["gbm_launches"]
+    print(f"follower hist_gather launches (sharded flagship) "
+          f"{theirs['gbm_launches']}")
+
+    # one rank over NCCL: its dtypes and its stream order on the card
+    m1 = M.RowMesh(0, 1, dev, dist.HashStore())
+    check(m1.backend == "nccl", f"one-rank mesh backend {m1.backend}")
+    with M.use(m1):
+        fr1 = h2o.import_file(csv_path, destination_frame="nccl_flag.hex")
+        check(fr1.shard == (0, n), f"one-rank shard {fr1.shard}")
+        hg.launches = 0
+        sharded_frame.reset_counters()
+        g1, dt = _timed(lambda: h2o.GBM(
+            ntrees=FLAGSHIP["ntrees"], max_depth=FLAGSHIP["max_depth"]
+        ).train(y="y", training_frame=fr1))
+        launches["nccl"] = hg.launches
+        st = m1.stats()
+    _same_forest_bits("the one-rank NCCL flagship", _forest_bits(g1),
+                      RUN["flagship_forest"])
+    print(f"one-rank NCCL mesh: flagship forest bitwise with phase 3's, "
+          f"{launches['nccl']} launches, {dt!r} s, {st['collectives']} "
+          f"collectives in {st['seconds']!r} s")
+    check(launches["nccl"] == FLAGSHIP["ntrees"] * FLAGSHIP["max_depth"],
+          f"{launches['nccl']} launches on the NCCL mesh")
+    m1.shutdown()
+    for k in ("nccl_flag.hex", str(g1.key)):
+        h2o.DKV.remove(k)
     return launches
 
 
@@ -6034,6 +6545,7 @@ def main() -> int:
     phase_profile("5-tree flagship train", lambda: h2o.GBM(
         ntrees=5, max_depth=FLAGSHIP["max_depth"]).train(
             y="y", training_frame=fr))
+    phase_leaf_sums(h2o, fr)
     phase_profile("5-tree XGBoost train", lambda: h2o.XGBoost(
         ntrees=5, seed=XGB["seed"]).train(y="y", training_frame=fr))
     banner("phase 3c: deep DRF (200k rows, depth 20)")
@@ -6138,6 +6650,12 @@ def main() -> int:
                "the follower killed mid-train, rejoined from a checkpoint "
                "and the job resumed by the watchdog; the recovery drills)")
         launches.update(phase_cloud(h2o, dev, tmp, flag_csv))
+        banner("phase 3y: frame rows sharded across two processes (two "
+               "ranks on the one card over gloo: the flagship imported and "
+               "trained, a DRF, the bench GLM, 1M predictions, the DKV and "
+               "/3/Metrics across processes, the cross-rank kernel timed; "
+               "then a one-rank NCCL train)")
+        launches.update(phase_sharded(h2o, dev, tmp, flag_csv))
         banner("phase 4: card vs CPU")
         phase_card_vs_cpu(h2o, dev, parse_path)
         phase_card_vs_cpu_framework(h2o, dev)

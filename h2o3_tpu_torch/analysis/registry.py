@@ -27,11 +27,22 @@ MIRRORED_ROOTS = (
     "h2o3_tpu_torch.scoring.execute_batch",
     "h2o3_tpu_torch.rapids.eval.exec_rapids",
     "h2o3_tpu_torch.automl.search.SearchEngine.run",
+    # the row mesh's collective sites: every rank runs them in step
+    "h2o3_tpu_torch.core.mrtask.map_reduce",
+    "h2o3_tpu_torch.parallel.mesh.RowMesh.all_reduce",
+    "h2o3_tpu_torch.parallel.mesh.RowMesh.all_gather",
 )
 
 # sanctioned env accessors: the multi-process contract pins the env
 # alike on every process, so a knob read through one decides alike
 KNOB_HELPERS = frozenset({
+    # the row mesh's collective timeout and the metrics publish
+    # interval: the multi-process contract sets them alike everywhere
+    "h2o3_tpu_torch.parallel.mesh.mesh_timeout_s",
+    "h2o3_tpu_torch.obs.metrics._publish_interval_s",
+    # H2O_TPU_PROFILE only adds a TimeLine record (and a sync) around a
+    # map_reduce: it changes no result and no collective
+    "h2o3_tpu_torch.core.mrtask.profiling",
     "h2o3_tpu_torch.utils.retry.env_int",
     "h2o3_tpu_torch.utils.retry.env_float",
     "h2o3_tpu_torch.core.runtime.OptArgs.from_env",
@@ -59,6 +70,14 @@ KNOB_HELPERS = frozenset({
 # audited divergent-looking call sites, each with its reason; the
 # multi-process replay (ROADMAP A14.4) must keep each reason true
 GUARDED = {
+    "h2o3_tpu_torch.parallel.mesh.RowMesh._group_now":
+        "the wall clock only spaces out reads of the recorded mesh "
+        "generation; the group a collective runs on is that recorded "
+        "generation's, the same on every rank, and a rank whose group "
+        "lost a peer rebuilds at its next collective whatever the clock",
+    "h2o3_tpu_torch.parallel.mesh.RowMesh._run":
+        "the host clock times a collective for the mesh's counters "
+        "(`stats`); no decision reads it",
     "h2o3_tpu_torch.models.model_builder.random_seed":
         "the one seed-derivation policy for seed=-1/0: a replayed train "
         "must carry the seed its coordinator drew (the reference's REST "

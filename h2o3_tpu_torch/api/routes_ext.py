@@ -860,18 +860,27 @@ def h_runtime(ctx: Ctx):
     except (TypeError, ValueError):
         n = 10
     n = max(min(n, 100), 1)
-    snap = compiles.runtime_snapshot(slowest_n=n)
+    # the cloud's: this process's live snapshot and every other
+    # process's published one (obs/metrics.maybe_publish)
+    snaps = compiles.cluster_runtime(slowest_n=n)
+    families = compiles.merge_family_tables(
+        [(s.get("compiles") or {}).get("families") or {} for s in snaps])
+    slowest = sorted(
+        (r for s in snaps
+         for r in (s.get("compiles") or {}).get("slowest") or []),
+        key=lambda r: float(r.get("ms") or 0.0), reverse=True)[:n]
     return {"__meta": S.meta("RuntimeV3"),
             "phases": phases.history(),
-            "phase_report": snap["phase_report"],
+            "phase_report": snaps[0]["phase_report"],
             "wedged_phase": phases.wedged_phase(),
-            "compile_families": snap["compiles"]["families"],
-            "slowest_compiles": snap["compiles"]["slowest"],
+            "compile_families": families,
+            "slowest_compiles": slowest,
             "memory": membudget.snapshot(),
-            "processes": [{"proc": snap["proc"], "ts": snap["ts"],
-                           "phase_report": snap["phase_report"],
+            "processes": [{"proc": s.get("proc"), "ts": s.get("ts"),
+                           "phase_report": s.get("phase_report"),
                            "rows_recorded":
-                           snap["compiles"]["rows_recorded"]}]}
+                           (s.get("compiles") or {}).get("rows_recorded")}
+                          for s in snaps]}
 
 
 def h_trace_list(ctx: Ctx):

@@ -247,6 +247,10 @@ def h_cloud(ctx: Ctx):
         out.update(epoch=D.epoch(), leader=D.leader(),
                    checkpoint_seq=ckpt.latest_seq(),
                    rejoins=oplog.rejoin_records())
+    info = cluster_info()
+    if info.get("row_mesh") is not None:
+        # the row mesh: rank, size, backend (and why), generation
+        out["row_mesh"] = info["row_mesh"]
     # supervised health state machine (HEALTHY/DEGRADED/FAILED); detail at
     # GET /3/CloudStatus
     out["cloud_status"] = supervisor.state()
@@ -703,6 +707,14 @@ def h_dkv_delete_all(ctx: Ctx):
 
 def h_download_dataset(ctx: Ctx):
     fr = _frame_or_404(str(ctx.arg("frame_id", "")))
+    if fr.shard is not None:
+        # a row-sharded frame's rows are gathered from every rank: a
+        # mirrored op, so the followers join the gather
+        from h2o3_tpu_torch.parallel import oplog
+
+        seq = oplog.broadcast("gather", {"frame": str(fr.key)})
+        with oplog.turn(seq):
+            return RawReply(frame_csv_bytes(fr), "text/plain")
     return RawReply(frame_csv_bytes(fr), "text/plain")
 
 

@@ -151,6 +151,9 @@ class H2OAutoML:
               training_frame: Optional[Frame] = None,
               validation_frame: Optional[Frame] = None,
               leaderboard_frame: Optional[Frame] = None) -> "H2OAutoML":
+        from h2o3_tpu_torch.core.sharded_frame import refuse
+
+        refuse(training_frame, "AutoML")
         from h2o3_tpu_torch.automl.search import SearchEngine
         from h2o3_tpu_torch.automl.steps import REGISTRY, exploitation_steps
         from h2o3_tpu_torch.models.model_builder import BUILDERS

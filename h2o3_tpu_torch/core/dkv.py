@@ -8,8 +8,19 @@ keys that die with a block, and `Keyed`, the base of every object that
 lives under a key. Big data stays in the objects' tensors; the store
 holds references. A control-plane checkpoint (parallel/ckpt.py) takes
 `snapshot_control_plane`, and a rejoining process installs it with
-`restore_control_plane`, its tensors on its own device. The reference's
-publish/fetch_remote of announced keys is ROADMAP A14.5.
+`restore_control_plane`, its tensors on its own device.
+
+The cross-process half (the reference's :81-177, water/DKV.java's
+distributed half): `publish` announces a key cloud-wide in the cloud KV
+(parallel/distributed.py) under ``h2o3/dkv/meta/{key}``, and with
+``replicate=True`` also ships the pickled value (small host objects
+only, at most `_MAX_BLOB` bytes, checked before the meta key is
+written) under ``h2o3/dkv/blob/{key}``; `global_keys` lists the
+announced keys with the local ones; `fetch_remote` returns a key from
+the local store or from its replicated blob, through the restricted
+unpickler, retrying only when the meta says a blob exists. A snapshot
+carries both prefixes in its ``kv``, restored put-if-absent. Device
+data never travels here: a sharded frame's rows stay on their ranks.
 """
 
 from __future__ import annotations
@@ -91,19 +102,110 @@ class _DKV:
             self._rw.clear()
             return n
 
+    # -- the cross-process half (water/DKV.java) ---------------------------
+    _META_PREFIX = "h2o3/dkv/meta/"
+    _BLOB_PREFIX = "h2o3/dkv/blob/"
+    _MAX_BLOB = 8 * 1024 * 1024
+
+    def publish(self, key: str, value: Any = None,
+                replicate: bool = False) -> bool:
+        """Announce a key cloud-wide; with `replicate` also ship the
+        pickled value (small host objects only). False outside a cloud
+        (no KV to announce into)."""
+        import base64
+        import json
+
+        from h2o3_tpu_torch.parallel import distributed as D
+
+        blob_b64 = None
+        if replicate and value is not None:
+            # the payload is checked BEFORE the key is announced: a meta
+            # entry without its blob would be an unfetchable ghost
+            from h2o3_tpu_torch.models.model import _ModelPickler
+
+            buf = io.BytesIO()
+            _ModelPickler(buf, protocol=4).dump(value)
+            blob = buf.getvalue()
+            if len(blob) > self._MAX_BLOB:
+                raise ValueError(
+                    f"object {key!r} is {len(blob)}B, too large for "
+                    f"control-plane replication (cap {self._MAX_BLOB}B); "
+                    "device data stays on its ranks, not in the KV")
+            blob_b64 = base64.b64encode(blob).decode()
+        meta = {"type": type(value).__name__ if value is not None else "?",
+                "proc": D.process_index(),
+                "replicated": blob_b64 is not None}
+        if not D.kv_put(self._META_PREFIX + str(key), json.dumps(meta)):
+            return False
+        if blob_b64 is not None:
+            D.kv_put(self._BLOB_PREFIX + str(key), blob_b64)
+        return True
+
+    def global_keys(self) -> List[str]:
+        """The cloud's announced keys merged with this process's."""
+        from h2o3_tpu_torch.parallel import distributed as D
+
+        n = len(self._META_PREFIX)
+        remote = [k[n:] for k, _v in D.kv_dir(self._META_PREFIX)]
+        return sorted(set(self.keys()) | set(remote))
+
+    def fetch_remote(self, key: str, timeout_ms: int = 5000) -> Any:
+        """A key from anywhere in the cloud: the local store first, then
+        its replicated blob (``publish(..., replicate=True)``), cached
+        locally. A key announced without a blob returns None at once; a
+        blob read that misses while the meta says it was replicated
+        retries under the bounded remote read (memory/stream.py)."""
+        local = self.get(key)
+        if local is not None:
+            return local
+        import base64
+        import json
+
+        from h2o3_tpu_torch.parallel import distributed as D
+
+        raw = D.kv_get(self._BLOB_PREFIX + str(key), timeout_ms)
+        if raw is None:
+            meta_raw = D.kv_try_get(self._META_PREFIX + str(key))
+            try:
+                replicated = bool(meta_raw is not None
+                                  and json.loads(meta_raw).get("replicated"))
+            except (ValueError, TypeError, AttributeError):
+                replicated = False
+            if replicated:
+                from h2o3_tpu_torch.memory import stream as mstream
+
+                raw = mstream.bounded_remote_read(
+                    lambda: D.kv_get(self._BLOB_PREFIX + str(key),
+                                     timeout_ms), what=f"DKV blob {key!r}")
+        if raw is None:
+            return None
+        # the blob came over the cloud KV: untrusted input, read by the
+        # restricted unpickler (the port's classes and numpy only)
+        from h2o3_tpu_torch.utils.unpickle import restricted_loads
+
+        value = restricted_loads(base64.b64decode(raw), what="DKV blob")
+        self.put(key, value)            # cached locally, as Value caching
+        return value
+
     # -- control-plane checkpoints (parallel/ckpt.py) ---------------------
     def snapshot_control_plane(self) -> dict:
         """Every DKV object that pickles (models, frames, job metadata),
         each pickled on its own with its tensors as numpy arrays, so one
         object that does not pickle cannot sink the checkpoint: it is
-        listed in ``skipped``."""
+        listed in ``skipped``. ``kv`` holds the cloud KV's announced keys
+        and replicated blobs. A row-sharded frame pickles this rank's
+        rows: a rank restores its own rows from its own section
+        (parallel/ckpt.py)."""
         from h2o3_tpu_torch.models.model import _ModelPickler
 
         objects: Dict[str, bytes] = {}
         skipped: List[str] = []
+        sharded: List[str] = []
         with self._lock:
             items = list(self._store.items())
         for k, v in items:
+            if getattr(v, "shard", None) is not None:
+                sharded.append(k)
             buf = io.BytesIO()
             try:
                 _ModelPickler(buf, protocol=4).dump(v)
@@ -111,7 +213,33 @@ class _DKV:
                 skipped.append(k)
                 continue
             objects[k] = buf.getvalue()
-        return {"objects": objects, "skipped": sorted(skipped), "kv": {}}
+        from h2o3_tpu_torch.parallel import distributed as D
+
+        kv: Dict[str, str] = {}
+        for prefix in (self._META_PREFIX, self._BLOB_PREFIX):
+            for kk, vv in D.kv_dir(prefix):
+                kv[kk] = vv
+        return {"objects": objects, "skipped": sorted(skipped), "kv": kv,
+                "sharded": sorted(sharded)}
+
+    def sharded_objects(self) -> Dict[str, bytes]:
+        """This rank's row-sharded frames, pickled (a rank's section of a
+        control-plane checkpoint)."""
+        from h2o3_tpu_torch.models.model import _ModelPickler
+
+        out: Dict[str, bytes] = {}
+        with self._lock:
+            items = list(self._store.items())
+        for k, v in items:
+            if getattr(v, "shard", None) is None:
+                continue
+            buf = io.BytesIO()
+            try:
+                _ModelPickler(buf, protocol=4).dump(v)
+            except Exception:   # noqa: BLE001 — per-key isolation
+                continue
+            out[k] = buf.getvalue()
+        return out
 
     def restore_control_plane(self, snap: dict, loads=None,
                               device=None) -> List[str]:

@@ -11,8 +11,13 @@ columns are float32 epoch milliseconds
 the exact values on the host (`host_data`, datetime64[ms] or the
 integers), since float32 holds epoch milliseconds only to ~2e5 ms.
 String and uuid columns live on the host only. The reference pads rows
-to a multiple of its mesh; on one device nothing is padded, so a column
-holds exactly `nrows` values.
+to a multiple of its mesh; the port pads nothing, so a column holds
+exactly `nrows` values, or on a row-sharded cloud (parallel/mesh.py)
+its rank's block of them: `nrows` is then the frame's global row count,
+`shard` the rank's rows ``(lo, hi)`` and `local_rows` their number
+(the reference's addressable shards). `to_numpy` of a sharded column
+gathers every rank's block and counts the rows
+(core/sharded_frame.note_gathered).
 
 A Frame lives under a DKV key (`install`/`delete`); columns are
 immutable, so column replacement and Rapids assignment are
@@ -129,7 +134,7 @@ class Column:
     whose values live in `host_data`."""
 
     __slots__ = ("_data", "_evicted", "_loader", "_touch", "ctype", "domain",
-                 "host_data", "nrows", "_rollups", "_token")
+                 "host_data", "nrows", "_rollups", "_token", "_shard")
 
     def __init__(self, data, ctype: str, nrows: int,
                  domain: Optional[List[str]] = None,
@@ -144,6 +149,19 @@ class Column:
         self.nrows = int(nrows)
         self._rollups = None
         self._token = next(_COLUMN_TOKENS)
+        self._shard = _shard_of(data if data is not None else host_data,
+                                self.nrows)
+
+    @property
+    def shard(self) -> Optional[Tuple[int, int]]:
+        """This rank's rows (lo, hi) on a row-sharded cloud, else None."""
+        return getattr(self, "_shard", None)
+
+    @property
+    def local_rows(self) -> int:
+        """Rows this process holds: the shard's, else `nrows`."""
+        sh = self.shard
+        return self.nrows if sh is None else sh[1] - sh[0]
 
     @property
     def token(self) -> int:
@@ -230,9 +248,13 @@ class Column:
         """Host array -> column on `device` (default: the runtime's)."""
         arr = np.asarray(arr)
         n = len(arr)
+        # on a row-sharded cloud the column keeps its rank's rows; enum
+        # domains come from every row, so every rank's codes agree
+        lo, hi = _rank_rows(n)
         if ctype is None:
             if arr.dtype.kind in "OUS":
-                return Column(None, T_STR, n, host_data=arr.astype(object))
+                return Column(None, T_STR, n,
+                              host_data=arr[lo:hi].astype(object))
             if arr.dtype.kind == "M":
                 ctype = T_TIME
             elif arr.dtype.kind in "fiub":
@@ -240,7 +262,7 @@ class Column:
             else:
                 raise TypeError(f"unsupported dtype {arr.dtype}")
         if ctype in (T_STR, T_UUID):
-            return Column(None, ctype, n, host_data=arr.astype(object))
+            return Column(None, ctype, n, host_data=arr[lo:hi].astype(object))
         host = None
         if ctype == T_CAT:
             if arr.dtype.kind in "OUS":
@@ -252,8 +274,9 @@ class Column:
                 codes = arr.astype(np.int32)
             card = (len(domain) if domain is not None
                     else int(max(codes.max(initial=0) + 1, 1)))
-            buf = codes.astype(code_dtype(card))
+            buf = codes[lo:hi].astype(code_dtype(card))
         elif ctype in (T_NUM, T_INT, T_TIME):
+            arr = arr[lo:hi]
             if ctype == T_TIME and arr.dtype.kind in "Mi":
                 host = (arr.astype("datetime64[ms]") if arr.dtype.kind == "M"
                         else arr)          # exact epoch-millis on the host
@@ -340,6 +363,10 @@ class Column:
         bfloat16 column comes back widened exactly to float32 (the
         reference returns an ml_dtypes bfloat16 array of the same
         values; ROADMAP C38)."""
+        if self.shard is not None:
+            from h2o3_tpu_torch.core import sharded_frame
+
+            return sharded_frame.gather_column(self)
         if self.data is None:
             return self.host_data[: self.nrows]
         return widen(self.data).cpu().numpy()
@@ -355,6 +382,34 @@ class Column:
             out[~valid] = None
             return out
         return arr
+
+
+def _rank_rows(n: int) -> Tuple[int, int]:
+    """The rows [lo, hi) this process keeps of an n-row column: its
+    rank's block on a row-sharded cloud, else all of them."""
+    from h2o3_tpu_torch.parallel import mesh
+
+    m = mesh.current()
+    return (0, n) if m is None else m.rows(n)
+
+
+def _shard_of(buf, nrows: int) -> Optional[Tuple[int, int]]:
+    """A column's shard: with a current row mesh, a buffer holding this
+    rank's block of `nrows` rows is that block; one holding all `nrows`
+    rows of a frame that other ranks share too is replicated (None)."""
+    from h2o3_tpu_torch.parallel import mesh
+
+    m = mesh.current()
+    if m is None or buf is None:
+        return None
+    lo, hi = m.rows(nrows)
+    n = len(buf)
+    if n == hi - lo:
+        return (lo, hi)
+    if n == nrows:
+        return None
+    raise ValueError(f"a column of {nrows} rows holds {n} on rank "
+                     f"{m.rank} of {m.size}, whose block is [{lo}, {hi})")
 
 
 def _intern_domain(a: np.ndarray) -> Tuple[List[str], np.ndarray]:
@@ -404,6 +459,17 @@ class Frame(Keyed):
     ncol = ncols
 
     @property
+    def shard(self) -> Optional[Tuple[int, int]]:
+        """This rank's rows (lo, hi) on a row-sharded cloud, else None."""
+        return self._cols[self._names[0]].shard if self._names else None
+
+    @property
+    def local_rows(self) -> int:
+        """Rows this process holds (the shard's, else `nrows`)."""
+        return (self._cols[self._names[0]].local_rows if self._names
+                else 0)
+
+    @property
     def types(self) -> Dict[str, str]:
         return {n: self._cols[n].ctype for n in self._names}
 
@@ -426,6 +492,9 @@ class Frame(Keyed):
         if self._names and col.nrows != self.nrows:
             raise ValueError(f"column {name!r} has {col.nrows} rows, frame "
                              f"has {self.nrows}")
+        if self._names and col.shard != self.col(0).shard:
+            raise ValueError(f"column {name!r} holds rows {col.shard}, the "
+                             f"frame's columns {self.col(0).shard}")
         if name in self._cols:
             raise ValueError(f"duplicate column {name!r}")
         self._names.append(name)

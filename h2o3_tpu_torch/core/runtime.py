@@ -1,11 +1,18 @@
-"""Runtime boot: one device (counterpart of h2o3_tpu/core/runtime.py
-`init` :270, `cluster`, `Cluster.info` :184, `self_benchmark` :209,
-`cluster_info` :294 and `shutdown` :298).
+"""Runtime boot (counterpart of h2o3_tpu/core/runtime.py `init` :270,
+`cluster`, `Cluster.row_shards`/`pad_rows`/`put_rows`/`reshard_rows`
+:150-181, `Cluster.info` :184, `self_benchmark` :209, `cluster_info`
+:294 and `shutdown` :298).
 
-The reference boots a device mesh with a ``rows`` axis; the port runs on
-one device, so that axis collapses and a "cluster" is the device every
-new column is placed on. The boot runs as the ``backend_init`` and
-``device_discovery`` lifecycle phases (obs/phases.py).
+The reference boots a device mesh with a ``rows`` axis. In the port a
+"cluster" is the device every new column is placed on, and in a cloud
+of several processes (parallel/distributed.py) it is also one rank of
+the row mesh (parallel/mesh.py): the rows axis is the ranks, each
+holding its contiguous block of every frame's rows. The port pads
+nothing (its kernel masks its own ragged block), so `pad_rows` is the
+identity; `put_rows` is ``Column.from_numpy`` keeping the rank's block
+of a host array, and a column's tensor needs no resharding. The boot
+runs as the ``backend_init`` and ``device_discovery`` lifecycle phases
+(obs/phases.py).
 """
 
 from __future__ import annotations
@@ -87,6 +94,24 @@ class Cluster:
             from h2o3_tpu_torch.core.failure import HeartbeatThread
 
             self._heartbeat = HeartbeatThread().start()
+            D.ensure_mesh(device)
+
+    # -- the row geometry (the reference's sharding helpers) ----------------
+    @property
+    def mesh(self):
+        """The row mesh this process is a rank of (None in one process)."""
+        from h2o3_tpu_torch.parallel import mesh
+
+        return mesh.current()
+
+    @property
+    def row_shards(self) -> int:
+        m = self.mesh
+        return m.size if m is not None else 1
+
+    def pad_rows(self, n: int) -> int:
+        """No padding: the kernel masks its own ragged block."""
+        return int(n)
 
     def device_name(self) -> str:
         if self.device.type == "cuda":
@@ -118,15 +143,17 @@ class Cluster:
                        "id": self.device.index or 0}],
             "numeric_dtype": self.args.numeric_dtype,
             "mem_value_size": cleaner.device_bytes_in_use(),
+            "row_mesh": (self.mesh.describe() if self.mesh is not None
+                         else None),
         }
 
     def self_benchmark(self, size: int = 1024) -> dict:
         """The reference's three boot probes on this device: a float32
         matmul (GFLOP/s), a stream ``out = a + b`` over 4·size² floats
-        (GB/s, 3 arrays moved) and a latency probe. The reference's
-        third probe is a psum over the mesh's rows axis; one device has
-        no collective, so it times a device-local reduction instead, and
-        the output says so (``psum_probe``)."""
+        (GB/s, 3 arrays moved) and a latency probe, the reference's psum
+        over the rows axis: an all-reduce over the row mesh's ranks (a
+        collective: every rank runs it), or in one process a
+        device-local reduction; ``psum_probe`` says which."""
         dev = self.device
         cuda = dev.type == "cuda"
 
@@ -155,19 +182,31 @@ class Cluster:
         sync()
         membw = 3 * n * 4 * reps / (time.perf_counter() - t0) / 1e9
         vec = torch.ones(1, dtype=torch.float32, device=dev)
-        r = vec.sum()
-        sync()
-        t0 = time.perf_counter()
-        for _ in range(50):
+        m = self.mesh
+        if m is not None:
+            # the reference's probe: an all-reduce of one float32 over the
+            # rows axis, here the row mesh's ranks (every rank runs it)
+            m.all_reduce(vec.clone())
+            t0 = time.perf_counter()
+            for _ in range(50):
+                m.all_reduce(vec.clone())
+            sync()
+            probe = (f"all-reduce of one float32 over {m.size} rank(s), "
+                     f"{m.backend}")
+        else:
             r = vec.sum()
-        sync()
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                r = vec.sum()
+            sync()
+            probe = "device-local sum of one float32 (one device, no " \
+                    "collective)"
         psum_us = (time.perf_counter() - t0) / 50 * 1e6
-        del y, c, r
+        del y, c
         out = {"matmul_gflops": gflops, "membw_gbps": membw,
                "psum_latency_us": psum_us, "size": size,
-               "device": self.device_name(),
-               "psum_probe": "device-local sum of one float32 (one "
-                             "device, no collective)"}
+               "device": self.device_name(), "psum_probe": probe}
         from h2o3_tpu_torch.utils import timeline
 
         timeline.record("self_benchmark", "boot_probe", **{

@@ -30,9 +30,14 @@
   by a ``torch.cat`` (old enum codes renumbered through a permutation
   when new labels grow the sorted domain), and cached rollups merge.
 
-The reference shards rows over a mesh of processes and devices (its
-shard geometry and per-process chunk ownership, `:540-560`); on one
-device all of that collapses to row offsets into one tensor per column.
+- **row-sharded clouds** (the reference's `_write_rows`,
+  `_device_from_shards` and shard geometry, `:442-480`, `:540-680`):
+  with a row mesh (parallel/mesh.py) rank r owns rows [lo, hi) of the
+  file's rows (`mesh.row_block`). Every rank scans and parses every
+  chunk on the host, so enum domains and time formats are the whole
+  file's, but only the part of each chunk inside [lo, hi) lands on its
+  device: no rank stages another's rows there. In one process [lo, hi)
+  is every row.
 """
 
 from __future__ import annotations
@@ -432,13 +437,18 @@ class _Sink:
     tensors at the chunk's rows. On CUDA: a pinned buffer per chunk,
     copied on a side stream, kept until its copy's event completes."""
 
-    def __init__(self, device, total, num_idx, cat_idx):
+    def __init__(self, device, total, num_idx, cat_idx, rows=None):
         self.device = device
         self.cuda = device.type == "cuda"
-        self.num = {i: torch.empty(total, dtype=torch.float32, device=device)
+        # the rows this process keeps (a rank's block); anything else is
+        # parsed into a staging buffer and dropped
+        self.lo, self.hi = rows if rows is not None else (0, total)
+        self.staged = self.cuda or (self.lo, self.hi) != (0, total)
+        local = self.hi - self.lo
+        self.num = {i: torch.empty(local, dtype=torch.float32, device=device)
                     for i in num_idx}
         # local (per-chunk) enum codes, remapped after the parse
-        self.codes = {i: torch.empty(total, dtype=torch.int32, device=device)
+        self.codes = {i: torch.empty(local, dtype=torch.int32, device=device)
                       for i in cat_idx}
         self.num_idx, self.cat_idx = list(num_idx), list(cat_idx)
         self.stream = None
@@ -451,52 +461,72 @@ class _Sink:
     def buffers(self, c: ByteChunk):
         """-> (staging or None, {col: float ptr}, {col: int32 ptr})."""
         n = c.nrows
-        if not self.cuda:
+        if not self.staged:
             return (None,
                     {i: t.data_ptr() + 4 * c.row_offset
                      for i, t in self.num.items()},
                     {i: t.data_ptr() + 4 * c.row_offset
                      for i, t in self.codes.items()})
         stage_n = torch.empty((len(self.num_idx), n), dtype=torch.float32,
-                              pin_memory=True)
+                              pin_memory=self.cuda)
         stage_c = torch.empty((len(self.cat_idx), n), dtype=torch.int32,
-                              pin_memory=True)
+                              pin_memory=self.cuda)
         return ((stage_n, stage_c),
                 {i: stage_n[j].data_ptr() for j, i in
                  enumerate(self.num_idx)},
                 {i: stage_c[j].data_ptr() for j, i in
                  enumerate(self.cat_idx)})
 
+    def overlap(self, off: int, n: int):
+        """The kept part of global rows [off, off + n): (source start,
+        destination start, length), or None."""
+        a, b = max(off, self.lo), min(off + n, self.hi)
+        return None if b <= a else (a - off, a - self.lo, b - a)
+
     def land(self, c: ByteChunk, staging) -> None:
-        """Copy a parsed chunk's staging buffers to its rows (CUDA)."""
+        """Copy the kept rows of a parsed chunk's staging buffers."""
         if staging is None:
             return
+        ov = self.overlap(c.row_offset, c.nrows)
+        if ov is None:
+            return
+        s0, d0, m = ov
         stage_n, stage_c = staging
-        lo, hi = c.row_offset, c.row_offset + c.nrows
-        with torch.cuda.stream(self.stream):
+        with (torch.cuda.stream(self.stream) if self.cuda
+              else contextlib.nullcontext()):
             for j, i in enumerate(self.num_idx):
-                self.num[i][lo:hi].copy_(stage_n[j], non_blocking=True)
+                self.num[i][d0:d0 + m].copy_(stage_n[j][s0:s0 + m],
+                                             non_blocking=self.cuda)
             for j, i in enumerate(self.cat_idx):
-                self.codes[i][lo:hi].copy_(stage_c[j], non_blocking=True)
-            ev = torch.cuda.Event()
-            ev.record(self.stream)
-        self.inflight.append((ev, staging))
-        # release the buffers whose copies have completed
-        self.inflight = [(e, s) for e, s in self.inflight if not e.query()]
+                self.codes[i][d0:d0 + m].copy_(stage_c[j][s0:s0 + m],
+                                               non_blocking=self.cuda)
+            if self.cuda:
+                ev = torch.cuda.Event()
+                ev.record(self.stream)
+        if self.cuda:
+            self.inflight.append((ev, staging))
+            # release the buffers whose copies have completed
+            self.inflight = [(e, s) for e, s in self.inflight
+                             if not e.query()]
 
     def put(self, col: Dict[int, torch.Tensor], i: int, lo: int,
             host: np.ndarray) -> None:
-        """Copy a host array into rows [lo, lo + len) of a column."""
-        src = torch.from_numpy(host)
+        """Copy the kept rows of a host array of global rows [lo, lo +
+        len) into a column."""
+        ov = self.overlap(lo, len(host))
+        if ov is None:
+            return
+        s0, lo, m = ov
+        src = torch.from_numpy(np.ascontiguousarray(host[s0:s0 + m]))
         if self.cuda:
             src = src.pin_memory()
             with torch.cuda.stream(self.stream):
-                col[i][lo:lo + len(host)].copy_(src, non_blocking=True)
+                col[i][lo:lo + m].copy_(src, non_blocking=True)
                 ev = torch.cuda.Event()
                 ev.record(self.stream)
             self.inflight.append((ev, src))
         else:
-            col[i][lo:lo + len(host)].copy_(src)
+            col[i][lo:lo + m].copy_(src)
 
     def finish(self) -> None:
         if self.cuda:
@@ -546,7 +576,12 @@ def parse_csv_sharded(paths: Sequence[str], setup, device=None
     num_idx = [i for i, k in enumerate(kinds) if k == native.KIND_NUM]
     cat_idx = [i for i, k in enumerate(kinds) if k == native.KIND_CAT]
     raw_idx = [i for i, k in enumerate(kinds) if k == native.KIND_RAW]
-    sink = _Sink(dev, total, num_idx, cat_idx)
+    from h2o3_tpu_torch.parallel import mesh
+
+    m = mesh.current()
+    lo, hi = m.rows(total) if m is not None else (0, total)
+    local = hi - lo
+    sink = _Sink(dev, total, num_idx, cat_idx, rows=(lo, hi))
     maps = {p: np.memmap(p, dtype=np.uint8, mode="r")
             for p in dict.fromkeys(c.path for c in chunks)}
     common = dict(sep=setup.separator, quote=setup.quote_char or '"',
@@ -607,28 +642,35 @@ def parse_csv_sharded(paths: Sequence[str], setup, device=None
         parts = sorted(cat_doms[i], key=lambda p: p[0])
         gdom = sorted(set().union(*(d for _o, _n, d in parts)))
         cdt = torch_code_dtype(len(gdom))
-        codes = torch.empty(total, dtype=cdt, device=dev)
+        codes = torch.empty(local, dtype=cdt, device=dev)
         with (torch.cuda.stream(sink.stream) if sink.cuda
               else contextlib.nullcontext()):
             for off, n, dom in parts:
+                ov = sink.overlap(off, n)
+                if ov is None:
+                    continue
+                _s0, d0, k = ov
                 lut = torch.from_numpy(remap_lut(gdom, dom)).to(dev)
-                codes[off:off + n] = remap_codes(
-                    lut, sink.codes[i][off:off + n]).to(cdt)
+                codes[d0:d0 + k] = remap_codes(
+                    lut, sink.codes[i][d0:d0 + k]).to(cdt)
         out[names[i]] = Column(codes, T_CAT, total, domain=gdom)
     times = {}
     for i in raw_idx:
         parts = sorted(raw_parts[i], key=lambda p: p[0])
         if types[i] == T_TIME:
-            col = {i: torch.empty(total, dtype=torch.float32, device=dev)}
+            col = {i: torch.empty(local, dtype=torch.float32, device=dev)}
             ms = resolve_times([r for _o, r in parts])
             for (off, _r), m in zip(parts, ms):
                 sink.put(col, i, off, m.astype(np.float32))
             times[i] = col[i]
         else:
-            obj = np.empty(total, object)
+            obj = np.empty(local, object)
             for off, r in parts:
                 dec = decode_tokens(*r)
-                obj[off:off + len(dec)] = dec
+                ov = sink.overlap(off, len(dec))
+                if ov is not None:
+                    s0, d0, k = ov
+                    obj[d0:d0 + k] = dec[s0:s0 + k]
             out[names[i]] = Column(None, T_STR, total, host_data=obj)
     t_resolve = time.perf_counter() - t2
 
@@ -803,6 +845,9 @@ def append_csv(frame, text: str, separator: Optional[str] = None) -> int:
     so the frame equals a cold parse of the concatenated data), and cached
     rollups merge. Time tokens take the format of the batch's first
     non-NA token. Returns the number of appended rows."""
+    from h2o3_tpu_torch.core.sharded_frame import refuse
+
+    refuse(frame, "a streaming append")
     with _APPEND_LOCK:
         return _append_csv_locked(frame, text, separator)
 

@@ -36,11 +36,19 @@ the lambda search saves its warm start and stall-stop bookkeeping every
 k lambdas; a resumed train continues the same trajectory. The chunk
 shape depends on the knob alone, so a resumed GLM equals an
 uninterrupted run with the same knob, not an unchunked one.
+
+On a row-sharded cloud each rank expands its own rows; the Gram and the
+IRLS vectors are float64 partials all-reduced before the solve (and
+rounded once to float32, as in one process), and the weighted means and
+deviances are all-reduced too, so every rank solves the same system and
+stops at the same iteration. Multinomial, ordinal, the lambda search and
+p-values on a sharded frame are ROADMAP A14.6b.
 """
 
 from __future__ import annotations
 
 import math
+import threading
 from typing import Dict, Optional
 
 import numpy as np
@@ -75,8 +83,27 @@ class _Family:
         return _wmean(y, w).expand(y.shape)
 
 
+# the row mesh of the fit running on this thread (None in one process):
+# `_wmean`, `_gram` and the deviance sums reduce their partials across it
+_FIT = threading.local()
+
+
+def _fit_mesh():
+    return getattr(_FIT, "mesh", None)
+
+
+def _sum(x) -> torch.Tensor:
+    """torch.sum of x; on the row mesh each rank's float32 partial added
+    in float64 across the ranks, rounded once to float32."""
+    m = _fit_mesh()
+    if m is None:
+        return torch.sum(x)
+    part = torch.sum(x).double().reshape(1).contiguous()
+    return m.all_reduce(part, "sum")[0].to(x.dtype)
+
+
 def _wmean(y, w):
-    return torch.sum(w * y) / torch.clamp_min(torch.sum(w), EPS)
+    return _sum(w * y) / torch.clamp_min(_sum(w), EPS)
 
 
 class _Gaussian(_Family):
@@ -239,8 +266,17 @@ def _gram(Xi, wls, z=None):
     design."""
     Xd = Xi.double()
     Xw = Xd * wls.double()[:, None]
-    G = (Xd.T @ Xw).float()
-    return G, (None if z is None else (Xw.T @ z.double()).float())
+    G = Xd.T @ Xw
+    q = None if z is None else Xw.T @ z.double()
+    m = _fit_mesh()
+    if m is not None:
+        # each rank's float64 partials summed across the ranks, rounded
+        # once: every rank then solves the same system
+        Gq = torch.cat([G.reshape(-1)] + ([] if q is None else [q]))
+        m.all_reduce(Gq.contiguous(), "sum")
+        G = Gq[:G.numel()].reshape(G.shape)
+        q = None if q is None else Gq[G.numel():]
+    return G.float(), (None if q is None else q.float())
 
 
 def _cho_factor(A):
@@ -277,7 +313,7 @@ def _irls_fit(X, y, w, offset, beta0, lam_l2, lam_l1, beta_eps, *,
 
     def dev_of(beta):
         mu = linkinv(Xi @ beta + offset)
-        return torch.sum(fam.deviance(w, y, mu))
+        return _sum(fam.deviance(w, y, mu))
 
     def admm_solve(G, q, l1, rho=1.0, sweeps=50):
         """min ½βᵀGβ - qᵀβ + l1·|β|₁ (β ≥ 0 too with non_negative; the
@@ -316,7 +352,9 @@ def _irls_fit(X, y, w, offset, beta0, lam_l2, lam_l1, beta_eps, *,
     else:
         beta = torch.zeros(pi, dtype=torch.float32, device=dev)
         if with_intercept:
-            beta[p] = torch.mean(link(mu0))
+            lm = link(mu0)
+            beta[p] = (torch.mean(lm) if _fit_mesh() is None
+                       else _sum(lm) / _sum(torch.ones_like(lm)))
     prev, it = beta + 1e3, 0
     while it < max_iter and float(torch.max(torch.abs(beta - prev))) \
             > beta_eps:
@@ -559,6 +597,7 @@ class GLMModel(Model):
 @register
 class GLM(ModelBuilder):
     algo_name = "glm"
+    row_sharded = True
     model_class = GLMModel
     supports_iteration_resume = True
 
@@ -590,6 +629,23 @@ class GLM(ModelBuilder):
         return fam
 
     def _fit(self, train: Frame) -> GLMModel:
+        from h2o3_tpu_torch.core import sharded_frame
+
+        mesh = sharded_frame.mesh_of(train)
+        if mesh is not None:
+            fam = str(self.params.get("family") or "").lower()
+            if fam in ("multinomial", "ordinal") or self.params.get(
+                    "lambda_search") or self.params.get("compute_p_values"):
+                sharded_frame.refuse(train, f"GLM family={fam} with "
+                                            "lambda_search or p-values")
+        prev = _fit_mesh()
+        _FIT.mesh = mesh
+        try:
+            return self._fit_rows(train)
+        finally:
+            _FIT.mesh = prev
+
+    def _fit_rows(self, train: Frame) -> GLMModel:
         p = self.params
         ints = p.get("interactions")
         if ints:
@@ -654,7 +710,7 @@ class GLM(ModelBuilder):
         alpha = p.get("alpha")
         alpha = 0.5 if alpha is None else (
             alpha[0] if isinstance(alpha, (list, tuple)) else float(alpha))
-        nobs = float(torch.sum(wts))
+        nobs = float(_sum(wts))
         max_iter = int(p["max_iterations"])
 
         if fam in ("ordinal", "multinomial"):
@@ -729,7 +785,7 @@ class GLM(ModelBuilder):
         else:
             _, linkinv, _ = link_fns(linkname, model.link_power)
             null_mu = linkinv(torch.zeros((), device=y.device))
-        model.null_deviance = float(torch.sum(family.deviance(
+        model.null_deviance = float(_sum(family.deviance(
             wts, y, null_mu.expand(y.shape))))
         rank = int(np.sum(np.abs(_host(beta)) > 1e-10))
         model.aic = model.residual_deviance + 2 * rank

@@ -8,6 +8,13 @@ AUC keeps the reference's fixed 400-bin score histogram (hex/AUC2.java:36):
 one device pass accumulates per-bin positive/negative weight, the ROC
 sweep and the gains/lift table (`gains_lift`, metrics.py:268) run on the
 host over the same histogram.
+
+On a row-sharded cloud (``mesh=``) each rank makes the partials and the
+score histograms over its rows and the row mesh sums them (float32
+partials added in float64, the histograms' float64 bins); `compute_auc`
+and the gains/lift table then run on the reduced histograms, the same
+on every rank. With unit weights the histograms count rows, so the AUC
+is the one-process AUC exactly.
 """
 
 from __future__ import annotations
@@ -24,11 +31,28 @@ from h2o3_tpu_torch.core.ops import segment_sum
 NBINS = 400
 
 
-def _binomial_hist(y, p, w, nbins: int = NBINS):
-    """Per-bin weight of positives and of negatives over predicted P(1)."""
+def _binomial_hist(y, p, w, nbins: int = NBINS, mesh=None):
+    """Per-bin weight of positives and of negatives over predicted P(1),
+    summed over the ranks of `mesh`."""
     b = torch.clamp((p * nbins).int(), 0, nbins - 1).long()
-    return (segment_sum(b, w * y, nbins),
-            segment_sum(b, w * (1.0 - y), nbins))
+    pos, neg = (segment_sum(b, w * y, nbins),
+                segment_sum(b, w * (1.0 - y), nbins))
+    if mesh is None:
+        return pos, neg
+    both = mesh.all_reduce(torch.stack([pos, neg]).double().contiguous(),
+                           "sum").to(pos.dtype)     # one rounding, as one
+    return both[0], both[1]                         # process's sums have
+
+
+def _reduced(parts: dict, mesh) -> dict:
+    """Partials as host floats: summed over the ranks of `mesh` (each
+    rank's float32 partial added in float64), or this process's."""
+    if mesh is None:
+        return {k: float(v) for k, v in parts.items()}
+    keys = sorted(parts)
+    vec = torch.stack([parts[k].double().reshape(()) for k in keys])
+    vals = mesh.all_reduce(vec.contiguous(), "sum").tolist()
+    return dict(zip(keys, vals))
 
 
 def _regression_partials(y, f, w):
@@ -242,14 +266,14 @@ def gains_lift(pos_hist: np.ndarray, neg_hist: np.ndarray, groups: int = 16):
     return t, float(ks_all)
 
 
-def make_regression_metrics(y, f, w, distribution=None
+def make_regression_metrics(y, f, w, distribution=None, mesh=None
                             ) -> ModelMetricsRegression:
     """Regression metrics; y/f/w are (N,) tensors, f on the response
     scale. The mean residual deviance is the distribution's (gaussian:
     the MSE). A bf16 response widens first: torch would keep bf16 for
     its terms with Python-scalar exponents (ROADMAP C41)."""
     y = widen(y)
-    parts = {k: float(v) for k, v in _regression_partials(y, f, w).items()}
+    parts = _reduced(_regression_partials(y, f, w), mesh)
     wsum = parts["wsum"]
     if wsum == 0:
         return ModelMetricsRegression()
@@ -261,7 +285,8 @@ def make_regression_metrics(y, f, w, distribution=None
         # log-link families score on the response scale: back to margins
         fm = (distribution.link(torch.clamp_min(f, 1e-10))
               if distribution.name in ("poisson", "gamma", "tweedie") else f)
-        dev = float(torch.sum(distribution.deviance(w, y, fm))) / wsum
+        dev = _reduced({"dev": torch.sum(distribution.deviance(
+            w, y, fm))}, mesh)["dev"] / wsum
     return ModelMetricsRegression(
         mse=mse, rmse=float(np.sqrt(mse)), nobs=wsum,
         mae=parts["ae"] / wsum, rmsle=float(np.sqrt(parts["sle"] / wsum)),
@@ -269,11 +294,11 @@ def make_regression_metrics(y, f, w, distribution=None
         mean_residual_deviance=dev)
 
 
-def make_binomial_metrics(y, p, w, domain: Optional[List[str]] = None
-                          ) -> ModelMetricsBinomial:
+def make_binomial_metrics(y, p, w, domain: Optional[List[str]] = None,
+                          mesh=None) -> ModelMetricsBinomial:
     """y in {0,1}, p = P(class 1); all (N,) tensors."""
-    parts = {k: float(v) for k, v in _binomial_partials(y, p, w).items()}
-    pos, neg = _binomial_hist(y, p, w)
+    parts = _reduced(_binomial_partials(y, p, w), mesh)
+    pos, neg = _binomial_hist(y, p, w, mesh=mesh)
     pos, neg = pos.cpu().numpy(), neg.cpu().numpy()
     auc = compute_auc(pos, neg)
     wsum = parts["wsum"]
@@ -291,11 +316,15 @@ def make_binomial_metrics(y, p, w, domain: Optional[List[str]] = None
     return mm
 
 
-def make_multinomial_metrics(y, probs, w, domain: List[str]
+def make_multinomial_metrics(y, probs, w, domain: List[str], mesh=None
                              ) -> ModelMetricsMultinomial:
     """y (N,) class codes, probs (N, K); all tensors."""
     k = len(domain)
     parts = _multinomial_partials(y, probs, w, k)
+    if mesh is not None:
+        for key in ("logloss", "se", "wsum", "cm", "hitk"):
+            parts[key] = mesh.all_reduce(parts[key].double().contiguous(),
+                                         "sum")
     wsum = float(parts["wsum"])
     if wsum == 0:
         return ModelMetricsMultinomial()

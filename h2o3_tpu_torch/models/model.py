@@ -309,19 +309,23 @@ class Model(Keyed):
             w = extra_weight if w is None else w * extra_weight
         wts = DataInfo.response_weight(y, w)
         cat = self._output.model_category
+        from h2o3_tpu_torch.core.sharded_frame import mesh_of
+
+        mesh = mesh_of(frame)            # partials summed over the ranks
         if cat == ModelCategory.Binomial:
             yf = DataInfo.clean_response(y).float()
             return M.make_binomial_metrics(
                 yf, raw["probs"][:, 1], wts,
-                domain=self._output.response_domain)
+                domain=self._output.response_domain, mesh=mesh)
         if cat == ModelCategory.Multinomial:
             return M.make_multinomial_metrics(
                 DataInfo.clean_response(y), raw["probs"], wts,
-                domain=self._output.response_domain)
+                domain=self._output.response_domain, mesh=mesh)
         if cat == ModelCategory.Regression:
             return M.make_regression_metrics(
                 DataInfo.clean_response(y), raw["value"], wts,
-                distribution=getattr(self, "_distribution", None))
+                distribution=getattr(self, "_distribution", None),
+                mesh=mesh)
         return None
 
     def gains_lift(self, test_data: Optional[Frame] = None):
@@ -345,6 +349,9 @@ class Model(Keyed):
                      weight_column: Optional[str] = None,
                      row_index: int = -1, col_pairs_2dpdp=None):
         """Partial-dependence tables (plotting stays with the client)."""
+        from h2o3_tpu_torch.core.sharded_frame import refuse
+
+        refuse(data, "partial dependence")
         from h2o3_tpu_torch import explain
 
         if col_pairs_2dpdp:
@@ -358,6 +365,9 @@ class Model(Keyed):
     def predict_contributions(self, test_data: Frame,
                               key: Optional[str] = None) -> Frame:
         """Per-feature SHAP contributions and BiasTerm (tree models)."""
+        from h2o3_tpu_torch.core.sharded_frame import refuse
+
+        refuse(test_data, "predict_contributions")
         from h2o3_tpu_torch import explain
         from h2o3_tpu_torch.core.dkv import Key
 

@@ -63,6 +63,9 @@ class ModelBuilder:
     # False for builders that train without a response (anomaly
     # detection): no response is asked for and no metrics are made
     supervised = True
+    # trains over a row-sharded frame (GBM, DRF, GLM): the others are
+    # ROADMAP A14.6b and refuse one
+    row_sharded = False
     # builders that implement training continuation set this; the rest
     # refuse a checkpoint rather than train from scratch
     supports_checkpoint = False
@@ -143,6 +146,13 @@ class ModelBuilder:
         train = training_frame or self.params.get("training_frame")
         if train is None:
             raise ValueError("training_frame required")
+        from h2o3_tpu_torch.core.sharded_frame import refuse
+
+        if not self.row_sharded:
+            refuse(train, f"a {self.algo_name} train")
+        if self.params.get("nfolds") and int(self.params["nfolds"]) > 1 \
+                or self.params.get("fold_column"):
+            refuse(train, "cross-validation")
         if y is not None:
             self.params["response_column"] = y
         valid = validation_frame or self.params.get("validation_frame")
@@ -201,23 +211,17 @@ class ModelBuilder:
         """Called by a fit loop after `done` completed iterations; every
         ``H2O_TPU_JOB_CKPT_ITERS`` saves `state_fn()` when the builder
         holds a progress job with a resume spec. A failed save is logged
-        and training goes on. Inside a train op of a multi-process cloud
-        each save point is first the op's progress barrier
-        (`oplog.progress_barrier`), which raises CloudUnhealthyError when
-        a follower was lost: the train stops at its last durable save."""
+        and training goes on. On a row-sharded cloud the train's
+        collectives keep its ranks in step, so every rank is at the same
+        iteration here."""
         every = self._job_ckpt_every()
         if every <= 0 or done <= 0 or done % every != 0:
             return
         if done == getattr(self, "_jp_last", 0):
             return
         self._jp_last = done
-        from h2o3_tpu_torch.parallel import ckpt, oplog
+        from h2o3_tpu_torch.parallel import ckpt
 
-        # inside a train op of a multi-process cloud: keep step with the
-        # followers at each save point, before the save, so the progress
-        # file never runs ahead of a follower that has yet to read it for
-        # a resume (raises when a follower was lost)
-        oplog.progress_barrier(done)
         job = self._progress_job
         if job is not None and getattr(job, "resume_spec", None):
             try:

@@ -10,6 +10,13 @@ one device (`pad_rows`), not from the row count. Bins for feature f:
 0..B_f-2 are value bins, B_f-1 is the NA bin. Numeric bin b holds x in
 (edge[b-1], edge[b]], i.e. bin = searchsorted(edges, x, side='left');
 categorical bin = category code, capped at the NA bin.
+
+On a row-sharded cloud the edges are the one-process edges bit for bit:
+each rank takes the rows of the global stride sample that fall in its
+block, the row mesh gathers them in row order (the reference's
+``jnp.nanquantile`` over its global array gathers too), and every rank
+computes the same quantiles; "uniform" takes the cloud's min and max.
+`bin_columns` bins each rank's own rows (core/sharded_frame.pack_binned).
 """
 
 from __future__ import annotations
@@ -52,12 +59,22 @@ def _nanquantile(data: torch.Tensor, qs: np.ndarray) -> np.ndarray:
     return out.double().numpy()
 
 
-def _uniform_edges(data: torch.Tensor, nbins: int) -> np.ndarray:
+def _uniform_edges(data: torch.Tensor, nbins: int, mesh=None) -> np.ndarray:
     """The nbins-1 inner edges of nbins equal-width bins over the non-NaN
-    [min, max] of `data`, computed as the reference computes them: the
-    float32 min and max, then ``np.linspace`` in float64. No edges when
-    the column is all NaN or constant."""
+    [min, max] of `data` (of every rank's, with `mesh`), computed as the
+    reference computes them: the float32 min and max, then
+    ``np.linspace`` in float64. No edges when the column is all NaN or
+    constant."""
     v = data[~torch.isnan(data)]
+    if mesh is not None:
+        ext = torch.tensor([float(v.min()) if v.numel() else np.inf,
+                            -float(v.max()) if v.numel() else np.inf],
+                           dtype=torch.float64)
+        mesh.all_reduce(ext, "min")
+        lo, hi = float(ext[0]), -float(ext[1])
+        if not (np.isfinite(lo) and np.isfinite(hi) and hi > lo):
+            return np.zeros(0)
+        return np.linspace(lo, hi, nbins + 1)[1:-1]
     if v.numel() == 0:
         return np.zeros(0)
     lo, hi = float(v.min()), float(v.max())
@@ -105,8 +122,12 @@ class BinSpec:
         if strategy not in ("quantile", "uniform"):
             raise ValueError(f"unknown binning strategy {strategy!r} "
                              "(quantile | uniform)")
+        from h2o3_tpu_torch.core.sharded_frame import mesh_of
+
         is_cat, B, edges, cards = [], [], [], []
         qs = np.linspace(0, 1, nbins + 1)[1:-1]
+        mesh = mesh_of(frame.col(feature_names[0])) if feature_names \
+            else None
         for name in feature_names:
             c = frame.col(name)
             if c.is_categorical:
@@ -119,11 +140,18 @@ class BinSpec:
             data = c.data
             # the reference's padding rows are NaN and drop out of the
             # quantiles, so striding the real rows samples the same rows
-            n_pad = pad_rows(data.shape[0])
-            if n_pad > sample:
-                data = data[:: max(n_pad // sample, 1)]
-            e = (_uniform_edges(data, nbins) if strategy == "uniform"
-                 else _nanquantile(data, qs))
+            n_pad = pad_rows(c.nrows)
+            stride = max(n_pad // sample, 1) if n_pad > sample else 1
+            lo = c.shard[0] if mesh is not None else 0
+            # this rank's rows of the global stride sample: rows r with
+            # r % stride == 0, from the first such row of its block
+            data = data[(-lo) % stride:: stride]
+            if strategy == "uniform":
+                e = _uniform_edges(data, nbins, mesh)
+            else:
+                if mesh is not None:
+                    data = mesh.all_gather(data)
+                e = _nanquantile(data, qs)
             e = np.unique(e[np.isfinite(e)]).astype(np.float32)
             is_cat.append(False)
             B.append(len(e) + 2)        # len(e)+1 value bins + NA bin
@@ -149,20 +177,6 @@ class BinSpec:
     def bin_columns(self, frame: Frame) -> torch.Tensor:
         """-> (N, F) bin matrix on the frame's device, in the narrowest
         integer dtype that holds every bin (uint8 up to 256 bins)."""
-        max_bins = int(self.nbins.max()) if len(self.nbins) else 1
-        dtype = (torch.uint8 if max_bins <= 256
-                 else torch.int16 if max_bins <= 32767 else torch.int32)
-        parts = []
-        for i, name in enumerate(self.names):
-            c = frame.col(name)
-            na_bin = int(self.nbins[i]) - 1
-            if self.is_cat[i]:
-                codes = c.data.int()
-                b = torch.where((codes < 0) | (codes >= na_bin), na_bin, codes)
-            else:
-                x = widen(c.data)   # float32 edges: bf16 widens exactly
-                e = torch.as_tensor(self.edges[i], device=x.device)
-                b = torch.searchsorted(e, x, side="left")
-                b = torch.where(torch.isnan(x), na_bin, b)
-            parts.append(b.to(dtype))
-        return torch.stack(parts, dim=-1).contiguous()
+        from h2o3_tpu_torch.core.sharded_frame import ShardedFrame
+
+        return ShardedFrame.of(frame, self.names).pack_binned(self)

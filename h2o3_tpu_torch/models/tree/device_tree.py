@@ -11,6 +11,14 @@ become leaves. Every level's histogram is the hand-written CUDA kernel
 grown with eager torch ops queued on the current stream; nothing is
 fetched to the host until the end of training, except the packed tables
 of trees deeper than 10 levels (stash_packed).
+
+On a row-sharded cloud (``mesh=``) each rank grows the tree over its own
+rows: the histograms are the kernel's cross-rank form, the response
+mean and the leaf sums are order-free fixed-point sums all-reduced
+across the ranks (core/ops.fixed_point_group_sums), split search runs
+replicated on the reduced histogram (as the reference's runs on its
+psum'd one) and routing stays shard-local. Every rank holds the same
+tree, bit for bit the one-process tree over all the rows.
 """
 
 from __future__ import annotations
@@ -20,7 +28,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from h2o3_tpu_torch.core.ops import segment_sum
+from h2o3_tpu_torch.core.ops import (fixed_point_group_sums,
+                                     fixed_point_sums)
 from h2o3_tpu_torch.models.tree.hist_gather import hist_gather
 
 EPS_W = 1e-12
@@ -190,17 +199,20 @@ def _search_level(hist, *, nbins, is_cat, maxB: int, min_rows: float,
             left_table, tot0)
 
 
-def leaf_sums(row_leaf, cols, tot_slots: int):
-    """(tot_slots, C) per-leaf column sums, in the same order on every
-    run (rows outside any leaf go to a dropped extra slot)."""
+def leaf_sums(row_leaf, cols, tot_slots: int, mesh=None):
+    """(tot_slots, C) per-leaf column sums, rounded once to the columns'
+    dtype from order-free fixed-point sums (the same on every run and for
+    every split of the rows into ranks of `mesh`; rows outside any leaf
+    go to a dropped extra slot)."""
     idx = torch.where(row_leaf >= 0, row_leaf, tot_slots)
     idx = torch.clamp_max(idx, tot_slots).long()
-    return segment_sum(idx, cols, tot_slots + 1)[:tot_slots]
+    return fixed_point_group_sums(idx, cols, tot_slots + 1,
+                                  mesh)[:tot_slots].to(cols.dtype)
 
 
 def grow_tree_device(binned, w, y, spec, *, max_depth: int, min_rows: float,
                      min_split_improvement: float, num=None, den=None,
-                     feat_masks=None):
+                     feat_masks=None, mesh=None, n_global=None):
     """Grow one tree on binned's device; nothing is fetched to the host.
 
     binned (N, F) integer bin matrix (BinSpec.bin_columns); w, y, num, den
@@ -213,6 +225,8 @@ def grow_tree_device(binned, w, y, spec, *, max_depth: int, min_rows: float,
       leaf4    (total_slots, 4) per-leaf sums of (w, w*y, num, den),
                indexed by GLOBAL slot id (level offset + slot)
       row_leaf (N,) int32 global leaf slot id per row
+    With `mesh` the rows are this rank's block of `n_global` rows and the
+    tables and sums are the cloud's (see the module note).
     """
     N, F = binned.shape
     dev = binned.device
@@ -235,11 +249,13 @@ def grow_tree_device(binned, w, y, spec, *, max_depth: int, min_rows: float,
     # constant shift; only the packed node totals are de-centered below
     masks = (None if feat_masks is None else
              [torch.as_tensor(np.asarray(m), device=dev) for m in feat_masks])
-    # in float64 (w*y of two f32s is exact there), rounded once to f32:
-    # the same on the card and the CPU whatever order the sums take
+    # order-free fixed-point sums of the float64 products (w*y of two
+    # f32s is exact there), rounded once to f32: the same on the card and
+    # the CPU whatever order the sums take, and for any split into ranks
     wd = w.double()
-    ymean = (torch.sum(wd * y.double())
-             / torch.clamp_min(torch.sum(wd), EPS_W)).float()
+    sw_wy = fixed_point_sums(torch.stack([wd * y.double(), wd], dim=1),
+                             mesh)
+    ymean = (sw_wy[0] / torch.clamp_min(sw_wy[1], EPS_W)).float()
     yc = y - ymean
     row_node = torch.zeros(N, dtype=torch.int32, device=dev)
     row_leaf = torch.full((N,), -1, dtype=torch.int32, device=dev)
@@ -252,7 +268,8 @@ def grow_tree_device(binned, w, y, spec, *, max_depth: int, min_rows: float,
         if d < max_depth:
             hist = hist_gather(binned, torch.where(live, row_node, -1),
                                torch.where(live, w, 0.0), yc,
-                               offsets=offsets, TB=TB, S=S)
+                               offsets=offsets, TB=TB, S=S, mesh=mesh,
+                               n_global=n_global)
             (split_feat, t_star, na_left, gain, left_table,
              tot) = _search_level(
                 hist.reshape(S, F, maxB, 3), nbins=nbins, is_cat=is_cat,
@@ -308,7 +325,7 @@ def grow_tree_device(binned, w, y, spec, *, max_depth: int, min_rows: float,
                                            right_slot[node]), 0)
 
     leaf4 = leaf_sums(row_leaf, torch.stack([w, w * y, num, den], dim=-1),
-                      tot_slots)
+                      tot_slots, mesh)
     return packed, leaf4, row_leaf
 
 

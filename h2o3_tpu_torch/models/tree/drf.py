@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from h2o3_tpu_torch.core import random as rnd
+from h2o3_tpu_torch.core import sharded_frame
 from h2o3_tpu_torch.models.model import ModelCategory
 from h2o3_tpu_torch.models.model_builder import register
 from h2o3_tpu_torch.models.tree.compressed import CompressedForest
@@ -44,6 +45,7 @@ from h2o3_tpu_torch.models.tree.device_tree import (apply_packed,
 from h2o3_tpu_torch.models.tree.shared_tree import (SharedTree,
                                                     SharedTreeModel, _device,
                                                     _host, _leaf_update,
+                                                    _weighted_mean,
                                                     sample_mask)
 
 
@@ -63,6 +65,15 @@ def _leaf_mean(leaf4):
     ln, ld = leaf4[:, 2], leaf4[:, 3]
     return torch.where(ld > 1e-12, ln / torch.clamp_min(ld, 1e-12),
                        0.0).float()
+
+
+def _any_rows(cnt, mesh) -> bool:
+    """Whether any row of any rank was out of bag at least once."""
+    m = torch.max(cnt).reshape(1).double() if cnt.numel() \
+        else torch.zeros(1, dtype=torch.float64, device=cnt.device)
+    if mesh is not None:
+        mesh.all_reduce(m.contiguous(), "max")
+    return float(m[0]) > 0
 
 
 def _normalised_votes(f):
@@ -89,6 +100,7 @@ class DRFModel(SharedTreeModel):
 @register
 class DRF(SharedTree):
     algo_name = "drf"
+    row_sharded = True
     model_class = DRFModel
 
     @classmethod
@@ -156,19 +168,27 @@ class DRF(SharedTree):
             # the saved loop state, the OOB sums and the host Generator
             # (the mtries masks) included
             t_start = int(rs["t_done"])
-            oob_sum = _device(rs["oob_sum"], dev)
-            oob_cnt = _device(rs["oob_cnt"], dev)
-            if v_sum is not None and rs.get("v_sum") is not None:
-                v_sum = _device(rs["v_sum"], dev)
             stop_metric = list(rs["stop_metric"])
             history = [dict(h) for h in rs["history"]]
             packs, leaf_means, leaf_wys = self._load_tree_progress(
                 rs, dev, max_depth)
+            if self._rows_match(rs):
+                oob_sum = _device(rs["oob_sum"], dev)
+                oob_cnt = _device(rs["oob_cnt"], dev)
+                if v_sum is not None and rs.get("v_sum") is not None:
+                    v_sum = _device(rs["v_sum"], dev)
+            else:
+                # another rank's rows were saved: this rank's sums again,
+                # tree by tree as the uninterrupted loop added them
+                oob_sum, oob_cnt, v_sum = self._rebuild_oob(
+                    binned, w, packs, leaf_means, t_start - len(packs),
+                    root_key, rate, oob_sum, oob_cnt, v_sum, max_depth,
+                    maxB)
             rng.bit_generator.state = rs["rng_state"]
         jp_every = self._job_ckpt_every()
         for t in range(t_start, ntrees):
             if rate < 1.0:
-                mask = sample_mask(root_key, t, N, rate, dev)
+                mask = sample_mask(root_key, t, N, rate, dev, self._rows)
                 w_t = torch.where(mask, w, 0.0)
             else:
                 w_t = w
@@ -196,15 +216,16 @@ class DRF(SharedTree):
                     fcur = torch.where(oob_cnt > 0, oob_sum
                                        / torch.clamp_min(oob_cnt, 1.0), 0.0)
                     wm = w * (oob_cnt > 0)
-                    mse = float(torch.sum(wm * (y - fcur) ** 2)
-                                / torch.clamp_min(torch.sum(wm), 1e-12))
+                    mse = _weighted_mean(wm * (y - fcur) ** 2, wm,
+                                         self._mesh)
                     entry["training_rmse"] = float(np.sqrt(mse))
                 if v_sum is not None:
                     fv = v_sum / (t + 1)
                     if classification:
                         fv = torch.clamp(fv, 0.0, 1.0)
-                    vmse = float(torch.sum(vs["w"] * (vs["y"] - fv) ** 2)
-                                 / torch.clamp_min(torch.sum(vs["w"]), 1e-12))
+                    vmse = _weighted_mean(
+                        vs["w"] * (vs["y"] - fv) ** 2, vs["w"],
+                        sharded_frame.mesh_of(self._valid_frame_ref))
                     entry["validation_rmse"] = float(np.sqrt(vmse))
                     stop_metric.append(vmse)
                 else:
@@ -221,7 +242,7 @@ class DRF(SharedTree):
                 self._tick_job_progress(done, lambda: {
                     "phase": "drf_single", "t_done": done,
                     "oob_sum": _host(oob_sum), "oob_cnt": _host(oob_cnt),
-                    "v_sum": _host(v_sum),
+                    "v_sum": _host(v_sum), "rows": self._rows,
                     "stop_metric": list(stop_metric),
                     "history": [dict(h) for h in history],
                     **self._tree_progress_ref(packs, leaf_means, leaf_wys),
@@ -240,7 +261,7 @@ class DRF(SharedTree):
         f = torch.where(oob_cnt > 0, oob_sum / torch.clamp_min(oob_cnt, 1.0),
                         0.0)
         self._oob_raw = None
-        if float(torch.max(oob_cnt)) > 0:
+        if _any_rows(oob_cnt, self._mesh):
             oob_mask = (oob_cnt > 0).float()
             if classification:
                 p = torch.clamp(f, 0.0, 1.0)
@@ -249,6 +270,27 @@ class DRF(SharedTree):
             else:
                 self._oob_raw = ({"value": f}, oob_mask)
         return forest
+
+    def _rebuild_oob(self, binned, w, packs, means, t0, root_key, rate,
+                     oob_sum, oob_cnt, v_sum, max_depth, maxB):
+        """The out-of-bag sums and counts (and the validation sum) of this
+        rank's rows after the loaded trees t0, t0+1, ...: each tree's
+        sample drawn again and its leaf means added in the loop's order."""
+        N, dev = binned.shape[0], binned.device
+        vs = self._vstate
+        for i, (p, mean) in enumerate(zip(packs, means)):
+            p = p.to(dev)
+            if rate < 1.0:
+                mask = sample_mask(root_key, t0 + i, N, rate, dev,
+                                   self._rows)
+                oob = (~mask) & (w > 0)
+                oob_sum = oob_sum + torch.where(
+                    oob, apply_packed(binned, p, mean, max_depth, maxB), 0.0)
+                oob_cnt = oob_cnt + oob.float()
+            if v_sum is not None:
+                v_sum = v_sum + apply_packed(vs["binned"], p, mean,
+                                             max_depth, maxB)
+        return oob_sum, oob_cnt, v_sum
 
     def _fit_multinomial(self, model, binned, y, w, offset, spec, K, rng,
                          ntrees):
@@ -322,7 +364,7 @@ class DRF(SharedTree):
             forest = CompressedForest.concat(self._ckpt.forest, forest,
                                              scale_a=t_base / total)
         self._oob_raw = None
-        if float(torch.max(oob_cnt)) > 0:
+        if _any_rows(oob_cnt, self._mesh):
             p = _normalised_votes(
                 oob_sum / torch.clamp_min(oob_cnt, 1.0)[:, None])
             self._oob_raw = ({"probs": p}, (oob_cnt > 0).float())

@@ -28,6 +28,9 @@ class GBMModel(SharedTreeModel):
         probability using trees 1..t (multinomial: tree groups 1..t).
         Binomial trees model class 1, so T<t>.C1 carries p0, as in the
         reference."""
+        from h2o3_tpu_torch.core.sharded_frame import refuse
+
+        refuse(frame, "staged_predict_proba")
         cat = self._output.model_category
         if cat not in (ModelCategory.Binomial, ModelCategory.Multinomial):
             raise ValueError("staged_predict_proba needs a classification "
@@ -76,6 +79,7 @@ class GBMModel(SharedTreeModel):
 @register
 class GBM(SharedTree):
     algo_name = "gbm"
+    row_sharded = True
     model_class = GBMModel
 
     @classmethod

@@ -31,6 +31,17 @@ on a CPU tensor it computes the plain version :func:`hist_gather_ref`.
 There is no fallback between the two: a CUDA call that cannot launch
 raises. The kernel needs no row padding (it masks its ragged last row
 block itself), so the reference's `_pad_rows` has no counterpart.
+
+**Cross-rank form** (``mesh=``, the reference's histogram summed by
+``psum`` over its row shards). Each rank holds its block of the rows.
+The C entry point runs its passes one at a time: pass 1 (the channel
+maxima) on the rank's rows, a MAX all-reduce of the three 32-bit maxima
+words, pass 2 (the int64 sums) with ``b = row_bits(global n)``, a SUM
+all-reduce of the int64 sums (exact and order-free, wrap-around
+included), then pass 4 (finalise). Every rank then holds, bit for bit,
+the one-process histogram over all the rows, whatever their split into
+ranks; a rank with no rows still joins both all-reduces. The plain
+version takes the same steps.
 """
 
 from __future__ import annotations
@@ -93,19 +104,40 @@ def fixed_point_exponent(m: float, n: int):
     return 62 - math.frexp(m)[1] - row_bits(n)
 
 
-def hist_gather_ref(binned, node, w, y, *, offsets, TB: int, S: int):
+def _channel_max_bits(vals: torch.Tensor) -> torch.Tensor:
+    """(3,) int32 float bits of each channel's max |v|: the kernel's
+    pass-1 words (monotone for non-negative floats; Inf and NaN order
+    above every finite value)."""
+    if vals.shape[0] == 0:
+        return torch.zeros(3, dtype=torch.int32, device=vals.device)
+    return vals.abs().contiguous().view(torch.int32).amax(0)
+
+
+def hist_gather_ref(binned, node, w, y, *, offsets, TB: int, S: int,
+                    mesh=None, n_global=None):
     """Plain PyTorch version of the kernel's integers: the same per-row
     f32 triples and k_c, quantised in float64, summed with ``index_add_``
     on int64 (exact, so the order of the adds does not matter) and
-    finalised as the kernel does."""
+    finalised as the kernel does. With `mesh`, the cross-rank form: the
+    maxima and the sums all-reduced across the ranks, k_c from the
+    global maxima and `n_global` rows (default: the ranks' rows
+    summed)."""
     n, F = binned.shape
     dev = binned.device
     wf, yf = w.float(), y.float()
     wy = wf * yf
     vals = torch.stack([wf, wy, wy * yf], dim=-1)                # (n, 3)
-    if n == 0:
+    if mesh is None and n == 0:
         return torch.zeros(S * TB, 3, dtype=torch.float32, device=dev)
-    ks = [fixed_point_exponent(m, n) for m in vals.abs().amax(0).tolist()]
+    bits = _channel_max_bits(vals)
+    if mesh is not None:
+        mesh.all_reduce(bits, "max")
+        if n_global is None:
+            n_global = int(mesh.all_reduce(torch.tensor(
+                [n], dtype=torch.int64, device=dev), "sum")[0])
+    nn = n if n_global is None else int(n_global)
+    maxima = bits.view(torch.float32).tolist()
+    ks = [fixed_point_exponent(m, nn) for m in maxima]
     scale = torch.tensor([0.0 if k is None else math.ldexp(1.0, k)
                           for k in ks], dtype=torch.float64, device=dev)
     finite = torch.tensor([k is not None for k in ks], device=dev)
@@ -117,6 +149,8 @@ def hist_gather_ref(binned, node, w, y, *, offsets, TB: int, S: int):
     acc = torch.zeros(S * TB, 3, dtype=torch.int64, device=dev)
     acc.index_add_(0, idx.reshape(-1),
                    q[live][:, None, :].expand(-1, F, 3).reshape(-1, 3))
+    if mesh is not None:
+        mesh.all_reduce(acc, "sum")
     unscale = torch.tensor([math.nan if k is None else math.ldexp(1.0, -k)
                             for k in ks], dtype=torch.float64, device=dev)
     return (acc.double() * unscale).float()
@@ -147,22 +181,25 @@ def _check(binned, node, w, y, offsets, F):
 
 
 def launch(lib, binned, node, w, y, offsets, scratch, out, *, TB, S, tile_S,
-           n_tiles, passes=ALL_PASSES):
+           n_tiles, passes=ALL_PASSES, n_global=None):
     """One call of the C entry point on the current stream: the chosen
     `passes` over `scratch` (int64, 2 + S*TB*3 words: the channel maxima,
-    then the bucket sums) into `out`. Returns the CUDA error code."""
+    then the bucket sums) into `out`, with b = row_bits(`n_global`,
+    default the local row count). Returns the CUDA error code."""
     n, F = binned.shape
     rows, G = row_grid(n)
+    if n == 0:
+        passes &= ~(PASS_SCALE | PASS_ACCUMULATE)   # no rows, no blocks
     return lib.hist_gather_launch(
         binned.data_ptr(), binned.element_size(), node.data_ptr(),
         w.data_ptr(), y.data_ptr(), offsets.data_ptr(), n, F, TB, S, tile_S,
-        n_tiles, rows, G, row_bits(n), passes,
-        scratch.data_ptr(), out.data_ptr(),
+        n_tiles, rows, G, row_bits(n if n_global is None else n_global),
+        passes, scratch.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(binned.device).cuda_stream)
 
 
 def hist_gather(binned, node, w, y, *, offsets, TB: int, S: int,
-                tile_S=None):
+                tile_S=None, mesh=None, n_global=None):
     """(n, F) bins + per-row node/w/y -> (S*TB, 3) f32 histogram.
 
     `offsets` is the (F,) per-feature base (an int32 tensor on the bins'
@@ -170,12 +207,14 @@ def hist_gather(binned, node, w, y, *, offsets, TB: int, S: int,
     ``offsets[f] + bin`` must be < TB. `tile_S` overrides the planner;
     0 adds every row straight into the global accumulator, with no
     shared-memory tile, as the planner does when one slot does not fit.
-    The result is bitwise the same for every tiling. CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise."""
+    The result is bitwise the same for every tiling. With `mesh` it is the
+    cross-rank form over `n_global` rows (see the module note). CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
     global launches
     if binned.device.type == "cpu":
         return hist_gather_ref(binned, node, w, y, offsets=offsets, TB=TB,
-                               S=S)
+                               S=S, mesh=mesh, n_global=n_global)
     if binned.device.type != "cuda":
         raise ValueError(f"hist_gather runs on cuda or cpu, not "
                          f"{binned.device}")
@@ -192,7 +231,7 @@ def hist_gather(binned, node, w, y, *, offsets, TB: int, S: int,
             raise ValueError(f"tile_S={tile_S} needs "
                              f"{BUCKET_BYTES * TB * tile_S} bytes of shared "
                              f"memory, more than a block's {SMEM_PER_BLOCK}")
-    if n == 0:
+    if n == 0 and mesh is None:
         return torch.zeros(S * TB, 3, dtype=torch.float32,
                            device=binned.device)
     from h2o3_tpu_torch import kernels
@@ -201,10 +240,27 @@ def hist_gather(binned, node, w, y, *, offsets, TB: int, S: int,
     scratch = torch.zeros(2 + S * TB * 3, dtype=torch.int64,
                           device=binned.device)
     out = torch.empty(S * TB, 3, dtype=torch.float32, device=binned.device)
-    err = launch(lib, binned, node, w, y, offsets, scratch, out, TB=TB, S=S,
-                 tile_S=tile_S, n_tiles=n_tiles)
+    kw = dict(TB=TB, S=S, tile_S=tile_S, n_tiles=n_tiles)
+    if mesh is None:
+        _launched(launch(lib, binned, node, w, y, offsets, scratch, out,
+                         **kw))
+    else:
+        if n_global is None:
+            n_global = int(mesh.all_reduce(torch.tensor(
+                [n], dtype=torch.int64), "sum")[0])
+        _launched(launch(lib, binned, node, w, y, offsets, scratch, out,
+                         passes=PASS_SCALE, n_global=n_global, **kw))
+        mesh.all_reduce(scratch.view(torch.int32)[:3], "max")
+        _launched(launch(lib, binned, node, w, y, offsets, scratch, out,
+                         passes=PASS_ACCUMULATE, n_global=n_global, **kw))
+        mesh.all_reduce(scratch[2:], "sum")
+        _launched(launch(lib, binned, node, w, y, offsets, scratch, out,
+                         passes=PASS_FINALISE, n_global=n_global, **kw))
+    launches += 1
+    return out
+
+
+def _launched(err: int) -> None:
     if err != 0:
         raise RuntimeError(f"hist_gather kernel launch failed: CUDA error "
                            f"{err}")
-    launches += 1
-    return out

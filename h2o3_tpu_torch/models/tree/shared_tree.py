@@ -46,8 +46,9 @@ import numpy as np
 import torch
 
 from h2o3_tpu_torch.core import random as rnd
+from h2o3_tpu_torch.core import sharded_frame
 from h2o3_tpu_torch.core.frame import Column, Frame
-from h2o3_tpu_torch.core.ops import segment_sum
+from h2o3_tpu_torch.core.ops import fixed_point_sums, segment_sum
 from h2o3_tpu_torch.models.data_info import DataInfo
 from h2o3_tpu_torch.models.distribution import (auto_distribution,
                                                 get_distribution)
@@ -79,18 +80,23 @@ def grow_tree(binned, hist_w, hist_y, spec, *, max_depth: int,
                           row_active=row_active, feat_mask_fn=feat_mask_fn)
 
 
-def sample_mask(root_key, t: int, n: int, rate: float, device):
+def sample_mask(root_key, t: int, n: int, rate: float, device, rows=None):
     """Tree t's row sample: uniform(fold_in(root_key, t)) < rate over the
-    rows (the reference's `_pre_fn` draw)."""
-    return rnd.uniform(rnd.fold_in(root_key, t), n, device=device) < rate
+    rows (the reference's `_pre_fn` draw). `rows` = (lo, hi, n_global)
+    draws over the global rows and keeps [lo, hi)."""
+    if rows is None:
+        return rnd.uniform(rnd.fold_in(root_key, t), n, device=device) < rate
+    lo, hi, ng = rows
+    u = rnd.uniform(rnd.fold_in(root_key, t), ng, device=device)
+    return u[lo:hi] < rate
 
 
-def sampled_weights(w, root_key, t: int, rate: float):
+def sampled_weights(w, root_key, t: int, rate: float, rows=None):
     """w with tree t's sampled-out rows at 0 (w itself at rate >= 1)."""
     if rate >= 1.0:
         return w
-    return torch.where(sample_mask(root_key, t, len(w), rate, w.device), w,
-                       0.0)
+    return torch.where(sample_mask(root_key, t, len(w), rate, w.device,
+                                   rows), w, 0.0)
 
 
 def softmax(f: torch.Tensor) -> torch.Tensor:
@@ -142,6 +148,9 @@ class SharedTreeModel(Model):
         node index. One column per tree, T<t> (T<g>.C<k> for per-class
         forests). Leaves come from the training BinSpec's bins and the
         forest's lockstep walk, the same walk scoring sums over."""
+        from h2o3_tpu_torch.core.sharded_frame import refuse
+
+        refuse(frame, "predict_leaf_node_assignment")
         if type not in ("Path", "Node_ID"):
             raise ValueError(f"leaf assignment type {type!r} "
                              "(Path or Node_ID)")
@@ -239,7 +248,8 @@ class SharedTree(ModelBuilder):
         """-> (z, w_t, num, den): residuals, tree t's sampled weights and
         the leaf Newton-step rows."""
         z = dist.neg_half_gradient(y, f)
-        w_t = sampled_weights(w, root_key, t, rate)
+        w_t = sampled_weights(w, root_key, t, rate,
+                              getattr(self, "_rows", None))
         num, den = self._leaf_num_den(w_t, y, z, f, dist)
         return z, w_t, num, den
 
@@ -360,6 +370,11 @@ class SharedTree(ModelBuilder):
         model.spec = spec
         binned = spec.bin_columns(train)
         N = binned.shape[0]
+        # the row mesh the frame is sharded over (None in one process):
+        # collectives take it, per-row draws take the global rows
+        self._mesh = sharded_frame.mesh_of(train)
+        self._rows = (sharded_frame.global_row_slice(train)
+                      if self._mesh is not None else None)
         w_user = None
         if self.params.get("weights_column"):
             w_user = train.col(self.params["weights_column"]).data
@@ -411,10 +426,28 @@ class SharedTree(ModelBuilder):
                                   binned_v.shape[0], binned_v.device)}
 
     def _grow_args(self):
+        rows = getattr(self, "_rows", None)
         return dict(max_depth=int(self.params["max_depth"]),
                     min_rows=float(self.params["min_rows"]),
                     min_split_improvement=float(
-                        self.params["min_split_improvement"]))
+                        self.params["min_split_improvement"]),
+                    mesh=getattr(self, "_mesh", None),
+                    n_global=None if rows is None else rows[2])
+
+    @staticmethod
+    def _rebuild_margins(f, binned, packs, vals, max_depth: int, maxB: int):
+        """`f` plus each tree's leaf values, tree by tree in order: the
+        margins the uninterrupted loop held (a resumed rank whose rows
+        are not the saving rank's)."""
+        for p, v in zip(packs, vals):
+            f = f + apply_packed(binned, p.to(binned.device), v, max_depth,
+                                 maxB)
+        return f
+
+    def _rows_match(self, rs) -> bool:
+        """Whether a saved state's per-row arrays are this rank's rows."""
+        return tuple(rs.get("rows") or ()) == tuple(
+            getattr(self, "_rows", None) or ())
 
     # single-margin families -------------------------------------------------
     def _fit_single(self, model, binned, y, w, offset, spec, dist, rng,
@@ -429,8 +462,11 @@ class SharedTree(ModelBuilder):
             init_f = pf.init_f
             f = pf.predict_binned(binned) + offset
         else:
-            num = float(torch.sum(dist.init_f_num(w, y, offset)))
-            den = float(torch.sum(dist.init_f_denom(w, y, offset)))
+            # order-free sums: the same for every split into ranks
+            num, den = fixed_point_sums(torch.stack(
+                [dist.init_f_num(w, y, offset).double(),
+                 dist.init_f_denom(w, y, offset).double()], dim=1),
+                self._mesh).tolist()
             init_f = float(dist.link(torch.tensor(num / max(den, 1e-12),
                                                   dtype=torch.float32)))
             if dist.name in ("bernoulli", "quasibinomial"):
@@ -462,13 +498,21 @@ class SharedTree(ModelBuilder):
             # Generator
             t_start = int(rs["t_done"])
             init_f = float(rs["init_f"])
-            f = _device(rs["f"], binned.device)
-            if f_valid is not None and rs.get("f_valid") is not None:
-                f_valid = _device(rs["f_valid"], binned.device)
             stop_metric = [float(v) for v in rs["stop_metric"]]
             history = [dict(h) for h in rs["history"]]
             packs, leaf_vals, leaf_wys = self._load_tree_progress(
                 rs, binned.device, max_depth)
+            if self._rows_match(rs):
+                f = _device(rs["f"], binned.device)
+                if f_valid is not None and rs.get("f_valid") is not None:
+                    f_valid = _device(rs["f_valid"], binned.device)
+            else:
+                f = self._rebuild_margins(f, binned, packs, leaf_vals,
+                                          max_depth, maxB)
+                if f_valid is not None:
+                    f_valid = self._rebuild_margins(
+                        f_valid, vs["binned"], packs, leaf_vals, max_depth,
+                        maxB)
             rng.bit_generator.state = rs["rng_state"]
         jp_every = self._job_ckpt_every()
         for t in range(t_start, ntrees):
@@ -491,10 +535,12 @@ class SharedTree(ModelBuilder):
             leaf_wys.append(leaf4[:, :2])
             obs_metrics.inc("h2o3_tree_trees_built_total")
             if self._should_score(t, ntrees):
-                dev = _mean_deviance(dist, w, y, f)
+                dev = _mean_deviance(dist, w, y, f, self._mesh)
                 entry = {"tree": t + 1, "training_deviance": dev, **keys}
                 if f_valid is not None:
-                    vdev = _mean_deviance(dist, vs["w"], vs["y"], f_valid)
+                    vdev = _mean_deviance(dist, vs["w"], vs["y"], f_valid,
+                                          sharded_frame.mesh_of(
+                                              self._valid_frame_ref))
                     entry["validation_deviance"] = vdev
                     stop_metric.append(vdev)
                 else:
@@ -511,7 +557,7 @@ class SharedTree(ModelBuilder):
                 self._tick_job_progress(done, lambda: {
                     "phase": "tree_single", "t_done": done,
                     "init_f": float(init_f), "f": _host(f),
-                    "f_valid": _host(f_valid),
+                    "f_valid": _host(f_valid), "rows": self._rows,
                     "stop_metric": list(stop_metric),
                     "history": [dict(h) for h in history],
                     **self._tree_progress_ref(packs, leaf_vals, leaf_wys),
@@ -541,7 +587,10 @@ class SharedTree(ModelBuilder):
                        pf.predict_binned(vs["binned"]).float())
         else:
             # init: log class priors
-            pri = segment_sum(yi, w, K).cpu().numpy()     # class weights
+            pri = segment_sum(yi, w, K).double()           # class weights
+            if self._mesh is not None:
+                self._mesh.all_reduce(pri, "sum")
+            pri = pri.cpu().numpy()
             pri = np.maximum(pri / max(pri.sum(), 1e-12), 1e-9)
             init = np.log(pri).astype(np.float32)
             init_t = torch.as_tensor(init, device=dev)
@@ -577,7 +626,7 @@ class SharedTree(ModelBuilder):
         for t in range(t_start, ntrees):
             masks = build_feat_masks(max_depth, self._feat_mask_fn(rng, spec),
                                      spec.F, maxB)
-            w_t = sampled_weights(w, root_key, t, rate)
+            w_t = sampled_weights(w, root_key, t, rate, self._rows)
             lr = self._tree_lr(t)
             for k in range(K):
                 # multinomial leaf step: (K-1)/K * sum z / sum |z|(1-|z|)
@@ -601,12 +650,13 @@ class SharedTree(ModelBuilder):
                     f_valid[:, k] += apply_packed(vs["binned"], packed, gamma,
                                                   max_depth, maxB)
             if self._should_score(t, ntrees):
-                ll = _mean_logloss(f, yi, w)
+                ll = _mean_logloss(f, yi, w, self._mesh)
                 entry = {"tree": t + 1, "training_logloss": ll}
                 if f_valid is not None:
                     vll = _mean_logloss(f_valid,
                                         torch.clamp_min(vs["y"].long(), 0),
-                                        vs["w"])
+                                        vs["w"], sharded_frame.mesh_of(
+                                            self._valid_frame_ref))
                     entry["validation_logloss"] = vll
                     stop_metric.append(vll)
                 else:
@@ -643,11 +693,13 @@ class SharedTree(ModelBuilder):
     # sampling ---------------------------------------------------------------
     def _sample_rows(self, rng, N, w):
         """Host-drawn row sample (DRF's per-class trees): the reference
-        draws one uniform per row of its padded column."""
+        draws one uniform per row of its padded column (of all the rows:
+        a rank keeps its own)."""
         rate = float(self.params.get("sample_rate", 1.0))
         if rate >= 1.0:
             return None, w
-        mask = torch.as_tensor(rng.random(pad_rows(N))[:N] < rate,
+        lo, hi, n = getattr(self, "_rows", None) or (0, N, N)
+        mask = torch.as_tensor(rng.random(pad_rows(n))[lo:hi] < rate,
                                device=w.device)
         return mask, torch.where(mask, w, 0.0)
 
@@ -768,12 +820,20 @@ def _leaf_update(vals, row_leaf):
                        vals[torch.clamp_min(row_leaf, 0).long()], 0.0)
 
 
-def _mean_deviance(dist, w, y, f) -> float:
-    return float(torch.sum(dist.deviance(w, y, f))
-                 / torch.clamp_min(torch.sum(w), 1e-12))
+def _weighted_mean(vals, w, mesh) -> float:
+    """sum(vals) / sum(w), each sum order-free (core/ops.fixed_point_sums)
+    so that one process and every split of the rows into ranks of `mesh`
+    score, and stop early, alike; the quotient is taken in float32."""
+    num, den = fixed_point_sums(torch.stack([vals.double(), w.double()], 1),
+                                mesh).tolist()
+    return float(np.float32(num) / np.float32(max(den, 1e-12)))
 
 
-def _mean_logloss(f, yi, w) -> float:
+def _mean_deviance(dist, w, y, f, mesh=None) -> float:
+    return _weighted_mean(dist.deviance(w, y, f), w, mesh)
+
+
+def _mean_logloss(f, yi, w, mesh=None) -> float:
     p = softmax(f)[torch.arange(f.shape[0], device=f.device), yi]
-    return float(torch.sum(-w * torch.log(torch.clamp_min(p, 1e-15)))
-                 / torch.clamp_min(torch.sum(w), 1e-12))
+    return _weighted_mean(-w * torch.log(torch.clamp_min(p, 1e-15)), w,
+                          mesh)

@@ -216,6 +216,57 @@ def runtime_snapshot(slowest_n: int = 10) -> dict:
             "compiles": snapshot(slowest_n)}
 
 
+_KV_PREFIX = "obs/runtime/"
+
+
+def publish_runtime() -> bool:
+    """Publish this process's runtime snapshot to the cloud KV (with the
+    metrics' throttled publish) so the coordinator's /3/Runtime is the
+    cloud's."""
+    import json
+
+    from h2o3_tpu_torch.parallel import distributed as D
+
+    try:
+        return D.kv_put(_KV_PREFIX + str(_proc_index()),
+                        json.dumps(runtime_snapshot(), default=str))
+    except Exception:   # noqa: BLE001 — best effort by contract
+        return False
+
+
+def cluster_runtime(slowest_n: int = 10) -> List[dict]:
+    """This process's live snapshot and every other process's published
+    one (remote rows carry their publish default, 10 slowest)."""
+    import json
+
+    from h2o3_tpu_torch.parallel import distributed as D
+
+    me = _proc_index()
+    out = [runtime_snapshot(slowest_n)]
+    for _k, v in D.kv_dir(_KV_PREFIX):
+        try:
+            rec = json.loads(v)
+        except (ValueError, TypeError):
+            continue
+        if isinstance(rec, dict) and rec.get("proc") != me:
+            out.append(rec)
+    return out
+
+
+def merge_family_tables(tables: List[Dict[str, dict]]) -> Dict[str, dict]:
+    """Per-family aggregates summed across processes (ms_max the max)."""
+    merged: Dict[str, dict] = {}
+    for table in tables:
+        for fam, a in (table or {}).items():
+            m = merged.setdefault(fam, {"compiles": 0, "hits_memory": 0,
+                                        "hits_disk": 0, "ms_total": 0.0,
+                                        "ms_max": 0.0})
+            for k in ("compiles", "hits_memory", "hits_disk", "ms_total"):
+                m[k] += a.get(k, 0)
+            m["ms_max"] = max(m["ms_max"], a.get("ms_max", 0.0))
+    return merged
+
+
 def reset_for_tests() -> None:
     with _LOCK:
         _ROWS.clear()

@@ -13,13 +13,21 @@ text exposition (``text/plain; version=0.0.4``) and as JSON.
 - **Bounded label sets**: a metric stores at most ``_LABEL_CAP``
   distinct label tuples; overflow lands on one ``{"overflow": "true"}``
   sample.
-- **Aggregation**: `cluster_aggregate` is this process's registry, the
-  whole cloud in one process; merging other processes' snapshots comes
-  with the multi-process control plane (ROADMAP A14).
+- **Aggregation**: every process of a cloud publishes its snapshot to
+  the cloud KV under ``obs/metrics/{proc}`` (`publish_snapshot`, and
+  its /3/Runtime part under ``obs/runtime/{proc}``;
+  `maybe_publish`, throttled by ``H2O_TPU_OBS_PUBLISH_S``, runs after
+  each op a follower replays and on each watchdog tick), and
+  `cluster_aggregate` merges this process's live registry with the
+  others' published snapshots: counters and histograms sum, gauges
+  follow their declared aggregation (sum or max). In one process it is
+  this registry.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import re
 import threading
 import time
@@ -190,20 +198,130 @@ def observe(name: str, v: float, **labels) -> None:
         m.observe(v, **labels)
 
 
-def cluster_aggregate() -> List[dict]:
-    """The cluster's series. One process is the whole cloud, so this is
-    the registry's snapshot by name, with the labels as strings and a
-    ``buckets`` key on every series (None but for histograms). The
-    merge of other processes' snapshots comes with the multi-process
-    control plane (ROADMAP A14)."""
+_KV_PREFIX = "obs/metrics/"
+_PUB_LOCK = threading.Lock()
+_LAST_PUBLISH = 0.0
+
+
+def _publish_interval_s() -> float:
+    """Seconds between throttled snapshot publishes
+    (``H2O_TPU_OBS_PUBLISH_S``, default 2)."""
+    return float(os.environ.get("H2O_TPU_OBS_PUBLISH_S", "2"))
+
+
+def _proc_index() -> int:
+    from h2o3_tpu_torch.parallel import distributed as D
+
+    return D.process_index()
+
+
+def publish_snapshot(proc: Optional[int] = None) -> bool:
+    """Publish this process's snapshot under ``obs/metrics/{proc}`` (the
+    coordinator merges them into the cloud's series); False without a
+    cloud KV."""
+    from h2o3_tpu_torch.parallel import distributed as D
+
+    p = _proc_index() if proc is None else int(proc)
+    try:
+        return D.kv_put(_KV_PREFIX + str(p),
+                        json.dumps({"proc": p, "ts": time.time(),
+                                    "metrics": REGISTRY.snapshot()}))
+    except Exception:   # noqa: BLE001 — best effort by contract
+        return False
+
+
+def maybe_publish() -> None:
+    """`publish_snapshot` at most once per ``H2O_TPU_OBS_PUBLISH_S`` (after
+    a follower's replayed op, on a watchdog tick); a no-op in one
+    process."""
+    global _LAST_PUBLISH
+    from h2o3_tpu_torch.parallel import distributed as D
+
+    if D.process_count() <= 1:
+        return
+    now = time.monotonic()
+    with _PUB_LOCK:
+        if now - _LAST_PUBLISH < _publish_interval_s():
+            return
+        _LAST_PUBLISH = now
+    publish_snapshot()
+    from h2o3_tpu_torch.obs import compiles
+
+    compiles.publish_runtime()       # /3/Runtime rides the same throttle
+
+
+def cluster_snapshots() -> List[dict]:
+    """This process's live snapshot and every other process's published
+    one, as [{proc, ts, metrics}]."""
+    from h2o3_tpu_torch.parallel import distributed as D
+
+    me = _proc_index()
+    out = [{"proc": me, "ts": time.time(), "metrics": REGISTRY.snapshot()}]
+    for _k, v in D.kv_dir(_KV_PREFIX):
+        try:
+            rec = json.loads(v)
+        except (ValueError, TypeError):
+            continue
+        if not isinstance(rec, dict) or rec.get("proc") == me:
+            continue
+        out.append(rec)
+    return out
+
+
+def aggregate(snaps: List[dict]) -> List[dict]:
+    """Merge per-process snapshots into the cloud's series by name, with
+    the labels as strings and a ``buckets`` key on every series (None but
+    for histograms): counters and histograms sum, gauges follow their
+    declared aggregation (sum or max)."""
+    merged: Dict[str, dict] = {}
+    for snap in snaps:
+        for m in snap.get("metrics", []):
+            name = m.get("name")
+            if not name:
+                continue
+            agg = merged.get(name)
+            if agg is None:
+                agg = merged[name] = {"name": name, "type": m.get("type"),
+                                      "help": m.get("help", ""),
+                                      "agg": m.get("agg", "sum"),
+                                      "buckets": m.get("buckets"),
+                                      "_samples": {}}
+            for smp in m.get("samples", []):
+                key = tuple(sorted((str(k), str(v)) for k, v in
+                                   (smp.get("labels") or {}).items()))
+                cur = agg["_samples"].get(key)
+                if agg["type"] == "histogram":
+                    bc = list(smp.get("bucket_counts", []))
+                    if cur is None:
+                        agg["_samples"][key] = {
+                            "labels": dict(key), "bucket_counts": bc,
+                            "sum": float(smp.get("sum", 0.0)),
+                            "count": int(smp.get("count", 0))}
+                    else:
+                        cur["bucket_counts"] = ([a + b for a, b in zip(
+                            cur["bucket_counts"], bc)]
+                            if cur["bucket_counts"] else bc)
+                        cur["sum"] += float(smp.get("sum", 0.0))
+                        cur["count"] += int(smp.get("count", 0))
+                    continue
+                v = float(smp.get("value", 0.0))
+                if cur is None:
+                    agg["_samples"][key] = {"labels": dict(key), "value": v}
+                elif agg["type"] == "gauge" and agg["agg"] == "max":
+                    cur["value"] = max(cur["value"], v)
+                else:
+                    cur["value"] += v
     out = []
-    for m in sorted(REGISTRY.snapshot(), key=lambda m: m["name"]):
-        m.setdefault("buckets", None)
-        for s in m["samples"]:
-            s["labels"] = {str(k): str(v)
-                           for k, v in (s.get("labels") or {}).items()}
+    for name in sorted(merged):
+        m = merged[name]
+        m["samples"] = list(m.pop("_samples").values())
         out.append(m)
     return out
+
+
+def cluster_aggregate() -> List[dict]:
+    """The cloud's series (`aggregate` of `cluster_snapshots`)."""
+    return aggregate(cluster_snapshots())
 
 
 def histogram_quantiles(buckets: List[float], bucket_counts: List[int],
@@ -302,12 +420,12 @@ _START_TS = time.time()
 
 
 def data_plane_counters() -> Dict[str, int]:
-    """The reference's sharded data-plane counters (rows packed
-    shard-locally, sorted on the device, gathered to the coordinator).
-    One device holds every row: nothing is packed per shard or gathered
-    across hosts, so they stay 0 until multi-GPU row sharding
-    (ROADMAP A14)."""
-    return {"packed_rows": 0, "device_sorted_rows": 0, "gathered_rows": 0}
+    """The sharded data plane's counters (core/sharded_frame.py): rows
+    packed from a rank's own rows, rows a device sort ordered, rows of
+    sharded columns gathered to this process."""
+    from h2o3_tpu_torch.core import sharded_frame
+
+    return sharded_frame.counters()
 
 
 def _scoring_field(field: str) -> float:

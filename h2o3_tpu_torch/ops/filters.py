@@ -49,6 +49,9 @@ def _gather(frame: Frame, idx: torch.Tensor, key: Optional[str] = None
 def take_rows(frame: Frame, rows, key: Optional[str] = None) -> Frame:
     """A new frame of `frame`'s rows at the host indices `rows`, in that
     order."""
+    from h2o3_tpu_torch.core.sharded_frame import refuse
+
+    refuse(frame, "take_rows")
     rows = torch.from_numpy(np.ascontiguousarray(rows, dtype=np.int64))
     return _gather(frame, rows, key=key)
 
@@ -56,6 +59,9 @@ def take_rows(frame: Frame, rows, key: Optional[str] = None) -> Frame:
 def take_order_rows(frame: Frame, order: torch.Tensor, k: int,
                     offset: int = 0, key: Optional[str] = None) -> Frame:
     """The `k` rows at a device order's positions [offset, offset + k)."""
+    from h2o3_tpu_torch.core.sharded_frame import refuse
+
+    refuse(frame, "take_rows")
     return _gather(frame, order[offset:offset + k].long(), key=key)
 
 
@@ -63,6 +69,9 @@ def filter_rows(frame: Frame, mask_col: Column,
                 key: Optional[str] = None) -> Frame:
     """fr[mask, :]: the rows where the mask is nonzero; NA mask rows are
     dropped, as in H2O."""
+    from h2o3_tpu_torch.core.sharded_frame import refuse
+
+    refuse(frame, "a row filter")
     m = mask_col.data
     keep = torch.where(torch.isnan(m), False, m != 0)
     return _gather(frame, torch.nonzero(keep).squeeze(1), key=key)
@@ -70,6 +79,9 @@ def filter_rows(frame: Frame, mask_col: Column,
 
 def slice_rows(frame: Frame, start: int, stop: int,
                key: Optional[str] = None) -> Frame:
+    from h2o3_tpu_torch.core.sharded_frame import refuse
+
+    refuse(frame, "a row slice")
     n = frame.nrows
     start = max(0, min(start, n))
     stop = max(start, min(stop, n))
@@ -79,6 +91,9 @@ def slice_rows(frame: Frame, start: int, stop: int,
 def rbind(frames: Sequence[Frame], key: Optional[str] = None) -> Frame:
     """Stack frames by rows (AstRBind); enum domains are unioned and
     sorted, codes remapped."""
+    from h2o3_tpu_torch.core.sharded_frame import refuse
+
+    refuse(frames[0] if frames else None, "rbind")
     total = sum(f.nrows for f in frames)
     out = Frame(key=key)
     f0 = frames[0]
@@ -116,6 +131,9 @@ def split_frame(frame: Frame, ratios: Sequence[float],
     """Random row split (hex/SplitFrame.java): a uniform draw per row
     (numpy's default_rng, as the reference draws it), thresholded by the
     cumulative ratios."""
+    from h2o3_tpu_torch.core.sharded_frame import refuse
+
+    refuse(frame, "split_frame")
     rng = np.random.default_rng(seed)
     u = rng.random(frame.nrows)
     cuts = np.cumsum(list(ratios))

@@ -87,6 +87,9 @@ class GroupBy:
     left out of every aggregate but the row count."""
 
     def __init__(self, frame: Frame, by: Union[str, Sequence[str]]):
+        from h2o3_tpu_torch.core.sharded_frame import refuse
+
+        refuse(frame, "a group-by")
         self._frame = frame
         self._by = ([by] if isinstance(by, str) else
                     [frame.names[b] if isinstance(b, int) else b
@@ -182,5 +185,8 @@ class GroupBy:
 def table(frame: Frame) -> Frame:
     """(table fr): counts of the value combinations of the first one or
     two columns (AstTable)."""
+    from h2o3_tpu_torch.core.sharded_frame import refuse
+
+    refuse(frame, "a table")
     return GroupBy(frame, frame.names[: min(2, frame.ncols)]).count() \
         .get_frame()

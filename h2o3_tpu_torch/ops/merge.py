@@ -162,6 +162,9 @@ def _host_pairs(left: Frame, right: Frame, bx, by, all_x, all_y):
 def merge(left: Frame, right: Frame, all_x=False, all_y=False,
           by_x: Optional[Sequence[str]] = None,
           by_y: Optional[Sequence[str]] = None) -> Frame:
+    from h2o3_tpu_torch.core.sharded_frame import refuse
+
+    refuse(left, "a merge")
     common = [n for n in left.names if n in right.names]
     bx = list(by_x) if by_x else common
     by = list(by_y) if by_y else common

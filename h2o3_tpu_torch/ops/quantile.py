@@ -75,6 +75,9 @@ def _select_kth(data: torch.Tensor, lo: float, hi: float, k: int) -> float:
 
 def quantile_column(col, probs: Sequence[float]) -> List[float]:
     """Type-7 quantiles of a numeric column at `probs`."""
+    from h2o3_tpu_torch.core.sharded_frame import refuse
+
+    refuse(col, "a quantile")
     r = col.rollups
     n = r.rows
     if n == 0:

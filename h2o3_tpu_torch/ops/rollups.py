@@ -7,6 +7,11 @@ nonzero values. Mean and sigma are finished in float64 on the host from
 the float32 sums, as the reference finishes them; only the order of the
 float32 adds differs, so mean and sigma agree with the reference to
 about 1e-6 relative, and min, max, na and nz counts are exact.
+
+On a row-sharded cloud each rank makes these partials over its rows and
+the row mesh reduces them (counts and sums added in float64, min and
+max as such), so every rank holds the cloud's rollups: the reference's
+psum over its row shards.
 """
 
 from __future__ import annotations
@@ -41,12 +46,35 @@ def compute_rollups(col) -> Rollups:
     else:
         valid = ~torch.isnan(data)
         x = torch.where(valid, data, 0.0).float()
-    n = int(valid.sum())
-    s = float(torch.sum(x, dtype=torch.float32))
-    ss = float(torch.sum(x * x, dtype=torch.float32))
-    mn = float(torch.where(valid, x, torch.inf).min()) if n else np.nan
-    mx = float(torch.where(valid, x, -torch.inf).max()) if n else np.nan
-    nz = int((valid & (x != 0)).sum())
+    from h2o3_tpu_torch.core.sharded_frame import mesh_of
+
+    mesh = mesh_of(col)
+    if mesh is None:
+        n = int(valid.sum())
+        s = float(torch.sum(x, dtype=torch.float32))
+        ss = float(torch.sum(x * x, dtype=torch.float32))
+        mn = float(torch.where(valid, x, torch.inf).min()) if n else np.nan
+        mx = float(torch.where(valid, x, -torch.inf).max()) if n else np.nan
+        nz = int((valid & (x != 0)).sum())
+    else:
+        dev = x.device
+        part = torch.stack([
+            valid.sum().double(), torch.sum(x, dtype=torch.float32).double(),
+            torch.sum(x * x, dtype=torch.float32).double(),
+            (valid & (x != 0)).sum().double()]).to(dev).contiguous()
+        lo = torch.where(valid, x, torch.inf).double()
+        hi = torch.where(valid, x, -torch.inf).double()
+        ext = torch.stack([
+            lo.min() if lo.numel() else torch.tensor(torch.inf, device=dev,
+                                                     dtype=torch.float64),
+            -(hi.max() if hi.numel() else torch.tensor(
+                -torch.inf, device=dev, dtype=torch.float64))]).contiguous()
+        mesh.all_reduce(part, "sum")
+        mesh.all_reduce(ext, "min")
+        n, s, ss, nz = part.tolist()
+        n, nz = int(n), int(nz)
+        mn = float(ext[0]) if n else np.nan
+        mx = float(-ext[1]) if n else np.nan
     na = col.nrows - n
     mean = s / n if n else float("nan")
     var = max(ss / n - mean * mean, 0.0) if n else float("nan")

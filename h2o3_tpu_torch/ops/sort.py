@@ -7,7 +7,7 @@ sorts by code with NA as NaN; a descending key is negated; NaN becomes
 +inf, so NA rows and real +inf rows keep their row order among
 themselves and come last. -0 is read as +0 so that every device's sort
 sees one zero. On one device the reference takes this global argsort
-too; its sample sort (:154) is for a multi-device mesh (ROADMAP A14).
+too; its sample sort (:154) is for a multi-device mesh (ROADMAP A14.6b).
 """
 
 from __future__ import annotations
@@ -32,6 +32,9 @@ def stable_argsort(key: torch.Tensor) -> torch.Tensor:
 def sort_order(frame: Frame, names: Sequence[str],
                ascending: Sequence[bool]) -> torch.Tensor:
     """The device permutation sorting `frame` by `names`."""
+    from h2o3_tpu_torch.core.sharded_frame import refuse
+
+    refuse(frame, "a sort")
     order = None
     for name, asc in reversed(list(zip(names, ascending))):
         c = frame.col(name)
@@ -53,6 +56,9 @@ def sort_frame(frame: Frame, by: Union[str, int, Sequence], ascending=True,
                rows: Optional[tuple] = None) -> Frame:
     """`frame` sorted by the key columns `by`; `rows=(lo, hi)` gathers
     only that window of the sorted rows."""
+    from h2o3_tpu_torch.core.sharded_frame import refuse
+
+    refuse(frame, "a sort")
     if isinstance(by, (str, int)):
         by = [by]
     names = [frame.names[b] if isinstance(b, int) else b for b in by]
@@ -63,4 +69,7 @@ def sort_frame(frame: Frame, by: Union[str, int, Sequence], ascending=True,
                                           max(0, min(int(rows[1]), n)))
     hi = max(lo, hi)
     order = sort_order(frame, names, asc)
+    from h2o3_tpu_torch.core.sharded_frame import note_sorted
+
+    note_sorted(n)          # the permutation stays on the device
     return take_order_rows(frame, order, hi - lo, offset=lo)

@@ -45,6 +45,9 @@ def rank_order(g, s, asc):
 def rank_within_groupby_device(fr: Frame, gidx: Sequence[int],
                                sidx: Sequence[int],
                                asc: Sequence[bool]) -> Optional[Column]:
+    from h2o3_tpu_torch.core.sharded_frame import refuse
+
+    refuse(fr, "a window function")
     cols = []
     for i in list(gidx) + list(sidx):
         c = fr.col(int(i))
@@ -74,6 +77,9 @@ def rank_within_groupby_device(fr: Frame, gidx: Sequence[int],
 
 def difflag1_device(col: Column) -> Optional[Column]:
     """One-lag difference on the device (row 0 is NA)."""
+    from h2o3_tpu_torch.core.sharded_frame import refuse
+
+    refuse(col, "a window function")
     d = col.data
     if d is None:
         return None

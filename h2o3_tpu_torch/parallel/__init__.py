@@ -7,7 +7,8 @@ acknowledgements, rejoin and the standby election; `ckpt` writes
 control-plane checkpoints, durable job progress and search state;
 `supervisor` folds heartbeats, acks and replay errors into the cloud's
 health; `watchdog` acts on it (rejoins, elections, job and search
-resumes). In one process the same calls answer for a cloud of one.
-Row sharding across processes (the reference's `mesh.py`) is ROADMAP
-A14.6.
+resumes); `mesh` makes a cloud of several processes a row mesh, each
+process a rank holding its block of every frame's rows, with the
+collectives between them. In one process the same calls answer for a
+cloud of one.
 """

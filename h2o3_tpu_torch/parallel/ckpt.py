@@ -5,13 +5,18 @@ and tree-progress chunks (counterpart of h2o3_tpu/parallel/ckpt.py).
   ``H2O_TPU_OPLOG_CHECKPOINT_OPS`` fully acknowledged ops the coordinator
   publishes a ``checkpoint`` op; inside its turn (no other op changes
   the DKV) it writes a snapshot of the DKV's objects, the next oplog
-  sequence and the recent op tokens to a file, booked at
-  ``oplog/ckpt/{seq}``. Once every follower acknowledged it, the
-  acknowledged prefix (``oplog/{s}``, ``oplog/ack/{s}/*`` and
-  ``oplog/progress/{s}/*`` for s <= seq) is deleted, so the live oplog
-  stays O(interval). A restarted follower readmits from the newest
-  snapshot (`load_latest`, oplog.rejoin); ``H2O_TPU_OPLOG_CKPT_KEEP``
-  snapshots are kept, and one a rejoiner is restoring is pinned.
+  sequence and the recent op tokens to a file. Once every follower
+  acknowledged the op, the snapshot is booked at ``oplog/ckpt/{seq}``
+  and the acknowledged prefix (``oplog/{s}`` and ``oplog/ack/{s}/*`` for
+  s <= seq) is deleted, so the live oplog stays O(interval). A
+  restarted follower readmits from the newest snapshot (`load_latest`,
+  oplog.rejoin); ``H2O_TPU_OPLOG_CKPT_KEEP`` snapshots are kept, and one
+  a rejoiner is restoring is pinned. On a row-sharded cloud the snapshot
+  holds the writer's rows of each sharded frame; every follower writes
+  its own rows as a rank section before it acknowledges the op
+  (`write_rank_section`), and a restoring rank installs its section over
+  the writer's rows. An op that completed a collective whose result it
+  keeps is checkpointed the same way, at its own seq (oplog.turn).
 - Job progress. An iterative builder whose job carries a re-dispatch
   recipe (`Job.resume_spec`) saves its loop state every
   ``H2O_TPU_JOB_CKPT_ITERS`` completed iterations (0, the default, saves
@@ -60,9 +65,6 @@ _LOCK = threading.Lock()
 _ACKED_SINCE = 0
 _IN_CKPT = False
 _CKPT_THREAD: Optional[threading.Thread] = None
-# the seq of the in-flight (or last) checkpoint op: its own ack does not
-# count toward the next interval
-_CKPT_SEQ: Optional[int] = None
 # highest seq whose records were truncated: every op at or below it was
 # acknowledged cloud-wide first, so oplog.wait_acks reads it as acked
 _TRUNCATED_THROUGH = -1
@@ -164,11 +166,10 @@ def _unlink(paths) -> None:
 
 def reset() -> None:
     """Clear the coordinator-side counters (cloud restart, tests)."""
-    global _ACKED_SINCE, _TRUNCATED_THROUGH, _CKPT_SEQ
+    global _ACKED_SINCE, _TRUNCATED_THROUGH
     with _LOCK:
         _ACKED_SINCE = 0
         _TRUNCATED_THROUGH = -1
-        _CKPT_SEQ = None
 
 
 def truncated_through() -> int:
@@ -199,8 +200,6 @@ def note_acked_op(seq: int) -> None:
     if n <= 0:
         return
     with _LOCK:
-        if seq == _CKPT_SEQ:            # the checkpoint op's own ack
-            return
         _ACKED_SINCE += 1
         if _ACKED_SINCE < n or _IN_CKPT:
             return
@@ -232,12 +231,12 @@ def _run_checkpoint() -> None:
 
 def checkpoint_now() -> Optional[int]:
     """Publish and run one ``checkpoint`` op: the snapshot under the
-    turnstile, then, once every follower acknowledged it, the truncation
-    of the acknowledged prefix. Returns the checkpoint's seq; None when
-    this process is not broadcasting or no longer leads (a checkpoint
-    thread resuming on a stalled ex-coordinator must not publish or
-    truncate under an epoch it lost)."""
-    global _CKPT_SEQ
+    turnstile, then, once every follower acknowledged it, its booking
+    and the truncation of the acknowledged prefix (`commit`). Returns
+    the checkpoint's seq; None when this process is not broadcasting or
+    no longer leads (a checkpoint thread resuming on a stalled
+    ex-coordinator must not publish or truncate under an epoch it
+    lost)."""
     from h2o3_tpu_torch.parallel import distributed as D
     from h2o3_tpu_torch.parallel import oplog
 
@@ -246,21 +245,19 @@ def checkpoint_now() -> Optional[int]:
         return None
     epoch0 = D.epoch()
     seq = oplog.publish("checkpoint", {})
-    with _LOCK:
-        _CKPT_SEQ = seq
     with oplog.turn(seq):
         write_checkpoint(seq)
-    oplog.maybe_demote()
     if oplog.demoted() or not D.is_coordinator() or D.epoch() != epoch0:
         return None
-    truncate_through(seq)
     return seq
 
 
 def write_checkpoint(seq: int) -> str:
-    """Write the control-plane snapshot of checkpoint op `seq` and book
-    it at ``oplog/ckpt/{seq}``. Its ``next_seq`` is seq + 1: the state
-    holds ops < seq, and op seq is the checkpoint itself."""
+    """Write the control-plane snapshot of op `seq` (a checkpoint op, or
+    an op that kept a collective's result) and book it at
+    ``oplog/ckpt/{seq}``: inside that op's turn the booking waits for
+    every follower's ack (oplog.defer_booking, `commit`). Its
+    ``next_seq`` is seq + 1: the state holds every op through seq."""
     from h2o3_tpu_torch.core import failure
     from h2o3_tpu_torch.core.dkv import DKV
     from h2o3_tpu_torch.parallel import distributed as D
@@ -270,20 +267,97 @@ def write_checkpoint(seq: int) -> str:
     failure.faultpoint("ckpt.write")
     snap = {"seq": int(seq), "next_seq": int(seq) + 1, "epoch": D.epoch(),
             "ts": time.time(), "op_ids": oplog.snapshot_op_ids(),
-            "dkv": DKV.snapshot_control_plane()}
+            "rank": D.process_index(), "dkv": DKV.snapshot_control_plane()}
     path = os.path.join(ckpt_dir(), f"ckpt_{int(seq):012d}.pkl")
     _atomic_write(path, pickle.dumps(snap, protocol=4))
-    if not D.kv_put(_CKPT_PREFIX + str(int(seq)),
-                    json.dumps({"seq": int(seq), "next_seq": int(seq) + 1,
-                                "path": path, "epoch": D.epoch(),
-                                "ts": snap["ts"],
-                                "skipped": snap["dkv"].get("skipped", [])})):
-        raise RuntimeError(f"checkpoint {seq}: its KV record did not land")
-    _prune_old()
+    rec = {"seq": int(seq), "next_seq": int(seq) + 1, "path": path,
+           "epoch": snap["epoch"], "ts": snap["ts"],
+           "skipped": snap["dkv"].get("skipped", [])}
     timeline.record("oplog", "checkpoint", seq=int(seq),
                     objects=len(snap["dkv"].get("objects", {})),
                     skipped=len(snap["dkv"].get("skipped", [])))
+    if not oplog.defer_booking(rec):
+        _book(rec)
     return path
+
+
+def _book(rec: dict) -> None:
+    from h2o3_tpu_torch.parallel import distributed as D
+
+    if not D.kv_put(_CKPT_PREFIX + str(rec["seq"]), json.dumps(rec)):
+        raise RuntimeError(f"checkpoint {rec['seq']}: its KV record did "
+                           "not land")
+    _prune_old()
+
+
+def commit(rec: dict) -> None:
+    """Book snapshot `rec` once every follower acknowledged its op (each
+    wrote its rank section first), then truncate the acknowledged prefix
+    through it, unless this process lost the epoch it was written
+    under."""
+    from h2o3_tpu_torch.parallel import distributed as D
+    from h2o3_tpu_torch.parallel import oplog
+
+    _book(rec)
+    oplog.maybe_demote()
+    if oplog.demoted() or not D.is_coordinator() \
+            or D.epoch() != rec["epoch"]:
+        return
+    truncate_through(rec["seq"])
+
+
+def discard(rec: dict) -> None:
+    """Drop snapshot `rec`, whose op a follower did not acknowledge: its
+    rank section may be missing, so it is never booked."""
+    _unlink((rec["path"],))
+
+
+def _section_path(seq: int, rank: int) -> str:
+    return os.path.join(ckpt_dir(), f"ckpt_{int(seq):012d}.rank{rank}.pkl")
+
+
+def write_rank_section(seq: int) -> Optional[str]:
+    """A follower's part of the checkpoint of op `seq`: its rows of every
+    row-sharded frame, next to the coordinator's snapshot (None when it
+    holds none)."""
+    from h2o3_tpu_torch.core.dkv import DKV
+    from h2o3_tpu_torch.parallel import distributed as D
+
+    objects = DKV.sharded_objects()
+    if not objects:
+        return None
+    path = _section_path(seq, D.process_index())
+    _atomic_write(path, pickle.dumps({"seq": int(seq),
+                                      "rank": D.process_index(),
+                                      "objects": objects}, protocol=4))
+    return path
+
+
+def _restore_rank_section(seq: int, snap: dict) -> None:
+    """Replace the writer's rows of each sharded frame of snapshot `seq`
+    by this rank's own (its section). A booked snapshot with sharded
+    frames has every follower's section (each wrote it before its ack):
+    a missing one raises, since the writer's rows are not this rank's."""
+    from h2o3_tpu_torch import persist
+    from h2o3_tpu_torch.core.dkv import DKV
+    from h2o3_tpu_torch.parallel import distributed as D
+
+    rank = D.process_index()
+    if int(snap.get("rank", 0)) == rank:
+        return
+    sharded = (snap.get("dkv") or {}).get("sharded", [])
+    for k in sharded:
+        DKV.remove(k)
+    path = persist.resolve(_section_path(seq, rank))
+    if not os.path.exists(path):
+        if sharded:
+            raise RuntimeError(
+                f"checkpoint {seq} holds row-sharded frames {sharded} but "
+                f"no section of rank {rank}: its rows cannot be restored")
+        return
+    with open(path, "rb") as f:
+        sec = _CkptUnpickler(f).load()
+    DKV.restore_control_plane({"objects": sec.get("objects") or {}})
 
 
 def records() -> List[Tuple[int, dict]]:
@@ -337,11 +411,12 @@ def _prune_old(keep: Optional[int] = None) -> None:
         D.kv_delete(_CKPT_PREFIX + str(seq))
         if rec.get("path"):
             _unlink((rec["path"],))
+        _unlink([_section_path(seq, r) for r in range(D.process_count())])
 
 
 def truncate_through(seq: int) -> int:
-    """Delete the acknowledged oplog slots, acks and progress marks for
-    seqs <= `seq`; returns the keys deleted. Error records stay: they
+    """Delete the acknowledged oplog slots and acks for seqs <= `seq`;
+    returns the keys deleted. Error records stay: they
     are failure evidence, which only a successful rejoin supersedes."""
     global _TRUNCATED_THROUGH
     from h2o3_tpu_torch.parallel import distributed as D
@@ -356,7 +431,7 @@ def truncate_through(seq: int) -> int:
         s = None
         if len(parts) == 1 and parts[0].isdigit():           # oplog/{s}
             s = int(parts[0])
-        elif len(parts) >= 2 and parts[0] in ("ack", "progress") \
+        elif len(parts) >= 2 and parts[0] == "ack" \
                 and parts[1].isdigit():                        # .../{s}/..
             s = int(parts[1])
         if s is not None and s <= seq:
@@ -381,6 +456,7 @@ def load_latest(restore_dkv: bool = True) -> Tuple[int, Optional[dict]]:
         snap = _CkptUnpickler(f).load()
     if restore_dkv:
         DKV.restore_control_plane(snap.get("dkv") or {})
+        _restore_rank_section(seq, snap)
     return int(snap.get("next_seq", seq + 1)), snap
 
 

@@ -8,8 +8,12 @@ It reads ``H2O_TPU_COORDINATOR`` (``host:port``),
 ``H2O_TPU_NUM_PROCESSES`` and ``H2O_TPU_PROCESS_ID`` when not given, and
 is a no-op without an address (one process is the whole cloud). A caller
 that already holds a store passes it as ``store=``, as
-``torch.distributed.init_process_group(store=)`` takes one. No process
-group is made: the control plane needs only the store.
+``torch.distributed.init_process_group(store=)`` takes one. A cloud of
+more than one process is also a row mesh (parallel/mesh.py): every
+process is a rank holding its block of every frame's rows, and its
+process group is built over this store, through a ``PrefixStore`` per
+mesh generation, at the first collective. `rejoin` and a takeover move
+the generation on, so every live rank builds the next group.
 
 The KV keeps the reference's semantics: `kv_put` upserts with a bounded
 backoff-with-jitter retry; `kv_get` waits up to its deadline and does
@@ -98,14 +102,45 @@ def initialize(coordinator_address: Optional[str] = None,
                 wait_for_workers=False)
     _STORE = store
     _PROC, _NPROC = pid, n
+    from h2o3_tpu_torch.core import runtime
     from h2o3_tpu_torch.utils import timeline
 
     timeline.record("cloud", "initialize", proc=pid, processes=n)
+    if runtime._CLUSTER is not None:
+        ensure_mesh(runtime._CLUSTER.device)
+
+
+def ensure_mesh(device):
+    """The process's row mesh on `device` for a cloud of more than one
+    process (None in one process); built once, on the first call after
+    `initialize` (the runtime's boot makes it)."""
+    from h2o3_tpu_torch.parallel import mesh
+
+    m = mesh._PROCESS_MESH
+    if _STORE is None or _NPROC <= 1:
+        return None
+    if m is None or m.store is not _STORE:
+        m = mesh.RowMesh(_PROC, _NPROC, device, _STORE)
+        mesh.install(m)
+    return m
+
+
+def next_mesh_generation() -> None:
+    """Move the recorded mesh generation on (a rejoin, a takeover): each
+    live rank builds the next group at its next collective."""
+    from h2o3_tpu_torch.parallel import mesh
+
+    m = mesh._PROCESS_MESH
+    if m is not None:
+        m.advance_generation()
 
 
 def shutdown() -> None:
     """Leave the cloud: back to one process (tests, orderly exit)."""
     global _PROC, _NPROC, _STORE
+    from h2o3_tpu_torch.parallel import mesh
+
+    mesh.install(None)
     _STORE = None
     _PROC, _NPROC = 0, 1
     reset_leadership()

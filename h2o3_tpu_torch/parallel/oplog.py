@@ -23,13 +23,20 @@ the newest control-plane checkpoint (`rejoin`); a standby takes over a
 silent coordinator (`assume_coordination`, the epoch record written
 first-writer-wins).
 
-The port has no cross-process collective yet (ROADMAP A14.6), which in
-the reference holds a coordinator's train in step with its followers.
-A train op keeps that step at its durable progress saves instead: a
-follower replaying it marks ``oplog/progress/{seq}/{proc}`` at each
-save interval, and the coordinator waits for every follower's mark at
-its own save (`progress_barrier`), so a follower lost mid-train stops
-the coordinator's train at its next save, not after the op.
+A train op on a row-sharded cloud (parallel/mesh.py) keeps step with
+its followers through its collectives: every histogram, leaf sum and
+metric is an all-reduce that every rank joins. A follower lost mid-train
+ends the coordinator's collective with CloudUnhealthyError (at once when
+its sockets close, at the latest at the mesh's timeout); the cloud
+FAILs and the op's slot becomes a noop, so a rejoin does not replay a
+train its peers cannot join. An op that completed a collective whose
+result it keeps (a train, an import) ends in a control-plane checkpoint
+of its own: the coordinator snapshots inside the op's turn, every
+follower writes its rows as a rank section before it acknowledges, and
+the checkpoint is booked once every follower did. A rejoin's suffix
+therefore never holds an op that needs its peers (ROADMAP C47). A
+REST-serving coordinator never enters a collective outside an op's turn
+(`unmirrored_collective_risk`): the followers would never join it.
 """
 
 from __future__ import annotations
@@ -89,6 +96,13 @@ _PUB_LOCK = threading.Lock()
 # for the reclaiming op.
 _OP_IDS: Dict[int, str] = {}
 _OP_IDS_CAP = 4096
+# coordinator-side seq -> op kind, for `turn` (pruned with _OP_IDS)
+_OP_KINDS: Dict[int, str] = {}
+# op kinds whose collectives keep no state (a predict's metrics, a
+# download's gather): a rejoin's solo replay skips those collectives, so
+# the op stays replayable without a checkpoint of its own
+_SOLO_KINDS = frozenset({"noop", "checkpoint", "predict", "leaf_assignment",
+                         "staged_proba", "score_batch", "gather"})
 
 
 class OplogPublishError(RuntimeError):
@@ -169,6 +183,63 @@ def _in_op() -> bool:
     return bool(getattr(_TLS, "in_op", False))
 
 
+def unmirrored_collective_risk() -> bool:
+    """True when the calling thread is about to run a collective the other
+    processes will NOT mirror: coordinator of a REST-serving multi-process
+    cloud, outside any op turn."""
+    return (REST_SERVING and D.process_count() > 1 and D.is_coordinator()
+            and not _in_op())
+
+
+def _collectives() -> int:
+    """Collectives this process's row mesh completed so far (0 without
+    one)."""
+    from h2o3_tpu_torch.parallel import mesh
+
+    m = mesh.current()
+    return m.stats()["collectives"] if m is not None else 0
+
+
+def _keeps_collective_state(kind: Optional[str], since: int) -> bool:
+    """True when an op of `kind` completed a collective since the count
+    `since` and keeps what it computed: a rejoin could not replay it
+    alone, so the op ends in a checkpoint."""
+    return kind not in _SOLO_KINDS and _collectives() != since
+
+
+def defer_booking(rec: Dict[str, Any]) -> bool:
+    """Called by parallel/ckpt.py with a snapshot written for op
+    ``rec["seq"]``: when this thread holds that op's turn, the turn
+    books it once every follower acknowledged the op (True); else the
+    caller books it now (False)."""
+    if not _in_op() or getattr(_TLS, "seq", None) != rec.get("seq"):
+        return False
+    _TLS.pending_ckpt = rec
+    return True
+
+
+def solo_replay() -> bool:
+    """True while this thread replays a rejoin's suffix: its peers are
+    not replaying with it, so no collective can complete (an op that
+    needs one fails the rejoin at once instead of waiting out the mesh's
+    timeout; a predict's metrics, which no state keeps, are skipped)."""
+    return bool(getattr(_TLS, "solo", False))
+
+
+def note_collective_failure(msg: str) -> None:
+    """A collective of the row mesh failed in this process. Inside a
+    coordinator's op the cloud FAILs (its running jobs fail from outside,
+    so the watchdog may resume them after a rejoin) and the op's slot is
+    marked to become a noop."""
+    seq = getattr(_TLS, "seq", None)
+    if seq is None or not getattr(_TLS, "in_op", False):
+        return
+    _TLS.collective_failed = True
+    from h2o3_tpu_torch.parallel import supervisor
+
+    supervisor.fail(f"op {seq}: {msg}")
+
+
 def active() -> bool:
     """Coordinator with followers attached: REST handlers must broadcast."""
     return D.process_count() > 1 and D.is_coordinator() and not _in_op()
@@ -196,6 +267,7 @@ def reset(next_seq: int = 0) -> None:
         _HEAD_IDLE_SINCE = time.monotonic()
         _ABANDONED.clear()
         _OP_IDS.clear()
+        _OP_KINDS.clear()
         _EXEC_COND.notify_all()
     from h2o3_tpu_torch.parallel import ckpt
 
@@ -258,9 +330,11 @@ def publish(kind: str, payload: Dict[str, Any]) -> int:
                     f"failed to publish oplog op {seq} ({kind}): "
                     f"{cause or 'kv_put did not land'}") from cause
         _OP_IDS[seq] = op_id     # reclaim overwrites: acks match THIS op
+        _OP_KINDS[seq] = kind
         if len(_OP_IDS) > _OP_IDS_CAP:
             for old in sorted(_OP_IDS)[: len(_OP_IDS) - _OP_IDS_CAP]:
                 del _OP_IDS[old]
+                _OP_KINDS.pop(old, None)
     obs_metrics.inc("h2o3_oplog_ops_published_total")
     return seq
 
@@ -344,7 +418,10 @@ def turn(seq: Optional[int], timeout_s: Optional[float] = None):
     behind it do not each re-pay the full deadline. Abandoned slots are
     neutralized to 'noop' in the KV and the cloud is degraded.
     On successful completion the coordinator waits (bounded, env
-    ``H2O_TPU_OP_ACK_TIMEOUT_S``) for every follower's replay ack."""
+    ``H2O_TPU_OP_ACK_TIMEOUT_S``) for every follower's replay ack. An op
+    that completed a collective whose result it keeps is snapshotted
+    before the turnstile moves on, and the snapshot is booked after the
+    acks (every follower's rank section is then written)."""
     global _NEXT_EXEC, _EXECUTING, _HEAD_IDLE_SINCE
     if seq is None:
         yield
@@ -416,14 +493,35 @@ def turn(seq: Optional[int], timeout_s: Optional[float] = None):
     if abandoned:
         _neutralize_slots(abandoned, f"turn timeout after {timeout_s:.1f}s")
         raise err
+    from h2o3_tpu_torch.parallel import ckpt
+
     _TLS.in_op = True
     _TLS.seq = seq
-    _TLS.barrier_n = 0
+    _TLS.collective_failed = False
+    _TLS.pending_ckpt = None
+    c0 = _collectives()
     try:
         yield
+        if _TLS.pending_ckpt is None and not _TLS.collective_failed \
+                and _keeps_collective_state(_OP_KINDS.get(seq), c0):
+            try:
+                ckpt.write_checkpoint(seq)      # booked below
+            except Exception as e:   # noqa: BLE001 — the op succeeded
+                _log_ckpt_failure(seq, e)
     finally:
+        failed = getattr(_TLS, "collective_failed", False)
+        pending = getattr(_TLS, "pending_ckpt", None)
         _TLS.in_op = False
         _TLS.seq = None
+        _TLS.collective_failed = False
+        _TLS.pending_ckpt = None
+        if failed:
+            # the op's collective lost a peer: no process finished it, and
+            # a rejoined follower must not replay it alone (its
+            # collectives would have no peer); a resume re-dispatches it
+            D.kv_put(f"{_PREFIX}/{seq}", json.dumps(
+                {"kind": "noop", "payload": {"abandoned": "collective "
+                                             "failed"}}))
         with _EXEC_COND:
             if _GEN == my_gen:
                 _EXECUTING = None
@@ -439,14 +537,32 @@ def turn(seq: Optional[int], timeout_s: Optional[float] = None):
     # reached only when the body completed: bounded follower-ack wait, so a
     # dead/crashed follower surfaces HERE as a clear error instead of
     # hanging the NEXT collective this handler (or any later op) runs
-    wait_acks(seq)
+    try:
+        wait_acks(seq)
+    except BaseException:
+        if pending is not None:
+            ckpt.discard(pending)     # a follower's section may be missing
+        raise
+    if pending is not None:
+        # every follower replayed the op, its rank section written: the
+        # snapshot is whole
+        try:
+            ckpt.commit(pending)
+        except Exception as e:   # noqa: BLE001 — the op succeeded
+            _log_ckpt_failure(seq, e)
+        return
     # the op is fully acknowledged cloud-wide: feed the checkpoint
     # accountant — every H2O_TPU_OPLOG_CHECKPOINT_OPS acked ops it
     # snapshots the control plane and truncates the acked prefix, keeping
     # live oplog/* keys O(interval) (never raises; see parallel/ckpt.py)
-    from h2o3_tpu_torch.parallel import ckpt
-
     ckpt.note_acked_op(seq)
+
+
+def _log_ckpt_failure(seq: int, e: BaseException) -> None:
+    from h2o3_tpu_torch.utils.log import get_logger
+
+    get_logger().warning("checkpoint of op %d failed (a rejoin restores "
+                         "an older one): %s", seq, e)
 
 
 # ---------------------------------------------------------------------------
@@ -648,9 +764,14 @@ def _apply(kind: str, p: Dict[str, Any]) -> None:
         # liveness probe: replay and ack with no framework work
         return
     if kind == "checkpoint":
-        # the coordinator's snapshot marker: the follower's ack is its
-        # part (it proves every earlier op was replayed, which licenses
-        # the coordinator's truncation)
+        # the coordinator's snapshot marker: the follower's ack proves
+        # every earlier op was replayed (which licenses the truncation),
+        # and its rows of every sharded frame are its rank section
+        from h2o3_tpu_torch.parallel import ckpt
+
+        seq = replaying_seq()
+        if seq is not None:
+            ckpt.write_rank_section(seq)
         return
     from h2o3_tpu_torch.core.dkv import DKV, Key
 
@@ -725,9 +846,22 @@ def _apply(kind: str, p: Dict[str, Any]) -> None:
             DKV.remove(str(pred.key))
             pred._key = Key(dest)
         pred.install()
-        if p.get("with_metrics"):
+        if p.get("with_metrics") and not solo_replay():
             # the v3 handler also computes metrics: the same programs
+            # (and on a row-sharded cloud the same collectives)
             m.model_performance(fr)
+        return
+    if kind == "gather":
+        # a coordinator's download of a row-sharded frame: this rank's
+        # part of the gather of every column (nothing to keep: a solo
+        # replay skips it)
+        if solo_replay():
+            return
+        fr = DKV.get(p["frame"])
+        if fr is None:
+            raise KeyError(f"gather: frame {p['frame']!r} not found")
+        for nm in fr.names:
+            fr.col(nm).to_numpy()
         return
     if kind == "score_batch":
         # one replay scores every request of the coordinator's micro-batch
@@ -811,86 +945,19 @@ def replaying_seq() -> Optional[int]:
 
 
 def _replay(seq: int, kind: str, payload: Dict[str, Any]) -> None:
+    """Apply one op as a follower; an op that completed a collective
+    whose result it keeps ends with this rank's section of the
+    checkpoint the coordinator writes for it (before the ack)."""
     _TLS.replay_seq = seq
-    _TLS.barrier_n = 0
+    c0 = _collectives()
     try:
         _apply(kind, payload)
+        if _keeps_collective_state(kind, c0):
+            from h2o3_tpu_torch.parallel import ckpt
+
+            ckpt.write_rank_section(seq)
     finally:
         _TLS.replay_seq = None
-
-
-# ---------------------------------------------------------------------------
-# the train op's progress barrier (the port's stand-in for the lockstep a
-# cross-process collective gives the reference's train)
-# ---------------------------------------------------------------------------
-
-def progress_barrier(done: int) -> None:
-    """Called by a fit loop at each durable progress save point (`done`
-    completed iterations). A follower replaying an op marks how many
-    save points of the op it passed; the coordinator inside an op's turn
-    waits (bounded by ``H2O_TPU_OP_ACK_TIMEOUT_S``) until every follower
-    passed as many, and raises :class:`~h2o3_tpu_torch.core.failure.CloudUnhealthyError`
-    when one crashed, went heartbeat-stale or stayed silent, so the train
-    stops at its last durable save. A no-op in one process and outside
-    an op."""
-    rseq = replaying_seq()
-    k = getattr(_TLS, "barrier_n", 0) + 1
-    if rseq is not None:
-        _TLS.barrier_n = k
-        proc = D.process_index()
-        D.kv_put(f"{_PREFIX}/progress/{rseq}/{proc}",
-                 json.dumps({"proc": proc, "n": k, "done": int(done),
-                             "inc": failure.incarnation()}))
-        return
-    seq = getattr(_TLS, "seq", None)
-    n = expected_acks()
-    if seq is None or n <= 0 or not getattr(_TLS, "in_op", False):
-        return
-    _TLS.barrier_n = k
-    timeout_s = _ack_timeout_s()
-    if timeout_s <= 0:
-        return
-    from h2o3_tpu_torch.parallel import supervisor
-
-    poll = retry.AdaptivePoll(min_s=0.001, max_s=0.1)
-    deadline = time.monotonic() + timeout_s
-    min_incs = expected_incarnations()
-    leader = D.leader()
-    while True:
-        got = []
-        for _k, v in D.kv_dir(f"{_PREFIX}/progress/{seq}/"):
-            try:
-                rec = json.loads(v)
-                proc, at = int(rec["proc"]), int(rec["n"])
-            except (ValueError, TypeError, KeyError):
-                continue
-            if at >= k and int(rec.get("inc", 0)) >= min_incs.get(proc,
-                                                                     0):
-                got.append(proc)
-        if len(got) >= n:
-            return
-        err = error_for(seq)
-        stale = [r["process"] for r in failure.cluster_health()
-                 if not r["healthy"] and r["process"] != leader
-                 and r["process"] not in got]
-        if err is not None or stale or time.monotonic() >= deadline:
-            why = (f"follower replay of op {seq} crashed" if err is not None
-                   else f"process(es) {stale} went heartbeat-stale"
-                   if stale else f"{len(got)}/{n} followers reached "
-                   f"iteration {done} within {timeout_s:.1f}s")
-            msg = (f"op {seq} stopped at its durable save of iteration "
-                   f"{done}: {why}; followers: {failure.cluster_health()}")
-            trace = str((err or {}).get("trace", ""))
-            if stale or (err is not None and err.get("fatal", True)):
-                # a follower lost or crashed mid-op holds none of its
-                # state: only a rejoin (checkpoint + suffix) readmits it,
-                # so the cloud FAILs, and its running jobs with it
-                supervisor.fail(msg, trace)
-            else:
-                # wedged but beating: the wait_acks rule
-                supervisor.degrade(msg, hold_s=failure.heartbeat_stale_s())
-            raise failure.CloudUnhealthyError(msg, remote_trace=trace)
-        poll.wait()
 
 
 def follower_loop(idle_timeout_s: float = 120.0,
@@ -963,6 +1030,7 @@ def follower_loop(idle_timeout_s: float = 120.0,
              "span_id": rsp["span_id"]} if rsp else None,
             t_ack0, publish=True, seq=i)
         obs_metrics.inc("h2o3_oplog_ops_replayed_total")
+        obs_metrics.maybe_publish()
         note_op_seen()        # adaptive replay-idle signal (traffic clock)
         if on_op is not None:
             on_op(op["kind"], op["payload"])
@@ -1049,23 +1117,30 @@ def rejoin() -> int:
         failure.set_incarnation(on_record)
     inc = failure.bump_incarnation()
     failure.heartbeat()                    # announce the fresh incarnation
+    # the live ranks' group has a dead peer (this process's predecessor):
+    # every rank builds the next generation at its next collective
+    D.next_mesh_generation()
     cursor, _snap = ckpt.load_latest()
     _write_rejoin(proc, inc, "replaying", cursor)
-    while True:
-        raw = D.kv_try_get(f"{_PREFIX}/{cursor}")
-        if raw is None:
-            break                          # reached the head
-        op = json.loads(raw)
-        if op["kind"] == "shutdown":
-            break
-        try:
-            failure.faultpoint("oplog.rejoin.replay")
-            _replay(cursor, op["kind"], op["payload"])
-        except Exception:
-            _record_error(cursor, op["kind"], traceback.format_exc())
-            raise
-        _ack(cursor, op.get("op_id"))
-        cursor += 1
+    _TLS.solo = True
+    try:
+        while True:
+            raw = D.kv_try_get(f"{_PREFIX}/{cursor}")
+            if raw is None:
+                break                          # reached the head
+            op = json.loads(raw)
+            if op["kind"] == "shutdown":
+                break
+            try:
+                failure.faultpoint("oplog.rejoin.replay")
+                _replay(cursor, op["kind"], op["payload"])
+            except Exception:
+                _record_error(cursor, op["kind"], traceback.format_exc())
+                raise
+            _ack(cursor, op.get("op_id"))
+            cursor += 1
+    finally:
+        _TLS.solo = False
     # a successful re-replay through `cursor` supersedes the dead
     # incarnation's failure evidence for those ops: the programs ARE
     # replayable, and this process's state now includes them
@@ -1183,6 +1258,9 @@ def assume_coordination(caught_up_seq: Optional[int] = None,
     global _DEMOTED
     _DEMOTED = False
     reset(next_seq=sealed_next)
+    # the old leader's rank is dead in the current group: every live rank
+    # builds the next generation at its next collective
+    D.next_mesh_generation()
     # device-resident scoring sessions belonged to the old epoch's program
     # stream; drop them so first use rebuilds from the (checkpoint-
     # restored) DKV models on THIS process's devices
@@ -1245,7 +1323,9 @@ def maybe_demote() -> Optional[dict]:
 def follower_lag() -> List[dict]:
     """Per-follower replay progress for GET /3/CloudStatus: last acked
     sequence, ack lag vs the coordinator's published head, incarnation.
-    Truncated (checkpointed) acks count as caught-up-to-checkpoint."""
+    Truncated (checkpointed) acks count as caught-up-to-checkpoint, so
+    every follower has a row even when a checkpoint truncated all of its
+    acks."""
     from h2o3_tpu_torch.parallel import ckpt
 
     head = current_seq()                 # ops < head are published
@@ -1270,7 +1350,8 @@ def follower_lag() -> List[dict]:
                                                    # status route
     base = ckpt.latest_seq()
     exp_incs = expected_incarnations()
-    procs = set(last) | set(exp_incs)
+    procs = set(last) | set(exp_incs) | {
+        p for p in range(D.process_count()) if p != D.leader()}
     rows = []
     for p in sorted(procs):
         la = last.get(p, base if base is not None else -1)

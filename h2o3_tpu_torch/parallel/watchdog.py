@@ -374,6 +374,9 @@ class Watchdog:
         with _LOCK:
             _STATE["ticks"] += 1
             _STATE["last_tick"] = time.time()
+        from h2o3_tpu_torch.obs import metrics as obs_metrics
+
+        obs_metrics.maybe_publish()     # keep this process's series fresh
         try:
             if D.process_count() > 1:
                 oplog.maybe_demote()

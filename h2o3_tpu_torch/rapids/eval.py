@@ -900,6 +900,45 @@ def exec_rapids(expr: str, session: Optional[Session] = None):
 # the extended suites register on import (advmath, time, string, search,
 # mungers, matrix, repeaters, timeseries)
 from h2o3_tpu_torch.rapids import prims_ext as _prims_ext  # noqa: E402,F401
+# prims that need other ranks' rows (reductions, orderings, row
+# selection, group-bys, folds, the quantile family): on a row-sharded
+# frame they refuse with the ROADMAP item (A14.6b), never gathering rows;
+# row-local prims (arithmetic, comparisons, ifelse, cols, casts of
+# values) run shard by shard
+CROSS_ROW_PRIMS = frozenset({
+    "rows", "rbind", "sort", "merge", "unique", "table", "h2o.impute",
+    "na.omit", "h2o.runif", "GB", "mean", "getrow", "sum", "min", "max",
+    "sd", "var", "naCnt", "nacnt", "median", "quantile", "all", "any",
+    "scale", "h2o.splitframe", "cor", "distance", "hist", "skewness",
+    "kurtosis", "mode", "kfold_column", "modulo_kfold_column",
+    "stratified_kfold_column", "h2o.random_stratified_split", "t", "x",
+    "which", "which.max", "which.min", "difflag1", "cut", "h2o.fillna",
+    "filterNACols", "dropdup", "sumaxis", "sumNA", "prod.na", "prod",
+    "mad", "topn", "any.na", "melt", "pivot", "ddply", "apply",
+    "rank_within_groupby", "grouped_permute", "h2o.mad", "isax",
+    "tf-idf", "cumsum", "cumprod", "cummin", "cummax", "asfactor",
+    "as.factor", "entropy"})
+
+
+def _guard_cross_row(fn, name):
+    import functools
+
+    @functools.wraps(fn)
+    def guarded(env, *args):
+        from h2o3_tpu_torch.core.sharded_frame import refuse
+
+        for a in args:
+            if isinstance(a, Frame):
+                refuse(a, f"the Rapids prim {name!r}")
+        return fn(env, *args)
+    return guarded
+
+
+for _nm in CROSS_ROW_PRIMS:
+    if _nm in PRIMS:
+        PRIMS[_nm] = _guard_cross_row(PRIMS[_nm], _nm)
+
+
 # statement fusion (the classification and the planner), imported once
 # the registry is complete
 from h2o3_tpu_torch.rapids import fusion as _fusion  # noqa: E402

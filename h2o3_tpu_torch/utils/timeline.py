@@ -33,6 +33,8 @@ KINDS = frozenset({
                         # rejoins, demotions, job resumes
     "flight",           # flight-recorder dumps (obs/flight.py)
     "job",              # durable job-progress saves (parallel/ckpt.py)
+    "mesh",             # row-mesh process groups built (parallel/mesh.py)
+    "mrtask",           # map_reduce profiles (core/mrtask.py)
     "oplog",            # control-plane checkpoints (parallel/ckpt.py)
     "phase",            # lifecycle phase begin/end (obs/phases.py)
     "profiler",         # /3/Profiler start/stop captures

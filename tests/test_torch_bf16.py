@@ -41,13 +41,16 @@ GLM_TOL = dict(rtol=1e-5, atol=1e-5)
 
 @pytest.fixture()
 def bf16(cl):
-    """Both packages store T_NUM columns in bfloat16 for the test."""
+    """Both packages store T_NUM columns in bfloat16 for the test, and
+    get back the dtype each had before it (not float32: under
+    ``H2O_TPU_NUMERIC_DTYPE=bfloat16`` that is bfloat16, and the files a
+    worker runs after this one must keep it; ROADMAP C45)."""
     th.init(device="cpu")
+    found = (cl.args.numeric_dtype, th.cluster().args.numeric_dtype)
     cl.args.numeric_dtype = "bfloat16"
     th.cluster().args.numeric_dtype = "bfloat16"
     yield cl
-    cl.args.numeric_dtype = "float32"
-    th.cluster().args.numeric_dtype = "float32"
+    cl.args.numeric_dtype, th.cluster().args.numeric_dtype = found
 
 
 def bits_equal(ref, got, ctx=""):
@@ -82,6 +85,9 @@ def num_fixture(n=1000, seed=0):
 def test_opt_in_stores_t_num_as_bf16_at_half_the_bytes(cl, monkeypatch,
                                                        how):
     x = num_fixture()
+    found = (cl.args.numeric_dtype,
+             runtime._CLUSTER.args.numeric_dtype if runtime._CLUSTER
+             else runtime.OptArgs.from_env().numeric_dtype)
     f32 = Column.from_numpy(x, device="cpu").data
     if how == "init":
         th.init(device="cpu", numeric_dtype="bfloat16")
@@ -107,8 +113,9 @@ def test_opt_in_stores_t_num_as_bf16_at_half_the_bytes(cl, monkeypatch,
 
         bits_equal(host(JColumn.from_numpy(x), len(x)), c.to_numpy())
     finally:
-        cl.args.numeric_dtype = "float32"
-        th.init(device="cpu", numeric_dtype="float32")
+        # the dtypes found, not float32 (ROADMAP C45)
+        cl.args.numeric_dtype = found[0]
+        th.init(device="cpu", numeric_dtype=found[1])
 
 
 @pytest.mark.parametrize("how", ["init", "env", "args"])
@@ -436,11 +443,13 @@ def test_card_gbm_on_bf16_equals_cpu():
                                                         training_frame=fr)
         return m, m.predict(fr).col("Y").to_numpy()
 
+    found = (runtime._CLUSTER.args.numeric_dtype if runtime._CLUSTER
+             else runtime.OptArgs.from_env().numeric_dtype)
     try:
         mc, pc = fit("cuda")
         mh, ph = fit("cpu")
     finally:
-        th.init(device="cpu", numeric_dtype="float32")
+        th.init(device="cpu", numeric_dtype=found)
     a, b = forest_arrays(mh.forest), forest_arrays(mc.forest)
     for k in a:
         np.testing.assert_array_equal(b[k], a[k], err_msg=k)
@@ -684,6 +693,7 @@ def bf16_gbm(cl):
     from torch_port_support import carry_forest
 
     th.init(device="cpu")
+    found = (cl.args.numeric_dtype, th.cluster().args.numeric_dtype)
     cl.args.numeric_dtype = "bfloat16"
     th.cluster().args.numeric_dtype = "bfloat16"
     try:
@@ -702,8 +712,8 @@ def bf16_gbm(cl):
         tm = convert.gbm_model_from_numpy(carry_forest(jm))
         yield jf, tf, jm, tm
     finally:
-        cl.args.numeric_dtype = "float32"
-        th.cluster().args.numeric_dtype = "float32"
+        # the dtypes found, not float32 (ROADMAP C45)
+        cl.args.numeric_dtype, th.cluster().args.numeric_dtype = found
 
 
 def test_c41_reference_sums_bf16_weights_in_bf16(bf16, bf16_gbm):

@@ -669,9 +669,7 @@ class TestKVFallbacks:
 # ---------------------------------------------------------------------------
 
 def _acker(kv, stop, proc=1, inc=0):
-    """Stands in for a follower's replay duty: marks each op's progress
-    barrier as passed (the port's train ops keep step at their durable
-    saves, oplog.progress_barrier) and acks every op."""
+    """Stands in for a follower's replay duty: acks every op."""
     while not stop.is_set():
         for k in list(kv.keys()):
             m = re.fullmatch(r"oplog/(\d+)", k)
@@ -681,8 +679,6 @@ def _acker(kv, stop, proc=1, inc=0):
                 rec = json.loads(kv[k])
             except (ValueError, TypeError, KeyError):
                 continue
-            kv[f"oplog/progress/{m.group(1)}/{proc}"] = json.dumps(
-                {"proc": proc, "n": 1 << 30, "done": 0, "inc": inc})
             kv[f"oplog/ack/{m.group(1)}/{proc}"] = json.dumps(
                 {"proc": proc, "ts": time.time(),
                  "op_id": rec.get("op_id"), "inc": inc})
