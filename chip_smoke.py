@@ -952,6 +952,7 @@ def phase_xgboost(h2o, dev, fr):
           "XGBoost probabilities not finite in [0, 1]")
     _retrain_bitwise("XGBoost", m, h2o.XGBoost(
         ntrees=c["ntrees"], seed=c["seed"]).train(y="y", training_frame=fr))
+    RUN["xgb_ref"] = (_digest(m), dt)            # phase 3y
     return launches
 
 
@@ -1567,6 +1568,14 @@ def phase_framework(h2o, dev, fr, dl_model, tmp):
     cvm, hp = out.cross_validation_metrics, out.cross_validation_holdout_predictions
     trains = FRAMEWORK["nfolds"] + 1
     metric("gbm_cv_train_s", dt, f"({trains} trains)")
+    # phase 3y's sharded CV must equal this one bit for bit
+    RUN["gbm_cv_train_s"] = dt
+    RUN["cv_ref"] = {"forest": _digest(m), "folds": [
+        _digest(f) for f in out.cross_validation_models],
+        "auc": cvm.auc, "logloss": cvm.logloss,
+        "fold_digest": out.fold_assignment_digest,
+        "holdout": [_bytes_digest(hp[slice(*_blk(fr.nrows, r))])
+                    for r in (0, 1)]}
     print(f"CV AUC {cvm.auc!r} logloss {cvm.logloss!r}, training AUC "
           f"{out.training_metrics.auc!r}; hist_gather launches "
           f"{launches['gbm_cv']}")
@@ -4306,7 +4315,10 @@ def phase_times(dev, launches, max_err):
                              + launches["grid_resume"] + launches["bf16"]
                              + launches["cloud"]
                              + launches["cloud_resume"]
-                             + launches["sharded"] + launches["nccl"]),
+                             + launches["sharded"] + launches["nccl"]
+                             + launches["sharded_cv"]
+                             + launches["sharded_xgb"]
+                             + launches["sharded_automl"]),
              "max_abs_err": max_err,
              "ms": mean[0], "plain_ms": mean[1], "bound_ms": mean[3],
              "bound_by": "bytes", "library_ms": mean[2],
@@ -4339,10 +4351,21 @@ def _cross_rank_block(flag):
           + ", ".join(f"{k} {v * 1e3:.1f} us" for k, v in mean.items())
           + f"; passes {sum(mean[k] for k in steps[::2]) * 1e3:.1f} us "
           f"beside the one-rank kernel at n=1M {flag[0][0] * 1e3:.1f} us")
+    x0, x1 = RUN["cross_rank_xgb"]
+    for r0, r1 in zip(x0, x1):
+        print(f"time hist_gather cross-rank XGBoost n={r0['n']} a rank "
+              f"maxB 257 int16 S={r0['S']}: {r0['ms'] * 1e3:.1f}/"
+              f"{r1['ms'] * 1e3:.1f} us a call (rank 0/rank 1, host clock, "
+              f"all-reduces included); bitwise with the plain version "
+              f"{r0['bitwise'] and r1['bitwise']}, max_abs_err "
+              f"{max(r0['max_abs_err'], r1['max_abs_err'])!r}")
     return {"S": [r["S"] for r in rows0], "n_per_rank": rows0[0]["n"],
             "ms_mean": mean, "ms_by_S": [r["ms"] for r in rows0],
             "one_rank_ms": flag[0][0], "bitwise": all(
-                r["bitwise"] for r in rows0 + rows1)}
+                r["bitwise"] for r in rows0 + rows1),
+            "xgb_S": [r["S"] for r in x0], "xgb_maxB": 257,
+            "xgb_bins": "int16", "xgb_call_ms_by_S": [r["ms"] for r in x0],
+            "xgb_bitwise": all(r["bitwise"] for r in x0 + x1)}
 
 
 # ---------------------------------------------------------------------------
@@ -4597,8 +4620,9 @@ class _Rest:
                 code, hdrs, raw = r.status, dict(r.headers), r.read()
         except urllib.error.HTTPError as e:
             code, hdrs, raw = e.code, dict(e.headers), e.read()
-        check(code == status, f"{method} {path}: HTTP {code}, expected "
-                              f"{status}: {raw[:300]!r}")
+        check(status is None or code == status,
+              f"{method} {path}: HTTP {code}, expected {status}: "
+              f"{raw[:300]!r}")
         return hdrs, raw
 
     def json(self, method, path, data=None, query=None, status=200):
@@ -5600,6 +5624,24 @@ def _digest(obj, rows=None) -> str:
     return h.hexdigest()
 
 
+def _bytes_digest(a) -> str:
+    """sha256 over an array's bytes (a tensor's on the host)."""
+    import hashlib
+
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    a = np.ascontiguousarray(a)
+    return hashlib.sha256(f"{a.dtype}{a.shape}".encode()
+                          + a.tobytes()).hexdigest()
+
+
+def _blk(n, r, size=2):
+    """Rank r's rows of n on a row mesh of `size` ranks."""
+    from h2o3_tpu_torch.parallel import mesh as M
+
+    return M.row_block(n, r, size)
+
+
 def _write_json(path, obj) -> None:
     import os
 
@@ -5608,14 +5650,18 @@ def _write_json(path, obj) -> None:
     os.replace(path + ".part", path)
 
 
-def cloud_child(outdir: str, rejoin: bool) -> None:
+def cloud_child(outdir: str, rejoin: bool, die_at: str = "") -> None:
     """Phase 3x's follower process (process 1), on the card as the
     coordinator is. It joins the cloud from ``H2O_TPU_COORDINATOR``,
     ``H2O_TPU_NUM_PROCESSES`` and ``H2O_TPU_PROCESS_ID``, rejoins from the
     latest control-plane checkpoint when asked, and replays ops until the
     coordinator's shutdown op. After every op it writes ``status.json``:
     each op's kind and its hist_gather launches, and the digest of every
-    ``cloud_*`` model and frame in its DKV."""
+    ``cloud_*`` model and frame in its DKV. With `die_at`, it kills itself
+    (SIGKILL) in ROADMAP C47's window of the first replayed op whose
+    payload names `die_at`: after the op's collectives, before its rank
+    section and ack (the ``oplog.replay.collectives_done`` fault
+    point)."""
     import os
 
     t0 = time.perf_counter()
@@ -5649,6 +5695,24 @@ def cloud_child(outdir: str, rejoin: bool) -> None:
         _write_json(os.path.join(outdir, "status.json"),
                     {"ops": ops, "digests": digests})
 
+    if die_at:
+        import signal
+
+        from h2o3_tpu_torch.core import failure
+
+        replay, point, now = oplog._replay, failure.faultpoint, {}
+
+        def tracked(seq, kind, payload):
+            now["op"] = json.dumps(payload)
+            return replay(seq, kind, payload)
+
+        def fault(name):
+            if name == "oplog.replay.collectives_done" \
+                    and die_at in now.get("op", ""):
+                os.kill(os.getpid(), signal.SIGKILL)
+            return point(name)
+
+        oplog._replay, failure.faultpoint = tracked, fault
     hg.launches = 0
     cursor = D.rejoin() if rejoin else 0
     status("rejoin" if rejoin else "boot", {})
@@ -5662,7 +5726,7 @@ class _Follower:
     """Phase 3x's child: spawned on the card, its files read, killed in
     the end whatever happened."""
 
-    def __init__(self, store_port, outdir, rejoin):
+    def __init__(self, store_port, outdir, rejoin, die_at=""):
         import os
 
         self.out = outdir
@@ -5677,7 +5741,8 @@ class _Follower:
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(
             [sys.executable, "-c", "import chip_smoke; chip_smoke.cloud_child("
-             f"{outdir!r}, {rejoin!r})"], cwd=root, env=env, stdout=self.log,
+             f"{outdir!r}, {rejoin!r}, {die_at!r})"], cwd=root, env=env,
+            stdout=self.log,
             stderr=subprocess.STDOUT)
 
     def read(self, name):
@@ -6162,6 +6227,144 @@ def phase_cloud(h2o, dev, tmp, csv_path):
 
 SHARD = dict(drf_trees=10, drf_depth=5, glm_rtol=1e-6, mesh_timeout_s="120",
              time_reps=5)
+# phase 3y's munging: an 80/20 split, a sort by one numeric key,
+# an inner join with a 1,000-row lookup on a 1,000-level categorical key
+# (row i's key is level i % 1000), a group-by on the two enums; AutoML's
+# plan, cut to 2 models, 2 folds, GLM and GBM (and their ensembles)
+SHARD_MUNGE = dict(ratios=[0.8], seed=1, sort_key="n0", lookup_rows=1000)
+SHARD_AML = dict(max_models=2, nfolds=2, seed=1,
+                 include_algos=["glm", "gbm", "stackedensemble"])
+
+
+def _munge_steps(h2o, fr):
+    """Phase 3y's munging of the flagship frame `fr`, one process's or a
+    rank's of the row mesh: -> ({name: result frame}, {step: seconds,
+    bytes this process sent through the row exchange, rows gathered})."""
+    from h2o3_tpu_torch.core import sharded_frame as SF
+    from h2o3_tpu_torch.core.frame import Column
+    from h2o3_tpu_torch.ops.filters import split_frame
+    from h2o3_tpu_torch.ops.groupby import GroupBy
+    from h2o3_tpu_torch.ops.merge import merge
+    from h2o3_tpu_torch.ops.sort import sort_frame
+
+    c = SHARD_MUNGE
+    n, L = fr.nrows, c["lookup_rows"]
+    dev = fr.col(0).device
+    dom = [f"k{i:04d}" for i in range(L)]
+    keyed = fr.subframe(fr.names)
+    keyed.add("k", Column.from_numpy(np.arange(n) % L, ctype="enum",
+                                     domain=dom, device=dev))
+    look = h2o.Frame()
+    look.add("k", Column.from_numpy(np.arange(L)[::-1].copy(), ctype="enum",
+                                    domain=dom, device=dev))
+    look.add("w", Column.from_numpy(np.random.default_rng(7)
+                                    .standard_normal(L), device=dev))
+    out, stats = {}, {}
+
+    def step(name, fn):
+        c0 = SF.counters()
+        res, dt = _timed(fn)
+        c1 = SF.counters()
+        stats[name] = {"s": dt, "exchanged_bytes": c1["exchanged_bytes"]
+                       - c0["exchanged_bytes"],
+                       "gathered_rows": c1["gathered_rows"]
+                       - c0["gathered_rows"]}
+        return res
+
+    out["split_0"], out["split_1"] = step("split", lambda: split_frame(
+        fr, c["ratios"], seed=c["seed"]))
+    out["sort"] = step("sort", lambda: sort_frame(fr, c["sort_key"]))
+    out["merge"] = step("merge", lambda: merge(keyed, look))
+    out["groupby"] = step("groupby", lambda: GroupBy(fr, ["c0", "c1"])
+                          .count().mean("n0").sum("n1").min("n2").max("n3")
+                          .get_frame())
+    return out, stats
+
+
+def _same_leaderboard(got, want):
+    """The same models in the same order; tree members' metrics bitwise,
+    the GLM's and the ensembles' within ROADMAP C46's 1e-6."""
+    if [g[0] for g in got] != [w[0] for w in want]:
+        return False
+    for (algo, auc, _ll), (_a, ref, _rl) in zip(got, want):
+        if algo in ("glm", "stackedensemble"):
+            if abs(auc - ref) > SHARD["glm_rtol"] * abs(ref):
+                return False
+        elif auc != ref:
+            return False
+    return True
+
+
+def _leaderboard(aml):
+    return [[r["algo"], r.get("auc"), r.get("logloss")]
+            for r in aml.leaderboard]
+
+
+def _weights_digest(m):
+    return _bytes_digest(np.concatenate([
+        t.detach().cpu().numpy().ravel() for W, b in m.params_tree
+        for t in (W, b)]))
+
+
+def _shard_slice(h2o, dev, fr, m, res):
+    """Phase 3y's munging and trains, run alike by both ranks: the munging,
+    the 5-fold CV GBM, XGBoost at its defaults, DeepLearning for one
+    epoch at phase 3m's net, AutoML; digests of this rank's results and
+    the timings."""
+    from h2o3_tpu_torch.core import sharded_frame
+    from h2o3_tpu_torch.models import deeplearning as dl
+    from h2o3_tpu_torch.models.tree import hist_gather as hg
+
+    sharded_frame.reset_counters()
+    out, res["munge"] = _munge_steps(h2o, fr)
+    res["munge_digests"] = {k: _digest(f) for k, f in out.items()}
+    res["munge_shards"] = {k: list(f.shard) for k, f in out.items()}
+    res["munge_rows"] = {k: f.nrows for k, f in out.items()}
+    del out
+    kw = dict(ntrees=FLAGSHIP["ntrees"], max_depth=FLAGSHIP["max_depth"])
+    hg.launches = 0
+    cv, res["sharded_cv_train_s"] = _timed(lambda: h2o.GBM(
+        nfolds=FRAMEWORK["nfolds"], seed=1,
+        keep_cross_validation_predictions=True, **kw).train(
+        y="y", training_frame=fr))
+    res["cv_launches"] = hg.launches
+    o = cv._output
+    res["cv"] = {"forest": _digest(cv), "folds": [
+        _digest(f) for f in o.cross_validation_models],
+        "auc": o.cross_validation_metrics.auc,
+        "logloss": o.cross_validation_metrics.logloss,
+        "fold_digest": o.fold_assignment_digest,
+        "holdout": _bytes_digest(o.cross_validation_holdout_predictions)}
+    res["gathered_in_munge_cv"] = sharded_frame.counters()["gathered_rows"]
+    hg.launches = 0
+    xgb, res["sharded_xgb_train_s"] = _timed(lambda: h2o.XGBoost(
+        ntrees=XGB["ntrees"], seed=XGB["seed"]).train(y="y",
+                                                      training_frame=fr))
+    res["xgb_launches"] = hg.launches
+    res["xgb_digest"] = _digest(xgb)
+    dl.graph_replays = dl.eager_steps = 0
+    c0 = sharded_frame.counters()["dl_batch_rows"]
+    st0 = m.stats()
+    d, res["sharded_dl_train_s"] = _timed(lambda: h2o.DeepLearning(
+        epochs=1, seed=DL["seed"]).train(y="y", training_frame=fr))
+    st1 = m.stats()
+    res["dl"] = {"weights": _weights_digest(d),
+                 "auc": d._output.training_metrics.auc,
+                 "steps": -(-fr.nrows // DL["batch"]),
+                 "graph_replays": dl.graph_replays,
+                 "dl_batch_rows": sharded_frame.counters()["dl_batch_rows"]
+                 - c0, "collectives": st1["collectives"]
+                 - st0["collectives"]}
+    hg.launches = 0
+    aml, res["sharded_automl_train_s"] = _timed(lambda: h2o.H2OAutoML(
+        project_name="shard_aml", **SHARD_AML).train(y="y",
+                                                     training_frame=fr))
+    res["automl_launches"] = hg.launches
+    res["automl_leaderboard"] = _leaderboard(aml)
+    for k in [k for k in h2o.DKV.keys() if str(k).startswith("shard_aml")]:
+        h2o.DKV.remove(k)
+    for obj in (cv, xgb, d):
+        h2o.DKV.remove(str(obj.key))
 
 
 def _shard_steps(h2o, dev, rank, csv_path, out):
@@ -6241,7 +6444,9 @@ def _shard_steps(h2o, dev, rank, csv_path, out):
         s["value"] for mm in obs_metrics.cluster_aggregate()
         if mm["name"] == "h2o3_tree_trees_built_total"
         for s in mm["samples"]][0]
+    _shard_slice(h2o, dev, fr, m, res)
     res["kernel_times"] = _cross_rank_times(dev, m)
+    res["xgb_kernel_times"] = _cross_rank_times_xgb(dev, m)
     for k in ("shard_flagship.hex", str(gbm.key), str(drf.key),
               str(glm.key), str(pred.key), "shard_cfg"):
         DKV.remove(k)
@@ -6321,6 +6526,232 @@ def _cross_rank_times(dev, m):
     return rows
 
 
+def _check_slice(mine, theirs, munge_ref, munge_rows, one_stats, aml_ref):
+    """Phase 3y's checks of the munging and trains: every rank's munging
+    results, CV GBM, XGBoost forest and AutoML leaderboard against the
+    one-process ones, DeepLearning's weights the same on both ranks; the
+    metrics. Returns the kernel's launches of the sharded trains (rank
+    0)."""
+    kw_levels = FLAGSHIP["ntrees"] * FLAGSHIP["max_depth"]
+    cv_ref, (xgb_dig, xgb_s) = RUN["cv_ref"], RUN["xgb_ref"]
+    for r in (mine, theirs):
+        rk = r["rank"]
+        for k, dig in r["munge_digests"].items():
+            check(r["munge_shards"][k] == list(_blk(munge_rows[k], rk)),
+                  f"rank {rk}: {k} holds {r['munge_shards'][k]}")
+            check(dig == munge_ref[k][rk], f"rank {rk}: the sharded {k} "
+                  "differs from the one-process one")
+        check(r["gathered_in_munge_cv"] == 0, f"rank {rk} gathered "
+              f"{r['gathered_in_munge_cv']} rows munging and in CV")
+        cv = r["cv"]
+        check(cv["forest"] == cv_ref["forest"]
+              and cv["folds"] == cv_ref["folds"],
+              f"rank {rk}: the sharded CV forests differ from phase 3n's")
+        check((cv["auc"], cv["logloss"], cv["fold_digest"])
+              == (cv_ref["auc"], cv_ref["logloss"], cv_ref["fold_digest"]),
+              f"rank {rk}: CV metrics {cv['auc']!r}/{cv['logloss']!r} vs "
+              f"phase 3n's {cv_ref['auc']!r}/{cv_ref['logloss']!r}")
+        check(cv["holdout"] == cv_ref["holdout"][rk],
+              f"rank {rk}: its holdout predictions differ from phase 3n's")
+        check(r["cv_launches"] == (FRAMEWORK["nfolds"] + 1) * kw_levels,
+              f"rank {rk}: {r['cv_launches']} CV launches")
+        check(r["xgb_digest"] == xgb_dig, f"rank {rk}: the sharded XGBoost "
+              "forest differs from phase 3e's")
+        check(r["xgb_launches"] == XGB["ntrees"] * XGB["max_depth"],
+              f"rank {rk}: {r['xgb_launches']} XGBoost launches")
+        check(r["dl"]["auc"] > 0.5 and r["dl"]["dl_batch_rows"] > 0,
+              f"rank {rk}: DeepLearning AUC {r['dl']['auc']!r}")
+        check(_same_leaderboard(r["automl_leaderboard"], aml_ref[0]),
+              f"rank {rk}: AutoML leaderboard {r['automl_leaderboard']} vs "
+              f"one process's {aml_ref[0]}")
+        check(r["automl_launches"] == aml_ref[1],
+              f"rank {rk}: {r['automl_launches']} AutoML launches, the "
+              f"one-process AutoML's {aml_ref[1]}")
+        for row in r["xgb_kernel_times"]:
+            check(row["bitwise"], f"rank {rk}: the cross-rank kernel at "
+                  f"XGBoost's S={row['S']} differs from its plain version")
+    check(mine["dl"]["weights"] == theirs["dl"]["weights"],
+          "DeepLearning's weights differ between the ranks")
+    print("sharded split, sort, merge and group-by bitwise with one "
+          "process's on both ranks; CV GBM forests, metrics and holdout "
+          "predictions bitwise with phase 3n's; XGBoost's forest bitwise "
+          "with phase 3e's; AutoML's leaderboard one process's (its GBM "
+          "bitwise, its GLM and ensembles within C46)")
+    n = FLAGSHIP["n_rows"]
+    for name in ("split", "merge", "groupby"):
+        metric(f"sharded_{name}_s", mine["munge"][name]["s"],
+               f"(one process {one_stats[name]['s']!r})")
+    metric("sharded_sort_rows_per_sec", n / mine["munge"]["sort"]["s"],
+           f"(one process {n / one_stats['sort']['s']!r})")
+    for name, st in mine["munge"].items():
+        print(f"exchanged_bytes {name} {st['exchanged_bytes']} (rank 0), "
+              f"{theirs['munge'][name]['exchanged_bytes']} (rank 1)")
+    metric("sharded_cv_train_s", mine["sharded_cv_train_s"],
+           f"(phase 3n gbm_cv_train_s {RUN['gbm_cv_train_s']!r})")
+    metric("sharded_xgb_train_s", mine["sharded_xgb_train_s"],
+           f"(phase 3e xgb_train_s {xgb_s!r})")
+    d = mine["dl"]
+    metric("sharded_dl_train_s", mine["sharded_dl_train_s"],
+           f"({d['steps']} steps, {d['graph_replays']} graph replays, "
+           f"{d['collectives']} collectives, {d['dl_batch_rows']} batch "
+           "rows fetched)")
+    metric("sharded_automl_train_s", mine["sharded_automl_train_s"],
+           f"(one process {aml_ref[2]!r}; {len(aml_ref[0])} models)")
+    RUN["cross_rank_xgb"] = (mine["xgb_kernel_times"],
+                             theirs["xgb_kernel_times"])
+    return {"sharded_cv": mine["cv_launches"],
+            "sharded_xgb": mine["xgb_launches"],
+            "sharded_automl": mine["automl_launches"]}
+
+
+def _c47_window(h2o, dev, tmp, csv_path, sort_ref):
+    """ROADMAP C47 on the card: a REST cloud of two processes; the cost of
+    the checkpoint a Rapids statement ends in (`op_ckpt_ms` and bytes);
+    then the follower killed in the window of a sort statement (after
+    its last collective, before its rank section and ack), and its rejoin
+    through the joint replay: its rows of the sorted frame bitwise the
+    one-process rows."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from h2o3_tpu_torch.api.server import start_server
+    from h2o3_tpu_torch.parallel import ckpt, oplog, supervisor, watchdog
+    from h2o3_tpu_torch.parallel import distributed as D
+
+    cdir = os.path.join(tmp, "c47")
+    os.makedirs(cdir, exist_ok=True)
+    folls, srv = [], None
+    costs = []
+    write, commit = ckpt.write_checkpoint, ckpt.commit
+
+    def timed_write(seq):
+        t0 = time.perf_counter()
+        path = write(seq)
+        costs.append({"seq": seq, "write_ms": (time.perf_counter() - t0)
+                      * 1e3, "bytes": os.path.getsize(path)})
+        return path
+
+    def timed_commit(rec):
+        t0 = time.perf_counter()
+        commit(rec)
+        for c in costs:
+            if c["seq"] == rec["seq"]:
+                c["commit_ms"] = (time.perf_counter() - t0) * 1e3
+                sec = ckpt._section_path(rec["seq"], 1)
+                c["section_bytes"] = (os.path.getsize(sec)
+                                      if os.path.exists(sec) else 0)
+
+    env = dict(CLOUD, H2O_TPU_AUTO_RECOVER="0",
+               H2O_TPU_OPLOG_CHECKPOINT_OPS="0")
+    with _env(H2O_TPU_OPLOG_CKPT_DIR=os.path.join(cdir, "ckpt"), **env):
+        store = dist.TCPStore("127.0.0.1", 0, 2, True,
+                              timeout=datetime.timedelta(seconds=60),
+                              wait_for_workers=False)
+        D.initialize(store=store, num_processes=2, process_id=0)
+        oplog.reset()
+        supervisor.reset()
+        watchdog.reset()
+        ckpt.write_checkpoint, ckpt.commit = timed_write, timed_commit
+        try:
+            srv = start_server(port=0)
+            R = _Rest(srv.port)
+            folls.append(_Follower(store.port, cdir, rejoin=False,
+                                   die_at="sort"))
+            folls[0].wait("ready.json", what="the follower's boot")
+            _until(lambda: supervisor.state() == supervisor.HEALTHY,
+                   "the two-process cloud HEALTHY")
+            R.import_parse(csv_path, "cloud_c47.hex")
+            costs.clear()
+            for i in range(3):
+                R.json("POST", "/99/Rapids", {
+                    "ast": f"(assign cloud_c47_gb{i} (GB cloud_c47.hex [8] "
+                           "'mean' 0 'all' 'nrow' 0 'all'))",
+                    "session_id": "c47"})
+            done = [c for c in costs if "commit_ms" in c]
+            check(len(done) == 3, f"{len(done)} of 3 Rapids statements "
+                  "ended in a booked checkpoint")
+            ms = [c["write_ms"] + c["commit_ms"] for c in done]
+            metric("op_ckpt_ms", float(np.median(ms)),
+                   f"(median of {ms!r}; snapshot bytes "
+                   f"{[c['bytes'] for c in done]}, follower section bytes "
+                   f"{[c['section_bytes'] for c in done]})")
+            t0 = time.perf_counter()
+            R.call("POST", "/99/Rapids", {
+                "ast": "(assign cloud_c47_sort (sort cloud_c47.hex [0] "
+                       "[1]))", "session_id": "c47"}, status=None)
+            folls[0].proc.wait(CLOUD_DEADLINE_S)
+            check(folls[0].proc.returncode == -9, "the follower was not "
+                  f"killed in the window: {folls[0].tail()}")
+            _until(lambda: supervisor.state() != supervisor.HEALTHY,
+                   "the supervisor seeing the follower gone")
+            folls.append(_Follower(store.port, cdir, rejoin=True))
+            st = folls[1].wait("status.json", lambda d: "cloud_c47_sort"
+                               in d["digests"], "the rejoined sort")
+            check(st["digests"]["cloud_c47_sort"] == sort_ref[1],
+                  "the rejoined follower's rows of the sorted frame differ "
+                  "from the one-process rows")
+            check(_digest(h2o.DKV.get("cloud_c47_sort")) == sort_ref[0],
+                  "the coordinator's rows of the sorted frame differ")
+            _until(lambda: supervisor.state() == supervisor.HEALTHY,
+                   "HEALTHY after the joint replay")
+            metric("c47_rejoin_s", time.perf_counter() - t0,
+                   "(the statement, the kill, the rejoin's joint replay)")
+            oplog.publish("shutdown", {})
+            folls[-1].proc.wait(60)
+        finally:
+            ckpt.write_checkpoint, ckpt.commit = write, commit
+            for f in folls:
+                f.kill()
+            if srv is not None:
+                srv.stop()
+            D.shutdown()
+            oplog.reset()
+            supervisor.reset()
+            watchdog.reset()
+    for k in [k for k in h2o.DKV.keys() if str(k).startswith("cloud_c47")]:
+        h2o.DKV.remove(k)
+    print("C47: the follower killed after the sort's last collective "
+          "rejoined through a joint replay; its rows of the sorted frame "
+          "bitwise the one-process rows")
+
+
+def _cross_rank_times_xgb(dev, m):
+    """The cross-rank histogram at XGBoost's level shapes on the flagship
+    (n = 500k a rank, 10 features of 257 bins as int16, S = 1..32): each
+    call held bitwise against the cross-rank plain version on the same
+    rows, and timed whole on the host clock (its all-reduces stage
+    through the host), best of `time_reps`. Timing launches are not
+    main-path launches."""
+    from h2o3_tpu_torch.models.tree import hist_gather as hg
+
+    rows = []
+    n_all = FLAGSHIP["n_rows"]
+    for i, (_k, _n, S) in enumerate(xgb_level_shapes()):
+        *arrays, TB = hist_case(300 + i, n_all, 10, 257, S)
+        lo, hi = m.rows(n_all)
+        b, nd, w, y, off = _to(dev, *(a[lo:hi] if j < 4 else a
+                                      for j, a in enumerate(arrays)),
+                               bin_dtype=np.int16)
+        saved = hg.launches
+        best = None
+        for _ in range(SHARD["time_reps"]):
+            got, dt = _timed(lambda: hg.hist_gather(
+                b, nd, w, y, offsets=off, TB=TB, S=S, mesh=m,
+                n_global=n_all))
+            best = dt if best is None else min(best, dt)
+        hg.launches = saved
+        ref = hg.hist_gather_ref(b, nd, w, y, offsets=off, TB=TB, S=S,
+                                 mesh=m, n_global=n_all)
+        err = float((got - ref).abs().nan_to_num(0.0).max())
+        rows.append({"n": hi - lo, "S": S, "maxB": 257, "bins": "int16",
+                     "bitwise": bool(torch.equal(got.view(torch.int32),
+                                                 ref.view(torch.int32))),
+                     "max_abs_err": err, "ms": best * 1e3})
+    return rows
+
+
 def shard_child(outdir: str, csv_path: str) -> None:
     """Phase 3y's rank 1, on the card as rank 0 is: it joins the cloud
     from ``H2O_TPU_COORDINATOR``, ``H2O_TPU_NUM_PROCESSES`` and
@@ -6379,8 +6810,21 @@ def phase_sharded(h2o, dev, tmp, csv_path):
                                    max_depth=SHARD["drf_depth"],
                                    seed=1).train(y="y",
                                                  training_frame=ref_fr))
+    # the one-process munging and AutoML the sharded ones must equal
+    out, one_stats = _munge_steps(h2o, ref_fr)
+    munge_ref = {k: [_digest(f, _blk(f.nrows, r)) for r in (0, 1)]
+                 for k, f in out.items()}
+    munge_rows = {k: f.nrows for k, f in out.items()}
+    del out
+    hg.launches = 0
+    aml, aml_s = _timed(lambda: h2o.H2OAutoML(
+        project_name="shard_aml_ref", **SHARD_AML).train(
+        y="y", training_frame=ref_fr))
+    aml_ref = (_leaderboard(aml), hg.launches, aml_s)
+    for k in [k for k in h2o.DKV.keys() if str(k).startswith("shard_aml")]:
+        h2o.DKV.remove(k)
     h2o.DKV.remove("shard_ref.hex")
-    del ref_fr
+    del ref_fr, aml
     launches = {}
     with _env(H2O_TPU_MESH_TIMEOUT_S=SHARD["mesh_timeout_s"]):
         store = dist.TCPStore("127.0.0.1", 0, 2, True,
@@ -6493,6 +6937,9 @@ def phase_sharded(h2o, dev, tmp, csv_path):
                               "from its plain version")
     RUN["cross_rank_times"] = (mine["kernel_times"], theirs["kernel_times"])
     launches["sharded"] = mine["gbm_launches"]
+    launches.update(_check_slice(mine, theirs, munge_ref, munge_rows,
+                                 one_stats, aml_ref))
+    _c47_window(h2o, dev, tmp, csv_path, munge_ref["sort"])
     print(f"follower hist_gather launches (sharded flagship) "
           f"{theirs['gbm_launches']}")
 
@@ -6653,8 +7100,11 @@ def main() -> int:
         banner("phase 3y: frame rows sharded across two processes (two "
                "ranks on the one card over gloo: the flagship imported and "
                "trained, a DRF, the bench GLM, 1M predictions, the DKV and "
-               "/3/Metrics across processes, the cross-rank kernel timed; "
-               "then a one-rank NCCL train)")
+               "/3/Metrics across processes; split, sort, merge, group-by, "
+               "5-fold CV, XGBoost, DeepLearning and AutoML across the "
+               "ranks; the cross-rank kernel timed; a follower killed after "
+               "a sort's last collective rejoins; then a one-rank NCCL "
+               "train)")
         launches.update(phase_sharded(h2o, dev, tmp, flag_csv))
         banner("phase 4: card vs CPU")
         phase_card_vs_cpu(h2o, dev, parse_path)

@@ -12,6 +12,15 @@ Every candidate trains through its builder on the one device, driven by
 the in-process search engine (`automl/search.py`); every base model
 shares one pinned seed, so their CV folds agree and the stacked
 ensembles can combine their holdout predictions.
+
+On a row-sharded training frame every rank runs the same members, one
+after another (the device lane, C27, with no overlap), and issues the
+same collectives in the same order. So no rank decides alone on time:
+the members get no time budget of their own, and the run's budget is
+read at member boundaries as an all-reduced "out of time" flag. A plan
+whose member cannot train across ranks (a builder that is not
+row-sharded, GLM on a multiclass response, the target-encoding stage)
+is refused before any member runs, naming ROADMAP A14.6c.
 """
 
 from __future__ import annotations
@@ -151,17 +160,31 @@ class H2OAutoML:
               training_frame: Optional[Frame] = None,
               validation_frame: Optional[Frame] = None,
               leaderboard_frame: Optional[Frame] = None) -> "H2OAutoML":
-        from h2o3_tpu_torch.core.sharded_frame import refuse
-
-        refuse(training_frame, "AutoML")
         from h2o3_tpu_torch.automl.search import SearchEngine
         from h2o3_tpu_torch.automl.steps import REGISTRY, exploitation_steps
+        from h2o3_tpu_torch.core import sharded_frame as SF
         from h2o3_tpu_torch.models.model_builder import BUILDERS
 
         if training_frame is None or y is None:
             raise ValueError("AutoML requires y and training_frame")
         y_col = training_frame.col(y)
         classification = y_col.is_categorical
+        mesh = (SF.mesh_of(training_frame) if SF._is_sharded(training_frame)
+                else None)
+        if mesh is not None:
+            self._refuse_unsharded_plan(training_frame, y_col, classification)
+
+        def past(deadline) -> bool:
+            # one verdict for every rank of a mesh: the slowest rank's
+            if deadline is None:
+                return False
+            late = time.time() >= deadline
+            if mesh is None:
+                return late
+            import torch
+
+            flag = torch.tensor([int(late)], dtype=torch.int64)
+            return bool(mesh.all_reduce(flag, "max")[0])
         if self.sort_metric in ("AUTO", None, ""):
             self._metric_name = ("auc" if classification
                                  and y_col.cardinality == 2
@@ -245,7 +268,7 @@ class H2OAutoML:
                 if model_cap and len(self.models) + inflight >= model_cap:
                     box["stopped"] = True
                     return False
-                if budget_end is not None and budget_end - time.time() <= 0:
+                if past(budget_end):
                     if not box["stopped"]:
                         self._log("time budget exhausted")
                     box["stopped"] = True
@@ -255,7 +278,7 @@ class H2OAutoML:
             def build(mem):
                 st = mem["_step"]
                 algo, params = st["algo"], dict(st["params"])
-                if budget_end is not None:
+                if budget_end is not None and mesh is None:
                     remaining = max(budget_end - time.time(), 0.0)
                     rem_weight = max(total_weight - box["spent"], 1)
                     alloc = remaining * st["weight"] / rem_weight
@@ -264,6 +287,11 @@ class H2OAutoML:
                               f"of {remaining:.1f}s remaining")
                 box["spent"] += st["weight"]
                 params.update(seed=self.seed)
+                if mesh is not None:
+                    # every rank's member gets the same key (a random one
+                    # would differ between the processes)
+                    params.setdefault("model_id",
+                                      f"{self.project_name}_{st['name']}")
                 if self.nfolds:
                     params.update(nfolds=self.nfolds,
                                   keep_cross_validation_predictions=True)
@@ -319,7 +347,7 @@ class H2OAutoML:
         run_steps(plan, explore_end, explore_cap)
 
         # exploitation (group 60): refine each family's current best
-        if budget_end is None or time.time() < budget_end:
+        if not past(budget_end):
             best_by_algo = {}
             for m in self._ranked():
                 best_by_algo.setdefault(m.algo_name, m)
@@ -333,7 +361,7 @@ class H2OAutoML:
         # reserved slots exploitation could not use go back to the steps
         # the reserve skipped (not to failed ones), so max_models fills
         if self.max_models and len(self.models) < self.max_models and \
-                (budget_end is None or time.time() < budget_end):
+                not past(budget_end):
             leftover = [st for st in plan
                         if "model_id" not in st and not st.get("failed")]
             if leftover:
@@ -347,6 +375,25 @@ class H2OAutoML:
         engine.finish()
         self._log(f"AutoML done: {len(self.models)} models")
         return self
+
+    def _refuse_unsharded_plan(self, train: Frame, y_col, classification):
+        """Refuse, before any member runs, a plan with a member that
+        cannot train on the row-sharded `train` (ROADMAP A14.6c)."""
+        from h2o3_tpu_torch.core.sharded_frame import refuse
+        from h2o3_tpu_torch.models.model_builder import BUILDERS
+
+        if "target_encoding" in self.preprocessing:
+            refuse(train, "AutoML's target-encoding stage")
+        algos = {st["algo"] for st in self._steps(classification)}
+        if self.nfolds and "stackedensemble" not in self.exclude_algos:
+            algos.add("stackedensemble")
+        for a in sorted(algos):
+            if a in BUILDERS and not BUILDERS[a].row_sharded:
+                refuse(train, f"AutoML's {a} member")
+        if classification and y_col.cardinality > 2 and (
+                "glm" in algos or "stackedensemble" in algos):
+            refuse(train, "AutoML's multinomial GLM (a member or a "
+                          "stacked ensemble's metalearner)")
 
     def _build_ensembles(self, y: str, train: Frame):
         """StackedEnsemble_BestOfFamily (each family's best) and
@@ -369,8 +416,13 @@ class H2OAutoML:
             try:
                 # metalearner_nfolds = AutoML's nfolds, so the ensemble's
                 # rank metric is a CV metric like its bases'
+                from h2o3_tpu_torch.core import sharded_frame as SF
+
+                key = (f"{self.project_name}_StackedEnsemble_{name}"
+                       if SF._is_sharded(train) else None)
                 se = StackedEnsemble(base_models=bases, seed=self.seed,
                                      metalearner_nfolds=self.nfolds,
+                                     model_id=key,
                                      ).train(y=y, training_frame=train)
                 se._se_name = f"StackedEnsemble_{name}"
                 self.models.append(se)

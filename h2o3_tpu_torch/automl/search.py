@@ -59,6 +59,7 @@ replay through `apply_resume_op`.
 from __future__ import annotations
 
 import os
+import contextlib
 import threading
 from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
 from typing import Any, Callable, Dict, List, Optional
@@ -119,10 +120,15 @@ def search_ckpt_enabled() -> bool:
 
 
 def _mirrored() -> bool:
+    """True where every rank must walk the members in one order with no
+    per-process timer: a mirrored cloud, or a row mesh of ranks."""
     from h2o3_tpu_torch.parallel import distributed as D
+    from h2o3_tpu_torch.parallel import mesh as M
     from h2o3_tpu_torch.parallel import oplog
 
-    return oplog.active() or D.process_count() > 1
+    m = M.current()
+    return (oplog.active() or D.process_count() > 1
+            or (m is not None and m.size > 1))
 
 
 def member_deadline_s() -> float:
@@ -372,10 +378,23 @@ class SearchEngine:
                       dest=m.get("model_id"))
             box: Dict[str, Any] = {}
             started = threading.Event()
+            from h2o3_tpu_torch.parallel import mesh as M
 
-            def work(j, _m=m, _box=box, _started=started):
+            # the member's thread joins this rank's mesh; ranks run their
+            # members one after another, each in step with its peers, so
+            # the process-wide lane (which ranks run as threads would
+            # share) is not taken there
+            from h2o3_tpu_torch.parallel import oplog
+
+            mesh = M.current()
+            lane = (_DEVICE_LANE if mesh is None or mesh.size == 1
+                    else contextlib.nullcontext())
+            # and the op it runs under: its collectives are the op's
+            opctx = oplog.op_context()
+
+            def work(j, _m=m, _box=box, _started=started, _lane=lane):
                 try:
-                    with _DEVICE_LANE:
+                    with _lane, M.use(mesh), oplog.adopt_op_context(opctx):
                         _started.set()
                         _box["model"] = build_fn(_m)
                 except BaseException as e:

@@ -37,6 +37,9 @@ from typing import Any, Callable, Optional
 from h2o3_tpu_torch.core.dkv import DKV, Key, Keyed
 
 
+_PROGRESS_PREFIX = "jobs/progress/"
+
+
 class JobCancelled(Exception):
     pass
 
@@ -148,6 +151,22 @@ class Job(Keyed):
         self.progress = float(progress)
         if msg:
             self.progress_msg = msg
+
+    def publish_progress(self) -> None:
+        """On a multi-process cloud, write this job's progress to the
+        cloud's KV (``jobs/progress/{process}``)."""
+        from h2o3_tpu_torch.parallel import distributed as D
+
+        if D.process_count() > 1:
+            import json
+
+            D.kv_put(f"{_PROGRESS_PREFIX}{D.process_index()}",
+                     json.dumps({"proc": D.process_index(),
+                                 "job": str(self.key), "dest": self.dest,
+                                 "description": self.description,
+                                 "progress": self.progress,
+                                 "msg": self.progress_msg,
+                                 "ts": time.time()}))
 
     def fail(self, exception_text: str) -> None:
         """Mark FAILED from outside the worker thread (the worker may never

@@ -22,13 +22,39 @@ from h2o3_tpu_torch.core.frame import Column, Frame
 
 def _device_mode(col: Column) -> int:
     """Most frequent level of a categorical column (the first on ties),
-    counted on the column's device."""
+    counted on the column's device (over every rank of a row mesh)."""
+    from h2o3_tpu_torch.core.sharded_frame import mesh_of
+
     card = max(col.cardinality, 1)
     codes = col.data.long()
     valid = codes >= 0
     counts = torch.zeros(card, dtype=torch.int64, device=codes.device)
     counts.index_add_(0, torch.clamp_min(codes, 0), valid.long())
+    mesh = mesh_of(col)
+    if mesh is not None:
+        mesh.all_reduce(counts, "sum")
     return int(torch.argmax(counts))
+
+
+def exact_moments(col: Column):
+    """(mean, sigma) of a numeric column from the order-free fixed-point
+    sums of its float32 values and their squares (core/ops): the same
+    bits on every device and for every split of the rows into ranks,
+    finished as the rollups finish theirs."""
+    from h2o3_tpu_torch.core.frame import widen
+    from h2o3_tpu_torch.core.ops import fixed_point_sums
+    from h2o3_tpu_torch.core.sharded_frame import mesh_of
+
+    x = widen(col.data).float()
+    valid = ~torch.isnan(x)
+    x = torch.where(valid, x, 0.0)
+    n, s, ss = fixed_point_sums(torch.stack([valid.float(), x, x * x], 1),
+                                mesh_of(col)).tolist()
+    if not n:
+        return float("nan"), 0.0
+    mean = s / n
+    var = max(ss / n - mean * mean, 0.0)
+    return mean, float(np.sqrt(var * n / (n - 1))) if n > 1 else 0.0
 
 
 class DataInfo:
@@ -44,7 +70,8 @@ class DataInfo:
                  *, ignored: Sequence[str] = (),
                  weights: Optional[str] = None, offset: Optional[str] = None,
                  standardize: bool = True, use_all_factor_levels: bool = False,
-                 missing_values_handling: str = "MeanImputation"):
+                 missing_values_handling: str = "MeanImputation",
+                 exact: bool = False):
         self.response_name = response
         self.weights_name = weights
         self.offset_name = offset
@@ -65,11 +92,17 @@ class DataInfo:
         self.cards = [len(self.domains[n]) for n in self.cat_names]
         self._recompute_layout(use_all_factor_levels)
 
+        # `exact`: moments that do not depend on how the rows are split
+        # (DeepLearning's weights across ranks are one process's)
         means, sigmas = [], []
         for n in self.num_names:
-            r = frame.col(n).rollups
-            means.append(r.mean)
-            sigmas.append(r.sigma if r.sigma and r.sigma > 0 else 1.0)
+            if exact:
+                mean, sigma = exact_moments(frame.col(n))
+            else:
+                r = frame.col(n).rollups
+                mean, sigma = r.mean, r.sigma
+            means.append(mean)
+            sigmas.append(sigma if sigma and sigma > 0 else 1.0)
         modes = [_device_mode(frame.col(n)) for n in self.cat_names]
         self.num_means = np.asarray(means, np.float32)
         self.num_sigmas = (np.asarray(sigmas, np.float32) if sigmas

@@ -32,10 +32,25 @@ give the same weights bit for bit (`DeepLearning._force_eager` runs the
 eager loop there for that check). A graph that fails to capture raises:
 there is no fallback.
 
-One device, so the reference's synchronous path: its per-device model
-averaging (`train_samples_per_iteration`, :381-433) runs only on a mesh
-of more than one device, and the port reads the parameter as the
-reference does on one.
+Across ranks (a row-sharded cloud), both of the reference's paths:
+- **Synchronous** (the default): every rank draws the same global
+  batch rows from the same key chain. Once per chunk, before the
+  chunk's replays, the drawn rows are fetched from the ranks that hold
+  them (one all-gather of each rank's share) into fixed chunk buffers,
+  and the step reads its batch from those through the same device
+  counter: no exchange per step, and the graph is the one-process
+  graph. The weights are one process's bit for bit; the fetched rows
+  are counted in ``dl_batch_rows``.
+- **Model averaging** (`train_samples_per_iteration` > batch × N, the
+  reference's :377-433): each epoch's key is split once, each rank
+  walks `fold_in(sub, rank)`'s chain for `avg_period` local steps on
+  its own rows, then the weights and the optimizer's float moments are
+  all-reduced to their mean (SGD's step count, the reference's integer
+  leaf, is left alone); ceil(steps / avg_period) such rounds an epoch.
+In one process the parameter is read as the reference reads it on one
+device (no averaging). The training loss that scoring history and early
+stopping read is the fixed-point mean over every row (the same bits in
+one process and across ranks).
 
 Durable job progress (reference :170, :457-489): every
 ``H2O_TPU_JOB_CKPT_ITERS`` epochs the weights, the optimizer's state,
@@ -142,38 +157,59 @@ def make_loss(*, activation: str, autoencoder: bool, nclasses: int,
     the weight matrices. masks None means no dropout."""
     classes = torch.arange(max(nclasses, 1), device=device)
 
-    def loss_fn(flat, xb, yb, wb, masks):
+    def per_row_loss(flat, xb, yb, masks):
         pairs = list(zip(flat[0::2], flat[1::2]))
         out = _forward(pairs, xb, activation, masks, input_dropout,
                        hidden_dropout)
         if autoencoder:
-            per_row = torch.mean((out - xb) ** 2, dim=-1)
-        elif nclasses > 1:
+            return torch.mean((out - xb) ** 2, dim=-1)
+        if nclasses > 1:
             # the label's log-probability: a select and a sum, so the
             # backward has no scatter
             logp = torch.log_softmax(out, dim=-1)
-            per_row = -torch.sum(torch.where(
+            return -torch.sum(torch.where(
                 yb[:, None] == classes[None, :], logp, 0.0), dim=-1)
-        else:
-            f = out[:, 0]
-            if loss == "absolute":
-                per_row = torch.abs(yb - f)
-            elif loss == "huber":
-                d = torch.abs(yb - f)
-                per_row = torch.where(d <= 1.0, 0.5 * d * d, d - 0.5)
-            else:
-                per_row = 0.5 * (yb - f) ** 2
+        f = out[:, 0]
+        if loss == "absolute":
+            return torch.abs(yb - f)
+        if loss == "huber":
+            d = torch.abs(yb - f)
+            return torch.where(d <= 1.0, 0.5 * d * d, d - 0.5)
+        return 0.5 * (yb - f) ** 2
+
+    def reg(flat):
+        out = 0.0
+        for W in flat[0::2]:
+            out = (out + l1 * torch.sum(torch.abs(W))
+                   + (l2 * 0.5) * torch.sum(W * W))
+        return out
+
+    def loss_fn(flat, xb, yb, wb, masks):
+        per_row = per_row_loss(flat, xb, yb, masks)
         data_loss = (torch.sum(per_row * wb)
                      / torch.clamp_min(torch.sum(wb), 1.0))
         if l1 > 0 or l2 > 0:
-            reg = 0.0
-            for W in flat[0::2]:
-                reg = (reg + l1 * torch.sum(torch.abs(W))
-                       + (l2 * 0.5) * torch.sum(W * W))
-            return data_loss + reg
+            return data_loss + reg(flat)
         return data_loss
 
+    loss_fn.per_row = per_row_loss
+    loss_fn.reg = reg if (l1 > 0 or l2 > 0) else None
     return loss_fn
+
+
+def scored_loss(loss_fn, params, X, y, w, mesh=None) -> float:
+    """The training loss scoring history and early stopping read: the
+    weighted mean per-row loss over every row (fixed-point sums, over
+    every rank of `mesh`) plus the regularisation."""
+    from h2o3_tpu_torch.core.ops import fixed_point_sums
+
+    with torch.no_grad():
+        pr = loss_fn.per_row(params, X, y, None)
+        nd = fixed_point_sums(torch.stack([pr * w, w], 1), mesh)
+        out = (nd[0] / torch.clamp_min(nd[1], 1.0)).float()
+        if loss_fn.reg is not None:
+            out = out + loss_fn.reg(params)
+    return float(out)
 
 
 class DeepLearningModel(Model):
@@ -250,8 +286,7 @@ class _StepLoop:
 
     def __init__(self, X, y, w, params, opt, loss_fn, *, n: int, batch: int,
                  widths: List[int], input_dropout: float, hidden_dropout,
-                 steps: int, use_graph: bool):
-        self.X, self.y, self.w = X, y, w
+                 steps: int, use_graph: bool, mesh=None, lo: int = 0):
         self.params, self.opt, self.loss_fn = params, opt, loss_fn
         self.n, self.batch = n, batch
         self.widths = widths
@@ -260,7 +295,21 @@ class _StepLoop:
         rates = _dropout_rates(widths, input_dropout, hidden_dropout)
         per_step = batch * (8 + sum(wd for r, wd in zip(rates, widths)
                                     if r > 0))
+        if mesh is not None:
+            # the synchronous path's chunk buffers hold each step's rows
+            per_step += batch * 4 * (X.shape[1] + 2)
         self.chunk = max(1, min(steps, CHUNK_BYTES // per_step))
+        # the synchronous path across ranks: this rank's rows, and the
+        # buffers each chunk's drawn rows are fetched into
+        self.mesh, self.lo = mesh, lo
+        if mesh is None:
+            self.X, self.y, self.w = X, y, w
+        else:
+            self.src = (X, y, w)
+            rows = self.chunk * batch
+            self.X = torch.zeros(rows, X.shape[1], dtype=X.dtype, device=dev)
+            self.y = torch.zeros(rows, dtype=y.dtype, device=dev)
+            self.w = torch.zeros(rows, dtype=w.dtype, device=dev)
         self.idx = torch.zeros(self.chunk, batch, dtype=torch.int64,
                                device=dev)
         self.masks = [torch.zeros(self.chunk, batch, wd, dtype=torch.bool,
@@ -312,6 +361,31 @@ class _StepLoop:
                     self._step(self.params, self.opt, self.slot)
         self.graph = g
 
+    def _fetch(self, ids: torch.Tensor) -> None:
+        """The synchronous path: the rows `ids` (global, the same on every
+        rank) from the ranks that hold them, into the chunk buffers; the
+        chunk's steps then read rows 0, 1, ... of them."""
+        from h2o3_tpu_torch.core import sharded_frame as SF
+
+        X, y, w = self.src
+        flat = ids.reshape(-1)
+        owner = SF.owner_of(flat, self.n, self.mesh.size)
+        order = torch.argsort(owner, stable=True)
+        mine = flat[order][owner[order] == self.mesh.rank] - self.lo
+        part = torch.cat([X.index_select(0, mine),
+                          y.index_select(0, mine).float()[:, None],
+                          w.index_select(0, mine)[:, None]], 1)
+        got = self.mesh.all_gather(part)
+        rows = torch.empty_like(got)
+        rows[order] = got
+        k = len(flat)
+        self.X[:k] = rows[:, :-2]
+        self.y[:k] = rows[:, -2].to(self.y.dtype)
+        self.w[:k] = rows[:, -1]
+        self.idx[: len(ids)] = torch.arange(
+            k, device=self.idx.device).view(len(ids), self.batch)
+        SF.note_dl_batch_rows(k - len(mine))
+
     def epoch(self, key: torch.Tensor, steps: int) -> torch.Tensor:
         """`steps` steps from `key`; returns the key after them."""
         global graph_replays, eager_steps
@@ -322,8 +396,11 @@ class _StepLoop:
         for c0 in range(0, steps, self.chunk):
             m = min(self.chunk, steps - c0)
             keys = sub[c0:c0 + m].to(dev)
-            self.idx[:m] = rnd.randint(keys[:, 0], (self.batch,), 0,
-                                       self.n).long()
+            drawn = rnd.randint(keys[:, 0], (self.batch,), 0, self.n).long()
+            if self.mesh is not None:
+                self._fetch(drawn)
+            else:
+                self.idx[:m] = drawn
             if any(mk is not None for mk in self.masks):
                 drawn = dropout_masks(keys[:, 1], self.batch, self.widths,
                                       self.in_drop, self.hid_drop)
@@ -348,6 +425,7 @@ class _StepLoop:
 class DeepLearning(ModelBuilder):
     algo_name = "deeplearning"
     model_class = DeepLearningModel
+    row_sharded = True
     supports_checkpoint = True
     supports_iteration_resume = True
     # the eager loop on the card too, to hold the graph loop against it
@@ -414,21 +492,29 @@ class DeepLearning(ModelBuilder):
                           weights=p.get("weights_column"),
                           standardize=bool(p.get("standardize", True)),
                           use_all_factor_levels=bool(
-                              p.get("use_all_factor_levels", True)))
+                              p.get("use_all_factor_levels", True)),
+                          exact=True)
         n = train.nrows
         activation = (p.get("activation") or "Rectifier").lower()
         if activation not in ACTIVATIONS:
             raise ValueError(f"unknown activation {p['activation']!r}")
         hidden = [int(h) for h in (p.get("hidden") or [200, 200])]
         seed = self._seed()
+        from h2o3_tpu_torch.core import sharded_frame as SF
+
+        mesh = SF.mesh_of(train) if SF._is_sharded(train) else None
+        if mesh is not None:
+            if autoencoder:
+                SF.refuse(train, "a DeepLearning autoencoder")
+            seed = SF.agreed_int(mesh, seed)
 
         nclasses = 1
         X = di.expand(*(c.data for c in di.cols(train)))
         dev = X.device
         wc = p.get("weights_column")
         if autoencoder:
-            y = torch.zeros(n, dtype=torch.float32, device=dev)
-            row_w = torch.ones(n, dtype=torch.float32, device=dev)
+            y = torch.zeros(len(X), dtype=torch.float32, device=dev)
+            row_w = torch.ones(len(X), dtype=torch.float32, device=dev)
         else:
             y_col = train.col(resp)
             if y_col.is_categorical:
@@ -494,11 +580,39 @@ class DeepLearning(ModelBuilder):
                             input_dropout=in_drop, hidden_dropout=hid_drop,
                             device=dev)
 
-        loop = _StepLoop(X, y, row_w, params, opt, loss_fn, n=n, batch=batch,
+        # model averaging across ranks (the reference's :377-433)
+        tspi = int(p.get("train_samples_per_iteration", 0) or 0)
+        n_dev = mesh.size if mesh is not None else 1
+        avg_period = (max(1, tspi // max(batch * n_dev, 1)) if tspi > 0
+                      else 1)
+        averaging = avg_period > 1 and n_dev > 1
+        sync = mesh is not None and not averaging
+        loop = _StepLoop(X, y, row_w, params, opt, loss_fn,
+                         n=len(X) if averaging else n, batch=batch,
                          widths=[di.fullN] + hidden, input_dropout=in_drop,
-                         hidden_dropout=hid_drop, steps=steps_per_epoch,
+                         hidden_dropout=hid_drop,
+                         steps=avg_period if averaging else steps_per_epoch,
                          use_graph=dev.type == "cuda"
-                         and not self._force_eager)
+                         and not self._force_eager,
+                         mesh=mesh if sync else None,
+                         lo=train.shard[0] if sync else 0)
+        moments = (opt.e_g + opt.e_x if isinstance(opt, Adadelta)
+                   else opt.trace)
+
+        def run_epoch(key):
+            if not averaging:
+                return loop.epoch(key, steps_per_epoch)
+            ks = rnd.split(key, 2)
+            key, key_l = ks[0], rnd.fold_in(ks[1], mesh.rank)
+            for _ in range(max(int(math.ceil(steps_per_epoch
+                                             / avg_period)), 1)):
+                key_l = loop.epoch(key_l, avg_period)
+                with torch.no_grad():
+                    for t in params + moments:
+                        t.copy_(mesh.all_reduce(t.detach().clone()
+                                                .contiguous(), "sum")
+                                / mesh.size)
+            return key
 
         key = rnd.PRNGKey(seed)
         if ep_start:
@@ -534,10 +648,9 @@ class DeepLearning(ModelBuilder):
                                              rs["scoring_history"]]
         every = self._job_ckpt_every()
         for ep in range(ep_start, n_epochs):
-            key = loop.epoch(key, steps_per_epoch)
+            key = run_epoch(key)
             ep_done = ep + 1
-            with torch.no_grad():
-                tr_loss = float(loss_fn(params, X, y, row_w, None))
+            tr_loss = scored_loss(loss_fn, params, X, y, row_w, mesh)
             model._output.scoring_history.append(
                 {"epoch": ep + 1, "training_loss": tr_loss})
             history.append(tr_loss)

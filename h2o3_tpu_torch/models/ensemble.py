@@ -12,6 +12,11 @@ The metalearner trains on it: AUTO is a non-negative GLM without
 regularisation; GLM, GBM, DRF and DeepLearning are the port's builders.
 Scoring runs each base model's scoring on the frame's device and the
 metalearner's on their stacked outputs.
+
+On a row-sharded cloud the base models' holdout predictions are each
+rank's block of rows (models/model_builder.py), so the level-one frame
+is built from them in place, in `mesh.row_block`s, and the metalearner
+trains across the ranks like any row-sharded GLM.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from __future__ import annotations
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from h2o3_tpu_torch.core.dkv import DKV
 from h2o3_tpu_torch.core.frame import Column, Frame, T_NUM
@@ -97,6 +103,7 @@ def _metalearner(algo: str, mparams: dict, y_col: Column) -> ModelBuilder:
 class StackedEnsemble(ModelBuilder):
     algo_name = "stackedensemble"
     model_class = StackedEnsembleModel
+    row_sharded = True
 
     @classmethod
     def default_params(cls):
@@ -136,13 +143,17 @@ class StackedEnsemble(ModelBuilder):
                     f"base model {bm.key} lacks cross-validation predictions "
                     "(train with nfolds>1 and "
                     "keep_cross_validation_predictions=True)")
-            if len(cvp) != n:
+            # one process: n rows on the host; a row-sharded cloud: this
+            # rank's block, a tensor
+            sharded = isinstance(cvp, torch.Tensor)
+            if len(cvp) != (train.local_rows if sharded else n):
                 raise ValueError(f"base model {bm.key} was trained on a "
                                  "different frame")
             raw = {"probs": cvp} if cvp.ndim == 2 else {"value": cvp}
             for name, arr in _level_one_columns(raw, str(bm.key)).items():
-                lf.add(name, Column.from_numpy(np.ascontiguousarray(arr),
-                                               device=dev))
+                lf.add(name, Column(arr.contiguous().to(dev), T_NUM, n)
+                       if sharded else Column.from_numpy(
+                           np.ascontiguousarray(arr), device=dev))
         lf.add(resp, train.col(resp))
         if p.get("weights_column"):
             lf.add(p["weights_column"], train.col(p["weights_column"]))

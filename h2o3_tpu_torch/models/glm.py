@@ -41,8 +41,10 @@ On a row-sharded cloud each rank expands its own rows; the Gram and the
 IRLS vectors are float64 partials all-reduced before the solve (and
 rounded once to float32, as in one process), and the weighted means and
 deviances are all-reduced too, so every rank solves the same system and
-stops at the same iteration. Multinomial, ordinal, the lambda search and
-p-values on a sharded frame are ROADMAP A14.6b.
+stops at the same iteration. The lambda search takes lambda_max from the
+all-reduced null-model gradient and its fits reuse the all-reduced Gram;
+the p-values invert the all-reduced information matrix. Multinomial and
+ordinal on a sharded frame are ROADMAP A14.6c.
 """
 
 from __future__ import annotations
@@ -633,11 +635,9 @@ class GLM(ModelBuilder):
 
         mesh = sharded_frame.mesh_of(train)
         if mesh is not None:
-            fam = str(self.params.get("family") or "").lower()
-            if fam in ("multinomial", "ordinal") or self.params.get(
-                    "lambda_search") or self.params.get("compute_p_values"):
-                sharded_frame.refuse(train, f"GLM family={fam} with "
-                                            "lambda_search or p-values")
+            fam = self._resolve_family(train)
+            if fam in ("multinomial", "ordinal"):
+                sharded_frame.refuse(train, f"GLM family={fam}")
         prev = _fit_mesh()
         _FIT.mesh = mesh
         try:
@@ -825,7 +825,7 @@ class GLM(ModelBuilder):
         keeps the last fit that still improved. -> (beta, deviance, fits,
         chosen lambda)."""
         p = self.params
-        ybar = float(torch.sum(wts * y) / nobs)
+        ybar = float(_sum(wts * y) / nobs)
         _, g = _gram(X, wts, y - ybar)
         lam_max = float(torch.max(torch.abs(g))) / max(alpha, 1e-3) / nobs
         nl = int(p.get("nlambdas", 30))

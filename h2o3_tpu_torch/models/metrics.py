@@ -9,12 +9,15 @@ one device pass accumulates per-bin positive/negative weight, the ROC
 sweep and the gains/lift table (`gains_lift`, metrics.py:268) run on the
 host over the same histogram.
 
-On a row-sharded cloud (``mesh=``) each rank makes the partials and the
-score histograms over its rows and the row mesh sums them (float32
-partials added in float64, the histograms' float64 bins); `compute_auc`
-and the gains/lift table then run on the reduced histograms, the same
-on every rank. With unit weights the histograms count rows, so the AUC
-is the one-process AUC exactly.
+The sums behind logloss, MSE and the other means are the order-free
+fixed-point sums of the per-row float32 terms (core/ops.fixed_point_sums):
+the same bits on the card, on the CPU and for any split of the rows.
+On a row-sharded cloud (``mesh=``) each rank makes them and the score
+histograms over its rows and the row mesh sums them (the histograms'
+float64 bins); `compute_auc` and the gains/lift table then run on the
+reduced histograms, the same on every rank. With unit weights the
+histograms count rows, so the AUC is the one-process AUC exactly, and
+the other metrics are one process's bit for bit.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import numpy as np
 import torch
 
 from h2o3_tpu_torch.core.frame import widen
-from h2o3_tpu_torch.core.ops import segment_sum
+from h2o3_tpu_torch.core.ops import fixed_point_sums, segment_sum
 
 NBINS = 400
 
@@ -45,31 +48,28 @@ def _binomial_hist(y, p, w, nbins: int = NBINS, mesh=None):
 
 
 def _reduced(parts: dict, mesh) -> dict:
-    """Partials as host floats: summed over the ranks of `mesh` (each
-    rank's float32 partial added in float64), or this process's."""
-    if mesh is None:
-        return {k: float(v) for k, v in parts.items()}
+    """Per-row float32 terms -> their sums as host floats: the
+    fixed-point sums over this process's rows, or over every rank of
+    `mesh`."""
     keys = sorted(parts)
-    vec = torch.stack([parts[k].double().reshape(()) for k in keys])
-    vals = mesh.all_reduce(vec.contiguous(), "sum").tolist()
+    rows = torch.stack([parts[k].reshape(-1).float() for k in keys], 1)
+    vals = fixed_point_sums(rows, mesh).tolist()
     return dict(zip(keys, vals))
 
 
 def _regression_partials(y, f, w):
     d = y - f
-    return {"wsum": torch.sum(w), "se": torch.sum(w * d * d),
-            "ae": torch.sum(w * torch.abs(d)), "ysum": torch.sum(w * y),
-            "y2sum": torch.sum(w * y * y),
-            "sle": torch.sum(w * (torch.log1p(torch.clamp_min(f, 0))
-                                  - torch.log1p(torch.clamp_min(y, 0))) ** 2)}
+    return {"wsum": w, "se": w * d * d, "ae": w * torch.abs(d),
+            "ysum": w * y, "y2sum": w * y * y,
+            "sle": w * (torch.log1p(torch.clamp_min(f, 0))
+                        - torch.log1p(torch.clamp_min(y, 0))) ** 2}
 
 
 def _binomial_partials(y, p, w):
     eps = 1e-15
     pc = torch.clamp(p, eps, 1 - eps)
-    ll = -torch.sum(w * (y * torch.log(pc) + (1 - y) * torch.log1p(-pc)))
-    return {"logloss": ll, "se": torch.sum(w * (y - p) ** 2),
-            "wsum": torch.sum(w)}
+    ll = -(w * (y * torch.log(pc) + (1 - y) * torch.log1p(-pc)))
+    return {"logloss": ll, "se": w * (y - p) ** 2, "wsum": w}
 
 
 def _multinomial_partials(y, probs, w, nclasses: int):
@@ -78,18 +78,18 @@ def _multinomial_partials(y, probs, w, nclasses: int):
     pred = torch.argmax(probs, dim=-1)
     rows = torch.arange(y.shape[0], device=y.device)
     py = torch.clamp(probs[rows, yi], eps, 1.0)
-    ll = -torch.sum(w * torch.log(py))
+    ll = -(w * torch.log(py))
     cm = segment_sum(yi * nclasses + pred, w, nclasses * nclasses)
     other = torch.where(torch.arange(nclasses, device=y.device)[None, :]
                         == yi[:, None], 0.0, probs)
-    se = torch.sum(w * (1.0 - py) ** 2) + torch.sum(w[:, None] * other ** 2)
+    se = w * (1.0 - py) ** 2 + torch.sum(w[:, None] * other ** 2, dim=1)
     # top-k hit counts (the reference's hit_ratio_table, k up to 10)
     k = min(10, nclasses)
     topk = torch.argsort(-probs, dim=-1, stable=True)[:, :k]
     hitk = torch.cumsum((topk == yi[:, None]).to(w.dtype), dim=-1) \
         * w[:, None]
     return {"logloss": ll, "cm": cm.reshape(nclasses, nclasses), "se": se,
-            "wsum": torch.sum(w), "hitk": torch.sum(hitk, dim=0)}
+            "wsum": w, "hitk": torch.sum(hitk, dim=0)}
 
 
 @dataclass
@@ -273,20 +273,22 @@ def make_regression_metrics(y, f, w, distribution=None, mesh=None
     the MSE). A bf16 response widens first: torch would keep bf16 for
     its terms with Python-scalar exponents (ROADMAP C41)."""
     y = widen(y)
-    parts = _reduced(_regression_partials(y, f, w), mesh)
+    terms = _regression_partials(y, f, w)
+    if distribution is not None and distribution.name != "gaussian":
+        # log-link families score on the response scale: back to margins
+        fm = (distribution.link(torch.clamp_min(f, 1e-10))
+              if distribution.name in ("poisson", "gamma", "tweedie") else f)
+        terms["dev"] = distribution.deviance(w, y, fm)
+    # one pass of fixed-point sums for every term (each column its own
+    # scale, so a term's sum does not depend on the others)
+    parts = _reduced(terms, mesh)
     wsum = parts["wsum"]
     if wsum == 0:
         return ModelMetricsRegression()
     mse = parts["se"] / wsum
     ymean = parts["ysum"] / wsum
     ss_tot = parts["y2sum"] / wsum - ymean * ymean
-    dev = mse
-    if distribution is not None and distribution.name != "gaussian":
-        # log-link families score on the response scale: back to margins
-        fm = (distribution.link(torch.clamp_min(f, 1e-10))
-              if distribution.name in ("poisson", "gamma", "tweedie") else f)
-        dev = _reduced({"dev": torch.sum(distribution.deviance(
-            w, y, fm))}, mesh)["dev"] / wsum
+    dev = parts["dev"] / wsum if "dev" in parts else mse
     return ModelMetricsRegression(
         mse=mse, rmse=float(np.sqrt(mse)), nobs=wsum,
         mae=parts["ae"] / wsum, rmsle=float(np.sqrt(parts["sle"] / wsum)),
@@ -321,10 +323,13 @@ def make_multinomial_metrics(y, probs, w, domain: List[str], mesh=None
     """y (N,) class codes, probs (N, K); all tensors."""
     k = len(domain)
     parts = _multinomial_partials(y, probs, w, k)
+    sums = _reduced({key: parts.pop(key) for key in ("logloss", "se",
+                                                     "wsum")}, mesh)
     if mesh is not None:
-        for key in ("logloss", "se", "wsum", "cm", "hitk"):
+        for key in ("cm", "hitk"):
             parts[key] = mesh.all_reduce(parts[key].double().contiguous(),
                                          "sum")
+    parts.update(sums)
     wsum = float(parts["wsum"])
     if wsum == 0:
         return ModelMetricsMultinomial()

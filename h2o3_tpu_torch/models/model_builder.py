@@ -13,7 +13,14 @@ optional wall-clock budget (max_runtime_secs). With `nfolds` > 1 or a
 `fold_column` it first trains one model per fold on the other folds'
 rows and scores it on its own (the mean of the fold metrics becomes the
 cross-validation metrics; the holdout predictions are kept on request).
-A tree builder may calibrate its binomial probabilities on a
+On a row-sharded cloud the folds are drawn over all n rows on every
+rank (one seed), so the assignment and its digest are one process's,
+and a fold column is read from each rank's own block; each rank
+selects its rows of a fold and the fold frames move through the row
+exchange, the fold metrics are the cloud's, the holdout predictions are
+each rank's block of rows, and the fold ticks are published to the
+cloud's KV (`Job.publish_progress`). A
+tree builder may calibrate its binomial probabilities on a
 calibration frame (Platt scaling or isotonic regression), and a builder
 that supports it continues training from a checkpoint model. The
 preconditions of all three raise before anything trains. A checkpoint
@@ -41,6 +48,7 @@ import traceback
 from typing import Any, Dict, List, Optional, Sequence, Type
 
 import numpy as np
+import torch
 
 from h2o3_tpu_torch.core.dkv import DKV
 from h2o3_tpu_torch.core.frame import Frame, widen
@@ -63,8 +71,9 @@ class ModelBuilder:
     # False for builders that train without a response (anomaly
     # detection): no response is asked for and no metrics are made
     supervised = True
-    # trains over a row-sharded frame (GBM, DRF, GLM): the others are
-    # ROADMAP A14.6b and refuse one
+    # trains over a row-sharded frame (GBM, DRF, GLM, XGBoost,
+    # DeepLearning, StackedEnsemble): the others are ROADMAP A14.6c and
+    # refuse one
     row_sharded = False
     # builders that implement training continuation set this; the rest
     # refuse a checkpoint rather than train from scratch
@@ -150,9 +159,6 @@ class ModelBuilder:
 
         if not self.row_sharded:
             refuse(train, f"a {self.algo_name} train")
-        if self.params.get("nfolds") and int(self.params["nfolds"]) > 1 \
-                or self.params.get("fold_column"):
-            refuse(train, "cross-validation")
         if y is not None:
             self.params["response_column"] = y
         valid = validation_frame or self.params.get("validation_frame")
@@ -394,55 +400,81 @@ class ModelBuilder:
     # -- cross-validation ---------------------------------------------------
     def _fold_assignment(self, train: Frame, nfolds: int,
                          fold_col: Optional[str]):
-        """-> (per-row fold ids, the folds): the fold column's values,
-        or AUTO/Random (uniform draws), Stratified (per class, a
-        round-robin over shuffled rows from a random start) or Modulo
-        (row index mod nfolds)."""
+        """-> (the fold id of each row this process holds, the folds, the
+        assignment's digest): the fold column's values, or AUTO/Random
+        (uniform draws), Stratified (per class, a round-robin over
+        shuffled rows from a random start) or Modulo (row index mod
+        nfolds). On a row-sharded cloud the ids are this rank's block:
+        the draws are made over all n rows on every rank with one seed
+        (rank 0's when it is fresh), so they and their digest are one
+        process's; Stratified gathers the response's codes once (counted
+        in ``gathered_rows``); a fold column is read from the rank's own
+        block, its folds are the union of the ranks' ids, and its digest
+        is `fold_fingerprint`'s, which needs no rank to hold every id
+        (ROADMAP C49)."""
+        from h2o3_tpu_torch.core import sharded_frame as SF
+
         n = train.nrows
+        mesh = SF.mesh_of(train) if SF._is_sharded(train) else None
+        lo, hi = train.shard if mesh is not None else (0, n)
         if fold_col:
-            assign = train.col(fold_col).to_numpy().astype(int)
-            return assign, sorted(set(assign.tolist()))
+            c = train.col(fold_col)
+            if mesh is None:
+                assign = c.to_numpy().astype(int)
+                return assign, sorted(set(assign.tolist())), _digest(assign)
+            mine = widen(c.data).cpu().numpy().astype(int)
+            folds = sorted(set().union(*SF.all_gather_object(
+                mesh, sorted(set(mine.tolist())))))
+            return mine, folds, fold_fingerprint(mine, lo, mesh)
         scheme = (self.params.get("fold_assignment") or "AUTO").lower()
+        seed = self._seed()
+        if mesh is not None:
+            seed = SF.agreed_int(mesh, seed)
         if scheme in ("auto", "random"):
-            rng = np.random.default_rng(self._seed())
+            rng = np.random.default_rng(seed)
             assign = rng.integers(0, nfolds, n)
         elif scheme == "stratified":
-            rng = np.random.default_rng(self._seed())
+            from h2o3_tpu_torch.ops.filters import stratified_fold_ids
+
             resp = self.params.get("response_column")
             if not resp or not train.col(resp).is_categorical:
                 raise ValueError("fold_assignment='Stratified' requires a "
                                  "categorical response")
-            y = train.col(resp).to_numpy()
-            assign = rng.integers(0, nfolds, n)  # NA responses: random fold
-            for cls in np.unique(y[y >= 0]):
-                idx = np.nonzero(y == cls)[0]
-                rng.shuffle(idx)
-                assign[idx] = ((np.arange(len(idx)) + rng.integers(nfolds))
-                               % nfolds)
+            # NA responses keep their uniform draw
+            assign = stratified_fold_ids(train.col(resp).to_numpy(), nfolds,
+                                         np.random.default_rng(seed), n)
         elif scheme == "modulo":
             assign = np.arange(n) % nfolds
         else:
             raise ValueError(f"unknown fold_assignment {scheme!r}")
-        return assign, list(range(nfolds))
+        return assign[lo:hi], list(range(nfolds)), _digest(assign)
 
     def _cross_validate(self, train: Frame, nfolds: int,
                         fold_col: Optional[str]):
         """One model per fold, trained on the other folds' rows and scored
         on its own: -> (fold models, fold metrics, holdout predictions or
-        None, digest of the fold assignment)."""
-        from h2o3_tpu_torch.ops.filters import take_rows
+        None, digest of the fold assignment). On a row-sharded cloud each
+        rank selects its own rows of a fold and the fold frames are placed
+        through the row exchange, the metrics are the cloud's, and the
+        holdout predictions are this rank's block of rows (a tensor),
+        placed there once after the last fold."""
+        from h2o3_tpu_torch.core import sharded_frame as SF
+        from h2o3_tpu_torch.ops.filters import keep_rows
 
-        assign, folds = self._fold_assignment(train, nfolds, fold_col)
+        assign, folds, digest = self._fold_assignment(train, nfolds,
+                                                      fold_col)
         n = train.nrows
+        mesh = SF.mesh_of(train) if SF._is_sharded(train) else None
         keep_preds = bool(self.params.get("keep_cross_validation_predictions"))
         models, mets = [], []
         preds_buf = None
+        held_pos, held_vals = [], []
         drop = ("nfolds", "fold_column", "training_frame", "validation_frame",
                 "model_id", "checkpoint", "export_checkpoints_dir")
         for fi, f in enumerate(folds):
-            ho_idx = np.nonzero(assign == f)[0]
-            tr = take_rows(train, np.nonzero(assign != f)[0])
-            ho = take_rows(train, ho_idx)
+            tr = keep_rows(train, torch.from_numpy(np.nonzero(assign != f)[0]))
+            held = torch.from_numpy(np.nonzero(assign == f)[0])
+            ho, ho_ids = keep_rows(train, held, with_ids=True)
             sub = type(self)(**{k: v for k, v in self.params.items()
                                 if k not in drop})
             # fold fits bypass train(): hand the budget down
@@ -453,17 +485,28 @@ class ModelBuilder:
             raw = m._predict_raw(m.adapt_test(ho))
             mets.append(m._make_metrics(ho, raw))
             if keep_preds:
-                vals = (raw["probs"] if "probs" in raw
-                        else raw["value"]).cpu().numpy()
-                if preds_buf is None:
-                    preds_buf = np.zeros((n,) + vals.shape[1:], np.float32)
-                preds_buf[ho_idx] = vals
+                vals = raw["probs"] if "probs" in raw else raw["value"]
+                if mesh is not None:
+                    held_pos.append(ho_ids)
+                    held_vals.append(vals.float())
+                else:
+                    vals = vals.cpu().numpy()
+                    if preds_buf is None:
+                        preds_buf = np.zeros((n,) + vals.shape[1:],
+                                             np.float32)
+                    preds_buf[ho_ids.numpy()] = vals
             models.append(m)
             if self.job:
                 self.job.update(progress=0.5 * (fi + 1) / len(folds),
                                 msg=f"CV fold {fi + 1}/{len(folds)}")
-        digest = hashlib.sha1(np.ascontiguousarray(assign, np.int64)
-                              ).hexdigest()
+                if mesh is not None:
+                    self.job.publish_progress()
+        if held_pos:
+            # every row is in one fold: the folds' rows cover the frame
+            (preds_buf,), _ = SF.place_rows(
+                mesh, torch.cat([p.to(held_vals[0].device) for p in held_pos]),
+                n, [torch.cat([v.to(held_vals[0].device)
+                               for v in held_vals])])
         return models, mets, preds_buf, digest
 
     def _score_on(self, model: Model, frame: Frame):
@@ -500,6 +543,49 @@ class ModelBuilder:
 
     def _fit(self, train: Frame) -> Model:
         raise NotImplementedError
+
+
+def _digest(assign: np.ndarray) -> str:
+    """The fold assignment's digest: sha1 of its int64 ids, as the
+    reference computes it."""
+    return hashlib.sha1(np.ascontiguousarray(assign, np.int64)).hexdigest()
+
+
+_FP_PRIME = 2 ** 31 - 1
+_FP_BASES = (1_000_003, 998_244_353)
+
+
+def _powers(base: int, lo: int, m: int) -> np.ndarray:
+    """base**(lo + t) mod the fingerprint's prime, t = 0..m-1."""
+    out = np.ones(m, np.int64)
+    if m:
+        out[0] = pow(base, lo, _FP_PRIME)
+    step, k = base % _FP_PRIME, 1
+    while k < m:
+        w = min(k, m - k)
+        out[k:k + w] = out[:w] * step % _FP_PRIME
+        step, k = step * step % _FP_PRIME, k + w
+    return out
+
+
+def fold_fingerprint(ids: np.ndarray, lo: int = 0, mesh=None) -> str:
+    """A digest of a fold column's ids that no process needs every id
+    for: two polynomial hashes, sum_i id_i * b**i mod 2**31 - 1 over the
+    global row index i, each rank summing its rows [lo, lo + len(ids))
+    and the ranks' sums added. It depends on the ids alone, not on how
+    many ranks hold them."""
+    v = np.asarray(ids, np.int64) % _FP_PRIME
+    sums = [int(np.sum(v * _powers(b, lo, len(v)) % _FP_PRIME)) % _FP_PRIME
+            for b in _FP_BASES]
+    n = len(v)
+    if mesh is not None:
+        every = mesh.all_gather(torch.tensor([[n] + sums],
+                                             dtype=torch.int64)).tolist()
+        n = sum(r[0] for r in every)
+        sums = [sum(r[1 + j] for r in every) % _FP_PRIME
+                for j in range(len(_FP_BASES))]
+    return hashlib.sha1(f"fold_column:{n}:{sums[0]}:{sums[1]}".encode()
+                        ).hexdigest()
 
 
 def _fit_platt(p: np.ndarray, y: np.ndarray,

@@ -52,7 +52,7 @@ _ALIASES = {
 @register
 class XGBoost(GBM):
     algo_name = "xgboost"
-    row_sharded = False         # ROADMAP A14.6b
+    row_sharded = True
     model_class = XGBoostModel
 
     @classmethod

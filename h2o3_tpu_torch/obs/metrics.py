@@ -419,6 +419,14 @@ def prometheus_text(series: List[dict]) -> str:
 _START_TS = time.time()
 
 
+# series the reference's registry has no counterpart for: the row
+# exchange's and DeepLearning's cross-rank traffic (its device mesh moves
+# rows inside its programs, uncounted)
+PORT_ONLY_SERIES = ("h2o3_data_plane_exchanged_rows_total",
+                    "h2o3_data_plane_exchanged_bytes_total",
+                    "h2o3_data_plane_dl_batch_rows_total")
+
+
 def data_plane_counters() -> Dict[str, int]:
     """The sharded data plane's counters (core/sharded_frame.py): rows
     packed from a rank's own rows, rows a device sort ordered, rows of
@@ -485,6 +493,15 @@ def _install_default_metrics() -> None:
     r.counter_fn("h2o3_data_plane_gathered_rows_total",
                  "rows whose columns were gathered to this host "
                  "(exceptional path)", _dp("gathered_rows"))
+    r.counter_fn("h2o3_data_plane_exchanged_rows_total",
+                 "rows this process sent to other ranks through the row "
+                 "exchange", _dp("exchanged_rows"))
+    r.counter_fn("h2o3_data_plane_exchanged_bytes_total",
+                 "bytes this process sent to other ranks through the row "
+                 "exchange", _dp("exchanged_bytes"))
+    r.counter_fn("h2o3_data_plane_dl_batch_rows_total",
+                 "DeepLearning batch rows fetched from other ranks",
+                 _dp("dl_batch_rows"))
 
     # -- chunked ingest (ingest/chunked.py) --
     def _ing(field):

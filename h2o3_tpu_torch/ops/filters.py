@@ -8,6 +8,18 @@ whose mask is nonzero and not NA, in row order; `slice_rows` a range;
 sort's or a join's, which never goes to the host. Host-only (string)
 columns are indexed on the host. Domains carry over unchanged. The
 reference pads its gathers to its mesh; here nothing is padded.
+
+On a row-sharded cloud each of these moves rows between ranks through
+the row exchange (core/sharded_frame.py) so that every rank ends up
+with its `mesh.row_block` of the output, and no rank gathers a column:
+`filter_rows` all-gathers the ranks' kept counts for the output offsets
+and places its kept rows (`place_frame`); `take_rows` (every rank
+passes the same global indices), `slice_rows` and `take_order_rows` (a
+global order held by every rank) each take their output block's rows
+(`take_global_rows`); `rbind` places every frame's blocks at their
+offsets, and `split_frame` draws its uniforms over all n rows on every
+rank (the seed agreed first), so its parts are one process's bit for
+bit.
 """
 
 from __future__ import annotations
@@ -46,22 +58,37 @@ def _gather(frame: Frame, idx: torch.Tensor, key: Optional[str] = None
     return out
 
 
+def _sharded_mesh(frame):
+    """The row mesh `frame` is sharded over (None in one process)."""
+    from h2o3_tpu_torch.core import sharded_frame as SF
+
+    return SF.mesh_of(frame) if SF._is_sharded(frame) else None
+
+
+def _take_block(frame: Frame, ids: torch.Tensor, key: Optional[str]):
+    """Sharded: every rank holds the same `ids` (all of the output's
+    global source rows); it takes its own block of them."""
+    from h2o3_tpu_torch.core.sharded_frame import take_global_rows
+
+    m = _sharded_mesh(frame)
+    lo, hi = m.rows(len(ids))
+    return take_global_rows(frame, ids[lo:hi], len(ids), key=key)
+
+
 def take_rows(frame: Frame, rows, key: Optional[str] = None) -> Frame:
     """A new frame of `frame`'s rows at the host indices `rows`, in that
-    order."""
-    from h2o3_tpu_torch.core.sharded_frame import refuse
-
-    refuse(frame, "take_rows")
+    order (on a row-sharded cloud every rank passes the same indices)."""
     rows = torch.from_numpy(np.ascontiguousarray(rows, dtype=np.int64))
+    if _sharded_mesh(frame) is not None:
+        return _take_block(frame, rows, key)
     return _gather(frame, rows, key=key)
 
 
 def take_order_rows(frame: Frame, order: torch.Tensor, k: int,
                     offset: int = 0, key: Optional[str] = None) -> Frame:
     """The `k` rows at a device order's positions [offset, offset + k)."""
-    from h2o3_tpu_torch.core.sharded_frame import refuse
-
-    refuse(frame, "take_rows")
+    if _sharded_mesh(frame) is not None:
+        return _take_block(frame, order[offset:offset + k].long(), key)
     return _gather(frame, order[offset:offset + k].long(), key=key)
 
 
@@ -69,31 +96,54 @@ def filter_rows(frame: Frame, mask_col: Column,
                 key: Optional[str] = None) -> Frame:
     """fr[mask, :]: the rows where the mask is nonzero; NA mask rows are
     dropped, as in H2O."""
-    from h2o3_tpu_torch.core.sharded_frame import refuse
-
-    refuse(frame, "a row filter")
     m = mask_col.data
     keep = torch.where(torch.isnan(m), False, m != 0)
-    return _gather(frame, torch.nonzero(keep).squeeze(1), key=key)
+    return keep_rows(frame, torch.nonzero(keep).squeeze(1), key=key)
+
+
+def keep_rows(frame: Frame, idx: torch.Tensor, key: Optional[str] = None,
+              with_ids: bool = False):
+    """The rows `idx` (indices into this process's rows, ascending) of
+    `frame`, in row order. On a row-sharded cloud every rank passes its
+    own rows' indices: an all-gather of the kept counts gives each rank
+    its output offset, and its kept rows are placed (`place_frame`).
+    With `with_ids` -> (the frame, the global row ids of its rows here)."""
+    mesh = _sharded_mesh(frame)
+    if mesh is None:
+        out = _gather(frame, idx, key=key)
+        return (out, idx) if with_ids else out
+    from h2o3_tpu_torch.core.sharded_frame import (all_gather_counts,
+                                                   place_frame, place_rows)
+
+    counts = all_gather_counts(mesh, len(idx))
+    pos = sum(counts[: mesh.rank]) + torch.arange(len(idx))
+    out = place_frame(frame, idx, pos, sum(counts), key=key)
+    if not with_ids:
+        return out
+    (ids,), _ = place_rows(mesh, pos, sum(counts), [frame.shard[0] + idx])
+    return out, ids
 
 
 def slice_rows(frame: Frame, start: int, stop: int,
                key: Optional[str] = None) -> Frame:
-    from h2o3_tpu_torch.core.sharded_frame import refuse
-
-    refuse(frame, "a row slice")
     n = frame.nrows
     start = max(0, min(start, n))
     stop = max(start, min(stop, n))
+    mesh = _sharded_mesh(frame)
+    if mesh is not None:
+        from h2o3_tpu_torch.core.sharded_frame import take_global_rows
+
+        lo, hi = mesh.rows(stop - start)
+        return take_global_rows(frame, torch.arange(start + lo, start + hi),
+                                stop - start, key=key)
     return _gather(frame, torch.arange(start, stop), key=key)
 
 
 def rbind(frames: Sequence[Frame], key: Optional[str] = None) -> Frame:
     """Stack frames by rows (AstRBind); enum domains are unioned and
     sorted, codes remapped."""
-    from h2o3_tpu_torch.core.sharded_frame import refuse
-
-    refuse(frames[0] if frames else None, "rbind")
+    if any(_sharded_mesh(f) is not None for f in frames):
+        return _rbind_sharded(frames, key)
     total = sum(f.nrows for f in frames)
     out = Frame(key=key)
     f0 = frames[0]
@@ -124,6 +174,67 @@ def rbind(frames: Sequence[Frame], key: Optional[str] = None) -> Frame:
     return out
 
 
+def _rbind_sharded(frames: Sequence[Frame], key: Optional[str]) -> Frame:
+    """rbind on a row-sharded cloud: each frame's codes remapped onto the
+    union domain (domains are the same on every rank) on its own rows,
+    then every frame's block placed at its offset in the output."""
+    from h2o3_tpu_torch.core import sharded_frame as SF
+    from h2o3_tpu_torch.core.frame import widen
+
+    mesh = next(_sharded_mesh(f) for f in frames
+                if _sharded_mesh(f) is not None)
+    total = sum(f.nrows for f in frames)
+    f0 = frames[0]
+    cols = {}
+    for ci, name in enumerate(f0.names):
+        srcs = [f.col(ci) for f in frames]
+        ctype = srcs[0].ctype
+        parts, hosts = [], []
+        if ctype == T_CAT:
+            dom = sorted(set().union(*[set(c.domain or []) for c in srcs]))
+            lut = {v: i for i, v in enumerate(dom)}
+        for f, c in zip(frames, srcs):
+            lo, hi = f.shard or mesh.rows(f.nrows)
+            sl = slice(0, hi - lo) if f.shard is not None else slice(lo, hi)
+            if ctype == T_CAT:
+                remap = torch.tensor([lut[v] for v in (c.domain or [])]
+                                     or [NA_CAT], dtype=torch.long,
+                                     device=c.data.device)
+                codes = c.data[sl].long()
+                parts.append(torch.where(codes >= 0,
+                                         remap[codes.clamp_min(0)], NA_CAT))
+            elif c.data is None:
+                hosts.append(c.host_data[sl])
+            else:
+                parts.append(widen(c.data[sl]).float())
+        dev = parts[0].device if parts else None
+        # this rank's rows of every frame, placed below
+        if ctype == T_CAT:
+            cols[name] = (ctype, dom, torch.cat([p.to(dev) for p in parts]
+                                                ).to(torch_code_dtype(len(dom))))
+        elif parts:
+            cols[name] = (ctype, None, torch.cat([p.to(dev) for p in parts]))
+        else:
+            cols[name] = (ctype, None, np.concatenate(hosts))
+    pos, at = [], 0
+    for f in frames:
+        lo, hi = f.shard or mesh.rows(f.nrows)
+        pos.append(at + torch.arange(lo, hi))
+        at += f.nrows
+    positions = torch.cat(pos) if pos else torch.zeros(0, dtype=torch.long)
+    tens = [v for _t, _d, v in cols.values() if isinstance(v, torch.Tensor)]
+    hs = [v for _t, _d, v in cols.values() if isinstance(v, np.ndarray)]
+    got_t, got_h = SF.place_rows(mesh, positions, total, tens, hs)
+    out = Frame(key=key)
+    it, ih = iter(got_t), iter(got_h)
+    for name, (ctype, dom, v) in cols.items():
+        if isinstance(v, torch.Tensor):
+            out.add(name, Column(next(it), ctype, total, domain=dom))
+        else:
+            out.add(name, Column(None, ctype, total, host_data=next(ih)))
+    return out
+
+
 def split_frame(frame: Frame, ratios: Sequence[float],
                 seed: Optional[int] = None,
                 destination_frames: Optional[Sequence[str]] = None
@@ -131,9 +242,11 @@ def split_frame(frame: Frame, ratios: Sequence[float],
     """Random row split (hex/SplitFrame.java): a uniform draw per row
     (numpy's default_rng, as the reference draws it), thresholded by the
     cumulative ratios."""
-    from h2o3_tpu_torch.core.sharded_frame import refuse
+    mesh = _sharded_mesh(frame)
+    if mesh is not None and seed is None:
+        from h2o3_tpu_torch.core.sharded_frame import agreed_int
 
-    refuse(frame, "split_frame")
+        seed = agreed_int(mesh, np.random.SeedSequence().entropy % 2 ** 62)
     rng = np.random.default_rng(seed)
     u = rng.random(frame.nrows)
     cuts = np.cumsum(list(ratios))
@@ -145,3 +258,38 @@ def split_frame(frame: Frame, ratios: Sequence[float],
         k = destination_frames[i] if destination_frames else None
         out.append(take_rows(frame, np.nonzero(assign == i)[0], key=k))
     return out
+
+
+def stratified_fold_ids(y: np.ndarray, k: int, rng, n: int,
+                        lo: int = 0, mesh=None) -> np.ndarray:
+    """Stratified fold ids of the rows [lo, lo + len(y)) of an n-row
+    column whose class values there are `y` (NaN or a negative code is
+    NA): a uniform draw for every row, then per class (ascending) a
+    round-robin over its rows shuffled, from a random start. The class
+    shuffle is drawn as a permutation of the class's m rows (the draws of
+    ``rng.shuffle`` on them), so on a row-sharded cloud each rank needs
+    only every class's counts on the ranks before it, never the rows:
+    the ids are one process's bit for bit."""
+    assign = rng.integers(0, k, n)[lo:lo + len(y)]
+    valid = ~np.isnan(y) if y.dtype.kind == "f" else y >= 0
+    classes = np.unique(y[valid])
+    if mesh is None:
+        before = np.zeros(len(classes), np.int64)
+        total = np.array([int((y == c).sum()) for c in classes], np.int64)
+    else:
+        from h2o3_tpu_torch.core.sharded_frame import all_gather_object
+
+        classes = np.array(sorted(set().union(*all_gather_object(
+            mesh, classes.tolist()))), dtype=y.dtype)
+        mine = torch.tensor([[int((y == c).sum()) for c in classes]],
+                            dtype=torch.int64).reshape(1, len(classes))
+        every = mesh.all_gather(mine).numpy()
+        before, total = every[: mesh.rank].sum(0), every.sum(0)
+    for ci, cls in enumerate(classes):
+        rows = np.nonzero(y == cls)[0]
+        perm = rng.permutation(int(total[ci]))
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(len(perm))
+        start = rng.integers(k)
+        assign[rows] = (inv[before[ci] + np.arange(len(rows))] + start) % k
+    return assign

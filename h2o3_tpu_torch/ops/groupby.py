@@ -5,11 +5,19 @@ NA): enum columns by their codes on the device, numeric columns
 factorised on the host with np.unique, as the reference does. Groups come
 out in flat-code order, only those with rows. Counts are exact; min and
 max are scatter reductions (order-free); sums and sums of squares use
-the order-free int64 fixed-point sum (core/ops.fixed_point_segment_sum),
+the order-free int64 fixed-point sum (core/ops.fixed_point_group_sums),
 so the card, the CPU and a rerun agree bit for bit. The reference adds
 float32 partials per shard and then across its 8 shards, so sums, means,
 sd and var agree with it to float32 rounding (ROADMAP C2); means, sd and
 var are finished in float32 on the host as the reference finishes them.
+
+On a row-sharded cloud the global levels of a numeric by-column are the
+union of every rank's unique values (all-gathered), counts and the
+fixed-point sums are all-reduced (`fixed_point_group_sums` with the
+mesh: the same bits for any split of the rows), min and max are
+all-reduced too, and the output frame is built from the host results
+as in one process, so it lands in `mesh.row_block`s and equals one
+process's bit for bit.
 """
 
 from __future__ import annotations
@@ -20,7 +28,13 @@ import numpy as np
 import torch
 
 from h2o3_tpu_torch.core.frame import Column, Frame, T_CAT, widen
-from h2o3_tpu_torch.core.ops import fixed_point_segment_sum
+from h2o3_tpu_torch.core.ops import fixed_point_group_sums
+
+
+def _mesh(frame: Frame):
+    from h2o3_tpu_torch.core import sharded_frame as SF
+
+    return SF.mesh_of(frame) if SF._is_sharded(frame) else None
 
 
 def _codes_and_levels(frame: Frame, by: Sequence[str]
@@ -29,6 +43,7 @@ def _codes_and_levels(frame: Frame, by: Sequence[str]
     code_arrays = []
     levels = []
     dev = frame.col(by[0]).device
+    mesh = _mesh(frame)
     for name in by:
         c = frame.col(name)
         if c.is_categorical:
@@ -36,10 +51,15 @@ def _codes_and_levels(frame: Frame, by: Sequence[str]
             sizes.append(max(c.cardinality, 1))
             levels.append(np.asarray(c.domain, dtype=object))
         else:
-            vals = c.to_numpy()
+            vals = widen(c.data).cpu().numpy()
             ok = ~np.isnan(vals)
             uniq, codes = np.unique(vals[ok], return_inverse=True)
-            full = np.full(c.nrows, -1, np.int64)
+            if mesh is not None:
+                # the cloud's levels: every rank's unique values
+                every = mesh.all_gather(torch.from_numpy(uniq)).numpy()
+                uniq = np.unique(every)
+                codes = np.searchsorted(uniq, vals[ok])
+            full = np.full(len(vals), -1, np.int64)
             full[ok] = codes
             code_arrays.append(torch.from_numpy(full).to(dev))
             sizes.append(max(len(uniq), 1))
@@ -53,32 +73,42 @@ def _codes_and_levels(frame: Frame, by: Sequence[str]
     return torch.where(any_na, -1, flat), levels, int(np.prod(sizes))
 
 
-def group_aggregates(codes: torch.Tensor, x: torch.Tensor, ngroups: int):
+def group_aggregates(codes: torch.Tensor, x: torch.Tensor, ngroups: int,
+                     mesh=None):
     """Per group of `codes` (-1 = no group): (count of valid x, sum, sum
     of squares, min, max) of the float32 values x, on x's device. NA rows
     land in an extra slot that is dropped. A bfloat16 x is widened
     exactly first: the reference's program squares it in float32 too
     (XLA drops the bfloat16 round trip of x * x before the float32
-    scatter-add)."""
+    scatter-add). With `mesh`, every aggregate is the cloud's."""
     x = widen(x)
     valid = (codes >= 0) & ~torch.isnan(x)
     seg = torch.where(valid, codes, ngroups)
     xv = torch.where(valid, x, 0.0)
     cnt = torch.bincount(seg, minlength=ngroups + 1)
-    s = fixed_point_segment_sum(seg, xv, ngroups + 1)
-    ss = fixed_point_segment_sum(seg, xv * xv, ngroups + 1)
+    sums = fixed_point_group_sums(seg, torch.stack([xv, xv * xv], 1),
+                                  ngroups + 1, mesh).float()
+    s, ss = sums[:, 0], sums[:, 1]
     x0 = x + 0.0                                    # one zero for min/max
     mn = torch.full((ngroups + 1,), torch.inf, device=x.device).scatter_reduce(
         0, seg, torch.where(valid, x0, torch.inf), "amin")
     mx = torch.full((ngroups + 1,), -torch.inf,
                     device=x.device).scatter_reduce(
         0, seg, torch.where(valid, x0, -torch.inf), "amax")
+    if mesh is not None:
+        mesh.all_reduce(cnt, "sum")
+        mesh.all_reduce(mn, "min")
+        mesh.all_reduce(mx, "max")
     return tuple(a[:ngroups] for a in (cnt, s, ss, mn, mx))
 
 
-def group_counts(codes: torch.Tensor, ngroups: int) -> torch.Tensor:
+def group_counts(codes: torch.Tensor, ngroups: int, mesh=None
+                 ) -> torch.Tensor:
     seg = torch.where(codes >= 0, codes, ngroups)
-    return torch.bincount(seg, minlength=ngroups + 1)[:ngroups]
+    cnt = torch.bincount(seg, minlength=ngroups + 1)
+    if mesh is not None:
+        mesh.all_reduce(cnt, "sum")
+    return cnt[:ngroups]
 
 
 class GroupBy:
@@ -87,9 +117,6 @@ class GroupBy:
     left out of every aggregate but the row count."""
 
     def __init__(self, frame: Frame, by: Union[str, Sequence[str]]):
-        from h2o3_tpu_torch.core.sharded_frame import refuse
-
-        refuse(frame, "a group-by")
         self._frame = frame
         self._by = ([by] if isinstance(by, str) else
                     [frame.names[b] if isinstance(b, int) else b
@@ -132,7 +159,8 @@ class GroupBy:
 
         codes, levels, ngroups = _codes_and_levels(self._frame, self._by)
         dev = codes.device
-        cnt_all = group_counts(codes, ngroups).cpu().numpy()
+        mesh = _mesh(self._frame)
+        cnt_all = group_counts(codes, ngroups, mesh).cpu().numpy()
         present = np.nonzero(cnt_all > 0)[0]
         out = Frame()
         sizes = [len(lv) for lv in levels]
@@ -159,7 +187,7 @@ class GroupBy:
                 continue
             x = self._frame.col(cname).data
             cnt, s, ss, mn, mx = (a.cpu().numpy() for a in
-                                  group_aggregates(codes, x, ngroups))
+                                  group_aggregates(codes, x, ngroups, mesh))
             cnt_g = cnt[present].astype(np.float32)
             s_g = s[present]
             with np.errstate(invalid="ignore", divide="ignore"):
@@ -185,8 +213,5 @@ class GroupBy:
 def table(frame: Frame) -> Frame:
     """(table fr): counts of the value combinations of the first one or
     two columns (AstTable)."""
-    from h2o3_tpu_torch.core.sharded_frame import refuse
-
-    refuse(frame, "a table")
     return GroupBy(frame, frame.names[: min(2, frame.ncols)]).count() \
         .get_frame()

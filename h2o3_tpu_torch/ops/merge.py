@@ -13,6 +13,23 @@ the unmatched left rows (right side NA) and the unmatched right rows
 the reference, so integer keys above 2**24 that round to the same
 float32 match (ROADMAP C15). String and mixed-type keys take the host
 hash join, as in the reference.
+
+On a row-sharded cloud (a sharded left frame with a sharded or a
+replicated right frame) the join is a sort-merge join over the row
+mesh: every rank's non-NA keys of both sides are range-partitioned by
+splitters drawn from an all-gathered sample of them (equal keys land
+on one rank), sent there with their global row ids (one ``all_to_all``
+a side), and joined there as above. The matched pairs go back to the
+rank of their left row, which orders them as one process does (left
+row, then right row) and finds its unmatched left rows; unmatched
+right rows go back to their own rank. All-gathered counts give every
+piece its offset in the one-process order, and the pairs of global row
+ids, placed at those offsets (`place_rows`), take both sides' rows
+(`take_global_rows`). All of it runs on the rank's device; only the
+splitters' sample goes through the host (`ops/sort.splitters`, shared
+with the sample sort). The output is one process's, bit for bit. String
+and mixed-type keys (the host join) stay refused on a mesh (ROADMAP
+A14.6c).
 """
 
 from __future__ import annotations
@@ -24,7 +41,8 @@ import torch
 
 from h2o3_tpu_torch.core.frame import Column, Frame, T_CAT
 from h2o3_tpu_torch.ops.filters import take_order_rows, take_rows
-from h2o3_tpu_torch.ops.sort import sort_key, stable_argsort
+from h2o3_tpu_torch.ops.sort import (bucket_of, lex_order, sort_key,
+                                     splitters, stable_argsort)
 
 
 def _key_arrays(left: Frame, right: Frame, bx: Sequence[str],
@@ -162,14 +180,15 @@ def _host_pairs(left: Frame, right: Frame, bx, by, all_x, all_y):
 def merge(left: Frame, right: Frame, all_x=False, all_y=False,
           by_x: Optional[Sequence[str]] = None,
           by_y: Optional[Sequence[str]] = None) -> Frame:
-    from h2o3_tpu_torch.core.sharded_frame import refuse
-
-    refuse(left, "a merge")
     common = [n for n in left.names if n in right.names]
     bx = list(by_x) if by_x else common
     by = list(by_y) if by_y else common
     if not bx:
         raise ValueError("no join columns")
+    from h2o3_tpu_torch.core import sharded_frame as SF
+
+    if SF._is_sharded(left) or SF._is_sharded(right):
+        return _merge_sharded(left, right, all_x, all_y, bx, by)
 
     pairs = _key_arrays(left, right, bx, by)
     lrows = rrows = None
@@ -236,17 +255,189 @@ def _patch_keys(lcol: Column, rcol: Column, lrows: np.ndarray,
         device=dev)
 
 
-def _mask_rows(col: Column, na_mask: np.ndarray) -> Column:
-    """The column with the rows of `na_mask` set to NA (numeric columns
-    become real, as in the reference)."""
+def _mask_rows(col: Column, na_mask) -> Column:
+    """The column with the rows of `na_mask` (a host array or a tensor)
+    set to NA (numeric columns become real, as in the reference)."""
     if col.is_string:
         vals = _host_vals(col)
-        vals[na_mask] = None
+        vals[np.asarray(torch.as_tensor(na_mask).cpu())] = None
         return Column._from_strings(vals)
     dev = col.data.device
-    mask = torch.from_numpy(na_mask).to(dev)
+    mask = torch.as_tensor(na_mask).to(dev)
     if col.is_categorical:
         return Column(torch.where(mask, -1, col.data.int()).to(
             col.data.dtype), T_CAT, col.nrows, domain=col.domain)
     return Column.from_device(torch.where(mask, torch.nan, col.data.float()),
                               "real", col.nrows)
+
+
+# -- the sort-merge join over the row mesh --------------------------------------
+
+def _local_rows(frame: Frame, mesh):
+    """(lo, hi, local slice) of the rows this rank joins: its block of a
+    sharded frame, the same block of a replicated one."""
+    if frame.shard is not None:
+        lo, hi = frame.shard
+        return lo, hi, slice(0, hi - lo)
+    lo, hi = mesh.rows(frame.nrows)
+    return lo, hi, slice(lo, hi)
+
+
+def _merge_sharded(left: Frame, right: Frame, all_x: bool, all_y: bool,
+                   bx, by) -> Frame:
+    from h2o3_tpu_torch.core import sharded_frame as SF
+
+    mesh = SF.mesh_of(left if SF._is_sharded(left) else right)
+    N = mesh.size
+    pairs = _key_arrays(left, right, bx, by)
+    if pairs is None:
+        SF.refuse(left if SF._is_sharded(left) else right,
+                  "a merge on string or mixed-type keys")
+    dev = pairs[0][0].device
+    llo, lhi, lsl = _local_rows(left, mesh)
+    rlo, rhi, rsl = _local_rows(right, mesh)
+    lkeys = [sort_key(la[lsl]).double() for la, _ra in pairs]
+    rkeys = [sort_key(ra[rsl]).double() for _la, ra in pairs]
+    lna = torch.zeros(lhi - llo, dtype=torch.bool, device=dev)
+    rna = torch.zeros(rhi - rlo, dtype=torch.bool, device=dev)
+    for (la, ra) in pairs:
+        lna |= torch.isnan(la[lsl])
+        rna |= torch.isnan(ra[rsl])
+    lgid = torch.arange(llo, lhi, dtype=torch.float64, device=dev)
+    rgid = torch.arange(rlo, rhi, dtype=torch.float64, device=dev)
+    # splitters on the keys alone, from both sides' non-NA keys: equal
+    # keys land on one rank
+    both = [torch.cat([lk[~lna], rk[~rna]]) for lk, rk in zip(lkeys, rkeys)]
+    order = lex_order(both)
+    splits = splitters(mesh, [b[order] for b in both])
+
+    def ship(keys, gid, na):
+        keys = [k[~na] for k in keys]
+        route = SF.Route(mesh, bucket_of(keys, splits))
+        return route.send(torch.stack(keys + [gid[~na]], 1))
+
+    lgot = ship(lkeys, lgid, lna)
+    rgot = ship(rkeys, rgid, rna)
+    # the join of this rank's bucket: rows arrive in global row order
+    nk = len(pairs)
+    cat = [torch.cat([lgot[:, j], rgot[:, j]]) for j in range(nk)]
+    nl = len(lgot)
+    dense = torch.zeros(nl + len(rgot), dtype=torch.long, device=dev)
+    if len(dense):
+        rank = lex_order(cat)
+        sk = torch.stack(cat, 1)[rank]
+        newk = torch.ones(len(rank), dtype=torch.bool, device=dev)
+        newk[1:] = (sk[1:] != sk[:-1]).any(1)
+        dense[rank] = torch.cumsum(newk.long(), 0) - 1
+    lk, rk = dense[:nl], dense[nl:]
+    order_r = stable_argsort(rk)
+    rs = rk[order_r]
+    lo = torch.searchsorted(rs, lk, side="left")
+    cnt = torch.searchsorted(rs, lk, side="right") - lo
+    total_b = int(cnt.sum())
+    li, ri = emit_pairs(lo, cnt, order_r, total_b)
+    pl = lgot[:, -1].long()[li]
+    pr = rgot[:, -1].long()[ri]
+    # the pairs go to their left row's rank, in (left, right) order
+    route = SF.Route(mesh, SF.owner_of(pl, left.nrows, N))
+    got = route.send(torch.stack([pl, pr], 1))
+    if len(got):
+        got = got[lex_order([got[:, 0], got[:, 1]])]
+    mine_l, mine_r = got[:, 0], got[:, 1]
+    matched = SF.all_gather_counts(mesh, len(got))
+    M = sum(matched)
+    parts_l, parts_r, parts_p = [mine_l], [mine_r], \
+        [sum(matched[: mesh.rank]) + torch.arange(len(got), device=dev)]
+    at = M
+    if all_x:
+        # pairs went to the rank that joins their left row's block
+        seen = torch.zeros(lhi - llo, dtype=torch.bool, device=dev)
+        seen[mine_l - llo] = True
+        miss = torch.arange(llo, lhi, device=dev)[~seen]
+        ul = SF.all_gather_counts(mesh, len(miss))
+        parts_l.append(miss)
+        parts_r.append(torch.full((len(miss),), -1, dtype=torch.long,
+                                  device=dev))
+        parts_p.append(at + sum(ul[: mesh.rank])
+                       + torch.arange(len(miss), device=dev))
+        at += sum(ul)
+    if all_y:
+        rm = torch.zeros(len(rgot), dtype=torch.bool, device=dev)
+        rm[ri] = True
+        miss = rgot[:, -1].long()[~rm]
+        um = SF.Route(mesh, SF.owner_of(miss, right.nrows, N)).send(miss)
+        # NA-keyed right rows never left their rank
+        um = torch.sort(torch.cat([um, rgid.long()[rna]])).values
+        ur = SF.all_gather_counts(mesh, len(um))
+        parts_l.append(torch.full((len(um),), -1, dtype=torch.long,
+                                  device=dev))
+        parts_r.append(um)
+        parts_p.append(at + sum(ur[: mesh.rank])
+                       + torch.arange(len(um), device=dev))
+        at += sum(ur)
+    total = at
+    (l_ids, r_ids), _ = SF.place_rows(mesh, torch.cat(parts_p), total,
+                                      [torch.cat(parts_l),
+                                       torch.cat(parts_r)])
+    lpart = SF.take_global_rows(left, l_ids.clamp_min(0), total)
+    rpart = SF.take_global_rows(right, r_ids.clamp_min(0), total)
+    inner = not all_x and not all_y
+    flags = torch.stack([(l_ids < 0).any(), (r_ids < 0).any(),
+                         (r_ids >= 0).any()]).long()
+    mesh.all_reduce(flags, "max")
+    lneg, rneg, any_r = (not inner and bool(flags[0]),
+                         not inner and bool(flags[1]), bool(flags[2]))
+    out = Frame()
+    for n in left.names:
+        col = lpart.col(n)
+        if lneg:
+            if n in bx and any_r:
+                col = _patch_keys_sharded(col, rpart.col(by[bx.index(n)]),
+                                          l_ids < 0, mesh)
+            else:
+                col = _mask_rows(col, l_ids < 0)
+        out.add(n, col)
+    for n in right.names:
+        if n in by:
+            continue
+        nm = n if n not in out else n + "_y"
+        col = rpart.col(n)
+        if rneg:
+            col = _mask_rows(col, r_ids < 0)
+        out.add(nm, col)
+    return out
+
+
+def _patch_keys_sharded(lcol: Column, rcol: Column, fill: torch.Tensor,
+                        mesh) -> Column:
+    """`_patch_keys` on this rank's rows: an enum key's domain is the
+    labels present in the cloud's rows (all-gathered), as one process
+    re-interns them; a numeric key becomes real. The codes stay on the
+    device; only the domains' labels go through the host."""
+    from h2o3_tpu_torch.core import sharded_frame as SF
+    from h2o3_tpu_torch.core.frame import NA_CAT, torch_code_dtype, widen
+
+    dev = lcol.device
+    f = fill.to(dev)
+    if not lcol.is_categorical:
+        v = torch.where(f, widen(rcol.data).float().to(dev),
+                        widen(lcol.data).float())
+        return Column(v, "real", lcol.nrows)
+    ldom, rdom = list(lcol.domain or []), list(rcol.domain or [])
+    lc, rc = widen(lcol.data).long(), widen(rcol.data).long().to(dev)
+    use_r, use_l = f & (rc >= 0), ~f & (lc >= 0)
+    present = {rdom[i] for i in torch.unique(rc[use_r]).tolist()}
+    present |= {ldom[i] for i in torch.unique(lc[use_l]).tolist()}
+    present.discard("")
+    dom = sorted(set().union(*SF.all_gather_object(mesh, sorted(present))))
+    lut = {v: i for i, v in enumerate(dom)}
+
+    def table(d):
+        return torch.tensor([lut.get(v, NA_CAT) for v in d] or [NA_CAT],
+                            dtype=torch.long, device=dev)
+
+    codes = torch.full_like(lc, NA_CAT)
+    codes = torch.where(use_r, table(rdom)[rc.clamp_min(0)], codes)
+    codes = torch.where(use_l, table(ldom)[lc.clamp_min(0)], codes)
+    return Column(codes.to(torch_code_dtype(len(dom))), T_CAT, lcol.nrows,
+                  domain=dom)

@@ -11,7 +11,10 @@ interpolation type 7 (H2O's and R's default). The bin of a value is
 computed in float32 from float32 bounds, as the reference computes it,
 and the counts are exact integers (the reference's float32 counts are
 exact below 2^24 a bin), so the same column gives the same quantiles bit
-for bit.
+for bit. On a row-sharded cloud each pass's counts are all-reduced
+across the ranks and each bin's minimum is the ranks' minimum (the
+rollups already are the cloud's), so every rank finds one process's
+quantiles bit for bit.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from h2o3_tpu_torch.core.frame import widen
 NBINS = 1024
 
 
-def _hist_pass(data: torch.Tensor, lo: float, hi: float):
+def _hist_pass(data: torch.Tensor, lo: float, hi: float, mesh=None):
     """(counts (NBINS,) int64 on the host, count of values below lo) of
     the non-NaN values in [lo, hi]; lo and hi are float32 values."""
     lo_t = torch.tensor(lo, dtype=torch.float32, device=data.device)
@@ -40,44 +43,53 @@ def _hist_pass(data: torch.Tensor, lo: float, hi: float):
     idx = torch.where(valid, idx.long(), NBINS)
     cnt = torch.bincount(idx, minlength=NBINS + 1)[:NBINS]
     below = torch.sum(ok & (data < lo_t))
-    out = torch.cat([cnt, below[None]]).cpu().numpy()
+    out = torch.cat([cnt, below[None]])
+    if mesh is not None:
+        out = mesh.all_reduce(out.contiguous(), "sum")
+    out = out.cpu().numpy()
     return out[:NBINS], int(out[NBINS])
 
 
-def _min_in(data: torch.Tensor, lo: float, hi: float) -> float:
+def _min_in(data: torch.Tensor, lo: float, hi: float, mesh=None) -> float:
     lo_t = torch.tensor(lo, dtype=torch.float32, device=data.device)
     hi_t = torch.tensor(hi, dtype=torch.float32, device=data.device)
     valid = ~torch.isnan(data) & (data >= lo_t) & (data <= hi_t)
-    return float(torch.min(torch.where(valid, data, torch.inf)))
+    mn = torch.where(valid, data, torch.inf).float()
+    mn = (torch.min(mn) if mn.numel() else torch.tensor(
+        torch.inf, device=data.device)).reshape(1)
+    if mesh is not None:
+        mn = mesh.all_reduce(mn, "min")
+    return float(mn[0])
 
 
 def _f32(v: float) -> float:
     return float(np.float32(v))
 
 
-def _select_kth(data: torch.Tensor, lo: float, hi: float, k: int) -> float:
+def _select_kth(data: torch.Tensor, lo: float, hi: float, k: int,
+                mesh=None) -> float:
     """The 0-based k-th order statistic by histogram descent
     (quantile.py `_select_kth`)."""
     for _ in range(8):
-        cnt, base = _hist_pass(data, _f32(lo), _f32(hi))
+        cnt, base = _hist_pass(data, _f32(lo), _f32(hi), mesh)
         cum = base + np.cumsum(cnt)
         b = min(int(np.searchsorted(cum, k + 1)), len(cnt) - 1)
         width = (hi - lo) / NBINS
         blo = lo + b * width
         bhi = blo + width
         if cnt[b] <= 1 or width <= abs(blo) * 1e-7 + 1e-38:
-            mn = _min_in(data, _f32(blo), _f32(bhi))
+            mn = _min_in(data, _f32(blo), _f32(bhi), mesh)
             return mn if np.isfinite(mn) else blo
         lo, hi = blo, bhi
-    mn = _min_in(data, _f32(lo), _f32(hi))
+    mn = _min_in(data, _f32(lo), _f32(hi), mesh)
     return mn if np.isfinite(mn) else lo
 
 
 def quantile_column(col, probs: Sequence[float]) -> List[float]:
     """Type-7 quantiles of a numeric column at `probs`."""
-    from h2o3_tpu_torch.core.sharded_frame import refuse
+    from h2o3_tpu_torch.core import sharded_frame as SF
 
-    refuse(col, "a quantile")
+    mesh = SF.mesh_of(col) if SF._is_sharded(col) else None
     r = col.rollups
     n = r.rows
     if n == 0:
@@ -94,11 +106,11 @@ def quantile_column(col, probs: Sequence[float]) -> List[float]:
         if lo == hi:
             out.append(lo)
             continue
-        v_k = _select_kth(data, lo, hi, k)
+        v_k = _select_kth(data, lo, hi, k, mesh)
         if frac == 0.0:
             out.append(v_k)
         else:
-            v_k1 = _select_kth(data, lo, hi, k + 1)
+            v_k1 = _select_kth(data, lo, hi, k + 1, mesh)
             out.append(v_k * (1 - frac) + v_k1 * frac)
     return out
 

@@ -7,13 +7,27 @@ sorts by code with NA as NaN; a descending key is negated; NaN becomes
 +inf, so NA rows and real +inf rows keep their row order among
 themselves and come last. -0 is read as +0 so that every device's sort
 sees one zero. On one device the reference takes this global argsort
-too; its sample sort (:154) is for a multi-device mesh (ROADMAP A14.6b).
+too.
+
+On a row-sharded cloud the frame is sorted by the reference's sample
+sort (h2o3_tpu/ops/sort.py:50-196, `sample_sort_order`): every rank
+sorts its rows by (keys, global row id), a total order that is the
+stable sort's; all-gathers a stride sample of them; takes N-1 splitters
+from the sorted sample (`splitters`, which the sort-merge join shares);
+sends each row's keys and id to the rank of its bucket (`bucket_of`,
+one ``all_to_all``); sorts its bucket; checks that the buckets
+follow one another (the reference repairs a broken bucket on the host;
+here it raises); and the sorted ids, rebalanced to `mesh.row_block`
+(`place_rows`), take the frame's rows (`take_global_rows`). All of it
+runs on the frame's device; only the sample and the buckets' ends go
+through the host. The sorted frame is one process's bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from h2o3_tpu_torch.core.frame import Frame
@@ -29,14 +43,11 @@ def stable_argsort(key: torch.Tensor) -> torch.Tensor:
     return torch.argsort(key, stable=True)
 
 
-def sort_order(frame: Frame, names: Sequence[str],
-               ascending: Sequence[bool]) -> torch.Tensor:
-    """The device permutation sorting `frame` by `names`."""
-    from h2o3_tpu_torch.core.sharded_frame import refuse
-
-    refuse(frame, "a sort")
-    order = None
-    for name, asc in reversed(list(zip(names, ascending))):
+def sort_keys(frame: Frame, names: Sequence[str],
+              ascending: Sequence[bool]) -> List[torch.Tensor]:
+    """The float32 sort key of each key column (of this rank's rows)."""
+    keys = []
+    for name, asc in zip(names, ascending):
         c = frame.col(name)
         if c.is_categorical:
             key = torch.where(c.data < 0, torch.nan, c.data.float())
@@ -44,7 +55,15 @@ def sort_order(frame: Frame, names: Sequence[str],
             key = c.data.float()
         if not asc:
             key = -key
-        key = sort_key(key)
+        keys.append(sort_key(key))
+    return keys
+
+
+def lex_order(keys: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The stable permutation sorting rows by `keys` lexicographically
+    (stable argsorts composed last key first)."""
+    order = None
+    for key in reversed(list(keys)):
         if order is None:
             order = stable_argsort(key)
         else:
@@ -52,13 +71,95 @@ def sort_order(frame: Frame, names: Sequence[str],
     return order
 
 
+def sort_order(frame: Frame, names: Sequence[str],
+               ascending: Sequence[bool]) -> torch.Tensor:
+    """The device permutation sorting `frame` by `names` (one process's
+    frame: a row-sharded one is sorted by `sort_frame`)."""
+    from h2o3_tpu_torch.core.sharded_frame import refuse
+
+    refuse(frame, "a global sort permutation")
+    return lex_order(sort_keys(frame, names, ascending))
+
+
+def _lex_less(cols: Sequence[torch.Tensor], split: Sequence[float]
+              ) -> torch.Tensor:
+    """Rows (one tensor per key, the row id last) < the tuple `split`."""
+    lt = torch.zeros(len(cols[0]), dtype=torch.bool, device=cols[0].device)
+    eq = torch.ones_like(lt)
+    for c, v in zip(cols, split):
+        lt |= eq & (c < v)
+        eq &= c == v
+    return lt
+
+
+SAMPLES_PER_RANK = 64
+
+
+def splitters(mesh, cols: Sequence[torch.Tensor]) -> list:
+    """The N-1 splitter tuples of the sample sort, the same on every
+    rank: from a stride sample of this rank's rows (`cols`, one float64
+    tensor a field, sorted lexicographically), all-gathered and sorted."""
+    n_loc, size = len(cols[0]), mesh.size
+    m = min(n_loc, SAMPLES_PER_RANK * size)
+    pick = (torch.arange(m, device=cols[0].device) * n_loc) // max(m, 1)
+    every = mesh.all_gather(torch.stack([c[pick] for c in cols], 1)
+                            ).cpu().numpy()
+    if not len(every):
+        return []
+    every = every[np.lexsort(every.T[::-1])]
+    return [every[(j + 1) * len(every) // size] for j in range(size - 1)]
+
+
+def bucket_of(cols: Sequence[torch.Tensor], splits) -> torch.Tensor:
+    """The bucket (destination rank) of each row: how many splitters it
+    does not precede."""
+    b = torch.zeros(len(cols[0]), dtype=torch.long, device=cols[0].device)
+    for sp in splits:
+        b += (~_lex_less(cols, sp)).long()
+    return b
+
+
+def sample_sort_ids(frame: Frame, names: Sequence[str],
+                    ascending: Sequence[bool], mesh) -> tuple:
+    """The sample sort over the row mesh, on the frame's device: ->
+    (this rank's bucket of the sorted global row ids, the bucket's
+    offset in the sorted order)."""
+    from h2o3_tpu_torch.core.sharded_frame import Route, all_gather_counts
+
+    lo, _hi = frame.shard
+    keys = sort_keys(frame, names, ascending)
+    dev = keys[0].device
+    gid = torch.arange(lo, lo + frame.local_rows, device=dev).double()
+    order = lex_order(keys)
+    cols = [k.double()[order] for k in keys] + [gid[order]]
+    route = Route(mesh, bucket_of(cols, splitters(mesh, cols)))
+    got = route.send(torch.stack(cols, 1))
+    if len(got):
+        got = got[lex_order([got[:, j] for j in range(got.shape[1])])]
+    # the bucket invariant: rank r's last tuple precedes rank r+1's first
+    width = got.shape[1]
+    ends = torch.zeros(1, 1 + 2 * width, dtype=torch.float64, device=dev)
+    if len(got):
+        ends[0, 0] = len(got)
+        ends[0, 1:] = torch.cat([got[0], got[-1]])
+    prev = None
+    for r, row in enumerate(mesh.all_gather(ends).tolist()):
+        if row[0] == 0:
+            continue
+        first, last = row[1:1 + width], row[1 + width:]
+        if prev is not None and not tuple(prev) < tuple(first):
+            raise RuntimeError(
+                f"sample sort: bucket {r} starts at {first}, before the "
+                f"end {prev} of the bucket before it")
+        prev = last
+    sizes = all_gather_counts(mesh, len(got))
+    return got[:, -1].long(), sum(sizes[: mesh.rank])
+
+
 def sort_frame(frame: Frame, by: Union[str, int, Sequence], ascending=True,
                rows: Optional[tuple] = None) -> Frame:
     """`frame` sorted by the key columns `by`; `rows=(lo, hi)` gathers
     only that window of the sorted rows."""
-    from h2o3_tpu_torch.core.sharded_frame import refuse
-
-    refuse(frame, "a sort")
     if isinstance(by, (str, int)):
         by = [by]
     names = [frame.names[b] if isinstance(b, int) else b for b in by]
@@ -68,8 +169,17 @@ def sort_frame(frame: Frame, by: Union[str, int, Sequence], ascending=True,
     lo, hi = (0, n) if rows is None else (max(0, min(int(rows[0]), n)),
                                           max(0, min(int(rows[1]), n)))
     hi = max(lo, hi)
-    order = sort_order(frame, names, asc)
-    from h2o3_tpu_torch.core.sharded_frame import note_sorted
+    from h2o3_tpu_torch.core import sharded_frame as SF
 
-    note_sorted(n)          # the permutation stays on the device
+    if SF._is_sharded(frame):
+        mesh = SF.mesh_of(frame)
+        ids, off = sample_sort_ids(frame, names, asc, mesh)
+        pos = off + torch.arange(len(ids), device=ids.device)
+        keep = (pos >= lo) & (pos < hi)
+        (src,), _ = SF.place_rows(mesh, pos[keep] - lo, hi - lo,
+                                  [ids[keep]])
+        SF.note_sorted(len(ids))
+        return SF.take_global_rows(frame, src, hi - lo)
+    order = lex_order(sort_keys(frame, names, asc))
+    SF.note_sorted(n)          # the permutation stays on the device
     return take_order_rows(frame, order, hi - lo, offset=lo)

@@ -8,7 +8,10 @@ P("rows"))`` array over its processes' devices and reduces across them
 with ``psum``. Here a cloud of N processes is N ranks of a
 ``torch.distributed`` process group: rank r keeps the contiguous block
 of rows `row_block(n, r, N)` on its own device, and reductions cross
-ranks through the group's all-reduce and all-gather.
+ranks through the group's all-reduce and all-gather; rows move between
+ranks through `all_to_all` with split sizes (the counterpart of
+``jax.lax.all_to_all``; core/sharded_frame.py's row exchange), its bytes
+and seconds counted in `stats()`.
 
 - **Backend.** NCCL when every rank has a card of its own (rank r on
   ``cuda:r``, as many cards as ranks, or one rank on a card); gloo
@@ -107,7 +110,9 @@ class RowMesh:
         self._gen_checked = 0.0
         self._lock = threading.RLock()
         self._stats = {"collectives": 0, "bytes": 0, "staged_bytes": 0,
-                       "seconds": 0.0, "failures": 0, "groups_built": 0}
+                       "seconds": 0.0, "failures": 0, "groups_built": 0,
+                       "exchanges": 0, "exchange_bytes": 0,
+                       "exchange_seconds": 0.0}
 
     # -- geometry -----------------------------------------------------------
     def rows(self, n: int) -> Tuple[int, int]:
@@ -221,10 +226,12 @@ class RowMesh:
         if oplog.solo_replay():
             from h2o3_tpu_torch.core.failure import CloudUnhealthyError
 
-            raise CloudUnhealthyError(
+            err = CloudUnhealthyError(
                 f"a {what} across the row mesh while this rank replays a "
                 "rejoin's suffix alone: its peers already ran that op, so "
                 "they will not join it")
+            err.solo = True      # the rejoin replays such an op jointly
+            raise err
         with self._lock:
             t0 = time.perf_counter()
             # gloo reduces host tensors, NCCL device ones
@@ -307,6 +314,63 @@ class RowMesh:
                 self._stats["staged_bytes"] += sum(
                     o.numel() * o.element_size() for o in outs)
         return torch.cat([o[:s] for o, s in zip(outs, sizes)]).to(t.device)
+
+    def all_to_all(self, t: torch.Tensor, send_counts: List[int],
+                   recv_counts: Optional[List[int]] = None
+                   ) -> Tuple[torch.Tensor, List[int]]:
+        """The rows of `t` (dim 0) in rank order of destination, the first
+        ``send_counts[0]`` to rank 0 and so on, exchanged with every rank:
+        -> (the rows this rank received, in source rank order, on `t`'s
+        device; how many came from each rank). The counterpart of
+        ``jax.lax.all_to_all`` with split sizes: one exchange of the
+        counts (skipped when the caller knows `recv_counts`, as a plan
+        moving several columns the same way does), then one of the rows
+        as bytes (any dtype; gloo gets host buffers, NCCL device ones)."""
+        import torch.distributed as dist
+
+        if len(send_counts) != self.size or sum(send_counts) != t.shape[0]:
+            raise ValueError(f"all_to_all: {len(send_counts)} counts "
+                             f"summing to {sum(send_counts)} for "
+                             f"{t.shape[0]} rows on {self.size} ranks")
+        t0 = time.perf_counter()
+        if recv_counts is None:
+            ldev = (torch.device("cpu") if self.backend == "gloo"
+                    else self.device)
+            ones = [1] * self.size
+            sent = torch.tensor(list(send_counts), dtype=torch.int64,
+                                device=ldev)
+            got = torch.empty(self.size, dtype=torch.int64, device=ldev)
+
+            def call_n(grp, work):
+                return grp.alltoall_base(work[1], work[0], ones, ones,
+                                         dist.AllToAllOptions())
+
+            self._run("all_to_all(counts)", [sent, got], call_n)
+            recv_counts = [int(x) for x in got.tolist()]
+        row_shape = tuple(t.shape[1:])
+        width = 1
+        for d in row_shape:
+            width *= int(d)
+        src = t.contiguous().reshape(t.shape[0], width)
+        row_bytes = src.shape[1] * src.element_size()
+        raw = src.view(torch.uint8).reshape(-1)
+        out = torch.empty(sum(recv_counts) * row_bytes, dtype=torch.uint8,
+                          device=t.device)
+
+        def call(grp, work):
+            return grp.alltoall_base(
+                work[1], work[0], [c * row_bytes for c in recv_counts],
+                [c * row_bytes for c in send_counts],
+                dist.AllToAllOptions())
+
+        self._run("all_to_all", [raw, out], call)
+        moved = sum(c for i, c in enumerate(send_counts) if i != self.rank)
+        with self._lock:
+            self._stats["exchanges"] += 1
+            self._stats["exchange_bytes"] += moved * row_bytes
+            self._stats["exchange_seconds"] += time.perf_counter() - t0
+        return (out.view(src.dtype).reshape((sum(recv_counts),) + row_shape),
+                recv_counts)
 
     def barrier(self) -> None:
         """Every rank reaches this point (a one-element all-reduce)."""

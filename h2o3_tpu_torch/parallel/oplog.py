@@ -33,10 +33,24 @@ train its peers cannot join. An op that completed a collective whose
 result it keeps (a train, an import) ends in a control-plane checkpoint
 of its own: the coordinator snapshots inside the op's turn, every
 follower writes its rows as a rank section before it acknowledges, and
-the checkpoint is booked once every follower did. A rejoin's suffix
-therefore never holds an op that needs its peers (ROADMAP C47). A
-REST-serving coordinator never enters a collective outside an op's turn
-(`unmirrored_collective_risk`): the followers would never join it.
+the checkpoint is booked once every follower did. A follower that dies
+after such an op's last collective but before its section and ack
+leaves the op unbooked in the suffix (ROADMAP C47): the rejoin's solo
+replay of it meets a collective, and the rejoiner then replays that op
+jointly (`_joint_replay`): it asks the coordinator through
+``oplog/joint/{seq}``, the coordinator's supervisor tick runs the op
+again beside it in the mesh's new generation (`serve_joint_replays`),
+snapshots the result and books the checkpoint once the rejoiner, its
+section written, acknowledged. The coordinator refuses (and the rejoin
+fails) when a second run would not see what the first saw: the op
+replaced a DKV object that existed before it (recorded at the op's end
+as ``oplog/rewrites/{seq}``), a later op changed state, or a third
+process would have to join. The fault point
+``oplog.replay.collectives_done`` marks that window. A REST-serving
+coordinator never enters a collective outside an op's turn
+(`unmirrored_collective_risk`): the followers would never join it; the
+threads an op starts for its members (AutoML, grids) carry its context
+(`op_context`, `adopt_op_context`).
 """
 
 from __future__ import annotations
@@ -269,6 +283,7 @@ def reset(next_seq: int = 0) -> None:
         _OP_IDS.clear()
         _OP_KINDS.clear()
         _EXEC_COND.notify_all()
+    _JOINT_SERVED.clear()
     from h2o3_tpu_torch.parallel import ckpt
 
     ckpt.reset()
@@ -500,14 +515,19 @@ def turn(seq: Optional[int], timeout_s: Optional[float] = None):
     _TLS.collective_failed = False
     _TLS.pending_ckpt = None
     c0 = _collectives()
+    before = _dkv_state() if D.process_count() > 1 else None
+    rewrites = False
     try:
         yield
+        kept = _keeps_collective_state(_OP_KINDS.get(seq), c0)
         if _TLS.pending_ckpt is None and not _TLS.collective_failed \
-                and _keeps_collective_state(_OP_KINDS.get(seq), c0):
+                and kept:
             try:
                 ckpt.write_checkpoint(seq)      # booked below
             except Exception as e:   # noqa: BLE001 — the op succeeded
                 _log_ckpt_failure(seq, e)
+        if before is not None and (kept or _TLS.pending_ckpt is not None):
+            rewrites = _note_rewrites(seq, before)
     finally:
         failed = getattr(_TLS, "collective_failed", False)
         pending = getattr(_TLS, "pending_ckpt", None)
@@ -543,6 +563,8 @@ def turn(seq: Optional[int], timeout_s: Optional[float] = None):
         if pending is not None:
             ckpt.discard(pending)     # a follower's section may be missing
         raise
+    if rewrites:
+        D.kv_delete(f"{_REWRITES_PREFIX}{seq}")    # no rejoin replays it
     if pending is not None:
         # every follower replayed the op, its rank section written: the
         # snapshot is whole
@@ -952,7 +974,11 @@ def _replay(seq: int, kind: str, payload: Dict[str, Any]) -> None:
     c0 = _collectives()
     try:
         _apply(kind, payload)
-        if _keeps_collective_state(kind, c0):
+        kept = _keeps_collective_state(kind, c0)
+        # the window a rejoin repairs with a joint replay: the op's
+        # collectives are done, its rank section and ack are not
+        failure.faultpoint("oplog.replay.collectives_done")
+        if kept:
             from h2o3_tpu_torch.parallel import ckpt
 
             ckpt.write_rank_section(seq)
@@ -1133,7 +1159,16 @@ def rejoin() -> int:
                 break
             try:
                 failure.faultpoint("oplog.rejoin.replay")
-                _replay(cursor, op["kind"], op["payload"])
+                try:
+                    _replay(cursor, op["kind"], op["payload"])
+                except failure.CloudUnhealthyError as e:
+                    if not getattr(e, "solo", False):
+                        raise
+                    # the op kept a collective's result and its checkpoint
+                    # was never booked (this rank died after the op's last
+                    # collective, before its ack): replay it with the live
+                    # ranks
+                    _joint_replay(cursor, op, inc)
             except Exception:
                 _record_error(cursor, op["kind"], traceback.format_exc())
                 raise
@@ -1164,6 +1199,206 @@ def rejoin() -> int:
     timeline.record("cloud", "rejoin", proc=proc, inc=inc,
                     caught_up_seq=cursor)
     return cursor
+
+
+_JOINT_PREFIX = f"{_PREFIX}/joint/"
+_ANSWER_PREFIX = f"{_PREFIX}/joint_answer/"
+_REWRITES_PREFIX = f"{_PREFIX}/rewrites/"
+_JOINT_SERVED: set = set()
+# kinds of op that change no object a later op reads
+_INERT_KINDS = ("noop", "checkpoint")
+
+
+def _dkv_state() -> Dict[str, tuple]:
+    """Every object in this process's DKV (a frame with its names and
+    columns), held so that none is freed while an op runs: an object the
+    op replaced, removed or rebuilt shows as a changed entry
+    (`_same_entry`)."""
+    from h2o3_tpu_torch.core.dkv import DKV
+    from h2o3_tpu_torch.core.frame import Frame
+
+    out = {}
+    for k in DKV.keys():
+        v = DKV.get(k)
+        out[k] = ((v, tuple(v.names), tuple(v.col(n) for n in v.names))
+                  if isinstance(v, Frame) else (v, (), ()))
+    return out
+
+
+def _same_entry(a: tuple, b: Optional[tuple]) -> bool:
+    return (b is not None and a[0] is b[0] and a[1] == b[1]
+            and len(a[2]) == len(b[2])
+            and all(x is y for x, y in zip(a[2], b[2])))
+
+
+def _note_rewrites(seq: int, before: Dict[str, tuple]) -> bool:
+    """Coordinator, at the end of op `seq`, which kept a collective's
+    result: record the DKV keys that held an object before the op and
+    hold another (or none) after it (True when there are any). Run again
+    on such a DKV the op would read its own output, so a rejoin cannot
+    replay it jointly (ROADMAP C47)."""
+    now = _dkv_state()
+    changed = sorted(k for k, v in before.items()
+                     if not _same_entry(v, now.get(k)))
+    if changed:
+        D.kv_put(f"{_REWRITES_PREFIX}{seq}", json.dumps(changed))
+    return bool(changed)
+
+
+def _joint_replay(seq: int, op: Dict[str, Any], inc: int) -> None:
+    """A rejoiner's replay of op `seq` together with the live ranks (ROADMAP
+    C47): it asks the coordinator (``oplog/joint/{seq}``) to run the op
+    again in the mesh's new generation and waits for its answer. When the
+    coordinator agrees it runs the op itself with its peers (its rank
+    section written as in a live replay), and the coordinator books the
+    op's checkpoint once this rank acknowledged it. A refusal raises: the
+    rejoin fails as it would without a joint replay."""
+    proc = D.process_index()
+    D.kv_put(f"{_JOINT_PREFIX}{seq}", json.dumps(
+        {"proc": proc, "inc": int(inc), "kind": op["kind"],
+         "ts": time.time()}))
+    deadline = time.monotonic() + _ack_timeout_s()
+    poll = retry.AdaptivePoll(min_s=0.01, max_s=0.25)
+    while True:
+        raw = D.kv_try_get(f"{_ANSWER_PREFIX}{seq}")
+        ans = json.loads(raw) if raw is not None else None
+        if ans is not None and ans.get("proc") == proc \
+                and int(ans.get("inc", -1)) == int(inc):
+            break
+        if time.monotonic() > deadline:
+            raise failure.CloudUnhealthyError(
+                f"rejoin: the coordinator never answered the joint replay "
+                f"of op {seq} ({op['kind']})")
+        poll.wait()
+    D.kv_delete(f"{_ANSWER_PREFIX}{seq}")
+    if not ans.get("ok"):
+        raise RuntimeError(f"rejoin: op {seq} ({op['kind']}) cannot be "
+                           f"replayed jointly: {ans.get('reason')}")
+    _TLS.solo = False
+    try:
+        _replay(seq, op["kind"], op["payload"])
+    finally:
+        _TLS.solo = True
+
+
+def serve_joint_replays() -> List[int]:
+    """Coordinator: answer every joint replay a rejoiner asked for (once
+    each) and start the ones it can run; returns their seqs. The
+    supervisor calls this every tick."""
+    if D.process_count() < 2 or not D.is_coordinator():
+        return []
+    started = []
+    for k, v in D.kv_dir(_JOINT_PREFIX):
+        try:
+            seq, rec = int(k.rsplit("/", 1)[-1]), json.loads(v)
+        except (ValueError, TypeError):
+            continue
+        tag = (seq, int(rec.get("proc", -1)), int(rec.get("inc", 0)),
+               rec.get("ts"))
+        if tag in _JOINT_SERVED:
+            continue
+        _JOINT_SERVED.add(tag)
+        why = _joint_refusal(seq)
+        D.kv_put(f"{_ANSWER_PREFIX}{seq}", json.dumps(
+            {"proc": rec.get("proc"), "inc": rec.get("inc", 0),
+             "ok": why is None, "reason": why}))
+        if why is not None:
+            D.kv_delete(f"{_JOINT_PREFIX}{seq}")
+            from h2o3_tpu_torch.utils.log import get_logger
+
+            get_logger().warning("joint replay of op %d refused: %s", seq,
+                                 why)
+            continue
+        threading.Thread(target=_serve_joint, args=(seq, rec), daemon=True,
+                         name=f"h2o3-joint-replay-{seq}").start()
+        started.append(seq)
+    return started
+
+
+def _joint_refusal(seq: int) -> Optional[str]:
+    """Why the coordinator cannot run op `seq` again beside a rejoiner
+    (None when it can). Its run must see what its first run saw: so the
+    op may not have replaced an object it existed before (an assign onto
+    one of its own inputs, a train or an AutoML project under a key that
+    was taken), no op that changes state may have run after it, and the
+    coordinator must be the only live peer (another follower would not
+    join the replay)."""
+    if D.process_count() > 2:
+        return (f"{D.process_count()} processes: only the coordinator "
+                "replays an op beside a rejoiner")
+    raw = D.kv_try_get(f"{_REWRITES_PREFIX}{seq}")
+    if raw is not None:
+        return (f"the op replaced {', '.join(json.loads(raw))}, which a "
+                "second run would read in place of its inputs")
+    for s in range(seq + 1, current_seq()):
+        later = D.kv_try_get(f"{_PREFIX}/{s}")
+        kind = json.loads(later)["kind"] if later is not None else None
+        if kind is not None and kind not in _INERT_KINDS:
+            return f"op {s} ({kind}) ran after it"
+    return None
+
+
+def _serve_joint(seq: int, rec: dict) -> None:
+    """Run op `seq` again beside the rejoiner, snapshot the result, wait
+    for the rejoiner's ack (its rank section is then written) and book
+    the checkpoint."""
+    from h2o3_tpu_torch.parallel import ckpt
+    from h2o3_tpu_torch.utils.log import get_logger
+
+    log = get_logger()
+    raw = D.kv_try_get(f"{_PREFIX}/{seq}")
+    if raw is None:
+        log.warning("joint replay of op %d: the op is gone", seq)
+        return
+    op = json.loads(raw)
+    t0 = time.monotonic()
+    _TLS.in_op, _TLS.seq = True, seq
+    _TLS.collective_failed, _TLS.pending_ckpt = False, None
+    try:
+        _apply(op["kind"], op["payload"])
+        ckpt.write_checkpoint(seq)
+        pending = _TLS.pending_ckpt
+    except Exception as e:   # noqa: BLE001 — the rejoin reports its side
+        log.warning("joint replay of op %d failed: %s", seq, e)
+        return
+    finally:
+        _TLS.in_op, _TLS.seq, _TLS.pending_ckpt = False, None, None
+        _TLS.collective_failed = False
+    deadline = time.monotonic() + _ack_timeout_s()
+    floor = {int(rec["proc"]): int(rec.get("inc", 0))}
+    while not acks_for(seq, op.get("op_id"), floor):
+        if time.monotonic() > deadline:
+            ckpt.discard(pending)
+            log.warning("joint replay of op %d: no ack from process %s",
+                        seq, rec["proc"])
+            return
+        time.sleep(0.02)
+    ckpt.commit(pending)
+    D.kv_delete(f"{_JOINT_PREFIX}{seq}")
+    from h2o3_tpu_torch.utils import timeline
+
+    timeline.record("cloud", "joint_replay", seq=seq, proc=rec["proc"],
+                    ms=(time.monotonic() - t0) * 1000.0)
+
+
+def op_context() -> Dict[str, Any]:
+    """This thread's op context (the op it executes or replays), for
+    threads an op starts to do its work (AutoML's and grids' members)."""
+    return {k: getattr(_TLS, k, None)
+            for k in ("in_op", "seq", "replay_seq", "solo")}
+
+
+@contextlib.contextmanager
+def adopt_op_context(ctx: Dict[str, Any]):
+    """Run the block in `ctx`, an op context from `op_context`."""
+    old = op_context()
+    for k, v in ctx.items():
+        setattr(_TLS, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(_TLS, k, v)
 
 
 # ---------------------------------------------------------------------------

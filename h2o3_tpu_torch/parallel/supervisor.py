@@ -345,9 +345,13 @@ class Supervisor:
         from h2o3_tpu_torch.utils.log import get_logger
 
         def run():
+            from h2o3_tpu_torch.parallel import oplog
+
             while not self._stop.wait(self.interval):
                 try:
                     evaluate()
+                    # a rejoiner's op that needs its peers (ROADMAP C47)
+                    oplog.serve_joint_replays()
                 except Exception as e:   # noqa: BLE001 — a transient KV
                     # hiccup must not kill supervision for good; but a
                     # PERMANENTLY-failing evaluate dying silently is an

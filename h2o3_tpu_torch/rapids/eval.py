@@ -333,10 +333,22 @@ def _ifelse_prim(env, cond, yes, no):
     return _colfr(E.ifelse(_one_col(cond), y, n))
 
 
+def agreed_seed(fr, seed) -> Optional[int]:
+    """A Rapids seed argument as a numpy seed: None (fresh) when it is
+    NaN or negative; on a row-sharded frame a fresh seed is rank 0's, so
+    that every rank draws the same rows."""
+    sd = int(seed) if seed == seed and seed >= 0 else None
+    from h2o3_tpu_torch.core import sharded_frame as SF
+
+    if sd is None and SF._is_sharded(fr):
+        sd = SF.agreed_int(SF.mesh_of(fr),
+                           np.random.SeedSequence().entropy % 2 ** 62)
+    return sd
+
+
 @prim("h2o.runif")
 def _runif(env, fr, seed):
-    rng = np.random.default_rng(int(seed) if seed == seed and seed >= 0
-                                else None)
+    rng = np.random.default_rng(agreed_seed(fr, seed))
     return _colfr(Column.from_numpy(rng.random(fr.nrows)), "rnd")
 
 
@@ -901,10 +913,11 @@ def exec_rapids(expr: str, session: Optional[Session] = None):
 # mungers, matrix, repeaters, timeseries)
 from h2o3_tpu_torch.rapids import prims_ext as _prims_ext  # noqa: E402,F401
 # prims that need other ranks' rows (reductions, orderings, row
-# selection, group-bys, folds, the quantile family): on a row-sharded
-# frame they refuse with the ROADMAP item (A14.6b), never gathering rows;
-# row-local prims (arithmetic, comparisons, ifelse, cols, casts of
-# values) run shard by shard
+# selection, group-bys, folds, the quantile family). Those the row
+# exchange and the cloud's rollups serve (`SHARDED_PRIMS`) run on a
+# row-sharded frame; the rest refuse with the ROADMAP item (A14.6c),
+# never gathering rows. Row-local prims (arithmetic, comparisons,
+# ifelse, cols, casts of values) run shard by shard.
 CROSS_ROW_PRIMS = frozenset({
     "rows", "rbind", "sort", "merge", "unique", "table", "h2o.impute",
     "na.omit", "h2o.runif", "GB", "mean", "getrow", "sum", "min", "max",
@@ -918,6 +931,11 @@ CROSS_ROW_PRIMS = frozenset({
     "rank_within_groupby", "grouped_permute", "h2o.mad", "isax",
     "tf-idf", "cumsum", "cumprod", "cummin", "cummax", "asfactor",
     "as.factor", "entropy"})
+SHARDED_PRIMS = frozenset({
+    "rows", "rbind", "sort", "merge", "GB", "table", "unique", "na.omit",
+    "h2o.splitframe", "h2o.runif", "kfold_column", "modulo_kfold_column",
+    "stratified_kfold_column", "mean", "sum", "min", "max", "sd", "var",
+    "naCnt", "nacnt", "median", "quantile"})
 
 
 def _guard_cross_row(fn, name):
@@ -934,7 +952,7 @@ def _guard_cross_row(fn, name):
     return guarded
 
 
-for _nm in CROSS_ROW_PRIMS:
+for _nm in CROSS_ROW_PRIMS - SHARDED_PRIMS:
     if _nm in PRIMS:
         PRIMS[_nm] = _guard_cross_row(PRIMS[_nm], _nm)
 

@@ -62,8 +62,16 @@ _FORCE: Optional[bool] = None
 
 
 def _world_size() -> int:
+    """The ranks that run each statement in step: the row mesh's (a
+    deferred statement would flush at observation points that not every
+    rank shares), else the default process group's."""
     import torch.distributed as dist
 
+    from h2o3_tpu_torch.parallel import mesh as M
+
+    m = M.current()
+    if m is not None and m.size > 1:
+        return m.size
     if dist.is_available() and dist.is_initialized():
         return int(dist.get_world_size())
     return 1

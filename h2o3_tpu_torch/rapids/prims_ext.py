@@ -19,8 +19,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from h2o3_tpu_torch.core.frame import Column, Frame, T_CAT, T_NUM, T_TIME
-from h2o3_tpu_torch.rapids.eval import (NumList, StrLit, _colfr,
+from h2o3_tpu_torch.core.frame import (Column, Frame, T_CAT, T_NUM, T_TIME,
+                                       numeric_host, store_numeric, widen)
+from h2o3_tpu_torch.rapids.eval import (NumList, StrLit, _colfr, agreed_seed,
                                         _eval_lambda, _idx_list, _is_fr,
                                         _one_col, _percol, _row_sum, _s,
                                         _scalar, prim)
@@ -224,8 +225,7 @@ def _mode(env, fr):
 @prim("kfold_column")
 def _kfold(env, fr, nfolds, seed):
     n = fr.nrows
-    sd = int(_scalar(seed))
-    rng = np.random.default_rng(sd if sd >= 0 else None)
+    rng = np.random.default_rng(agreed_seed(fr, float(_scalar(seed))))
     return _colfr(Column.from_numpy(
         rng.integers(0, int(_scalar(nfolds)), n).astype(np.float64)), "kfold")
 
@@ -239,18 +239,23 @@ def _modulo_kfold(env, fr, nfolds):
 
 @prim("stratified_kfold_column")
 def _strat_kfold(env, fr, nfolds, seed):
+    from h2o3_tpu_torch.core import sharded_frame as SF
+    from h2o3_tpu_torch.ops.filters import stratified_fold_ids
+
     c = _one_col(fr)
-    y = np.asarray(c.to_numpy())
-    k = int(_scalar(nfolds))
-    sd = int(_scalar(seed))
-    rng = np.random.default_rng(sd if sd >= 0 else None)
-    assign = rng.integers(0, k, len(y))
-    for cls in np.unique(y[~np.isnan(y.astype(np.float64))] if y.dtype.kind == "f"
-                         else y[y >= 0]):
-        idx = np.nonzero(y == cls)[0]
-        rng.shuffle(idx)
-        assign[idx] = (np.arange(len(idx)) + rng.integers(k)) % k
-    return _colfr(Column.from_numpy(assign.astype(np.float64)), "kfold")
+    rng = np.random.default_rng(agreed_seed(fr, float(_scalar(seed))))
+    if c.shard is None:
+        assign = stratified_fold_ids(np.asarray(c.to_numpy()),
+                                     int(_scalar(nfolds)), rng, c.nrows)
+    else:
+        # this rank's rows: the class counts cross ranks, the rows do not
+        assign = stratified_fold_ids(
+            widen(c.data).cpu().numpy(), int(_scalar(nfolds)), rng,
+            c.nrows, c.shard[0], SF.mesh_of(c))
+    # the rows this process holds, as `Column.from_numpy` stores them
+    return _colfr(Column(store_numeric(numeric_host(
+        assign.astype(np.float64), T_NUM), T_NUM, None), T_NUM, c.nrows),
+        "kfold")
 
 
 @prim("h2o.random_stratified_split")

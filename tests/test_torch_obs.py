@@ -55,8 +55,13 @@ def test_registry_names_and_types_equal_the_reference():
 
     from h2o3_tpu_torch.obs import metrics as tm
 
-    assert tm.REGISTRY.names() == jm.REGISTRY.names()
-    for n in tm.REGISTRY.names():
+    # the reference's series, plus the row exchange's counters (no
+    # counterpart there), each a counter
+    assert [n for n in tm.REGISTRY.names()
+            if n not in tm.PORT_ONLY_SERIES] == jm.REGISTRY.names()
+    for n in tm.PORT_ONLY_SERIES:
+        assert tm.REGISTRY.get(n).mtype == "counter", n
+    for n in jm.REGISTRY.names():
         a, b = tm.REGISTRY.get(n), jm.REGISTRY.get(n)
         assert (a.mtype, a.agg, a.buckets) == (b.mtype, b.agg, b.buckets), n
     with pytest.raises(ValueError):
@@ -79,8 +84,11 @@ def test_metrics_route_matches_the_reference(env):
         R.json("GET", "/3/Cloud")
         R.json("GET", "/3/Frames")
         R.json("GET", "/3/Frames/no_such", status=404)
+    from h2o3_tpu_torch.obs.metrics import PORT_ONLY_SERIES
+
     js, ts = _series(J), _series(T)
-    assert set(js) == set(ts)
+    assert set(js) == set(ts) - set(PORT_ONLY_SERIES)
+    assert set(PORT_ONLY_SERIES) <= set(ts)
     for name in js:
         assert js[name]["type"] == ts[name]["type"], name
         jl = {tuple(sorted(s["labels"])) for s in js[name]["samples"]}
@@ -185,7 +193,9 @@ def test_scoring_request_spans(env):
     assert set(sm["pipeline"]) == set(pipeline.stats())
     j = env["J"].json("GET", "/3/ScoringMetrics")
     assert set(j) == set(sm)
-    assert set(j["data_plane"]) == set(sm["data_plane"])
+    # the reference's data-plane counters, plus the row exchange's
+    assert set(j["data_plane"]) == set(sm["data_plane"]) - {
+        "exchanged_rows", "exchanged_bytes", "dl_batch_rows"}
 
 
 def test_flight_records(env, tmp_path, monkeypatch):

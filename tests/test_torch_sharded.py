@@ -296,14 +296,25 @@ def test_fixed_point_group_sums_are_each_groups_own_sum(size):
 
 
 def test_out_of_scope_work_refuses_a_sharded_frame():
-    from h2o3_tpu_torch.ops.sort import sort_frame
+    """What the row exchange does not serve yet (ROADMAP A14.6c) refuses
+    a row-sharded frame, naming that item: a window function, GLM's
+    multinomial family, the isolation forests and the other builders,
+    and the DeepLearning autoencoder."""
+    from h2o3_tpu_torch.ops.window import difflag1_device
 
     def rank(r, m):
         fr = _train_frame(n=64)()
-        with pytest.raises(NotImplementedError, match="A14.6b"):
-            sort_frame(fr, "a")
-        with pytest.raises(NotImplementedError, match="A14.6b"):
-            th.DeepLearning(epochs=1).train(y="y", training_frame=fr)
+        with pytest.raises(NotImplementedError, match="A14.6c"):
+            difflag1_device(fr.col("a"))
+        with pytest.raises(NotImplementedError, match="A14.6c"):
+            th.GLM(family="multinomial").train(y="g", training_frame=fr)
+        with pytest.raises(NotImplementedError, match="A14.6c"):
+            th.IsolationForest(ntrees=2).train(training_frame=fr)
+        with pytest.raises(NotImplementedError, match="A14.6c"):
+            th.KMeans(k=2).train(training_frame=fr)
+        with pytest.raises(NotImplementedError, match="A14.6c"):
+            th.DeepLearning(epochs=1, autoencoder=True).train(
+                training_frame=fr)
         return True
 
     assert run_ranks(2, rank) == [True, True]

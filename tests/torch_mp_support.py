@@ -11,7 +11,10 @@ keeping them in step; each writes ``OUTDIR/rank.{pid}.npz`` and
 cloud's column mean, the GLM's coefficients, the GBM's (validation,
 early stopping) and the sampled DRF's forests and gathered predictions,
 the imported CSV's shard and gathered columns, and what the DKV's
-cross-process half returned.
+cross-process half returned; then the JAX package's second tier
+(tests/mp_worker2.py): the sample sort, a join with a lookup frame, a
+group-by and a DeepLearning train, each rank's rows of their results
+and the gathered results.
 """
 
 import datetime
@@ -105,10 +108,54 @@ def main(argv) -> None:
     info["global_keys"] = DKV.global_keys()
     info["gbm_key"] = str(gbm.key)
 
+    _tier2(h2o, fr, imp, arr, info)
+
     np.savez(os.path.join(outdir, f"rank.{pid}.npz"), **arr)
     with open(os.path.join(outdir, f"rank.{pid}.json"), "w") as f:
         json.dump(info, f)
     mesh.barrier()          # neither rank leaves while the other gathers
+
+
+def tier2_frames(fr, imp):
+    """The second tier's results on `fr` (the training frame) and `imp`
+    (the imported CSV): a sort, an inner join with a 3-row lookup on the
+    enum key, a group-by."""
+    import numpy as np
+
+    from h2o3_tpu_torch.core.frame import Column, Frame
+    from h2o3_tpu_torch.ops.groupby import GroupBy
+    from h2o3_tpu_torch.ops.merge import merge
+    from h2o3_tpu_torch.ops.sort import sort_frame
+
+    look = Frame()
+    look.add("g", Column.from_numpy(np.array(["a", "b", "c"], object),
+                                    ctype="enum"))
+    look.add("w", Column.from_numpy(np.array([1.5, -2.0, 4.0])))
+    return {"sort": sort_frame(fr, ["a"]),
+            "merge": merge(imp, look),
+            "gb": GroupBy(imp, ["g"]).count().mean("x").sum("z")
+            .get_frame()}
+
+
+DL_PARAMS = dict(hidden=[8, 8], epochs=1, seed=4, mini_batch_size=16)
+
+
+def _tier2(h2o, fr, imp, arr, info) -> None:
+    from h2o3_tpu_torch.core import sharded_frame
+
+    sharded_frame.reset_counters()
+    out = tier2_frames(fr, imp)
+    dl = h2o.DeepLearning(**DL_PARAMS).train(y="y", training_frame=fr)
+    info["tier2_counters"] = sharded_frame.counters()
+    for name, res in out.items():
+        info[f"{name}_shard"] = list(res.shard)
+        for nm in res.names:
+            c = res.col(nm)
+            arr[f"{name}_local_{nm}"] = c.data.float().numpy()
+            arr[f"{name}_{nm}"] = c.to_numpy()          # gathered
+    for i, (W, b) in enumerate(dl.params_tree):
+        arr[f"dl_W{i}"], arr[f"dl_b{i}"] = W.numpy(), b.numpy()
+    info["dl_auc"] = float(dl._output.training_metrics.auc)
 
 
 if __name__ == "__main__":
