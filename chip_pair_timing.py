@@ -3,7 +3,8 @@ call: each measurement runs in a fresh process per checkout, in the order
 A, B, B, A, so that a drift of the machine shows as a gap between the two
 runs of one checkout.
 
-    python3 chip_pair_timing.py [--metrics A,B] [--munge A,B] [--out FILE]
+    python3 chip_pair_timing.py [--metrics A,B] [--munge A,B] [--shard A,B]
+                                [--reps K] [--out FILE]
 
 A and B are checkout roots, each holding ``chip_smoke.py`` and the
 ``h2o3_tpu_torch`` package; every process builds its checkout's kernels
@@ -20,6 +21,14 @@ and phase 3y's munging steps).
   run phase 3y's munging steps (split, sort, merge, group-by) on the
   flagship frame sharded between them, three times; rank 0's seconds
   and exchanged bytes per step.
+- ``--shard``: the same two ranks import the flagship CSV (written once,
+  from B's ``chip_smoke.py``), warm up with a 2-tree GBM and run phase
+  3y's ``_shard_slice`` (munging, the prim statements where the
+  checkout has them, the 5-fold CV GBM, XGBoost, DeepLearning, AutoML);
+  rank 0's seconds per train and the process's state (DKV keys, CUDA
+  memory, resident set, threads, the mesh's collectives) before and
+  after the prims and AutoML. Runs A, B, B', B', B, A (``--reps`` K
+  times over), where B' is B with its prim statements skipped.
 
 Prints one JSON object per process and, as its last line, all of them;
 ``--out`` writes them too. Exits 1 when a process fails or there is no
@@ -130,10 +139,86 @@ def worker_munge(root, rank):
             "reps": reps}
 
 
+def _state(h2o, m):
+    """What the process holds that a later train could feel."""
+    import threading
+
+    import torch
+
+    st = m.stats()
+    with open("/proc/self/statm") as f:
+        rss = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    return {"dkv_keys": len(h2o.DKV.keys()),
+            "cuda_allocated": torch.cuda.memory_allocated(),
+            "cuda_reserved": torch.cuda.memory_reserved(),
+            "rss_bytes": rss, "py_threads": threading.active_count(),
+            "torch_threads": torch.get_num_threads(),
+            "collectives": st["collectives"],
+            "collective_s": st["seconds"]}
+
+
+def worker_shard(root, rank, csv_path, prims):
+    from h2o3_tpu_torch.parallel import distributed as D
+
+    D.initialize()
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.parallel import mesh as M
+
+    cs = _load_smoke(root)
+    dev = h2o.init().device
+    m = M.current()
+    if m is None or m.size != 2 or m.rank != rank or dev.type != "cuda":
+        raise SystemExit(f"rank {rank}: mesh {m and m.describe()} on {dev}")
+    fr = h2o.import_file(csv_path, destination_frame="shard_flagship.hex")
+    h2o.GBM(ntrees=2, max_depth=cs["FLAGSHIP"]["max_depth"]).train(
+        y="y", training_frame=fr)
+    _sync()
+    probes = {}
+    g = cs["_shard_slice"].__globals__
+    prim_steps = g.get("_prim_steps")
+
+    def probed_prims(*a, **k):
+        probes["before_prims"] = _state(h2o, m)
+        out = prim_steps(*a, **k) if prims else ({}, {}, {})
+        _sync()
+        probes["after_prims"] = _state(h2o, m)
+        return out
+
+    if prim_steps is not None:
+        g["_prim_steps"] = probed_prims
+    real_aml = h2o.H2OAutoML
+
+    def probed_aml(*a, **k):
+        aml = real_aml(*a, **k)
+        train = aml.train
+
+        def timed_train(*ta, **tk):
+            probes["before_automl"] = _state(h2o, m)
+            out = train(*ta, **tk)
+            _sync()
+            probes["after_automl"] = _state(h2o, m)
+            return out
+
+        aml.train = timed_train
+        return aml
+
+    h2o.H2OAutoML = probed_aml
+    res = {}
+    cs["_shard_slice"](h2o, dev, fr, m, res)
+    keep = ("prims_wall_s", "sharded_cv_train_s", "sharded_xgb_train_s",
+            "sharded_dl_train_s", "sharded_automl_train_s",
+            "automl_leaderboard")
+    return {"rank": rank, "prims": bool(prims and prim_steps),
+            "munge_s": {k: v["s"] for k, v in res["munge"].items()},
+            **{k: res[k] for k in keep if k in res}, "probes": probes}
+
+
 def _worker(argv):
     kind, root = argv[0], argv[1]
     if kind == "metrics":
         res = worker_metrics(root)
+    elif kind == "shard":
+        res = worker_shard(root, int(argv[2]), argv[3], argv[4] == "1")
     else:
         res = worker_munge(root, int(argv[2]))
     res.update(kind=kind, root=root)
@@ -174,9 +259,10 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def run_munge(root):
+def run_munge(root, extra=()):
     port = _free_port()          # rank 0 hosts the cloud's store there
-    procs = [_spawn(root, ["munge", root, str(r)], _env(root, {
+    kind = "shard" if extra else "munge"
+    procs = [_spawn(root, [kind, root, str(r), *extra], _env(root, {
         "H2O_TPU_COORDINATOR": f"127.0.0.1:{port}",
         "H2O_TPU_NUM_PROCESSES": "2", "H2O_TPU_PROCESS_ID": str(r),
         "H2O_TPU_MESH_TIMEOUT_S": "120"})) for r in (0, 1)]
@@ -187,7 +273,24 @@ def run_munge(root):
             if p.poll() is None:
                 p.kill()
                 p.wait(30)
-    return [_result(p, o) for p, o in zip(procs, outs)][0]
+    res = [_result(p, o) for p, o in zip(procs, outs)]
+    if extra:
+        res[0]["rank1_automl_train_s"] = res[1].get("sharded_automl_train_s")
+    return res[0]
+
+
+def _flagship_csv(root):
+    """The flagship CSV phase 3y imports, written once from `root`'s
+    chip_smoke.py into a temporary directory."""
+    import runpy
+    import tempfile
+
+    cs = runpy.run_path(os.path.join(root, "chip_smoke.py"))
+    path = os.path.join(tempfile.mkdtemp(prefix="pair_shard_"),
+                        "flagship.csv")
+    cs["write_csv"](path, cs["flagship_arrays"](cs["FLAGSHIP"]["n_rows"]),
+                    cs["_repr_f32"])
+    return path
 
 
 def main(argv):
@@ -216,8 +319,24 @@ def main(argv):
         for root in (a, b, b, a):
             res = fn(root)
             res["card"] = card.strip()
-            print(json.dumps(res))
+            print(json.dumps(res), flush=True)
             results.append(res)
+    if "--shard" in argv:
+        a, b = (os.path.abspath(x)
+                for x in argv[argv.index("--shard") + 1].split(","))
+        csv_path = _flagship_csv(b)
+        try:
+            reps = (int(argv[argv.index("--reps") + 1])
+                    if "--reps" in argv else 1)
+            for root, prims in ((a, 1), (b, 1), (b, 0), (b, 0), (b, 1),
+                                (a, 1)) * reps:
+                res = run_munge(root, (csv_path, str(prims)))
+                res.update(kind="shard", root=root, card=card.strip())
+                print(json.dumps(res), flush=True)
+                results.append(res)
+        finally:
+            os.remove(csv_path)
+            os.rmdir(os.path.dirname(csv_path))
     if out_path:
         os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
         with open(out_path, "w") as f:

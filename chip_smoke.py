@@ -6281,6 +6281,152 @@ def _munge_steps(h2o, fr):
     return out, stats
 
 
+# phase 3y's Rapids prims on row-sharded frames (ROADMAP A14.6c part 1),
+# on the flagship frame with two row-local columns added: `na`, n0 where
+# n1 <= 1.2 (NA elsewhere, ~11% of rows), and `c0na`, c0 where n2 <= 1.5.
+# Columns: n0..n7 0-7, c0 8, c1 9, y 10, na 11, c0na 12. Each step: its
+# statements (the last one's value is the result) and its bar against
+# one process: bitwise, 1e-6 relative over 1e-7 (C46), or 1e-5 of the
+# column's sum of |x| (C16)
+SHARD_PRIMS = [
+    ("impute_median", ["(tmp= {t}_im (cols {f} [11]))",
+                       "(h2o.impute {t}_im 0 'median' 'interpolate' [] _ _)",
+                       "{t}_im"], "bit"),
+    ("impute_mode", ["(tmp= {t}_io (cols {f} [12]))",
+                     "(h2o.impute {t}_io 0 'mode' 'interpolate' [] _ _)",
+                     "{t}_io"], "bit"),
+    ("as.factor", ["(as.factor (floor (* (cols {f} [0]) 2)))"], "bit"),
+    ("scale", ["(scale (cols {f} [0 1]) 1 1)"], "rel"),
+    ("cumsum", ["(cumsum (cols {f} [1]) 0)"], "c16"),
+    ("cummax", ["(cummax (cols {f} [2]) 0)"], "bit"),
+    ("difflag1", ["(difflag1 (cols {f} [3]))"], "bit"),
+    ("hist", ["(hist (cols {f} [0]) 20)"], "bit"),
+    ("cor", ["(cor (cols {f} [0 1 2]) (cols {f} [0 1 2]) 'complete.obs' "
+             "'pearson')"], "rel"),
+    ("which.max", ["(which.max (cols {f} [0 1 2]) True 0)"], "bit"),
+    ("mad", ["(mad (cols {f} [4]) 1.4826)"], "bit"),
+    ("topn", ["(topn {f} 5 1 1)"], "bit"),
+    ("dropdup", ["(dropdup {f} [8 9] 'first')"], "bit"),
+    ("fillna", ["(h2o.fillna (cols {f} [11]) 'forward' 0 3)"], "bit"),
+    ("rank_within_groupby", ['(rank_within_groupby (cols {f} [0 8]) [1] '
+                             '[0] [1] "r" 0)'], "bit"),
+]
+
+
+def _prim_steps(h2o, fr, tag):
+    """Phase 3y's Rapids prims (`SHARD_PRIMS`) on the flagship frame `fr`,
+    one process's or a rank's: -> ({step: digest, domains, rows and
+    shard of a frame, or the value}, {step: seconds, bytes this process
+    sent through the row exchange, rows gathered}, {step: this process's
+    rows of a frame held to a tolerance})."""
+    from h2o3_tpu_torch.core import sharded_frame as SF
+    from h2o3_tpu_torch.core.frame import Column
+    from h2o3_tpu_torch.rapids import Session, exec_rapids
+
+    pf = h2o.Frame(key=f"prims_{tag}.hex")
+    for nm in fr.names:
+        pf.add(nm, fr.col(nm))
+    n0, n1, n2 = (fr.col(f"n{i}").data for i in range(3))
+    c0 = fr.col("c0")
+    pf.add("na", Column(torch.where(n1 > 1.2, torch.nan, n0), "real",
+                        fr.nrows))
+    pf.add("c0na", Column(torch.where(n2 > 1.5, -1, c0.data.long()).to(
+        c0.data.dtype), "enum", fr.nrows, domain=c0.domain))
+    pf.install()
+    sess = Session(f"prims_{tag}")
+    out, stats, arrays = {}, {}, {}
+    try:
+        for name, sts, bar in SHARD_PRIMS:
+            c0_ = SF.counters()
+            t0 = time.perf_counter()
+            for st in sts:
+                v = exec_rapids(st.format(f=pf.key, t=f"prims_{tag}"), sess)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            c1_ = SF.counters()
+            stats[name] = {"s": dt, "exchanged_bytes": c1_["exchanged_bytes"]
+                           - c0_["exchanged_bytes"],
+                           "gathered_rows": c1_["gathered_rows"]
+                           - c0_["gathered_rows"]}
+            if isinstance(v, h2o.Frame):
+                out[name] = {"digest": _digest(v), "rows": v.nrows,
+                             "shard": None if v.shard is None
+                             else list(v.shard),
+                             "domains": [v.col(c).domain for c in v.names],
+                             "blocks": [_digest(v, _blk(v.nrows, r))
+                                        for r in (0, 1)]}
+                if bar != "bit":
+                    arrays[name] = np.stack([
+                        v.col(c).data.float().cpu().numpy()
+                        for c in v.names])
+            else:
+                out[name] = {"value": v}
+    finally:
+        sess.end()
+        h2o.DKV.remove(str(pf.key))
+    return out, stats, arrays
+
+
+def _check_prims(mine, theirs, arr1, ref):
+    """Phase 3y's prims on both ranks against the one-process run `ref`
+    (`_prim_steps`' three parts), at each step's bar; no row gathered.
+    Prints each step's seconds beside one process's, its exchanged bytes
+    and gathered rows, and `sharded_prims_s`."""
+    one, one_stats, one_arrays = ref
+    bars = {name: bar for name, _sts, bar in SHARD_PRIMS}
+    for rk, r, got_arrays in ((0, mine, mine["prims_arrays"]),
+                              (1, theirs, arr1)):
+        for name, got in r["prims"].items():
+            want, bar = one[name], bars[name]
+            check(r["prims_stats"][name]["gathered_rows"] == 0,
+                  f"rank {rk}: {name} gathered rows")
+            if "value" in want:
+                a = np.asarray(want["value"], np.float64)
+                b = np.asarray(got["value"], np.float64)
+                ok = (np.array_equal(a, b, equal_nan=True) if bar == "bit"
+                      else np.all(np.abs(a - b) <= 1e-6 * np.abs(a) + 1e-7))
+                check(ok, f"rank {rk}: {name} {b} vs one process's {a}")
+                continue
+            check(got["rows"] == want["rows"] and got["domains"]
+                  == want["domains"], f"rank {rk}: {name}'s rows or "
+                  "domains differ from one process's")
+            if got["shard"] is None:            # held whole on every rank
+                check(got["digest"] == want["digest"],
+                      f"rank {rk}: {name} differs from one process's")
+                continue
+            lo, hi = _blk(want["rows"], rk)
+            check(got["shard"] == [lo, hi], f"rank {rk}: {name} holds "
+                  f"{got['shard']}")
+            if bar == "bit":
+                check(got["digest"] == want["blocks"][rk],
+                      f"rank {rk}: {name} differs from one process's rows")
+                continue
+            a = one_arrays[name][:, lo:hi].astype(np.float64)
+            b = np.asarray(got_arrays[name], np.float64)
+            tol = (1e-5 * float(np.nansum(np.abs(one_arrays[name])))
+                   if bar == "c16" else 1e-6 * np.abs(a) + 1e-7)
+            check(a.shape == b.shape and np.array_equal(
+                np.isnan(a), np.isnan(b)) and np.all(
+                np.abs(np.nan_to_num(a - b)) <= tol),
+                f"rank {rk}: {name} off one process's by "
+                f"{np.nanmax(np.abs(a - b))!r}")
+    total = 0.0
+    for name, st in mine["prims_stats"].items():
+        total += st["s"]
+        print(f"sharded prim {name}: {st['s']!r} s (one process "
+              f"{one_stats[name]['s']!r} s), exchanged_bytes "
+              f"{st['exchanged_bytes']} (rank 0), "
+              f"{theirs['prims_stats'][name]['exchanged_bytes']} (rank 1), "
+              f"gathered_rows {st['gathered_rows']}")
+    metric("sharded_prims_s", total, f"(one process "
+           f"{sum(s['s'] for s in one_stats.values())!r}; "
+           f"{len(SHARD_PRIMS)} steps, rank 0)")
+    print("sharded prims (impute, as.factor, scale, cumulative, difflag1, "
+          "hist, cor, which.max, mad, topn, dropdup, fillna, "
+          "rank_within_groupby) one process's on both ranks at their bars; "
+          "0 rows gathered")
+
+
 def _same_leaderboard(got, want):
     """The same models in the same order; tree members' metrics bitwise,
     the GLM's and the ensembles' within ROADMAP C46's 1e-6."""
@@ -6321,6 +6467,8 @@ def _shard_slice(h2o, dev, fr, m, res):
     res["munge_shards"] = {k: list(f.shard) for k, f in out.items()}
     res["munge_rows"] = {k: f.nrows for k, f in out.items()}
     del out
+    (res["prims"], res["prims_stats"], res["prims_arrays"]), \
+        res["prims_wall_s"] = _timed(lambda: _prim_steps(h2o, fr, "shard"))
     kw = dict(ntrees=FLAGSHIP["ntrees"], max_depth=FLAGSHIP["max_depth"])
     hg.launches = 0
     cv, res["sharded_cv_train_s"] = _timed(lambda: h2o.GBM(
@@ -6773,6 +6921,8 @@ def shard_child(outdir: str, csv_path: str) -> None:
     res = _shard_steps(h2o, dev, 1, csv_path, outdir)
     res["boot_s"] = boot_s
     arrays = {"pred": res.pop("pred"), "glm_beta": res.pop("glm_beta")}
+    for k, v in res.pop("prims_arrays").items():
+        arrays[f"prims_{k}"] = v
     for k in ("gbm_forest", "drf_forest"):
         for a, v in res.pop(k).items():
             arrays[f"{k}_{a}"] = v
@@ -6816,6 +6966,7 @@ def phase_sharded(h2o, dev, tmp, csv_path):
                  for k, f in out.items()}
     munge_rows = {k: f.nrows for k, f in out.items()}
     del out
+    prims_ref, prims_ref_s = _timed(lambda: _prim_steps(h2o, ref_fr, "ref"))
     hg.launches = 0
     aml, aml_s = _timed(lambda: h2o.H2OAutoML(
         project_name="shard_aml_ref", **SHARD_AML).train(
@@ -6939,6 +7090,11 @@ def phase_sharded(h2o, dev, tmp, csv_path):
     launches["sharded"] = mine["gbm_launches"]
     launches.update(_check_slice(mine, theirs, munge_ref, munge_rows,
                                  one_stats, aml_ref))
+    _check_prims(mine, theirs, {k[len("prims_"):]: v for k, v in arr.items()
+                                if k.startswith("prims_")}, prims_ref)
+    print(f"3y's prim step: one-process references {prims_ref_s!r} s, "
+          f"rank 0 {mine['prims_wall_s']!r} s, rank 1 "
+          f"{theirs['prims_wall_s']!r} s (wall, digests included)")
     _c47_window(h2o, dev, tmp, csv_path, munge_ref["sort"])
     print(f"follower hist_gather launches (sharded flagship) "
           f"{theirs['gbm_launches']}")

@@ -30,12 +30,12 @@ ordered (ops/sort.py), ``exchanged_rows`` and ``exchanged_bytes`` what
 this process sent to other ranks through the row exchange, and
 ``dl_batch_rows`` the DeepLearning batch rows it fetched from them.
 
-Work not ported to the row mesh yet (ROADMAP A14.6c: window functions,
-the cumulative and the other cross-row Rapids prims, GLM's multinomial
-and ordinal families, the isolation forests, KMeans and the other
-builders, the DeepLearning autoencoder, merges on string keys,
-streaming appends, explanation on a sharded frame) calls `refuse`,
-which raises an error naming that item instead of gathering rows.
+Work not ported to the row mesh yet (ROADMAP A14.6c: the Rapids prims
+that reshape a frame or run user code, GLM's multinomial and ordinal
+families, the isolation forests, KMeans and the other builders, the
+DeepLearning autoencoder, merges on string keys, streaming appends,
+explanation on a sharded frame) calls `refuse`, which raises an error
+naming that item instead of gathering rows.
 """
 
 from __future__ import annotations
@@ -209,6 +209,28 @@ def all_gather_counts(m, k: int) -> List[int]:
     """Every rank's count `k`, in rank order."""
     return [int(x) for x in m.all_gather(
         torch.tensor([int(k)], dtype=torch.int64)).tolist()]
+
+
+def sharded_mesh(frame_or_col):
+    """The row mesh of more than one rank that a frame's (or column's)
+    rows are sharded over, else None."""
+    return mesh_of(frame_or_col) if _is_sharded(frame_or_col) else None
+
+
+def replicated(col):
+    """`col`, which holds every row, marked as held whole on every rank:
+    a small result (a histogram table, a correlation matrix) that no
+    rank's block test (`core/frame._shard_of`) may read as a block."""
+    col._shard = None
+    return col
+
+
+def carry(m, local: Sequence[float]) -> np.ndarray:
+    """Every rank's few float64 values `local`, (ranks, k) in rank order
+    on the host: what a scan across the ranks carries into each of them
+    (a running total, a last valid row, a boundary key)."""
+    return m.all_gather(torch.tensor([list(local)], dtype=torch.float64)
+                        ).numpy()
 
 
 # -- the row exchange -----------------------------------------------------------

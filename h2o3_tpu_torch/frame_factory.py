@@ -262,18 +262,15 @@ class H2OFrame(Frame):
 
     # -- type munging -----------------------------------------------------
     def asfactor(self):
+        from h2o3_tpu_torch.ops.groupby import factor_column
+
         fr = Frame()
         for n in self.names:
             c = self.col(n)
             if c.is_categorical:
                 fr.add(n, c)
                 continue
-            vals = c.to_numpy()
-            labels = (vals.astype(np.int64).astype(str)
-                      if not np.isnan(vals).any() else
-                      np.asarray([("" if np.isnan(v) else str(int(v)))
-                                  for v in vals], dtype=object))
-            fr.add(n, Column.from_numpy(labels, ctype=T_CAT))
+            fr.add(n, factor_column(c, lambda v: str(int(v))))
         return H2OFrame._wrap(fr)
 
     def asnumeric(self):
@@ -355,11 +352,10 @@ class H2OFrame(Frame):
         return H2OFrame._wrap(table(self))
 
     def unique(self):
-        c = self.col(0)
-        vals = c.to_numpy()
-        u = np.unique(vals[~np.isnan(vals)] if c.is_numeric
-                      else vals[vals >= 0])
-        return H2OFrame({self.names[0]: u})
+        from h2o3_tpu_torch.ops.groupby import level_counts
+
+        lev, cnt = level_counts(self.col(0))
+        return H2OFrame({self.names[0]: lev[cnt > 0]})
 
     def runif(self, seed=None):
         return H2OFrame({"rnd":

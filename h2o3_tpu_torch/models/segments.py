@@ -4,7 +4,10 @@ columns (counterpart of h2o3_tpu/models/segments.py: `SegmentModels`
 
 `train_segments` trains the same builder and parameters on each
 segment's rows (ops/filters.take_rows on the frame's device), the
-segment columns left out of the predictors. A segment whose train
+segment columns left out of the predictors. On a row-sharded cloud the
+segments' keys are all-gathered as distinct values and each segment's
+rows are placed through the row exchange, so a segment trains across
+the ranks through its builder's own `row_sharded` gate. A segment whose train
 raises is recorded with its error and the others go on, as the
 reference's bulk builder does. The result lives in the DKV under its
 key; `as_frame` is its table of segment values, model keys, status and
@@ -17,6 +20,7 @@ import traceback
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from h2o3_tpu_torch.core.dkv import Keyed
 from h2o3_tpu_torch.core.frame import Frame
@@ -56,6 +60,43 @@ class SegmentModels(Keyed):
         return len(self.rows)
 
 
+def _segments(frame: Frame, seg_cols: List[str]):
+    """(the distinct rows of the segment columns' values, sorted as
+    `np.unique(axis=0)` sorts them; a function from a segment's index to
+    a frame of its rows, in row order). On a row-sharded cloud each rank
+    finds the distinct keys of its own rows, the ranks all-gather those
+    (keys, not rows), and a segment's rows are each rank's matching rows
+    placed through the row exchange (`filters.keep_rows`)."""
+    from h2o3_tpu_torch.core import sharded_frame as SF
+    from h2o3_tpu_torch.core.frame import widen
+    from h2o3_tpu_torch.ops.filters import keep_rows, take_rows
+
+    mesh = SF.sharded_mesh(frame)
+    if mesh is None:
+        codes = np.stack([np.asarray(frame.col(c).to_numpy())
+                          for c in seg_cols], axis=1)
+        uniq, inverse = np.unique(codes, axis=0, return_inverse=True)
+        inverse = inverse.reshape(-1)
+        return uniq, lambda si: take_rows(frame, np.nonzero(inverse == si)[0])
+    for c in seg_cols:
+        col = frame.col(c)
+        # one process makes each NA row of a numeric key a segment of its
+        # own, by its row; a cloud finds segments by their key values
+        if col.data is None or (not col.is_categorical
+                                and col.rollups.na_count):
+            SF.refuse(frame, f"segment models on the segment column {c!r} "
+                      "(strings, or a numeric key with NAs)")
+    codes = np.stack([widen(frame.col(c).data).cpu().numpy()
+                      for c in seg_cols], axis=1)
+    parts = SF.all_gather_object(mesh, np.unique(codes, axis=0))
+    uniq = np.unique(np.concatenate(parts), axis=0)
+
+    def rows_of(si):
+        hit = np.nonzero((codes == uniq[si]).all(axis=1))[0]
+        return keep_rows(frame, torch.from_numpy(hit))
+    return uniq, rows_of
+
+
 def train_segments(builder_cls, params: dict, frame: Frame,
                    segment_columns: Sequence[str],
                    y: Optional[str] = None,
@@ -63,16 +104,11 @@ def train_segments(builder_cls, params: dict, frame: Frame,
     """builder_cls(**params) trained once per distinct combination of
     the segment columns' values (enum codes, NA as its own segment),
     in sorted order."""
-    from h2o3_tpu_torch.ops.filters import take_rows
-
     seg_cols = list(segment_columns)
     for c in seg_cols:
         if c not in frame:
             raise ValueError(f"segment column {c!r} not in frame")
-    codes = np.stack([np.asarray(frame.col(c).to_numpy()) for c in seg_cols],
-                     axis=1)
-    uniq, inverse = np.unique(codes, axis=0, return_inverse=True)
-    inverse = inverse.reshape(-1)
+    uniq, rows_of = _segments(frame, seg_cols)
     if max_segments and len(uniq) > max_segments:
         raise ValueError(f"{len(uniq)} segments exceed max_segments="
                          f"{max_segments}")
@@ -88,7 +124,7 @@ def train_segments(builder_cls, params: dict, frame: Frame,
                 vals.append(v)
         sub = None
         try:
-            sub = take_rows(frame, np.nonzero(inverse == si)[0])
+            sub = rows_of(si)
             p = dict(params)
             p["ignored_columns"] = list(p.get("ignored_columns") or []) \
                 + seg_cols

@@ -31,6 +31,7 @@ import torch
 
 from h2o3_tpu_torch.core.frame import (Column, Frame, NA_CAT, T_CAT,
                                        torch_code_dtype)
+from h2o3_tpu_torch.core.sharded_frame import sharded_mesh
 
 
 def _gather(frame: Frame, idx: torch.Tensor, key: Optional[str] = None
@@ -58,19 +59,12 @@ def _gather(frame: Frame, idx: torch.Tensor, key: Optional[str] = None
     return out
 
 
-def _sharded_mesh(frame):
-    """The row mesh `frame` is sharded over (None in one process)."""
-    from h2o3_tpu_torch.core import sharded_frame as SF
-
-    return SF.mesh_of(frame) if SF._is_sharded(frame) else None
-
-
 def _take_block(frame: Frame, ids: torch.Tensor, key: Optional[str]):
     """Sharded: every rank holds the same `ids` (all of the output's
     global source rows); it takes its own block of them."""
     from h2o3_tpu_torch.core.sharded_frame import take_global_rows
 
-    m = _sharded_mesh(frame)
+    m = sharded_mesh(frame)
     lo, hi = m.rows(len(ids))
     return take_global_rows(frame, ids[lo:hi], len(ids), key=key)
 
@@ -79,7 +73,7 @@ def take_rows(frame: Frame, rows, key: Optional[str] = None) -> Frame:
     """A new frame of `frame`'s rows at the host indices `rows`, in that
     order (on a row-sharded cloud every rank passes the same indices)."""
     rows = torch.from_numpy(np.ascontiguousarray(rows, dtype=np.int64))
-    if _sharded_mesh(frame) is not None:
+    if sharded_mesh(frame) is not None:
         return _take_block(frame, rows, key)
     return _gather(frame, rows, key=key)
 
@@ -87,7 +81,7 @@ def take_rows(frame: Frame, rows, key: Optional[str] = None) -> Frame:
 def take_order_rows(frame: Frame, order: torch.Tensor, k: int,
                     offset: int = 0, key: Optional[str] = None) -> Frame:
     """The `k` rows at a device order's positions [offset, offset + k)."""
-    if _sharded_mesh(frame) is not None:
+    if sharded_mesh(frame) is not None:
         return _take_block(frame, order[offset:offset + k].long(), key)
     return _gather(frame, order[offset:offset + k].long(), key=key)
 
@@ -108,7 +102,7 @@ def keep_rows(frame: Frame, idx: torch.Tensor, key: Optional[str] = None,
     own rows' indices: an all-gather of the kept counts gives each rank
     its output offset, and its kept rows are placed (`place_frame`).
     With `with_ids` -> (the frame, the global row ids of its rows here)."""
-    mesh = _sharded_mesh(frame)
+    mesh = sharded_mesh(frame)
     if mesh is None:
         out = _gather(frame, idx, key=key)
         return (out, idx) if with_ids else out
@@ -129,7 +123,7 @@ def slice_rows(frame: Frame, start: int, stop: int,
     n = frame.nrows
     start = max(0, min(start, n))
     stop = max(start, min(stop, n))
-    mesh = _sharded_mesh(frame)
+    mesh = sharded_mesh(frame)
     if mesh is not None:
         from h2o3_tpu_torch.core.sharded_frame import take_global_rows
 
@@ -142,7 +136,7 @@ def slice_rows(frame: Frame, start: int, stop: int,
 def rbind(frames: Sequence[Frame], key: Optional[str] = None) -> Frame:
     """Stack frames by rows (AstRBind); enum domains are unioned and
     sorted, codes remapped."""
-    if any(_sharded_mesh(f) is not None for f in frames):
+    if any(sharded_mesh(f) is not None for f in frames):
         return _rbind_sharded(frames, key)
     total = sum(f.nrows for f in frames)
     out = Frame(key=key)
@@ -181,8 +175,8 @@ def _rbind_sharded(frames: Sequence[Frame], key: Optional[str]) -> Frame:
     from h2o3_tpu_torch.core import sharded_frame as SF
     from h2o3_tpu_torch.core.frame import widen
 
-    mesh = next(_sharded_mesh(f) for f in frames
-                if _sharded_mesh(f) is not None)
+    mesh = next(sharded_mesh(f) for f in frames
+                if sharded_mesh(f) is not None)
     total = sum(f.nrows for f in frames)
     f0 = frames[0]
     cols = {}
@@ -242,7 +236,7 @@ def split_frame(frame: Frame, ratios: Sequence[float],
     """Random row split (hex/SplitFrame.java): a uniform draw per row
     (numpy's default_rng, as the reference draws it), thresholded by the
     cumulative ratios."""
-    mesh = _sharded_mesh(frame)
+    mesh = sharded_mesh(frame)
     if mesh is not None and seed is None:
         from h2o3_tpu_torch.core.sharded_frame import agreed_int
 

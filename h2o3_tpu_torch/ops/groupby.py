@@ -29,12 +29,7 @@ import torch
 
 from h2o3_tpu_torch.core.frame import Column, Frame, T_CAT, widen
 from h2o3_tpu_torch.core.ops import fixed_point_group_sums
-
-
-def _mesh(frame: Frame):
-    from h2o3_tpu_torch.core import sharded_frame as SF
-
-    return SF.mesh_of(frame) if SF._is_sharded(frame) else None
+from h2o3_tpu_torch.core.sharded_frame import sharded_mesh
 
 
 def _codes_and_levels(frame: Frame, by: Sequence[str]
@@ -43,7 +38,7 @@ def _codes_and_levels(frame: Frame, by: Sequence[str]
     code_arrays = []
     levels = []
     dev = frame.col(by[0]).device
-    mesh = _mesh(frame)
+    mesh = sharded_mesh(frame)
     for name in by:
         c = frame.col(name)
         if c.is_categorical:
@@ -111,6 +106,66 @@ def group_counts(codes: torch.Tensor, ngroups: int, mesh=None
     return cnt[:ngroups]
 
 
+def level_counts(col: Column) -> Tuple[np.ndarray, np.ndarray]:
+    """(levels, counts) of a column over every row, on every rank: an
+    enum column's domain codes with their counts, a numeric column's
+    distinct non-NA values (float32, sorted; `np.unique`'s) with theirs.
+    The group-by's own levels and counts (`_codes_and_levels`,
+    `group_counts`): on a row-sharded cloud the distinct values are
+    all-gathered and the counts all-reduced, no row moves."""
+    fr = Frame()
+    fr.add("c", col)
+    codes, levels, ngroups = _codes_and_levels(fr, ["c"])
+    cnt = group_counts(codes, ngroups, sharded_mesh(fr)).cpu().numpy()
+    lev = (np.arange(ngroups) if col.is_categorical
+           else np.asarray(levels[0], np.float32))
+    return lev, cnt[: len(lev)]
+
+
+def enum_of_labels(idx: torch.Tensor, labels: Sequence[str], nrows: int,
+                   mesh=None) -> Column:
+    """An enum column whose rows hold `labels[idx]` (idx -1: NA), as
+    `Column.from_numpy` interns the labels of every row: the domain is
+    the sorted set of the labels some row holds ("" reads as NA), the
+    codes of the narrowest dtype. With `mesh` (idx a rank's block of a
+    row-sharded column) which labels are held is all-reduced."""
+    from h2o3_tpu_torch.core.frame import torch_code_dtype
+
+    idx = idx.long()
+    held = torch.bincount(idx[idx >= 0], minlength=len(labels))
+    if mesh is not None:
+        mesh.all_reduce(held, "sum")
+    held = held.cpu().numpy()
+    dom = sorted({lb for lb, h in zip(labels, held) if h and lb != ""})
+    pos = {lb: i for i, lb in enumerate(dom)}
+    lut = torch.tensor([pos.get(lb, -1) for lb in labels] or [-1],
+                       dtype=torch.long, device=idx.device)
+    codes = torch.where(idx >= 0, lut[idx.clamp_min(0)], -1)
+    return Column(codes.to(torch_code_dtype(len(dom))), T_CAT, nrows,
+                  domain=dom)
+
+
+def factor_column(col: Column, label) -> Column:
+    """A numeric column as an enum column whose labels are `label(v)` of
+    its values (NA stays NA), as `Column.from_numpy` interns the labels
+    of every row (`enum_of_labels`). The labels are made from the
+    column's distinct values, told apart by their float32 bits (-0 is
+    not +0), which each rank finds among its own rows and the ranks
+    all-gather; each rank then maps its own rows."""
+    if col.data is None:
+        raise TypeError(f"cannot make a factor of a {col.ctype} column")
+    v = widen(col.data).float()
+    ok = ~torch.isnan(v)
+    bits = v.view(torch.int32)
+    uniq = torch.unique(bits[ok])
+    mesh = sharded_mesh(col)
+    if mesh is not None:
+        uniq = torch.unique(mesh.all_gather(uniq))
+    labels = [label(float(x)) for x in uniq.cpu().numpy().view(np.float32)]
+    at = torch.searchsorted(uniq, bits).clamp(max=max(len(labels) - 1, 0))
+    return enum_of_labels(torch.where(ok, at, -1), labels, col.nrows, mesh)
+
+
 class GroupBy:
     """The h2o-py GroupBy surface: chained aggregates, then
     get_frame(). `na` is accepted and, as in the reference, NA values are
@@ -159,7 +214,7 @@ class GroupBy:
 
         codes, levels, ngroups = _codes_and_levels(self._frame, self._by)
         dev = codes.device
-        mesh = _mesh(self._frame)
+        mesh = sharded_mesh(self._frame)
         cnt_all = group_counts(codes, ngroups, mesh).cpu().numpy()
         present = np.nonzero(cnt_all > 0)[0]
         out = Frame()

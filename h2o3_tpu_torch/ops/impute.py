@@ -4,6 +4,13 @@
 place, by the mean, the median (the exact quantile) or the mode, and
 returns the fill values (None for a column it left alone). Enum columns
 take only the mode, the most frequent code (the lowest on a tie).
+
+Every statistic is the column's over all its rows: on a row-sharded
+cloud the mean is the cloud's rollups, the median the sharded quantile,
+and the mode comes from the group-by's level counts (`level_counts`:
+an enum column's counts all-reduced, a numeric column's distinct values
+all-gathered), so every rank fills its own rows with one value and no
+row moves.
 """
 
 from __future__ import annotations
@@ -14,6 +21,17 @@ import torch
 from h2o3_tpu_torch.core.frame import Column, Frame, T_CAT, widen
 
 
+def mode_of(col: Column) -> float:
+    """The most frequent non-NA value (enum: code) of a column over all
+    its rows, the lowest on a tie; NaN when it has none."""
+    from h2o3_tpu_torch.ops.groupby import level_counts
+
+    lev, cnt = level_counts(col)
+    if not len(lev) or int(cnt.max()) == 0:
+        return float("nan")
+    return float(lev[int(np.argmax(cnt))])
+
+
 def impute(frame: Frame, column=-1, method: str = "mean"):
     cols = (frame.names if (column == -1 or column is None) else
             [frame.names[column] if isinstance(column, int) else column])
@@ -21,16 +39,18 @@ def impute(frame: Frame, column=-1, method: str = "mean"):
     for name in cols:
         c = frame.col(name)
         if c.is_categorical:
-            codes = c.data.long()
-            valid = codes[codes >= 0]
-            if method != "mode" or valid.numel() == 0:
+            if method != "mode":
                 values.append(None)
                 continue
-            mode = int(torch.argmax(torch.bincount(valid)))
+            mode = mode_of(c)
+            if mode != mode:
+                values.append(None)
+                continue
+            codes = c.data.long()
             frame.replace(name, Column(
-                torch.where(codes >= 0, codes, mode).to(c.data.dtype),
+                torch.where(codes >= 0, codes, int(mode)).to(c.data.dtype),
                 T_CAT, c.nrows, domain=c.domain))
-            values.append(float(mode))
+            values.append(mode)
         elif c.is_numeric or c.ctype == "time":
             if method == "mean":
                 v = c.mean()
@@ -39,9 +59,7 @@ def impute(frame: Frame, column=-1, method: str = "mean"):
 
                 v = quantile_column(c, [0.5])[0]
             elif method == "mode":
-                vals = c.to_numpy()
-                u, cnts = np.unique(vals[~np.isnan(vals)], return_counts=True)
-                v = float(u[cnts.argmax()]) if len(u) else np.nan
+                v = mode_of(c)
             else:
                 raise ValueError(f"method {method!r}")
             # a float32 fill promotes a bf16 column to float32, as the

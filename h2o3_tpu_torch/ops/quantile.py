@@ -87,9 +87,9 @@ def _select_kth(data: torch.Tensor, lo: float, hi: float, k: int,
 
 def quantile_column(col, probs: Sequence[float]) -> List[float]:
     """Type-7 quantiles of a numeric column at `probs`."""
-    from h2o3_tpu_torch.core import sharded_frame as SF
+    from h2o3_tpu_torch.core.sharded_frame import sharded_mesh
 
-    mesh = SF.mesh_of(col) if SF._is_sharded(col) else None
+    mesh = sharded_mesh(col)
     r = col.rollups
     n = r.rows
     if n == 0:
@@ -113,6 +113,32 @@ def quantile_column(col, probs: Sequence[float]) -> List[float]:
             v_k1 = _select_kth(data, lo, hi, k + 1, mesh)
             out.append(v_k * (1 - frac) + v_k1 * frac)
     return out
+
+
+def kth_value(x: torch.Tensor, k: int, mesh=None) -> float:
+    """The exact 0-based k-th smallest of the float64 values x (no NaN;
+    -0 before +0), over every rank's x with `mesh`: a radix select on
+    their order-preserving bit patterns, eight bits a pass, each pass's
+    256 counts all-reduced (eight collectives)."""
+    b = x.view(torch.int64)
+    key = torch.where(b < 0, b ^ 0x7FFFFFFFFFFFFFFF, b)   # signed order
+    digits = []
+    for p in range(8):
+        shift = 56 - 8 * p
+        d = ((key >> 56) + 128) if p == 0 else (key >> shift) & 0xFF
+        cnt = torch.bincount(d, minlength=256)
+        if mesh is not None:
+            mesh.all_reduce(cnt, "sum")
+        cum = np.cumsum(cnt.cpu().numpy())
+        at = int(np.searchsorted(cum, k + 1))
+        k -= int(cum[at - 1]) if at else 0
+        digits.append(at)
+        key = key[d == at]
+    v = (digits[0] - 128) << 56
+    for p, dg in enumerate(digits[1:], 1):
+        v |= dg << (56 - 8 * p)
+    bits = v if v >= 0 else v ^ 0x7FFFFFFFFFFFFFFF
+    return float(np.array([bits], np.int64).view(np.float64)[0])
 
 
 def quantile_frame(frame, probs: Sequence[float]):

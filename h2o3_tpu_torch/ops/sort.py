@@ -119,19 +119,17 @@ def bucket_of(cols: Sequence[torch.Tensor], splits) -> torch.Tensor:
     return b
 
 
-def sample_sort_ids(frame: Frame, names: Sequence[str],
-                    ascending: Sequence[bool], mesh) -> tuple:
-    """The sample sort over the row mesh, on the frame's device: ->
-    (this rank's bucket of the sorted global row ids, the bucket's
-    offset in the sorted order)."""
+def sample_sort_rows(mesh, cols: Sequence[torch.Tensor]) -> tuple:
+    """The sample sort over the row mesh of this rank's rows `cols` (one
+    float64 tensor a field, on one device; the last field the global row
+    id, ascending here, so that ties keep their row order): -> (this
+    rank's bucket of the rows sorted lexicographically, a (k, fields)
+    float64 tensor; the bucket's offset in the sorted order)."""
     from h2o3_tpu_torch.core.sharded_frame import Route, all_gather_counts
 
-    lo, _hi = frame.shard
-    keys = sort_keys(frame, names, ascending)
-    dev = keys[0].device
-    gid = torch.arange(lo, lo + frame.local_rows, device=dev).double()
-    order = lex_order(keys)
-    cols = [k.double()[order] for k in keys] + [gid[order]]
+    dev = cols[0].device
+    order = lex_order(cols[:-1])
+    cols = [c[order] for c in cols]
     route = Route(mesh, bucket_of(cols, splitters(mesh, cols)))
     got = route.send(torch.stack(cols, 1))
     if len(got):
@@ -153,7 +151,20 @@ def sample_sort_ids(frame: Frame, names: Sequence[str],
                 f"end {prev} of the bucket before it")
         prev = last
     sizes = all_gather_counts(mesh, len(got))
-    return got[:, -1].long(), sum(sizes[: mesh.rank])
+    return got, sum(sizes[: mesh.rank])
+
+
+def sample_sort_ids(frame: Frame, names: Sequence[str],
+                    ascending: Sequence[bool], mesh) -> tuple:
+    """The sample sort of `frame` by `names`, on the frame's device: ->
+    (this rank's bucket of the sorted global row ids, the bucket's
+    offset in the sorted order)."""
+    lo, _hi = frame.shard
+    keys = sort_keys(frame, names, ascending)
+    gid = torch.arange(lo, lo + frame.local_rows, device=keys[0].device)
+    got, off = sample_sort_rows(mesh, [k.double() for k in keys]
+                                + [gid.double()])
+    return got[:, -1].long(), off
 
 
 def sort_frame(frame: Frame, by: Union[str, int, Sequence], ascending=True,

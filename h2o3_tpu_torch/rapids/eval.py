@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from h2o3_tpu_torch.core.dkv import DKV
-from h2o3_tpu_torch.core.frame import Column, Frame, T_CAT, T_NUM
+from h2o3_tpu_torch.core.frame import Column, Frame, T_CAT, T_NUM, widen
 from h2o3_tpu_torch.ops import elementwise as E
 from h2o3_tpu_torch.ops import filters as FL
 from h2o3_tpu_torch.rapids.parser import (Id, Lambda, NumList, Span, StrLit,
@@ -354,16 +354,13 @@ def _runif(env, fr, seed):
 
 @prim("asfactor", "as.factor")
 def _asfactor(env, fr):
+    from h2o3_tpu_torch.ops.groupby import factor_column
+
     out = Frame()
     for n in (fr.names if _is_fr(fr) else ["C1"]):
         c = fr.col(n)
-        if c.is_categorical:
-            out.add(n, c)
-            continue
-        vals = c.to_numpy()
-        out.add(n, Column.from_numpy(
-            np.asarray([("" if v != v else ("%g" % v)) for v in vals],
-                       object), ctype=T_CAT))
+        out.add(n, c if c.is_categorical else
+                factor_column(c, lambda v: "%g" % v))
     return out
 
 
@@ -513,11 +510,20 @@ def _ls(env):
 
 @prim("getrow")
 def _getrow(env, fr):
-    """A 1-row frame -> its values as a list."""
+    """A 1-row frame -> its values as a list (on a row-sharded cloud the
+    row's rank holds it; one all-gather of that row gives every rank
+    the list)."""
+    from h2o3_tpu_torch.core.sharded_frame import sharded_mesh
+
     if not _is_fr(fr) or fr.nrows != 1:
         raise ValueError("getrow expects a single-row frame")
-    return [float("nan") if fr.col(n).is_string
-            else float(fr.col(n).to_numpy()[0]) for n in fr.names]
+    row = [[float("nan") if c.is_string else float(widen(c.data)[0])
+            for c in fr.columns]] if fr.local_rows else []
+    mesh = sharded_mesh(fr)
+    if mesh is None:
+        return row[0]
+    return mesh.all_gather(torch.tensor(row, dtype=torch.float64).reshape(
+        -1, fr.ncols))[0].tolist()
 
 
 def _total(c: Column) -> float:
@@ -617,21 +623,50 @@ def _ncol(env, fr):
 
 # -- cumulative --------------------------------------------------------------
 
-def cumulative(op: str, d: torch.Tensor) -> torch.Tensor:
+_IDENTITY = {"add": 0.0, "mul": 1.0, "min": torch.inf, "max": -torch.inf}
+
+
+def cumulative(op: str, d: torch.Tensor, mesh=None) -> torch.Tensor:
     """Running sum/product/min/max with NA read as the identity (0, 1,
-    +inf, -inf), as the reference reads it."""
-    x = torch.where(torch.isnan(d), {"add": 0.0, "mul": 1.0,
-                                     "min": torch.inf,
-                                     "max": -torch.inf}[op], d)
+    +inf, -inf), as the reference reads it. With `mesh` (`d` a rank's
+    block of a row-sharded column) each rank scans its rows, one
+    all-gather of every rank's total (and, for min and max, whether it
+    saw the zero that wins) carries in the ranks before it, and the
+    rank combines it with its scan: min and max bitwise one process's,
+    sums and products in another order (ROADMAP C16)."""
+    x = torch.where(torch.isnan(d), _IDENTITY[op], d)
     if op == "add":
-        return torch.cumsum(x, 0, dtype=torch.float32)
-    if op == "mul":
-        return torch.cumprod(x, 0, dtype=torch.float32)
-    m = (torch.cummin if op == "min" else torch.cummax)(x, 0).values
-    # the reference orders -0 below +0: a zero running max is +0 once a
-    # +0 was seen, a zero running min -0 once a -0 was seen
-    z = x == 0
-    seen = torch.cumsum(z & (torch.signbit(x) == (op == "min")), 0) > 0
+        out = torch.cumsum(x, 0, dtype=torch.float32)
+    elif op == "mul":
+        out = torch.cumprod(x, 0, dtype=torch.float32)
+    else:
+        m = (torch.cummin if op == "min" else torch.cummax)(x, 0).values
+        # the reference orders -0 below +0: a zero running max is +0 once
+        # a +0 was seen, a zero running min -0 once a -0 was seen
+        z = x == 0
+        seen = torch.cumsum(z & (torch.signbit(x) == (op == "min")), 0) > 0
+    if mesh is not None:
+        from h2o3_tpu_torch.core.sharded_frame import carry
+
+        n = len(x)
+        tot = [float(out[-1]) if n else _IDENTITY[op]] if op in (
+            "add", "mul") else [float(m[-1]) if n else _IDENTITY[op],
+                                float(bool(seen[-1])) if n else 0.0]
+        prev = carry(mesh, tot)[: mesh.rank]
+        if op in ("add", "mul") and len(prev):
+            c = torch.tensor(prev[0, 0], dtype=torch.float32,
+                             device=out.device)
+            for t in prev[1:, 0].tolist():
+                c = c + t if op == "add" else c * t
+            out = (c + out) if op == "add" else (c * out)
+        elif op in ("min", "max") and len(prev):
+            pick = min if op == "min" else max
+            c = torch.tensor(pick(prev[:, 0].tolist()), dtype=m.dtype,
+                             device=m.device)
+            m = (torch.minimum if op == "min" else torch.maximum)(m, c)
+            seen = seen | bool(prev[:, 1].any())
+    if op in ("add", "mul"):
+        return out
     signed = torch.where(seen, 0.0, -0.0) if op == "max" else \
         torch.where(seen, -0.0, 0.0)
     return torch.where(m == 0, signed, m)
@@ -639,9 +674,12 @@ def cumulative(op: str, d: torch.Tensor) -> torch.Tensor:
 
 def _cumprim(op):
     def impl(env, v, axis=0):
+        from h2o3_tpu_torch.core.sharded_frame import sharded_mesh
+
         c = _one_col(v)
-        return _colfr(Column.from_device(cumulative(op, c.data), T_NUM,
-                                         c.nrows))
+        return _colfr(Column.from_device(cumulative(op, c.data,
+                                                    sharded_mesh(c)),
+                                         T_NUM, c.nrows))
     return impl
 
 
@@ -792,15 +830,23 @@ for _op in E._UNOPS:
 
 @prim("scale")
 def _scale(env, fr, center, scale):
+    """Centre and scale each numeric column by its mean and sd, from
+    float64 two-pass moments (all-reduced on a row-sharded frame)."""
+    from h2o3_tpu_torch.core.sharded_frame import sharded_mesh
+    from h2o3_tpu_torch.ops.rollups import moments
+
     out = Frame()
     for n in fr.names:
         c = fr.col(n)
         if not c.is_numeric:
             out.add(n, c)
             continue
-        r = c.rollups
-        mu = r.mean if (center == 1.0 or center is True) else 0.0
-        sd = r.sigma if (scale == 1.0 or scale is True) else 1.0
+        nn, tot, s2, _ = moments(widen(c.data).double(), 2,
+                                 sharded_mesh(c))
+        mean = tot / nn if nn else float("nan")
+        sigma = float(np.sqrt(s2 / (nn - 1))) if nn > 1 else 0.0
+        mu = mean if (center == 1.0 or center is True) else 0.0
+        sd = sigma if (scale == 1.0 or scale is True) else 1.0
         out.add(n, E.binop("/", E.binop("-", c, mu), sd if sd else 1.0))
     return out
 
@@ -913,11 +959,12 @@ def exec_rapids(expr: str, session: Optional[Session] = None):
 # mungers, matrix, repeaters, timeseries)
 from h2o3_tpu_torch.rapids import prims_ext as _prims_ext  # noqa: E402,F401
 # prims that need other ranks' rows (reductions, orderings, row
-# selection, group-bys, folds, the quantile family). Those the row
-# exchange and the cloud's rollups serve (`SHARDED_PRIMS`) run on a
-# row-sharded frame; the rest refuse with the ROADMAP item (A14.6c),
-# never gathering rows. Row-local prims (arithmetic, comparisons,
-# ifelse, cols, casts of values) run shard by shard.
+# selection, group-bys, folds, the quantile family, scans). Those the
+# row exchange, the cloud's rollups and collectives of counts, moments
+# or carries serve (`SHARDED_PRIMS`) run on a row-sharded frame; the
+# rest (they reshape a frame or run user code) refuse with the ROADMAP
+# item (A14.6c), never gathering rows. Row-local prims (arithmetic,
+# comparisons, ifelse, cols, casts of values) run shard by shard.
 CROSS_ROW_PRIMS = frozenset({
     "rows", "rbind", "sort", "merge", "unique", "table", "h2o.impute",
     "na.omit", "h2o.runif", "GB", "mean", "getrow", "sum", "min", "max",
@@ -935,7 +982,19 @@ SHARDED_PRIMS = frozenset({
     "rows", "rbind", "sort", "merge", "GB", "table", "unique", "na.omit",
     "h2o.splitframe", "h2o.runif", "kfold_column", "modulo_kfold_column",
     "stratified_kfold_column", "mean", "sum", "min", "max", "sd", "var",
-    "naCnt", "nacnt", "median", "quantile"})
+    "naCnt", "nacnt", "median", "quantile",
+    # cleaning and type
+    "asfactor", "as.factor", "h2o.impute", "h2o.fillna", "scale", "cut",
+    "which", "getrow", "any.na", "filterNACols", "dropdup",
+    # statistics
+    "cor", "skewness", "kurtosis", "distance", "hist", "mode", "mad",
+    "h2o.mad", "entropy", "topn",
+    # cumulative and window
+    "cumsum", "cumprod", "cummin", "cummax", "difflag1",
+    "rank_within_groupby",
+    # whole-column reductions
+    "sumaxis", "sumNA", "prod", "prod.na", "which.max", "which.min",
+    "all", "any"})
 
 
 def _guard_cross_row(fn, name):

@@ -19,8 +19,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from h2o3_tpu_torch.core import sharded_frame as SF
 from h2o3_tpu_torch.core.frame import (Column, Frame, T_CAT, T_NUM, T_TIME,
                                        numeric_host, store_numeric, widen)
+from h2o3_tpu_torch.ops.rollups import moments
 from h2o3_tpu_torch.rapids.eval import (NumList, StrLit, _colfr, agreed_seed,
                                         _eval_lambda, _idx_list, _is_fr,
                                         _one_col, _percol, _row_sum, _s,
@@ -31,6 +33,16 @@ from h2o3_tpu_torch.rapids.eval import (NumList, StrLit, _colfr, agreed_seed,
 # a frame to the host, and only up to this many cells (the reference's
 # default cap)
 _HOST_MATRIX_MAX_CELLS = 100_000_000
+
+
+def _num_col(vals, nrows: int, replicate: bool = False) -> Column:
+    """float64 host values as a numeric column, stored as
+    `Column.from_numpy` stores them but holding exactly `vals`: a rank's
+    block of an `nrows`-row column, or with `replicate` a small result
+    (a table, a matrix) held whole on every rank."""
+    col = Column(store_numeric(numeric_host(vals, T_NUM), T_NUM), T_NUM,
+                 nrows)
+    return SF.replicated(col) if replicate else col
 
 
 def _num_matrix(fr: Frame) -> np.ndarray:
@@ -59,18 +71,17 @@ def _dev_matrix(fr: Frame) -> torch.Tensor:
     return torch.stack([fr.col(n).data.float() for n in fr.names], dim=1)
 
 
-def _corr(X, Y, usemode: str, method: str):
-    """Correlation matrix of X's and Y's columns: weighted moments over
-    the usable rows (complete.obs drops rows with an NA; everything
-    lets NaN propagate); spearman ranks are midranks from sort and
-    searchsorted with unusable rows pushed to +inf."""
+def _corr(X, Y, usemode: str, method: str, mesh=None):
+    """Correlation matrix of X's and Y's columns: moments over the
+    usable rows in float64 (complete.obs drops rows with an NA;
+    everything lets NaN propagate), in two passes (the means, then the
+    centred sums of squares and products), whose sums a row-sharded
+    frame all-reduces (`mesh`); spearman ranks are midranks from sort
+    and searchsorted with unusable rows pushed to +inf (one process)."""
     if usemode == "complete.obs":
         w = ~(torch.isnan(X).any(dim=1) | torch.isnan(Y).any(dim=1))
     else:
         w = torch.ones(X.shape[0], dtype=torch.bool, device=X.device)
-    wf = w.float()
-    n_used = wf.sum()
-    nn = torch.clamp_min(n_used, 1.0)
 
     def ranks(M):
         out = []
@@ -84,40 +95,58 @@ def _corr(X, Y, usemode: str, method: str):
 
     if method == "spearman":
         X, Y = ranks(X), ranks(Y)
-    mx = (wf @ torch.where(w[:, None], X, 0.0)) / nn
-    my = (wf @ torch.where(w[:, None], Y, 0.0)) / nn
-    Xc = torch.where(w[:, None], X - mx[None, :], 0.0)
-    Yc = torch.where(w[:, None], Y - my[None, :], 0.0)
-    denom = torch.sqrt(torch.outer((Xc ** 2).sum(dim=0),
-                                   (Yc ** 2).sum(dim=0)))
-    C = (Xc.T @ Yc) / torch.clamp_min(denom, 1e-30)
+    fx, fy = X.shape[1], Y.shape[1]
+    Xd = torch.where(w[:, None], X.double(), 0.0)
+    Yd = torch.where(w[:, None], Y.double(), 0.0)
+    s1 = torch.cat([w.sum().double()[None], Xd.sum(0), Yd.sum(0)])
+    if mesh is not None:
+        mesh.all_reduce(s1, "sum")
+    n_used = s1[0]
+    nn = torch.clamp_min(n_used, 1.0)
+    Xc = torch.where(w[:, None], Xd - s1[1:1 + fx] / nn, 0.0)
+    Yc = torch.where(w[:, None], Yd - s1[1 + fx:] / nn, 0.0)
+    s2 = torch.cat([(Xc ** 2).sum(0), (Yc ** 2).sum(0),
+                    (Xc.T @ Yc).reshape(-1)])
+    if mesh is not None:
+        mesh.all_reduce(s2, "sum")
+    denom = torch.sqrt(torch.outer(s2[:fx], s2[fx:fx + fy]))
+    C = s2[fx + fy:].reshape(fx, fy) / torch.clamp_min(denom, 1e-30)
     return torch.where(n_used > 0, C, torch.nan)
 
 
 @prim("cor")
 def _cor(env, fr, other, use, method="pearson"):
     """Correlation matrix or vector (AstCorrelation). use: everything |
-    complete.obs | all.obs; method: pearson | spearman."""
+    complete.obs | all.obs; method: pearson | spearman. On a row-sharded
+    frame (pearson; `other` sharded alike) the moments are all-reduced
+    and the matrix is held whole on every rank."""
     method = _s(method).strip('"').lower()
     usemode = _s(use).strip('"')
     X = _dev_matrix(fr)
     same = not (_is_fr(other) and other is not fr)
+    mesh = SF.sharded_mesh(fr)
+    if mesh is not None and method == "spearman":
+        SF.refuse(fr, "spearman cor (its ranks need every row)")
+    if mesh is not None and not same and SF.sharded_mesh(other) is None:
+        SF.refuse(fr, "cor with a frame that is not row-sharded")
     Y = X if same else _dev_matrix(other)
-    C = _corr(X, Y, usemode, method)
+    C = _corr(X, Y, usemode, method, mesh)
     if C.shape == (1, 1):
         return float(C[0, 0])
-    C = C.cpu().numpy().astype(np.float64)
+    C = C.cpu().numpy()
     out = Frame()
     for j, n in enumerate((other if _is_fr(other) else fr).names):
-        out.add(n, Column.from_numpy(C[:, j]))
+        out.add(n, _num_col(C[:, j], C.shape[0], replicate=True))
     return out
 
 
 @prim("distance")
 def _distance(env, fr, other, measure):
     """Pairwise distances (AstDistance): rows of fr x rows of other; up
-    to 64 result columns stay on the device."""
+    to 64 result columns stay on the device. A row-sharded `fr` gives
+    each rank the distances of its rows; `other` is held whole."""
     measure = _s(measure).strip('"').lower()
+    SF.refuse(other, "distance to a row-sharded second frame")
     A = _dev_matrix(fr)
     B = _dev_matrix(other)
     if measure in ("l2", "euclidean"):
@@ -143,59 +172,108 @@ def _distance(env, fr, other, measure):
     else:
         Dh = D.cpu().numpy().astype(np.float64)
         for j in range(m):
-            out.add(f"C{j + 1}", Column.from_numpy(Dh[:, j]))
+            out.add(f"C{j + 1}", _num_col(Dh[:, j], fr.nrows))
     return out
+
+
+def _bin_count(b: str, c: Column, d: torch.Tensor, n: int, lo: float,
+               hi: float, mesh) -> int:
+    """The bin count a `breaks` string names for the n values d (float64,
+    no NaN) of `c`, between lo and hi: numpy's `histogram_bin_edges`
+    estimators for doane, scott and fd (their widths from float64
+    moments all-reduced across `mesh`, or from the quartiles)."""
+    if b in ("sturges", "Sturges"):
+        return int(np.ceil(np.log2(max(n, 2)) + 1))
+    if b in ("rice", "Rice"):
+        return int(np.ceil(2 * n ** (1 / 3)))
+    if b in ("sqrt", "Sqrt"):
+        return int(np.ceil(np.sqrt(n)))
+    b = b.lower()
+    if b not in ("doane", "scott", "fd"):
+        return int(float(b))
+    if not n:
+        return 1            # no values: the breaks are [0, 1]
+    if not (np.isfinite(lo) and np.isfinite(hi)):
+        raise ValueError(f"autodetected range of [{lo}, {hi}] is not "
+                         "finite")
+    first, last = (lo - 0.5, hi + 0.5) if lo == hi else (lo, hi)
+    if b == "fd":
+        from h2o3_tpu_torch.ops.quantile import quantile_column
+
+        q75, q25 = quantile_column(c, [0.75, 0.25])
+        width = 2.0 * (q75 - q25) * n ** (-1.0 / 3.0)
+    else:
+        _n, _t, s2, s3 = moments(d, 3, mesh)
+        sigma = np.sqrt(s2 / n)
+        if b == "scott":
+            width = ((24.0 * np.pi ** 0.5) / n) ** (1.0 / 3.0) * sigma
+        elif n > 2 and sigma > 0.0:
+            sg1 = np.sqrt(6.0 * (n - 2) / ((n + 1.0) * (n + 3)))
+            g1 = s3 / n / sigma ** 3
+            width = (hi - lo) / (1.0 + np.log2(n) + np.log2(
+                1.0 + np.absolute(g1) / sg1))
+        else:
+            width = 0.0
+    return max(int(np.ceil((last - first) / width)) if width else 1, 1)
 
 
 @prim("hist")
 def _hist(env, fr, breaks):
-    """AstHist: histogram frame (breaks, counts, mids_true, mids, density)."""
-    x = np.asarray(_one_col(fr).to_numpy(), np.float64)
-    x = x[~np.isnan(x)]
+    """AstHist: histogram frame (breaks, counts, mids_true, mids, density),
+    counted as `np.histogram` counts ([e_i, e_i+1), the last bin closed).
+    On a row-sharded frame the count, min and max (and the moments a
+    rule needs) are all-reduced, each rank counts its rows between the
+    breaks and the counts are all-reduced as int64; the table is held
+    whole on every rank."""
+    c = _one_col(fr)
+    mesh = SF.sharded_mesh(c)
+    d = widen(c.data).double()
+    d = d[~torch.isnan(d)]
+    part = torch.tensor([len(d), float(d.min()) if len(d) else np.inf,
+                         -float(d.max()) if len(d) else np.inf],
+                        dtype=torch.float64)
+    if mesh is not None:
+        mesh.all_reduce(part[:1], "sum")
+        mesh.all_reduce(part[1:], "min")
+    n, lo, hi = int(part[0]), float(part[1]), -float(part[2])
     if isinstance(breaks, (NumList, list)):
         edges = np.asarray([float(b) for b in breaks])
     else:
-        b = _s(breaks).strip('"')
-        if b in ("sturges", "Sturges"):
-            k = int(np.ceil(np.log2(max(len(x), 2)) + 1))
-        elif b in ("rice", "Rice"):
-            k = int(np.ceil(2 * len(x) ** (1 / 3)))
-        elif b in ("sqrt", "Sqrt"):
-            k = int(np.ceil(np.sqrt(len(x))))
-        elif b in ("doane", "Doane", "scott", "Scott", "fd", "FD"):
-            k = max(len(np.histogram_bin_edges(x, bins=b.lower())) - 1, 1)
-        else:
-            k = int(float(b))
-        edges = np.linspace(x.min(), x.max(), k + 1) if len(x) else np.array([0.0, 1.0])
-    counts, edges = np.histogram(x, bins=edges)
+        k = _bin_count(_s(breaks).strip('"'), c, d, n, lo, hi, mesh)
+        edges = np.linspace(lo, hi, k + 1) if n else np.array([0.0, 1.0])
+    np.histogram(np.zeros(0), bins=edges)        # its checks of the edges
+    xs = torch.sort(d).values
+    e = torch.as_tensor(edges, dtype=torch.float64, device=xs.device)
+    cum = torch.cat([torch.searchsorted(xs, e[:-1], right=False),
+                     torch.searchsorted(xs, e[-1:], right=True)])
+    if mesh is not None:
+        mesh.all_reduce(cum, "sum")
+    counts = np.diff(cum.cpu().numpy())
     mids = 0.5 * (edges[:-1] + edges[1:])
     widths = np.diff(edges)
     dens = counts / np.maximum(counts.sum() * widths, 1e-300)
     out = Frame()
-    out.add("breaks", Column.from_numpy(edges[1:]))
-    out.add("counts", Column.from_numpy(counts.astype(np.float64)))
-    out.add("mids_true", Column.from_numpy(mids))
-    out.add("mids", Column.from_numpy(mids))
-    out.add("density", Column.from_numpy(dens))
+    for nm, v in (("breaks", edges[1:]),
+                  ("counts", counts.astype(np.float64)),
+                  ("mids_true", mids), ("mids", mids), ("density", dens)):
+        out.add(nm, _num_col(v, len(v), replicate=True))
     return out
 
 
 def _moment_stat(fr, power: int, na_rm) -> list:
+    """Skewness (power 3) or kurtosis (4) of each numeric column in
+    float64: on a row-sharded frame its moments are all-reduced."""
+    mesh = SF.sharded_mesh(fr)
     out = []
     for n in fr.names:
         c = fr.col(n)
         if not c.is_numeric:
             out.append(float("nan"))
             continue
-        d = c.data
-        valid = ~torch.isnan(d)
-        nn = valid.sum()
-        mu = torch.where(valid, d, 0.0).sum() / torch.clamp_min(nn, 1)
-        dc = torch.where(valid, d - mu, 0.0)
-        m2 = (dc ** 2).sum() / torch.clamp_min(nn - 1, 1)
-        mk = (dc ** power).sum() / torch.clamp_min(nn, 1)
-        out.append(float(mk / torch.clamp_min(m2 ** (power / 2.0),
-                                              1e-300)))
+        nn, _t, s2, sk = moments(widen(c.data).double(), power, mesh)
+        m2 = s2 / max(nn - 1, 1.0)
+        mk = sk / max(nn, 1.0)
+        out.append(float(mk / max(m2 ** (power / 2.0), 1e-300)))
     return out
 
 
@@ -213,13 +291,9 @@ def _kurtosis(env, fr, na_rm=True):
 
 @prim("mode")
 def _mode(env, fr):
-    c = _one_col(fr)
-    codes = np.asarray(c.to_numpy())
-    codes = codes[codes >= 0] if c.is_categorical else codes[~np.isnan(codes)]
-    if not len(codes):
-        return float("nan")
-    vals, cnt = np.unique(codes, return_counts=True)
-    return float(vals[np.argmax(cnt)])
+    from h2o3_tpu_torch.ops.impute import mode_of
+
+    return mode_of(_one_col(fr))
 
 
 @prim("kfold_column")
@@ -359,10 +433,21 @@ def _match(env, fr, table, nomatch=float("nan"), *_):
 
 @prim("which")
 def _which(env, fr):
+    """The row indices of the nonzero, non-NA values. On a row-sharded
+    frame each rank finds its own rows' global indices and places them
+    at their output positions (`row_block`s of the result)."""
     c = _one_col(fr)
-    x = np.asarray(c.to_numpy(), np.float64)
-    idx = np.nonzero(~np.isnan(x) & (x != 0))[0].astype(np.float64)
-    return _colfr(Column.from_numpy(idx), "which")
+    x = widen(c.data).double()
+    idx = torch.nonzero(~torch.isnan(x) & (x != 0)).squeeze(1)
+    mesh = SF.sharded_mesh(c)
+    total = len(idx)
+    if mesh is not None:
+        counts = SF.all_gather_counts(mesh, total)
+        total = sum(counts)
+        pos = sum(counts[: mesh.rank]) + torch.arange(len(idx))
+        (idx,), _ = SF.place_rows(mesh, pos, total, [c.shard[0] + idx])
+    return _colfr(Column(store_numeric(idx.double().float(), T_NUM), T_NUM,
+                         total), "which")
 
 
 def _whichextreme_idx(M, is_max: bool, per_row: bool):
@@ -375,10 +460,42 @@ def _whichextreme_idx(M, is_max: bool, per_row: bool):
     return torch.where(allna, torch.nan, idx.float())
 
 
+def _whichextreme_sharded(M, is_max: bool, lo: int, mesh):
+    """`_whichextreme_idx` per column over every rank's rows: each
+    rank's extreme, its first global index and its all-NaN flag
+    all-gathered; the extreme of the extremes, the lowest index on a
+    tie."""
+    fill = -np.inf if is_max else np.inf
+    Mv = torch.where(torch.isnan(M), fill, M)
+    F = M.shape[1]
+    if len(M):
+        v, i = Mv.max(0) if is_max else Mv.min(0)
+        part = torch.cat([v.double(), (i + lo).double(),
+                          torch.isnan(M).all(0).double()])
+    else:
+        part = torch.cat([torch.full((F,), fill, dtype=torch.float64),
+                          torch.full((F,), -1.0, dtype=torch.float64),
+                          torch.ones(F, dtype=torch.float64)])
+    got = SF.carry(mesh, part.tolist())
+    got = got[got[:, F] >= 0]          # the ranks that hold rows
+    out = np.full(F, np.nan)
+    for j in range(F):
+        v, i, na = got[:, j], got[:, F + j], got[:, 2 * F + j]
+        if len(v) and not na.all():
+            best = v.max() if is_max else v.min()
+            out[j] = i[v == best].min()
+    return torch.from_numpy(out.astype(np.float32))
+
+
 def _whichextreme(fr, na_rm, axis, is_max: bool):
     ax = int(_scalar(axis))
     name = "which.max" if is_max else "which.min"
-    vals = _whichextreme_idx(_dev_matrix(fr), is_max, ax == 1)
+    mesh = SF.sharded_mesh(fr)
+    if ax != 1 and mesh is not None:
+        vals = _whichextreme_sharded(_dev_matrix(fr), is_max, fr.shard[0],
+                                     mesh)
+    else:
+        vals = _whichextreme_idx(_dev_matrix(fr), is_max, ax == 1)
     if ax == 1:          # per row: a column on the device
         return _colfr(Column(vals, T_NUM, fr.nrows), name)
     return _colfr(Column.from_numpy(vals.cpu().numpy().astype(np.float64)),
@@ -425,21 +542,23 @@ def _map_strings(fr, fn, name=None):
 
 
 def _map_string_nums(fr, fn, name):
-    """str -> float per value; NA for NA."""
+    """str -> float per value; NA for NA. Each rank maps its own rows
+    (enum columns through their domain)."""
     out = Frame()
     for n in fr.names:
         c = fr.col(n)
         if c.is_categorical:
             tbl = np.asarray([fn(v) for v in (c.domain or [])] or [np.nan],
                              np.float64)
-            codes = np.asarray(c.to_numpy())
+            codes = c.data.long().cpu().numpy()
             vals = np.where(codes >= 0, tbl[np.maximum(codes, 0)], np.nan)
         elif c.is_string:
             vals = np.asarray([np.nan if v is None else fn(str(v))
-                               for v in c.host_data[: c.nrows]], np.float64)
+                               for v in c.host_data[: c.local_rows]],
+                              np.float64)
         else:
             continue
-        out.add(n, Column.from_numpy(vals))
+        out.add(n, _num_col(vals, c.nrows))
     if not out.ncols:
         raise ValueError(f"{name}: no string/enum columns")
     return out
@@ -809,13 +928,13 @@ def _difflag1(env, fr):
     from h2o3_tpu_torch.ops import window
 
     c = _one_col(fr)
-    dev = (window.difflag1_device(c) if c.is_numeric or c.ctype == T_TIME
-           else None)
-    if dev is not None:
-        return _colfr(dev, "difflag1")
-    x = np.asarray(c.to_numpy(), np.float64)    # the host walk
-    vals = np.concatenate([[np.nan], x[1:] - x[:-1]])
-    return _colfr(Column.from_numpy(vals), "difflag1")
+    dev = window.difflag1_device(c)
+    if dev is None:
+        raise TypeError(f"difflag1 of a {c.ctype} column")
+    if not (c.is_numeric or c.ctype == T_TIME):
+        # enum codes: stored as a numeric column of the host values
+        dev = Column(store_numeric(dev.data, T_NUM), T_NUM, c.nrows)
+    return _colfr(dev, "difflag1")
 
 
 # ---------------------------------------------------------------------------
@@ -877,7 +996,12 @@ def _nlevels(env, fr):
 
 @prim("cut")
 def _cut(env, fr, breaks, labels, include_lowest, right, dig_lab):
-    x = np.asarray(_one_col(fr).to_numpy(), np.float64)
+    """Bin a numeric column into an enum of interval labels (AstCut),
+    each rank its own rows; the domain is the labels some row holds."""
+    from h2o3_tpu_torch.ops.groupby import enum_of_labels
+
+    c = _one_col(fr)
+    x = widen(c.data).double()
     edges = np.asarray([float(b) for b in breaks], np.float64)
     right_ = bool(_scalar(right))
     incl = bool(_scalar(include_lowest))
@@ -890,9 +1014,9 @@ def _cut(env, fr, breaks, labels, include_lowest, right, dig_lab):
         labs = [(f"({f(edges[i])},{f(edges[i+1])}]" if right_
                  else f"[{f(edges[i])},{f(edges[i+1])})")
                 for i in range(len(edges) - 1)]
-    codes = np.full(len(x), -1, np.int32)
+    codes = torch.full(x.shape, -1, dtype=torch.long, device=x.device)
     for i in range(len(edges) - 1):
-        lo, hi = edges[i], edges[i + 1]
+        lo, hi = float(edges[i]), float(edges[i + 1])
         if right_:
             m = (x > lo) & (x <= hi)
             if i == 0 and incl:
@@ -902,19 +1026,41 @@ def _cut(env, fr, breaks, labels, include_lowest, right, dig_lab):
             if i == len(edges) - 2 and incl:
                 m |= x == hi
         codes[m] = i
-    vals = np.asarray([labs[c] if c >= 0 else None for c in codes], object)
-    return _colfr(Column.from_numpy(vals, ctype=T_CAT), "cut")
+    return _colfr(enum_of_labels(codes, labs, c.nrows, SF.sharded_mesh(c)),
+                  "cut")
 
 
-def _fill(M: torch.Tensor, forward: bool, maxlen: int) -> torch.Tensor:
+def _fill(M: torch.Tensor, forward: bool, maxlen: int, mesh=None,
+          span=None) -> torch.Tensor:
     """Forward or backward fill along dim 0 with a run-length cap: the
-    last valid row index propagates by a cumulative max."""
+    last valid row index propagates by a cumulative max. With `mesh`, M
+    is a rank's block, rows [lo, hi) of n (`span`): the walk's positions
+    are global, and the last valid row before the block (after it, for
+    a backward fill) comes from the other ranks, one all-gather of each
+    rank's last valid position and value a column."""
     n = M.shape[0]
     Mw = M if forward else torch.flip(M, [0])
     valid = ~torch.isnan(Mw)
-    idx = torch.arange(n, device=M.device)[:, None].expand_as(Mw)
+    base = 0 if mesh is None else (span[0] if forward
+                                   else span[2] - span[1])
+    idx = (base + torch.arange(n, device=M.device))[:, None].expand_as(Mw)
     last_valid = torch.cummax(torch.where(valid, idx, -1), 0).values
-    take = torch.gather(Mw, 0, last_valid.clamp(0, max(n - 1, 0)))
+    take = torch.gather(Mw, 0, (last_valid - base).clamp(0, max(n - 1, 0)))
+    if mesh is not None:
+        F = M.shape[1]
+        mine = (last_valid[-1].tolist() + take[-1].double().tolist() if n
+                else [-1.0] * F + [0.0] * F)
+        got = SF.carry(mesh, mine)
+        got = got[: mesh.rank] if forward else got[mesh.rank + 1:]
+        if len(got):
+            best = np.argmax(got[:, :F], axis=0)    # the nearest valid row
+            cols = np.arange(F)
+            cpos = torch.as_tensor(got[best, cols], device=M.device).long()
+            cval = torch.as_tensor(got[best, F + cols], device=M.device
+                                   ).to(M.dtype)
+            none = last_valid < 0
+            take = torch.where(none, cval, take)
+            last_valid = torch.where(none, cpos, last_valid)
     filled = torch.where(valid, Mw, torch.where(
         (last_valid >= 0) & (idx - last_valid <= maxlen), take, Mw))
     return filled if forward else torch.flip(filled, [0])
@@ -929,7 +1075,9 @@ def _fillna(env, fr, method, axis, maxlen):
     if ax == 1:
         M = _fill(M.T, forward, int(_scalar(maxlen))).T
     else:
-        M = _fill(M, forward, int(_scalar(maxlen)))
+        mesh = SF.sharded_mesh(fr)
+        M = _fill(M, forward, int(_scalar(maxlen)), mesh,
+                  None if mesh is None else (*fr.shard, fr.nrows))
     out = Frame()
     for j, nm in enumerate(fr.names):
         out.add(nm, Column(M[:, j].contiguous(), T_NUM, fr.nrows))
@@ -941,9 +1089,7 @@ def _filternacols(env, fr, frac):
     f = float(_scalar(frac))
     keep = []
     for i, n in enumerate(fr.names):
-        c = fr.col(n)
-        na = float(c.rollups.na_count) if not c.is_string else \
-            sum(1 for v in c.host_data[: c.nrows] if v is None)
+        na = float(fr.col(n).rollups.na_count)
         if na / max(fr.nrows, 1) < f:
             keep.append(float(i))
     return keep
@@ -989,6 +1135,10 @@ def _setlevel(env, fr, level):
 def _dropdup(env, fr, cols, keep):
     idx = _idx_list(cols, fr.ncols)
     keep_s = _s(keep).strip('"').lower()
+    mesh = SF.sharded_mesh(fr)
+    if mesh is not None:
+        return _dropdup_sharded(fr, [fr.col(int(i)) for i in idx],
+                                keep_s == "first", mesh)
     key_cols = [np.asarray(fr.col(int(i)).to_numpy()) for i in idx]
     seen = {}
     order = range(fr.nrows) if keep_s == "first" else range(fr.nrows - 1, -1, -1)
@@ -1000,6 +1150,53 @@ def _dropdup(env, fr, cols, keep):
     from h2o3_tpu_torch.ops.filters import take_rows
 
     return take_rows(fr, rows)
+
+
+def _dropdup_sharded(fr, key_cols, first: bool, mesh):
+    """dropdup across the row mesh, one process's rows: a row with a NaN
+    key is never a duplicate (NaN equals nothing) and stays; the others
+    are sample-sorted by (keys, row id), each run of equal keys keeps
+    its first (or last) row, the run that spans a bucket boundary
+    settled by the neighbours' boundary keys (one all-gather), and the
+    kept ids go home to be placed in row order (`keep_rows`)."""
+    from h2o3_tpu_torch.ops.filters import keep_rows
+    from h2o3_tpu_torch.ops.sort import sample_sort_rows
+
+    if any(c.data is None for c in key_cols):
+        SF.refuse(fr, "dropdup on string key columns")
+    keys = [widen(c.data).double() for c in key_cols]
+    nan_row = torch.zeros(fr.local_rows, dtype=torch.bool,
+                          device=keys[0].device)
+    for k in keys:
+        nan_row |= torch.isnan(k)
+    lo = fr.shard[0]
+    sel = torch.nonzero(~nan_row).squeeze(1)
+    got, _off = sample_sort_rows(mesh, [k[sel] + 0.0 for k in keys]
+                                 + [(lo + sel).double()])
+    K = len(keys)
+    key = got[:, :K]
+    diff = (key[1:] != key[:-1]).any(1)
+    one = torch.ones(1, dtype=torch.bool, device=got.device)
+    bounds = SF.carry(mesh, [len(got)] + (
+        key[0].tolist() + key[-1].tolist() if len(got) else [0.0] * 2 * K))
+    full = bounds[bounds[:, 0] > 0]
+    at = int((bounds[: mesh.rank, 0] > 0).sum())   # this rank in `full`
+    if first:
+        keep = torch.cat([one, diff])
+        if len(got) and at > 0 and \
+                list(full[at - 1, 1 + K:]) == key[0].tolist():
+            keep[0] = False          # its run began in an earlier bucket
+    else:
+        keep = torch.cat([diff, one])
+        if len(got) and at + 1 < len(full) and \
+                list(full[at + 1, 1:1 + K]) == key[-1].tolist():
+            keep[-1] = False         # its run ends in a later bucket
+    kept = got[:, K][keep[: len(got)]].long()
+    home = SF.Route(mesh, SF.owner_of(kept, fr.nrows, mesh.size))
+    mine = home.send(kept) - lo
+    rows = torch.sort(torch.cat([mine.to(sel.device),
+                                 torch.nonzero(nan_row).squeeze(1)])).values
+    return keep_rows(fr, rows)
 
 
 @prim("sumaxis")
@@ -1031,8 +1228,20 @@ def _sumna(env, fr, na_rm):
 
 @prim("prod.na", "prod")
 def _prod(env, fr, *rest):
-    d = _one_col(fr).data
-    return float(torch.prod(torch.where(torch.isnan(d), 1.0, d)))
+    """The product of the non-NA values, multiplied in float64 and
+    rounded to float32 (so it overflows as float32 does); on a
+    row-sharded frame the ranks' products, all-gathered, multiply in
+    rank order."""
+    c = _one_col(fr)
+    d = widen(c.data).double()
+    p = float(torch.prod(torch.where(torch.isnan(d), 1.0, d)))
+    mesh = SF.sharded_mesh(c)
+    if mesh is not None:
+        parts, p = SF.carry(mesh, [p])[:, 0].tolist(), 1.0
+        for q in parts:
+            p *= q
+    with np.errstate(over="ignore"):
+        return float(np.float32(p))
 
 
 @prim("mad")
@@ -1041,23 +1250,59 @@ def _mad(env, fr, const=1.4826, *rest):
 
     c = _one_col(fr)
     med = quantile_column(c, [0.5])[0]
-    dev = Column.from_numpy(np.abs(np.asarray(c.to_numpy(), np.float64) - med))
+    # each rank's own rows' deviations, rounded to float32 as
+    # `Column.from_numpy` rounds them
+    dev = (widen(c.data).double() - med).abs().float()
+    dev = Column(store_numeric(dev, T_NUM), T_NUM, c.nrows)
     k = float(_scalar(const)) if not _is_fr(const) else 1.4826
     return k * quantile_column(dev, [0.5])[0]
 
 
 @prim("topn")
 def _topn(env, fr, col_idx, npercent, grab_topn):
+    """The top (or bottom) npercent of a column's non-NaN values, with
+    their row indices, largest (smallest) first; equal values keep
+    their row order (a stable sort). On a row-sharded frame: the sample
+    sort by (value, row id), the picked rows placed at their output
+    positions and their values fetched (`take_global_rows`)."""
     c = fr.col(int(_scalar(col_idx)))
+    name = fr.names[int(_scalar(col_idx))]
+    top = int(_scalar(grab_topn)) >= 0
+    mesh = SF.sharded_mesh(c)
+    if mesh is not None:
+        return _topn_sharded(fr.subframe([name]), float(_scalar(npercent)),
+                             top, mesh)
     x = np.asarray(c.to_numpy(), np.float64)
     valid = np.nonzero(~np.isnan(x))[0]
     n = max(int(np.ceil(len(valid) * float(_scalar(npercent)) / 100.0)), 1)
-    top = int(_scalar(grab_topn)) >= 0
-    order = valid[np.argsort(x[valid])]
+    order = valid[np.argsort(x[valid], kind="stable")]
     pick = order[-n:][::-1] if top else order[:n]
     out = Frame()
     out.add("Row Indices", Column.from_numpy(pick.astype(np.float64)))
-    out.add(fr.names[int(_scalar(col_idx))], Column.from_numpy(x[pick]))
+    out.add(name, Column.from_numpy(x[pick]))
+    return out
+
+
+def _topn_sharded(fr, pct: float, top: bool, mesh):
+    from h2o3_tpu_torch.ops.sort import sample_sort_rows
+
+    x = widen(fr.col(0).data).double()
+    sel = torch.nonzero(~torch.isnan(x)).squeeze(1)
+    V = sum(SF.all_gather_counts(mesh, len(sel)))
+    k = min(max(int(np.ceil(V * pct / 100.0)), 1), V)
+    got, off = sample_sort_rows(mesh, [x[sel] + 0.0,
+                                       (fr.shard[0] + sel).double()])
+    pos = off + torch.arange(len(got), device=got.device)
+    want = pos >= V - k if top else pos < k
+    out_pos = (V - 1 - pos) if top else pos
+    (src,), _ = SF.place_rows(mesh, out_pos[want], k,
+                              [got[:, 1][want].long()])
+    vals = SF.take_global_rows(fr, src, k).col(0)
+    out = Frame()
+    out.add("Row Indices", Column(store_numeric(src.double().float(), T_NUM),
+                                  T_NUM, k))
+    out.add(fr.names[0], Column(store_numeric(widen(vals.data).float(),
+                                              T_NUM), T_NUM, k))
     return out
 
 
@@ -1083,14 +1328,8 @@ def _signif(env, fr, digits):
 
 @prim("any.na")
 def _anyna(env, fr):
-    for n in fr.names:
-        c = fr.col(n)
-        if c.is_string:
-            if any(v is None for v in c.host_data[: c.nrows]):
-                return 1.0
-        elif float(c.rollups.na_count) > 0:
-            return 1.0
-    return 0.0
+    return 1.0 if any(fr.col(n).rollups.na_count for n in fr.names) \
+        else 0.0
 
 
 @prim("melt")
@@ -1239,6 +1478,7 @@ def _rank_within_group(env, fr, group_cols, sort_cols, ascending, new_col,
 
     rank_col = window.rank_within_groupby_device(fr, gidx, sidx, asc)
     if rank_col is None:
+        SF.refuse(fr, "rank_within_groupby on string key columns")
         # the host walk, for string key columns
         gkeys = [np.asarray(fr.col(int(i)).to_numpy()) for i in gidx]
         skeys = [np.asarray(fr.col(int(i)).to_numpy(), np.float64)
@@ -1453,32 +1693,35 @@ def _grouped_permute(env, fr, perm_col, groupby, permute_by, keep_col):
     return out
 
 
-def _median_combine(x: np.ndarray, cm: str) -> float:
-    """QuantileModel.CombineMethod semantics for the even-length median."""
-    xs = np.sort(x)
-    n = len(xs)
-    if n % 2 == 1:
-        return float(xs[n // 2])
-    lo, hi = float(xs[n // 2 - 1]), float(xs[n // 2])
-    if cm == "low":
-        return lo
-    if cm == "high":
-        return hi
-    return (lo + hi) / 2.0          # interpolate / average coincide here
-
-
 @prim("h2o.mad")
 def _mad(env, fr, combine_method="interpolate", constant=1.4826):
     """AstMad — median absolute deviation × constant; NaN when the column
     carries NAs (reference semantics); combine_method resolves even-length
-    medians (QuantileModel.CombineMethod)."""
+    medians (QuantileModel.CombineMethod). Both medians are exact order
+    statistics (`kth_value`) of the float64 values and deviations, across
+    the ranks of a row-sharded frame."""
+    from h2o3_tpu_torch.ops.quantile import kth_value
+
     col = _one_col(fr)
-    x = np.asarray(col.to_numpy(), np.float64)
-    if np.isnan(x).any() or not len(x):
-        return float("nan")
     cm = _s(combine_method).strip('"').lower()
-    med = _median_combine(x, cm)
-    return float(_scalar(constant)) * _median_combine(np.abs(x - med), cm)
+    mesh = SF.sharded_mesh(col)
+    x = widen(col.data).double()
+    nan = torch.tensor([float(torch.isnan(x).any())], dtype=torch.float64)
+    if mesh is not None:
+        mesh.all_reduce(nan, "max")
+    n = col.nrows
+    if n == 0 or nan[0] > 0:
+        return float("nan")
+
+    def median(v):
+        hi = kth_value(v, n // 2, mesh)
+        if n % 2 == 1:
+            return hi
+        lo = kth_value(v, n // 2 - 1, mesh)
+        return lo if cm == "low" else hi if cm == "high" else \
+            (lo + hi) / 2.0          # interpolate and average coincide
+    med = median(x)
+    return float(_scalar(constant)) * median((x - med).abs())
 
 
 def _na_rollup(op):

@@ -297,15 +297,15 @@ def test_fixed_point_group_sums_are_each_groups_own_sum(size):
 
 def test_out_of_scope_work_refuses_a_sharded_frame():
     """What the row exchange does not serve yet (ROADMAP A14.6c) refuses
-    a row-sharded frame, naming that item: a window function, GLM's
-    multinomial family, the isolation forests and the other builders,
-    and the DeepLearning autoencoder."""
-    from h2o3_tpu_torch.ops.window import difflag1_device
+    a row-sharded frame, naming that item: a Rapids prim that reshapes a
+    frame (melt), GLM's multinomial family, the isolation forests and
+    the other builders, and the DeepLearning autoencoder."""
+    from h2o3_tpu_torch.rapids.eval import PRIMS
 
     def rank(r, m):
         fr = _train_frame(n=64)()
         with pytest.raises(NotImplementedError, match="A14.6c"):
-            difflag1_device(fr.col("a"))
+            PRIMS["melt"](None, fr, [0], [1], "variable", "value", 0.0)
         with pytest.raises(NotImplementedError, match="A14.6c"):
             th.GLM(family="multinomial").train(y="g", training_frame=fr)
         with pytest.raises(NotImplementedError, match="A14.6c"):

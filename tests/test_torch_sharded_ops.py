@@ -620,8 +620,8 @@ def test_the_remaining_cross_row_prims_stay_refused():
         fr = _frame(cols, key=f"refused_{r}")
         fr.install()
         try:
-            for st in ("(cumsum {f} 0)", "(scale {f} 1 1)",
-                       "(which (> {f} 2))"):
+            for st in ("(t {f})", "(x {f} {f})",
+                       "(melt {f} [0] [] 'variable' 'value' 0)"):
                 with pytest.raises(NotImplementedError, match="A14.6c"):
                     exec_rapids(st.format(f=fr.key), Session(f"ref{r}"))
         finally:
