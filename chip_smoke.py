@@ -5615,13 +5615,21 @@ def _digest(obj, rows=None) -> str:
     if getattr(obj, "forest", None) is not None:
         arrays = _forest_bits(obj)
     else:
-        arrays = {n: obj.col(n).data[lo:hi].detach().cpu().contiguous()
-                  .numpy() for n in obj.names}
+        arrays = {n: _col_bytes(obj.col(n), lo, hi) for n in obj.names}
     for k in sorted(arrays):
         a = np.ascontiguousarray(arrays[k])
         h.update(f"{k}{a.dtype}{a.shape}".encode())
         h.update(a.tobytes())
     return h.hexdigest()
+
+
+def _col_bytes(c, lo, hi) -> np.ndarray:
+    """A column's rows [lo, hi) as an array to hash: its device bytes, or
+    a host-only column's values (strings) as their reprs."""
+    if c.data is not None:
+        return c.data[lo:hi].detach().cpu().contiguous().numpy()
+    return np.frombuffer("\x1f".join(map(repr, c.host_data[lo:hi]))
+                         .encode(), np.uint8)
 
 
 def _bytes_digest(a) -> str:
@@ -6319,9 +6327,7 @@ def _prim_steps(h2o, fr, tag):
     shard of a frame, or the value}, {step: seconds, bytes this process
     sent through the row exchange, rows gathered}, {step: this process's
     rows of a frame held to a tolerance})."""
-    from h2o3_tpu_torch.core import sharded_frame as SF
     from h2o3_tpu_torch.core.frame import Column
-    from h2o3_tpu_torch.rapids import Session, exec_rapids
 
     pf = h2o.Frame(key=f"prims_{tag}.hex")
     for nm in fr.names:
@@ -6332,15 +6338,31 @@ def _prim_steps(h2o, fr, tag):
                         fr.nrows))
     pf.add("c0na", Column(torch.where(n2 > 1.5, -1, c0.data.long()).to(
         c0.data.dtype), "enum", fr.nrows, domain=c0.domain))
-    pf.install()
-    sess = Session(f"prims_{tag}")
+    return _run_steps(h2o, SHARD_PRIMS, [pf], tag, {"f": pf.key,
+                                                    "t": f"prims_{tag}"})
+
+
+def _run_steps(h2o, steps, frames, tag, keys, special=None):
+    """`steps` (name, Rapids statements or a key of `special`, bar) on
+    the installed `frames` (the statements' keys `keys`), one process's
+    or a rank's; each frame is removed after. -> `_prim_steps`' three
+    parts."""
+    from h2o3_tpu_torch.core import sharded_frame as SF
+    from h2o3_tpu_torch.rapids import Session, exec_rapids
+
+    for f in frames:
+        f.install()
+    sess = Session(f"steps_{tag}")
     out, stats, arrays = {}, {}, {}
     try:
-        for name, sts, bar in SHARD_PRIMS:
+        for name, sts, bar in steps:
             c0_ = SF.counters()
             t0 = time.perf_counter()
-            for st in sts:
-                v = exec_rapids(st.format(f=pf.key, t=f"prims_{tag}"), sess)
+            if isinstance(sts, str):
+                v = special[sts]()
+            else:
+                for st in sts:
+                    v = exec_rapids(st.format(**keys), sess)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             c1_ = SF.counters()
@@ -6363,23 +6385,29 @@ def _prim_steps(h2o, fr, tag):
                 out[name] = {"value": v}
     finally:
         sess.end()
-        h2o.DKV.remove(str(pf.key))
+        for f in frames:
+            h2o.DKV.remove(str(f.key))
     return out, stats, arrays
 
 
-def _check_prims(mine, theirs, arr1, ref):
+def _check_prims(mine, theirs, arr1, ref, steps=None, key="prims",
+                 label="sharded_prims_s", gathered=None):
     """Phase 3y's prims on both ranks against the one-process run `ref`
-    (`_prim_steps`' three parts), at each step's bar; no row gathered.
-    Prints each step's seconds beside one process's, its exchanged bytes
-    and gathered rows, and `sharded_prims_s`."""
+    (`_prim_steps`' three parts), at each step's bar; no row gathered
+    (or a step's `gathered` count exactly). Prints each step's seconds
+    beside one process's, its exchanged bytes and gathered rows, and
+    `label`'s total."""
+    steps = SHARD_PRIMS if steps is None else steps
+    gathered = gathered or {}
     one, one_stats, one_arrays = ref
-    bars = {name: bar for name, _sts, bar in SHARD_PRIMS}
-    for rk, r, got_arrays in ((0, mine, mine["prims_arrays"]),
+    bars = {name: bar for name, _sts, bar in steps}
+    for rk, r, got_arrays in ((0, mine, mine[f"{key}_arrays"]),
                               (1, theirs, arr1)):
-        for name, got in r["prims"].items():
+        for name, got in r[key].items():
             want, bar = one[name], bars[name]
-            check(r["prims_stats"][name]["gathered_rows"] == 0,
-                  f"rank {rk}: {name} gathered rows")
+            g = r[f"{key}_stats"][name]["gathered_rows"]
+            check(g == gathered.get(name, 0),
+                  f"rank {rk}: {name} gathered {g} rows")
             if "value" in want:
                 a = np.asarray(want["value"], np.float64)
                 b = np.asarray(got["value"], np.float64)
@@ -6390,15 +6418,13 @@ def _check_prims(mine, theirs, arr1, ref):
             check(got["rows"] == want["rows"] and got["domains"]
                   == want["domains"], f"rank {rk}: {name}'s rows or "
                   "domains differ from one process's")
-            if got["shard"] is None:            # held whole on every rank
-                check(got["digest"] == want["digest"],
-                      f"rank {rk}: {name} differs from one process's")
-                continue
-            lo, hi = _blk(want["rows"], rk)
-            check(got["shard"] == [lo, hi], f"rank {rk}: {name} holds "
-                  f"{got['shard']}")
+            lo, hi = (0, want["rows"]) if got["shard"] is None else \
+                _blk(want["rows"], rk)
+            check(got["shard"] in (None, [lo, hi]), f"rank {rk}: {name} "
+                  f"holds {got['shard']}")
             if bar == "bit":
-                check(got["digest"] == want["blocks"][rk],
+                check(got["digest"] == (want["digest"] if got["shard"] is None
+                                        else want["blocks"][rk]),
                       f"rank {rk}: {name} differs from one process's rows")
                 continue
             a = one_arrays[name][:, lo:hi].astype(np.float64)
@@ -6411,20 +6437,130 @@ def _check_prims(mine, theirs, arr1, ref):
                 f"rank {rk}: {name} off one process's by "
                 f"{np.nanmax(np.abs(a - b))!r}")
     total = 0.0
-    for name, st in mine["prims_stats"].items():
+    for name, st in mine[f"{key}_stats"].items():
         total += st["s"]
-        print(f"sharded prim {name}: {st['s']!r} s (one process "
+        print(f"{label[:-2]} {name}: {st['s']!r} s (one process "
               f"{one_stats[name]['s']!r} s), exchanged_bytes "
               f"{st['exchanged_bytes']} (rank 0), "
-              f"{theirs['prims_stats'][name]['exchanged_bytes']} (rank 1), "
+              f"{theirs[f'{key}_stats'][name]['exchanged_bytes']} (rank 1), "
               f"gathered_rows {st['gathered_rows']}")
-    metric("sharded_prims_s", total, f"(one process "
+    metric(label, total, f"(one process "
            f"{sum(s['s'] for s in one_stats.values())!r}; "
-           f"{len(SHARD_PRIMS)} steps, rank 0)")
-    print("sharded prims (impute, as.factor, scale, cumulative, difflag1, "
-          "hist, cor, which.max, mad, topn, dropdup, fillna, "
-          "rank_within_groupby) one process's on both ranks at their bars; "
-          "0 rows gathered")
+           f"{len(steps)} steps, rank 0)")
+    print(f"{label[:-2]}: {', '.join(bars)} one process's on both ranks at "
+          f"their bars; rows gathered only where counted "
+          f"({gathered or 'none'})")
+
+
+# phase 3y's step for ROADMAP A14.6c part 1b (reshapes, user lambdas and
+# string keys) on the flagship frame with row-local columns added: `na`
+# as in SHARD_PRIMS, `s` the string of floor(n0*1000) (~8k distinct),
+# `s2` that of floor(n0*100), `txt` c0's label, c1's label and
+# "w" + floor(n0*10), `si` floor(n0*1000) as a number, `d` an enum of
+# "D" (n3 > 0) and "N", `rid` the row id. Columns: n0..n7 0-7, c0 8,
+# c1 9, y 10, na 11, s 12, s2 13, txt 14, si 15, d 16, rid 17. {b}: an
+# 8x3 row-sharded frame (x), {o}: 16x2 row-sharded (distance), {m}: the
+# labels of -6000..6000 as `s` with a value (a left merge's partner).
+# Bars as SHARD_PRIMS'; `x` and `distance` gather exactly their second
+# frame's rows
+SHARD_RESHAPE = [
+    ("x", ["(x (cols {f} [0 1 2 3 4 5 6 7]) {b})"], "rel"),
+    ("melt", ['(melt (cols {f} [8 0 11]) [0] [1 2] "variable" "value" 1)'],
+     "bit"),
+    ("pivot", ["(pivot {f} 's2' 'c0' 'n1')"], "bit"),
+    ("ddply", ['(ddply (cols {f} [0 8 9]) [1 2] {{ x . (mean (cols_py x '
+               '"n0") True 0) }})'], "bit"),
+    ("isax", ["(isax (cols {f} [0 1 2 3 4 5 6 7]) 2 4 0)"], "bit"),
+    ("random_stratified_split", ["(h2o.random_stratified_split "
+                                 "(cols {f} [10]) 0.25 42)"], "bit"),
+    ("spearman", ["(cor (cols {f} [0 1 2]) (cols {f} [0 1 2]) "
+                  "'complete.obs' 'spearman')"], "rel"),
+    ("distance", ["(distance (cols {f} [0 1]) {o} 'l2')"], "rel"),
+    ("dropdup", ["(dropdup (cols {f} [12 8]) [0 1] 'first')"], "bit"),
+    ("rank_within_groupby", ['(rank_within_groupby (cols {f} [12 0]) [0] '
+                             '[1] [1] "r" 0)'], "bit"),
+    ("merge", ["(merge (cols {f} [12 0]) {m} 1 0 [] [] 'auto')"], "bit"),
+    ("t", ["(t (rows (cols {f} [0 1 2 3 4 5 6 7]) [0:1000]))"], "bit"),
+    ("apply", ["(apply (rows (cols {f} [0 1 2]) [0:2000]) 1 "
+               "{{ x . (max x) }})"], "bit"),
+    ("grouped_permute", ["(grouped_permute (rows (cols {f} [0 15 16 1]) "
+                         "[0:20000]) 0 [1] 2 3)"], "bit"),
+    ("tf-idf", ["(tf-idf (rows (cols {f} [17 14]) [0:100000]) 0 1 1 0)"],
+     "bit"),
+    ("append", "append", "bit"),
+]
+RESHAPE_GATHERED = {"x": 8, "distance": 16}
+APPEND_ROWS = 1000
+
+
+def _append_batch(n=APPEND_ROWS, seed=9) -> str:
+    """A CSV batch of the flagship's columns; c0 brings a new label."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, 8))
+    c0 = np.array(["a", "b", "c", "d", "e"])[rng.integers(0, 5, n)]
+    c1 = np.array(["x", "y", "z"])[rng.integers(0, 3, n)]
+    y = np.array(["N", "Y"])[rng.integers(0, 2, n)]
+    return "".join(",".join([f"{v:.6g}" for v in x[i]] + [c0[i], c1[i],
+                                                            y[i]]) + "\n"
+                   for i in range(n))
+
+
+def _reshape_steps(h2o, fr, tag):
+    """Phase 3y's part 1b step (`SHARD_RESHAPE`) on the flagship frame
+    `fr`, one process's or a rank's: `_prim_steps`' three parts."""
+    from h2o3_tpu_torch.core.frame import Column
+    from h2o3_tpu_torch.ingest.chunked import append_csv
+
+    pf = h2o.Frame(key=f"reshape_{tag}.hex")
+    for nm in fr.names:
+        pf.add(nm, fr.col(nm))
+    n = fr.nrows
+    lo = fr.shard[0] if fr.shard is not None else 0
+    n0 = fr.col("n0").data
+    x0 = n0.double().cpu().numpy()
+    c0 = np.asarray(fr.col("c0").domain, object)[
+        fr.col("c0").data.long().cpu().numpy()]
+    c1 = np.asarray(fr.col("c1").domain, object)[
+        fr.col("c1").data.long().cpu().numpy()]
+
+    def text(v):
+        return v.astype(np.int64).astype(str).astype(object)
+
+    k3, k2, k1 = (np.floor(x0 * f) for f in (1000, 100, 10))
+    pf.add("na", Column(torch.where(fr.col("n1").data > 1.2, torch.nan, n0),
+                        "real", n))
+    pf.add("s", Column(None, "string", n, host_data=text(k3)))
+    pf.add("s2", Column(None, "string", n, host_data=text(k2)))
+    pf.add("txt", Column(None, "string", n, host_data=np.asarray(
+        [f"{a} {b} w{int(k)}" for a, b, k in zip(c0, c1, k1)], object)))
+    pf.add("si", Column(torch.from_numpy(k3.astype(np.float32)).to(
+        n0.device), "real", n))
+    pf.add("d", Column((fr.col("n3").data <= 0).to(torch.int8), "enum", n,
+                       domain=["D", "N"]))
+    pf.add("rid", Column(torch.arange(lo, lo + len(n0), device=n0.device,
+                                      dtype=torch.float32), "real", n))
+    rng = np.random.default_rng(21)
+    b = h2o.Frame(key=f"reshape_b_{tag}.hex")
+    for j in range(3):
+        b.add(f"b{j}", Column.from_numpy(rng.standard_normal(8)))
+    o = h2o.Frame(key=f"reshape_o_{tag}.hex")
+    for j in range(2):
+        o.add(f"o{j}", Column.from_numpy(rng.standard_normal(16)))
+    mf = h2o.Frame(key=f"reshape_m_{tag}.hex")
+    keys = np.arange(-6000, 6001)
+    mf.add("s", Column.from_numpy(keys.astype(str).astype(object)))
+    mf.add("v", Column.from_numpy((keys * 0.5).astype(np.float64)))
+    af = h2o.Frame(key=f"reshape_a_{tag}.hex")
+    for nm in fr.names:
+        af.add(nm, fr.col(nm))
+
+    def append():
+        append_csv(af, _append_batch())
+        return af
+
+    return _run_steps(h2o, SHARD_RESHAPE, [pf, b, o, mf, af], tag,
+                      {"f": pf.key, "b": b.key, "o": o.key, "m": mf.key},
+                      {"append": append})
 
 
 def _same_leaderboard(got, want):
@@ -6469,6 +6605,13 @@ def _shard_slice(h2o, dev, fr, m, res):
     del out
     (res["prims"], res["prims_stats"], res["prims_arrays"]), \
         res["prims_wall_s"] = _timed(lambda: _prim_steps(h2o, fr, "shard"))
+    g0 = sharded_frame.counters()["gathered_rows"]
+    (res["reshape"], res["reshape_stats"], res["reshape_arrays"]), \
+        res["reshape_wall_s"] = _timed(lambda: _reshape_steps(h2o, fr,
+                                                              "shard"))
+    # `x` and `distance` gather their second frames (`_check_prims`
+    # holds each step's count); the munging and CV gather nothing
+    reshape_gathered = sharded_frame.counters()["gathered_rows"] - g0
     kw = dict(ntrees=FLAGSHIP["ntrees"], max_depth=FLAGSHIP["max_depth"])
     hg.launches = 0
     cv, res["sharded_cv_train_s"] = _timed(lambda: h2o.GBM(
@@ -6483,7 +6626,8 @@ def _shard_slice(h2o, dev, fr, m, res):
         "logloss": o.cross_validation_metrics.logloss,
         "fold_digest": o.fold_assignment_digest,
         "holdout": _bytes_digest(o.cross_validation_holdout_predictions)}
-    res["gathered_in_munge_cv"] = sharded_frame.counters()["gathered_rows"]
+    res["gathered_in_munge_cv"] = sharded_frame.counters()[
+        "gathered_rows"] - reshape_gathered
     hg.launches = 0
     xgb, res["sharded_xgb_train_s"] = _timed(lambda: h2o.XGBoost(
         ntrees=XGB["ntrees"], seed=XGB["seed"]).train(y="y",
@@ -6921,8 +7065,9 @@ def shard_child(outdir: str, csv_path: str) -> None:
     res = _shard_steps(h2o, dev, 1, csv_path, outdir)
     res["boot_s"] = boot_s
     arrays = {"pred": res.pop("pred"), "glm_beta": res.pop("glm_beta")}
-    for k, v in res.pop("prims_arrays").items():
-        arrays[f"prims_{k}"] = v
+    for key in ("prims", "reshape"):
+        for k, v in res.pop(f"{key}_arrays").items():
+            arrays[f"{key}_{k}"] = v
     for k in ("gbm_forest", "drf_forest"):
         for a, v in res.pop(k).items():
             arrays[f"{k}_{a}"] = v
@@ -6967,6 +7112,8 @@ def phase_sharded(h2o, dev, tmp, csv_path):
     munge_rows = {k: f.nrows for k, f in out.items()}
     del out
     prims_ref, prims_ref_s = _timed(lambda: _prim_steps(h2o, ref_fr, "ref"))
+    reshape_ref, reshape_ref_s = _timed(lambda: _reshape_steps(h2o, ref_fr,
+                                                               "ref"))
     hg.launches = 0
     aml, aml_s = _timed(lambda: h2o.H2OAutoML(
         project_name="shard_aml_ref", **SHARD_AML).train(
@@ -7095,6 +7242,13 @@ def phase_sharded(h2o, dev, tmp, csv_path):
     print(f"3y's prim step: one-process references {prims_ref_s!r} s, "
           f"rank 0 {mine['prims_wall_s']!r} s, rank 1 "
           f"{theirs['prims_wall_s']!r} s (wall, digests included)")
+    _check_prims(mine, theirs, {k[len("reshape_"):]: v for k, v in
+                                arr.items() if k.startswith("reshape_")},
+                 reshape_ref, SHARD_RESHAPE, "reshape", "sharded_reshape_s",
+                 RESHAPE_GATHERED)
+    print(f"3y's part 1b step: one-process references {reshape_ref_s!r} s, "
+          f"rank 0 {mine['reshape_wall_s']!r} s, rank 1 "
+          f"{theirs['reshape_wall_s']!r} s (wall, digests included)")
     _c47_window(h2o, dev, tmp, csv_path, munge_ref["sort"])
     print(f"follower hist_gather launches (sharded flagship) "
           f"{theirs['gbm_launches']}")

@@ -414,6 +414,21 @@ def _shard_of(buf, nrows: int) -> Optional[Tuple[int, int]]:
 
 def _intern_domain(a: np.ndarray) -> Tuple[List[str], np.ndarray]:
     """String labels -> (sorted domain, int32 codes); None/NaN/"" -> NA."""
+    a = np.asarray(a, object)
+    if set(map(type, a)) <= {str, type(None)}:
+        none = np.asarray(a == None, bool)          # noqa: E711
+        s = a.copy()
+        s[none] = ""
+        u = s.astype(str)
+        # numpy's fixed-width strings sort by code point as str does; a
+        # trailing NUL, which they drop, takes the loop below
+        if np.array_equal(np.char.str_len(u),
+                          np.fromiter(map(len, s), np.int64, len(s))):
+            ok = u != ""
+            dom, inv = np.unique(u[ok], return_inverse=True)
+            codes = np.full(len(a), NA_CAT, np.int32)
+            codes[ok] = inv.reshape(-1)
+            return dom.tolist(), codes
     mask_na = np.array([x is None or (isinstance(x, float) and math.isnan(x))
                         or x == "" for x in a], bool)
     vals = np.asarray([("" if m else str(x)) for x, m in zip(a, mask_na)])

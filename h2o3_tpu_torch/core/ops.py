@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -16,7 +18,8 @@ def segment_sum(idx: torch.Tensor, vals: torch.Tensor, size: int
     in the order its atomics land, and on the card ``index_put_`` with
     accumulate serializes every group through one warp."""
     order = torch.argsort(idx, stable=True)
-    v = vals[order].double().reshape(len(idx), -1)
+    # an empty rank of a row mesh has no rows to infer the width from
+    v = vals[order].double().reshape(len(idx), math.prod(vals.shape[1:]))
     # scan each column along its contiguous (innermost) dim: the card's
     # scan over an outer dim runs one thread per column
     csum = torch.cumsum(v.T.contiguous(), dim=1)

@@ -30,10 +30,12 @@ ordered (ops/sort.py), ``exchanged_rows`` and ``exchanged_bytes`` what
 this process sent to other ranks through the row exchange, and
 ``dl_batch_rows`` the DeepLearning batch rows it fetched from them.
 
-Work not ported to the row mesh yet (ROADMAP A14.6c: the Rapids prims
-that reshape a frame or run user code, GLM's multinomial and ordinal
-families, the isolation forests, KMeans and the other builders, the
-DeepLearning autoencoder, merges on string keys, streaming appends,
+Every Rapids prim and frame operation runs on a row-sharded frame
+(reshapes, user lambdas and string keys since ROADMAP A14.6c part 1b:
+rapids/prims_sharded.py, ops/sort.keyed_sort). Work not ported to the
+row mesh yet (A14.6c parts 2-4: GLM's multinomial and ordinal families,
+the isolation forests, KMeans and the other builders without a sharded
+path, the DeepLearning autoencoder, AutoML's target-encoding stage,
 explanation on a sharded frame) calls `refuse`, which raises an error
 naming that item instead of gathering rows.
 """

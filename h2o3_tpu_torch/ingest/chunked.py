@@ -844,12 +844,25 @@ def append_csv(frame, text: str, separator: Optional[str] = None) -> int:
     enum domains stay sorted (old codes renumbered when new labels arrive,
     so the frame equals a cold parse of the concatenated data), and cached
     rollups merge. Time tokens take the format of the batch's first
-    non-NA token. Returns the number of appended rows."""
-    from h2o3_tpu_torch.core.sharded_frame import refuse
+    non-NA token. Returns the number of appended rows.
 
-    refuse(frame, "a streaming append")
-    with _APPEND_LOCK:
+    On a row-sharded frame every rank parses the whole batch (so enum
+    domains grow alike on every rank), keeps the batch rows that fall in
+    its block of the longer frame, and the rows the shifted block
+    boundaries move go through the row exchange (`place_rows`); the
+    cached rollups are the cloud's and merge as one process's do."""
+    with _frame_lock(frame):
         return _append_csv_locked(frame, text, separator)
+
+
+def _frame_lock(frame) -> threading.Lock:
+    """The lock that serialises appends to `frame` (appends to other
+    frames, a row mesh's ranks among them, go on meanwhile)."""
+    with _APPEND_LOCK:
+        lk = getattr(frame, "_append_lock", None)
+        if lk is None:
+            lk = frame._append_lock = threading.Lock()
+        return lk
 
 
 def _ingest_spans(ms0: float, phases) -> None:
@@ -881,31 +894,39 @@ def _append_csv_locked(frame, text: str, separator: Optional[str]) -> int:
 
 
 def _append_rows(frame, names, b: int, batch) -> int:
+    from h2o3_tpu_torch.core import sharded_frame as SF
+
     n = frame.nrows
     new_n = n + b
-    new_cols: Dict[str, Column] = {}
+    mesh = SF.sharded_mesh(frame)
+    # the batch rows this process adds: all of them, or on a mesh those
+    # of its block of the longer frame
+    lo, hi = (0, b) if mesh is None else (
+        min(max(r - n, 0), b) for r in mesh.rows(new_n))
+    parts = []
     for nm in names:
         c = frame.col(nm)
+        k = c.local_rows
         rollups = c._rollups
         stats = None
         val = batch[nm]
+        data = host = None
+        dom = None
         if c.ctype == T_STR:
-            obj = np.empty(new_n, object)
-            obj[:n] = c.host_data[:n]
-            obj[n:] = val[1]
-            newc = Column(None, T_STR, new_n, host_data=obj)
+            host = np.empty(k + hi - lo, object)
+            host[:k] = c.host_data[:k]
+            host[k:] = val[1][lo:hi]
         elif c.ctype == T_CAT:
             old_dom = list(c.domain or [])
-            new_dom, bcodes, old_lut = grow_domain(old_dom, val[1], val[2])
+            dom, bcodes, old_lut = grow_domain(old_dom, val[1], val[2])
             old = c.data
-            cdt = torch_code_dtype(len(new_dom))
-            if new_dom != old_dom:
+            cdt = torch_code_dtype(len(dom))
+            if dom != old_dom:
                 old = remap_codes(torch.from_numpy(old_lut).to(old.device),
                                   old)
                 rollups = None      # stats over renumbered codes are stale
-            data = torch.cat([old.to(cdt),
-                              torch.from_numpy(bcodes).to(old.device, cdt)])
-            newc = Column(data, T_CAT, new_n, domain=new_dom)
+            data = torch.cat([old.to(cdt), torch.from_numpy(
+                bcodes[lo:hi]).to(old.device, cdt)])
             stats = bcodes
         else:
             old = c.data
@@ -913,15 +934,32 @@ def _append_rows(frame, names, b: int, batch) -> int:
             # describe those stored values, as a recompute would
             bnew = torch.from_numpy(val[1].astype(np.float32)).to(
                 old.device, old.dtype)
-            data = torch.cat([old, bnew])
-            bvals = widen(bnew).cpu().numpy()
-            newc = Column(data, c.ctype, new_n)
+            data = torch.cat([old, bnew[lo:hi]])
+            stats = widen(bnew).cpu().numpy()
             if c.ctype == T_TIME and c.host_data is not None and \
                     c.host_data.dtype.kind in "Mi":
-                newc.host_data = _extend_time_host(c.host_data[:n], val[1])
-            stats = bvals
+                host = _extend_time_host(c.host_data[:k], val[1][lo:hi])
+        parts.append((nm, c.ctype, data, host, dom or c.domain, rollups,
+                      stats))
+    if mesh is not None:
+        flo = frame.shard[0]
+        dev = next((d.device for _n, _t, d, *_ in parts if d is not None),
+                   torch.device("cpu"))
+        pos = torch.cat([torch.arange(flo, flo + frame.local_rows),
+                         torch.arange(n + lo, n + hi)]).to(dev)
+        ts, hs = SF.place_rows(mesh, pos, new_n,
+                               [d for _n, _t, d, *_ in parts if d is not None],
+                               [h for _n, _t, _d, h, *_ in parts
+                                if h is not None])
+        it, ih = iter(ts), iter(hs)
+        parts = [(nm, ct, next(it) if d is not None else None,
+                  next(ih) if h is not None else None, dm, ru, st)
+                 for nm, ct, d, h, dm, ru, st in parts]
+    new_cols: Dict[str, Column] = {}
+    for nm, ctype, data, host, dom, rollups, stats in parts:
+        newc = Column(data, ctype, new_n, domain=dom, host_data=host)
         if rollups is not None and stats is not None:
-            newc._rollups = _merge_rollups(rollups, stats, c.ctype == T_CAT)
+            newc._rollups = _merge_rollups(rollups, stats, ctype == T_CAT)
         new_cols[nm] = newc
     frame.swap_columns(new_cols)
     note_stream_append(b)

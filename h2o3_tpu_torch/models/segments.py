@@ -7,7 +7,8 @@ segment's rows (ops/filters.take_rows on the frame's device), the
 segment columns left out of the predictors. On a row-sharded cloud the
 segments' keys are all-gathered as distinct values and each segment's
 rows are placed through the row exchange, so a segment trains across
-the ranks through its builder's own `row_sharded` gate. A segment whose train
+the ranks through its builder's own `row_sharded` gate; each NaN-keyed
+row is a segment of its own there as in one process. A segment whose train
 raises is recorded with its error and the others go on, as the
 reference's bulk builder does. The result lives in the DKV under its
 key; `as_frame` is its table of segment values, model keys, status and
@@ -66,7 +67,12 @@ def _segments(frame: Frame, seg_cols: List[str]):
     a frame of its rows, in row order). On a row-sharded cloud each rank
     finds the distinct keys of its own rows, the ranks all-gather those
     (keys, not rows), and a segment's rows are each rank's matching rows
-    placed through the row exchange (`filters.keep_rows`)."""
+    placed through the row exchange (`filters.keep_rows`). A row with a
+    NaN key is a segment of its own (NaN equals nothing), as one process
+    makes it; the ranks all-gather those rows' keys and ids, and such
+    segments sort after the others at their NaN's column, tied ones in
+    row order (ROADMAP C53: one process's `np.unique` orders the tied
+    ones as its quicksort leaves them)."""
     from h2o3_tpu_torch.core import sharded_frame as SF
     from h2o3_tpu_torch.core.frame import widen
     from h2o3_tpu_torch.ops.filters import keep_rows, take_rows
@@ -78,22 +84,34 @@ def _segments(frame: Frame, seg_cols: List[str]):
         uniq, inverse = np.unique(codes, axis=0, return_inverse=True)
         inverse = inverse.reshape(-1)
         return uniq, lambda si: take_rows(frame, np.nonzero(inverse == si)[0])
-    for c in seg_cols:
-        col = frame.col(c)
-        # one process makes each NA row of a numeric key a segment of its
-        # own, by its row; a cloud finds segments by their key values
-        if col.data is None or (not col.is_categorical
-                                and col.rollups.na_count):
-            SF.refuse(frame, f"segment models on the segment column {c!r} "
-                      "(strings, or a numeric key with NAs)")
+    if any(frame.col(c).data is None for c in seg_cols):
+        # one process stacks the columns into an object array, which
+        # np.unique(axis=0) refuses
+        raise TypeError("The axis argument to unique is not supported for "
+                        "dtype object")
     codes = np.stack([widen(frame.col(c).data).cpu().numpy()
                       for c in seg_cols], axis=1)
-    parts = SF.all_gather_object(mesh, np.unique(codes, axis=0))
-    uniq = np.unique(np.concatenate(parts), axis=0)
+    lo = frame.shard[0]
+    nan = np.isnan(codes).any(axis=1)
+    parts = SF.all_gather_object(mesh, (
+        np.unique(codes[~nan], axis=0),
+        [(r.tolist(), lo + i) for i, r in zip(np.nonzero(nan)[0],
+                                                codes[nan])]))
+    segs = [(r.tolist(), -1) for r in np.unique(np.concatenate(
+        [p[0] for p in parts]), axis=0)]
+    segs += [t for p in parts for t in p[1]]
+    segs.sort(key=lambda t: (tuple((v != v, 0.0 if v != v else v)
+                                   for v in t[0]), t[1]))
+    uniq = np.asarray([v for v, _g in segs], codes.dtype).reshape(
+        len(segs), len(seg_cols))
 
     def rows_of(si):
-        hit = np.nonzero((codes == uniq[si]).all(axis=1))[0]
-        return keep_rows(frame, torch.from_numpy(hit))
+        vals, g = segs[si]
+        if g >= 0:      # a NaN row: its own segment
+            hit = [g - lo] if lo <= g < lo + frame.local_rows else []
+        else:
+            hit = np.nonzero((codes == np.asarray(vals)).all(axis=1))[0]
+        return keep_rows(frame, torch.as_tensor(np.asarray(hit, np.int64)))
     return uniq, rows_of
 
 

@@ -27,9 +27,14 @@ piece its offset in the one-process order, and the pairs of global row
 ids, placed at those offsets (`place_rows`), take both sides' rows
 (`take_global_rows`). All of it runs on the rank's device; only the
 splitters' sample goes through the host (`ops/sort.splitters`, shared
-with the sample sort). The output is one process's, bit for bit. String
-and mixed-type keys (the host join) stay refused on a mesh (ROADMAP
-A14.6c).
+with the sample sort). String and mixed-type keys take the host join's
+form of it: both sides' keys (strings and numbers told apart, as the
+host join's dict tells them apart) are sample-sorted together with
+equal keys on one rank (`ops/sort.keyed_sort`), the owner pairs each
+key's left rows with its right rows, and the pairs, with the unmatched
+left rows in their place among them (as `_host_pairs` emits them), go
+home to be ordered as one process orders them. The output is one
+process's, bit for bit.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from h2o3_tpu_torch.core.frame import Column, Frame, T_CAT
+from h2o3_tpu_torch.core.frame import Column, Frame, T_CAT, T_STR
 from h2o3_tpu_torch.ops.filters import take_order_rows, take_rows
 from h2o3_tpu_torch.ops.sort import (bucket_of, lex_order, sort_key,
                                      splitters, stable_argsort)
@@ -261,7 +266,7 @@ def _mask_rows(col: Column, na_mask) -> Column:
     if col.is_string:
         vals = _host_vals(col)
         vals[np.asarray(torch.as_tensor(na_mask).cpu())] = None
-        return Column._from_strings(vals)
+        return Column(None, T_STR, col.nrows, host_data=vals)
     dev = col.data.device
     mask = torch.as_tensor(na_mask).to(dev)
     if col.is_categorical:
@@ -288,11 +293,20 @@ def _merge_sharded(left: Frame, right: Frame, all_x: bool, all_y: bool,
     from h2o3_tpu_torch.core import sharded_frame as SF
 
     mesh = SF.mesh_of(left if SF._is_sharded(left) else right)
-    N = mesh.size
     pairs = _key_arrays(left, right, bx, by)
-    if pairs is None:
-        SF.refuse(left if SF._is_sharded(left) else right,
-                  "a merge on string or mixed-type keys")
+    parts = (_device_join(left, right, all_x, all_y, pairs, mesh)
+             if pairs is not None else
+             _host_join(left, right, all_x, all_y, bx, by, mesh))
+    return _assemble(left, right, all_x, all_y, bx, by, mesh, *parts)
+
+
+def _device_join(left: Frame, right: Frame, all_x: bool, all_y: bool,
+                 pairs, mesh):
+    """The sort-merge join of device keys: -> (left ids, right ids,
+    output positions, total) of this rank's pieces."""
+    from h2o3_tpu_torch.core import sharded_frame as SF
+
+    N = mesh.size
     dev = pairs[0][0].device
     llo, lhi, lsl = _local_rows(left, mesh)
     rlo, rhi, rsl = _local_rows(right, mesh)
@@ -375,7 +389,136 @@ def _merge_sharded(left: Frame, right: Frame, all_x: bool, all_y: bool,
         parts_p.append(at + sum(ur[: mesh.rank])
                        + torch.arange(len(um), device=dev))
         at += sum(ur)
-    total = at
+    return parts_l, parts_r, parts_p, at
+
+
+def _join_keys(left: Frame, right: Frame, bx, by, lsl, rsl):
+    """Per key column both sides' values of this rank's rows, left's then
+    right's, as the host join compares them: strings (enum labels) as
+    host strings, numbers as float64 tensors, a string beside a number
+    tagged apart (they never match); -> (keys, left NA, right NA)."""
+    from h2o3_tpu_torch.core.frame import widen
+
+    keys, nas = [], []
+    for ln, rn in zip(bx, by):
+        lc, rc = left.col(ln), right.col(rn)
+        texts = [c.is_string or c.is_categorical for c in (lc, rc)]
+        if not any(texts):
+            v = torch.cat([widen(lc.data[lsl]).double(),
+                           widen(rc.data[rsl]).double().to(lc.data.device)])
+            keys.append(v)
+            nas.append(torch.isnan(v).cpu().numpy())
+            continue
+        v = np.concatenate([_local_vals(lc, lsl), _local_vals(rc, rsl)])
+        na = np.fromiter((x is None or (isinstance(x, float) and x != x)
+                          for x in v), bool, len(v))
+        if not all(texts):
+            t = np.empty(len(v), object)
+            t[:] = [None if a else (0, x) if isinstance(x, str)
+                    else (1, float(x)) for x, a in zip(v, na)]
+            v = t
+        keys.append(v)
+        nas.append(na)
+    na = np.logical_or.reduce(nas)
+    nl = lsl.stop - lsl.start
+    return keys, na[:nl], na[nl:]
+
+
+def _host_join(left: Frame, right: Frame, all_x: bool, all_y: bool, bx,
+               by, mesh):
+    """The host join (`_host_pairs`) over the row mesh: both sides' rows
+    sample-sorted together with equal keys on one rank
+    (`ops/sort.keyed_sort`; a right row's id offset past every left
+    row's, so each key's left rows come first), each key's left rows
+    paired with its right rows there. -> (left ids, right ids, output
+    positions, total) of this rank's pieces."""
+    from h2o3_tpu_torch.core import sharded_frame as SF
+    from h2o3_tpu_torch.ops.sort import keyed_sort
+
+    dev = _dev_of(left, right)
+    llo, lhi, lsl = _local_rows(left, mesh)
+    rlo, rhi, rsl = _local_rows(right, mesh)
+    keys, lna, rna = _join_keys(left, right, bx, by, lsl, rsl)
+    ok = np.concatenate([~lna, ~rna])
+    okt = torch.from_numpy(ok).to(dev)
+    nL = left.nrows
+    gid = torch.cat([torch.arange(llo, lhi, device=dev),
+                     nL + torch.arange(rlo, rhi, device=dev)])
+    b = keyed_sort(mesh, [k[ok] if isinstance(k, np.ndarray) else
+                          k[okt.to(k.device)] for k in keys], gid[okt])
+    rid = torch.cumsum(b.start.long(), 0) - 1
+    is_r = b.gid >= nL
+    lk, rk = rid[~is_r], rid[is_r]
+    lo = torch.searchsorted(rk, lk, side="left")
+    cnt = torch.searchsorted(rk, lk, side="right") - lo
+    li, ri = emit_pairs(lo, cnt, torch.arange(len(rk), device=dev),
+                        int(cnt.sum()))
+    pl, pr = b.gid[~is_r][li], b.gid[is_r][ri] - nL
+    route = SF.Route(mesh, SF.owner_of(pl, left.nrows, mesh.size))
+    got = route.send(torch.stack([pl, pr], 1))
+    mine_l, mine_r = got[:, 0], got[:, 1]
+    if all_x:
+        # unmatched left rows take their place among the pairs
+        seen = torch.zeros(lhi - llo, dtype=torch.bool, device=dev)
+        seen[mine_l - llo] = True
+        miss = torch.arange(llo, lhi, device=dev)[~seen]
+        mine_l = torch.cat([mine_l, miss])
+        mine_r = torch.cat([mine_r, torch.full_like(miss, -1)])
+    o = _lex(mine_l, mine_r)
+    mine_l, mine_r = mine_l[o], mine_r[o]
+    cnt = SF.all_gather_counts(mesh, len(mine_l))
+    parts_l, parts_r = [mine_l], [mine_r]
+    parts_p = [sum(cnt[: mesh.rank]) + torch.arange(len(mine_l), device=dev)]
+    at = sum(cnt)
+    if all_y:
+        lcount = torch.bincount(lk, minlength=int(b.start.sum()))
+        um = b.gid[is_r][lcount[rk] == 0] - nL
+        um = SF.Route(mesh, SF.owner_of(um, right.nrows, mesh.size)).send(um)
+        na = rlo + torch.from_numpy(np.nonzero(rna)[0]).to(dev)
+        um = torch.sort(torch.cat([um, na])).values
+        ur = SF.all_gather_counts(mesh, len(um))
+        parts_l.append(torch.full_like(um, -1))
+        parts_r.append(um)
+        parts_p.append(at + sum(ur[: mesh.rank])
+                       + torch.arange(len(um), device=dev))
+        at += sum(ur)
+    return parts_l, parts_r, parts_p, at
+
+
+def _lex(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return lex_order([a, b]) if len(a) else \
+        torch.zeros(0, dtype=torch.long, device=a.device)
+
+
+def _dev_of(*frames):
+    for fr in frames:
+        for c in fr.columns:
+            if c.data is not None:
+                return c.data.device
+    return torch.device("cpu")
+
+
+def _local_vals(c: Column, sl) -> np.ndarray:
+    """`_host_vals` of this rank's rows `sl` of `c`: labels for an enum
+    (None for NA), strings, or the numbers as floats."""
+    if c.is_string:
+        return np.asarray([None if v is None else str(v)
+                           for v in c.host_data[sl]], object)
+    from h2o3_tpu_torch.core.frame import widen
+
+    d = widen(c.data[sl]).cpu().numpy()
+    if c.is_categorical:
+        dom = np.asarray(list(c.domain or []) + [None], object)
+        return dom[np.where(d < 0, len(dom) - 1, d)]
+    return d.astype(object)
+
+
+def _assemble(left: Frame, right: Frame, all_x: bool, all_y: bool, bx, by,
+              mesh, parts_l, parts_r, parts_p, total: int) -> Frame:
+    """The joined frame from every rank's (left id, right id, position)
+    pieces: this rank's block of it."""
+    from h2o3_tpu_torch.core import sharded_frame as SF
+
     (l_ids, r_ids), _ = SF.place_rows(mesh, torch.cat(parts_p), total,
                                       [torch.cat(parts_l),
                                        torch.cat(parts_r)])
@@ -419,6 +562,8 @@ def _patch_keys_sharded(lcol: Column, rcol: Column, fill: torch.Tensor,
 
     dev = lcol.device
     f = fill.to(dev)
+    if lcol.is_string or rcol.is_string:
+        return _patch_keys_host(lcol, rcol, fill, mesh)
     if not lcol.is_categorical:
         v = torch.where(f, widen(rcol.data).float().to(dev),
                         widen(lcol.data).float())
@@ -441,3 +586,33 @@ def _patch_keys_sharded(lcol: Column, rcol: Column, fill: torch.Tensor,
     codes = torch.where(use_l, table(ldom)[lc.clamp_min(0)], codes)
     return Column(codes.to(torch_code_dtype(len(dom))), T_CAT, lcol.nrows,
                   domain=dom)
+
+
+def _patch_keys_host(lcol: Column, rcol: Column, fill: torch.Tensor,
+                     mesh) -> Column:
+    """`_patch_keys` on this rank's rows where a key is a string column:
+    the values as the host join reads them; an enum key's domain is the
+    labels present in the cloud's rows (all-gathered)."""
+    from h2o3_tpu_torch.core import sharded_frame as SF
+    from h2o3_tpu_torch.core.frame import (NA_CAT, numeric_host,
+                                           store_numeric, torch_code_dtype)
+
+    sl = slice(0, lcol.local_rows)
+    vals = _local_vals(lcol, sl)
+    f = fill.cpu().numpy()
+    vals[f] = _local_vals(rcol, sl)[f]
+    if lcol.is_string:
+        return Column(None, T_STR, lcol.nrows, host_data=vals)
+    if not lcol.is_categorical:
+        return Column(store_numeric(numeric_host(np.asarray(
+            [np.nan if v is None else float(v) for v in vals], np.float64),
+            "real"), "real", lcol.device), "real", lcol.nrows)
+    labels = [None if v is None or (isinstance(v, float) and v != v)
+              or v == "" else str(v) for v in vals]
+    present = sorted({v for v in labels if v is not None})
+    dom = sorted(set().union(*SF.all_gather_object(mesh, present)))
+    lut = {v: i for i, v in enumerate(dom)}
+    codes = torch.tensor([NA_CAT if v is None else lut[v] for v in labels],
+                         dtype=torch.long)
+    return Column(codes.to(torch_code_dtype(len(dom))).to(lcol.device),
+                  T_CAT, lcol.nrows, domain=dom)

@@ -17,6 +17,8 @@ row, and the rank runs on the sample sort (ops/sort.sample_sort_rows)
 by the same levels and the row id, each bucket's segmented count
 continuing the group that runs in from the buckets before it, the ranks
 then routed home to their rows. Both are one process's bit for bit.
+String group keys take `rank_keyed`, whose sample sort puts each group
+on one rank (ops/sort.keyed_sort).
 """
 
 from __future__ import annotations
@@ -179,3 +181,52 @@ def difflag1_device(col: Column) -> Optional[Column]:
                                 device=x.device)
     out = torch.cat([x[:1] - prev, x[1:] - x[:-1]])
     return Column.from_device(out[:len(x)], T_NUM, col.nrows)
+
+
+def rank_keyed(fr: Frame, gidx: Sequence[int], sidx: Sequence[int],
+               asc: Sequence[bool], mesh) -> Column:
+    """rank_within_groupby with string group keys across the row mesh:
+    the rows sample-sorted with equal group keys on one rank
+    (ops/sort.keyed_sort, strings compared by value), each bucket sorted
+    by the sort keys' levels and the row id, ranks counted within each
+    group and sent home. A numeric group key's NaN row is a group of its
+    own (NaN equals nothing), as in one process's host walk; a None in a
+    string group key raises as that walk's sort does. One process's
+    bitwise."""
+    from h2o3_tpu_torch.core import sharded_frame as SF
+    from h2o3_tpu_torch.core.frame import numeric_host, store_numeric, widen
+    from h2o3_tpu_torch.ops.sort import keyed_sort
+    from h2o3_tpu_torch.rapids.prims_sharded import device_of, row_ids
+
+    dev = device_of(fr)
+    n = fr.local_rows
+    gid = row_ids(fr, dev)
+    keys, none = [], False
+    for i in gidx:
+        c = fr.col(int(i))
+        if c.data is None:
+            h = np.asarray(c.host_data[:n], object)
+            none |= bool((h == None).any())              # noqa: E711
+            keys.append(h)
+        else:
+            v = widen(c.data).double()
+            nan = torch.isnan(v)
+            keys += [nan.double(), torch.where(nan, gid.double(), v + 0.0)]
+    flag = torch.tensor([none], dtype=torch.int64)
+    mesh.all_reduce(flag, "max")
+    if flag[0] and fr.nrows > 1:
+        raise TypeError("'<' not supported between instances of "
+                        "'NoneType' and 'str'")
+    s = [widen(fr.col(int(i)).data).float() for i in sidx]
+    then = [v.double() for v in _levels([], s, asc)]
+    b = keyed_sort(mesh, keys, gid, then=then)
+    valid = torch.ones(len(b), dtype=torch.bool, device=dev)
+    for f in b.then[0::2]:
+        valid &= f == 0
+    v = valid.long()
+    c = torch.cumsum(v, 0)
+    base = torch.cummax(torch.where(b.start, c - v, 0), 0).values \
+        if len(b) else c
+    rank = b.home(torch.where(valid, (c - base).double(), torch.nan))
+    return Column(store_numeric(numeric_host(rank.cpu().numpy(), T_NUM),
+                                T_NUM), T_NUM, fr.nrows)

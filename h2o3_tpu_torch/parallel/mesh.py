@@ -382,9 +382,25 @@ class RowMesh:
 # ---------------------------------------------------------------------------
 
 def current() -> Optional[RowMesh]:
-    """This thread's mesh (`use`), else the process's (`install`)."""
+    """This thread's mesh (`use`), else the process's (`install`); None
+    inside `alone`."""
     m = getattr(_TLS, "mesh", None)
-    return m if m is not None else _PROCESS_MESH
+    if m is not None:
+        return m
+    return None if getattr(_TLS, "alone", False) else _PROCESS_MESH
+
+
+@contextlib.contextmanager
+def alone():
+    """No mesh for this thread in the block, even where the process has
+    one: one process's work on rows this rank holds whole (a group's
+    rows that a user function reads, one row of a per-row lambda)."""
+    prev = (getattr(_TLS, "mesh", None), getattr(_TLS, "alone", False))
+    _TLS.mesh, _TLS.alone = None, True
+    try:
+        yield
+    finally:
+        _TLS.mesh, _TLS.alone = prev
 
 
 @contextlib.contextmanager

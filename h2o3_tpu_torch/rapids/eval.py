@@ -959,12 +959,12 @@ def exec_rapids(expr: str, session: Optional[Session] = None):
 # mungers, matrix, repeaters, timeseries)
 from h2o3_tpu_torch.rapids import prims_ext as _prims_ext  # noqa: E402,F401
 # prims that need other ranks' rows (reductions, orderings, row
-# selection, group-bys, folds, the quantile family, scans). Those the
-# row exchange, the cloud's rollups and collectives of counts, moments
-# or carries serve (`SHARDED_PRIMS`) run on a row-sharded frame; the
-# rest (they reshape a frame or run user code) refuse with the ROADMAP
-# item (A14.6c), never gathering rows. Row-local prims (arithmetic,
-# comparisons, ifelse, cols, casts of values) run shard by shard.
+# selection, group-bys, folds, the quantile family, scans, reshapes,
+# user lambdas): each runs on a row-sharded frame through the row
+# exchange, the cloud's rollups and collectives of counts, moments or
+# carries (`SHARDED_PRIMS`), never gathering rows. Row-local prims
+# (arithmetic, comparisons, ifelse, cols, casts of values) run shard by
+# shard.
 CROSS_ROW_PRIMS = frozenset({
     "rows", "rbind", "sort", "merge", "unique", "table", "h2o.impute",
     "na.omit", "h2o.runif", "GB", "mean", "getrow", "sum", "min", "max",
@@ -988,32 +988,16 @@ SHARDED_PRIMS = frozenset({
     "which", "getrow", "any.na", "filterNACols", "dropdup",
     # statistics
     "cor", "skewness", "kurtosis", "distance", "hist", "mode", "mad",
-    "h2o.mad", "entropy", "topn",
+    "h2o.mad", "entropy", "topn", "isax",
     # cumulative and window
     "cumsum", "cumprod", "cummin", "cummax", "difflag1",
     "rank_within_groupby",
     # whole-column reductions
     "sumaxis", "sumNA", "prod", "prod.na", "which.max", "which.min",
-    "all", "any"})
-
-
-def _guard_cross_row(fn, name):
-    import functools
-
-    @functools.wraps(fn)
-    def guarded(env, *args):
-        from h2o3_tpu_torch.core.sharded_frame import refuse
-
-        for a in args:
-            if isinstance(a, Frame):
-                refuse(a, f"the Rapids prim {name!r}")
-        return fn(env, *args)
-    return guarded
-
-
-for _nm in CROSS_ROW_PRIMS - SHARDED_PRIMS:
-    if _nm in PRIMS:
-        PRIMS[_nm] = _guard_cross_row(PRIMS[_nm], _nm)
+    "all", "any",
+    # reshapes and user lambdas (prims_sharded.py)
+    "t", "x", "melt", "pivot", "ddply", "apply", "grouped_permute",
+    "tf-idf", "h2o.random_stratified_split"})
 
 
 # statement fusion (the classification and the planner), imported once

@@ -23,6 +23,7 @@ from h2o3_tpu_torch.core import sharded_frame as SF
 from h2o3_tpu_torch.core.frame import (Column, Frame, T_CAT, T_NUM, T_TIME,
                                        numeric_host, store_numeric, widen)
 from h2o3_tpu_torch.ops.rollups import moments
+from h2o3_tpu_torch.rapids import prims_sharded as PS
 from h2o3_tpu_torch.rapids.eval import (NumList, StrLit, _colfr, agreed_seed,
                                         _eval_lambda, _idx_list, _is_fr,
                                         _one_col, _percol, _row_sum, _s,
@@ -77,24 +78,18 @@ def _corr(X, Y, usemode: str, method: str, mesh=None):
     everything lets NaN propagate), in two passes (the means, then the
     centred sums of squares and products), whose sums a row-sharded
     frame all-reduces (`mesh`); spearman ranks are midranks from sort
-    and searchsorted with unusable rows pushed to +inf (one process)."""
+    and searchsorted with unusable rows pushed to +inf (across the
+    ranks, `_ranks_sharded`)."""
     if usemode == "complete.obs":
         w = ~(torch.isnan(X).any(dim=1) | torch.isnan(Y).any(dim=1))
     else:
         w = torch.ones(X.shape[0], dtype=torch.bool, device=X.device)
 
-    def ranks(M):
-        out = []
-        for j in range(M.shape[1]):
-            cv = torch.where(w, M[:, j], torch.inf)
-            s = torch.sort(cv).values
-            lo = torch.searchsorted(s, cv, side="left")
-            hi = torch.searchsorted(s, cv, side="right")
-            out.append((lo + hi + 1).float() / 2.0)
-        return torch.stack(out, dim=1)
-
     if method == "spearman":
-        X, Y = ranks(X), ranks(Y)
+        def ranks(M):
+            return (_ranks_sharded(M, w, mesh) if mesh is not None
+                    else _midranks(M, w))
+        X, Y = (ranks(X),) * 2 if Y is X else (ranks(X), ranks(Y))
     fx, fy = X.shape[1], Y.shape[1]
     Xd = torch.where(w[:, None], X.double(), 0.0)
     Yd = torch.where(w[:, None], Y.double(), 0.0)
@@ -114,22 +109,59 @@ def _corr(X, Y, usemode: str, method: str, mesh=None):
     return torch.where(n_used > 0, C, torch.nan)
 
 
+def _midranks(M, w):
+    """Spearman's midranks of each column of one process's `M` (float32),
+    its unusable rows (~`w`) pushed to +inf: sort and searchsorted."""
+    out = []
+    for j in range(M.shape[1]):
+        cv = torch.where(w, M[:, j], torch.inf)
+        s = torch.sort(cv).values
+        lo = torch.searchsorted(s, cv, side="left")
+        hi = torch.searchsorted(s, cv, side="right")
+        out.append((lo + hi + 1).float() / 2.0)
+    return torch.stack(out, dim=1)
+
+
+def _ranks_sharded(M, w, mesh):
+    """Spearman's midranks of each column of this rank's rows `M` across
+    the row mesh: the values (unusable rows +inf, NaN after everything)
+    sample-sorted with equal values on one rank (`ops/sort.keyed_sort`),
+    so a value's first and last positions in the sorted order are its
+    bucket's offset plus its run's ends; the ranks go home through the
+    route (float32, as one process's)."""
+    from h2o3_tpu_torch.ops.sort import keyed_sort
+
+    gid = torch.arange(len(M), device=M.device) + \
+        sum(SF.all_gather_counts(mesh, len(M))[: mesh.rank])
+    out = []
+    for j in range(M.shape[1]):
+        cv = torch.where(w, M[:, j], torch.inf).double()
+        nan = torch.isnan(cv)
+        b = keyed_sort(mesh, [nan.double(), torch.where(nan, 0.0, cv) + 0.0],
+                       gid)
+        rid, first, end = PS.runs(b.start)
+        lo = b.offset + first[rid]
+        hi = b.offset + end[rid]
+        out.append(b.home(((lo + hi + 1).float() / 2.0).to(M.device)))
+    return torch.stack(out, dim=1)
+
+
 @prim("cor")
 def _cor(env, fr, other, use, method="pearson"):
     """Correlation matrix or vector (AstCorrelation). use: everything |
     complete.obs | all.obs; method: pearson | spearman. On a row-sharded
-    frame (pearson; `other` sharded alike) the moments are all-reduced
-    and the matrix is held whole on every rank."""
+    frame (`other` sharded alike, or held whole and read at this rank's
+    block) the ranks come from the sample sort, the moments are
+    all-reduced and the matrix is held whole on every rank."""
     method = _s(method).strip('"').lower()
     usemode = _s(use).strip('"')
     X = _dev_matrix(fr)
     same = not (_is_fr(other) and other is not fr)
     mesh = SF.sharded_mesh(fr)
-    if mesh is not None and method == "spearman":
-        SF.refuse(fr, "spearman cor (its ranks need every row)")
-    if mesh is not None and not same and SF.sharded_mesh(other) is None:
-        SF.refuse(fr, "cor with a frame that is not row-sharded")
     Y = X if same else _dev_matrix(other)
+    if mesh is not None and not same and SF.sharded_mesh(other) is None:
+        lo, hi = fr.shard
+        Y = Y[lo:hi]            # a frame held whole: this rank's rows
     C = _corr(X, Y, usemode, method, mesh)
     if C.shape == (1, 1):
         return float(C[0, 0])
@@ -144,11 +176,16 @@ def _cor(env, fr, other, use, method="pearson"):
 def _distance(env, fr, other, measure):
     """Pairwise distances (AstDistance): rows of fr x rows of other; up
     to 64 result columns stay on the device. A row-sharded `fr` gives
-    each rank the distances of its rows; `other` is held whole."""
+    each rank the distances of its rows; `other`, whose every row each
+    output row needs, is held whole (all-gathered when row-sharded, its
+    rows counted in ``gathered_rows``)."""
     measure = _s(measure).strip('"').lower()
-    SF.refuse(other, "distance to a row-sharded second frame")
     A = _dev_matrix(fr)
     B = _dev_matrix(other)
+    om = SF.sharded_mesh(other)
+    if om is not None:
+        B = om.all_gather(B)
+        SF.note_gathered(other.nrows)
     if measure in ("l2", "euclidean"):
         aa = torch.sum(A * A, dim=1)[:, None]
         bb = torch.sum(B * B, dim=1)[None, :]
@@ -335,10 +372,13 @@ def _strat_kfold(env, fr, nfolds, seed):
 @prim("h2o.random_stratified_split")
 def _strat_split(env, fr, test_frac, seed):
     c = _one_col(fr)
-    y = np.asarray(c.to_numpy())
     frac = float(_scalar(test_frac))
-    sd = int(_scalar(seed))
-    rng = np.random.default_rng(sd if sd >= 0 else None)
+    sd = agreed_seed(fr, int(_scalar(seed)))
+    mesh = SF.sharded_mesh(c)
+    if mesh is not None:
+        return _colfr(PS.strat_split(c, frac, sd, mesh), "split")
+    y = np.asarray(c.to_numpy())
+    rng = np.random.default_rng(sd)
     out = np.zeros(len(y))
     for cls in np.unique(y[y >= 0] if c.is_categorical else y):
         idx = np.nonzero(y == cls)[0]
@@ -353,6 +393,9 @@ def _strat_split(env, fr, test_frac, seed):
 
 @prim("t")
 def _transpose(env, fr):
+    mesh = SF.sharded_mesh(fr)
+    if mesh is not None:
+        return PS.transpose(fr, mesh)
     M = _num_matrix(fr).T
     out = Frame()
     for j in range(M.shape[1]):
@@ -363,10 +406,14 @@ def _transpose(env, fr):
 @prim("x")
 def _mmult(env, a, b):
     """AstMMult: A (n x k) @ B (k x m) on the device; the result columns
-    stay there."""
+    stay there. A row-sharded A against a B held whole is row-local; a
+    row-sharded B is `prims_sharded.mmult`."""
     if a.ncols != b.nrows:
         raise ValueError(f"x: non-conformable ({a.ncols} cols vs "
                          f"{b.nrows} rows)")
+    mesh = SF.sharded_mesh(b)
+    if mesh is not None:
+        return PS.mmult(a, b, mesh)
     M = _dev_matrix(a) @ _dev_matrix(b)
     out = Frame()
     for j in range(M.shape[1]):
@@ -1154,47 +1201,36 @@ def _dropdup(env, fr, cols, keep):
 
 def _dropdup_sharded(fr, key_cols, first: bool, mesh):
     """dropdup across the row mesh, one process's rows: a row with a NaN
-    key is never a duplicate (NaN equals nothing) and stays; the others
-    are sample-sorted by (keys, row id), each run of equal keys keeps
-    its first (or last) row, the run that spans a bucket boundary
-    settled by the neighbours' boundary keys (one all-gather), and the
-    kept ids go home to be placed in row order (`keep_rows`)."""
+    numeric key is never a duplicate (NaN equals nothing) and stays; the
+    others are sample-sorted with equal keys on one rank
+    (`ops/sort.keyed_sort`; a string key's None is one key, as one
+    process's dict holds it), each run keeps its first (or last) row,
+    and the kept ids go home to be placed in row order (`keep_rows`)."""
     from h2o3_tpu_torch.ops.filters import keep_rows
-    from h2o3_tpu_torch.ops.sort import sample_sort_rows
+    from h2o3_tpu_torch.ops.sort import keyed_sort
 
-    if any(c.data is None for c in key_cols):
-        SF.refuse(fr, "dropdup on string key columns")
-    keys = [widen(c.data).double() for c in key_cols]
-    nan_row = torch.zeros(fr.local_rows, dtype=torch.bool,
-                          device=keys[0].device)
-    for k in keys:
-        nan_row |= torch.isnan(k)
-    lo = fr.shard[0]
+    dev = PS.device_of(fr)
+    n = fr.local_rows
+    nan_row = torch.zeros(n, dtype=torch.bool, device=dev)
+    keys = []
+    for c in key_cols:
+        if c.data is None:
+            keys.append(np.asarray(c.host_data[:n], object))
+        else:
+            k = widen(c.data).double().to(dev)
+            nan_row |= torch.isnan(k)
+            keys.append(k + 0.0)
     sel = torch.nonzero(~nan_row).squeeze(1)
-    got, _off = sample_sort_rows(mesh, [k[sel] + 0.0 for k in keys]
-                                 + [(lo + sel).double()])
-    K = len(keys)
-    key = got[:, :K]
-    diff = (key[1:] != key[:-1]).any(1)
-    one = torch.ones(1, dtype=torch.bool, device=got.device)
-    bounds = SF.carry(mesh, [len(got)] + (
-        key[0].tolist() + key[-1].tolist() if len(got) else [0.0] * 2 * K))
-    full = bounds[bounds[:, 0] > 0]
-    at = int((bounds[: mesh.rank, 0] > 0).sum())   # this rank in `full`
-    if first:
-        keep = torch.cat([one, diff])
-        if len(got) and at > 0 and \
-                list(full[at - 1, 1 + K:]) == key[0].tolist():
-            keep[0] = False          # its run began in an earlier bucket
-    else:
-        keep = torch.cat([diff, one])
-        if len(got) and at + 1 < len(full) and \
-                list(full[at + 1, 1:1 + K]) == key[-1].tolist():
-            keep[-1] = False         # its run ends in a later bucket
-    kept = got[:, K][keep[: len(got)]].long()
+    sel_np = sel.cpu().numpy()
+    b = keyed_sort(mesh, [k[sel_np] if isinstance(k, np.ndarray) else k[sel]
+                          for k in keys], PS.row_ids(fr, dev)[sel])
+    keep = b.start if first else torch.cat(
+        [b.start[1:], torch.ones(min(len(b), 1), dtype=torch.bool,
+                                 device=dev)])
+    kept = b.gid[keep]
     home = SF.Route(mesh, SF.owner_of(kept, fr.nrows, mesh.size))
-    mine = home.send(kept) - lo
-    rows = torch.sort(torch.cat([mine.to(sel.device),
+    mine = home.send(kept) - fr.shard[0]
+    rows = torch.sort(torch.cat([mine.to(dev),
                                  torch.nonzero(nan_row).squeeze(1)])).values
     return keep_rows(fr, rows)
 
@@ -1343,26 +1379,25 @@ def _melt(env, fr, id_vars, value_vars, var_name, value_name, skipna):
     vn = _s(var_name).strip('"') or "variable"
     valn = _s(value_name).strip('"') or "value"
     skip = bool(_scalar(skipna))
-    n = fr.nrows
+    mesh = SF.sharded_mesh(fr)
+    if mesh is not None:
+        return PS.melt(fr, ids, vals, vn, valn, skip, mesh)
     id_data = {c: np.asarray(fr.col(c).values(), object) for c in ids}
-    var_col: List = []
-    val_col: List[float] = []
-    id_cols: dict = {c: [] for c in ids}
-    for v in vals:
-        x = np.asarray(fr.col(v).to_numpy(), np.float64)
-        for i in range(n):
-            if skip and np.isnan(x[i]):
-                continue
-            var_col.append(v)
-            val_col.append(x[i])
-            for c in ids:
-                id_cols[c].append(id_data[c][i])
+    xs = [np.asarray(fr.col(v).to_numpy(), np.float64) for v in vals]
+    # value variable by value variable, each in row order
+    keep = [np.nonzero(~np.isnan(x))[0] if skip else np.arange(len(x))
+            for x in xs]
+    rows = np.concatenate(keep) if vals else np.zeros(0, np.int64)
+    var_col = np.asarray([v for v, k in zip(vals, keep) for _ in k], object)
+    val_col = (np.concatenate([x[k] for x, k in zip(xs, keep)]) if vals
+               else np.zeros(0))
+    id_cols = {c: id_data[c][rows] for c in ids}
     out = Frame()
     for c in ids:
         out.add(c, Column.from_numpy(np.asarray(id_cols[c], object),
                                      ctype=T_CAT if fr.col(c).is_categorical
                                      else None))
-    out.add(vn, Column.from_numpy(np.asarray(var_col, object), ctype=T_CAT))
+    out.add(vn, Column.from_numpy(var_col, ctype=T_CAT))
     out.add(valn, Column.from_numpy(np.asarray(val_col, np.float64)))
     return out
 
@@ -1372,6 +1407,9 @@ def _pivot(env, fr, index, column, value):
     iname = _s(index).strip('"')
     cname = _s(column).strip('"')
     vname = _s(value).strip('"')
+    mesh = SF.sharded_mesh(fr)
+    if mesh is not None:
+        return PS.pivot(fr, iname, cname, vname, mesh)
     iv = np.asarray(fr.col(iname).values(), object)
     cv = np.asarray(fr.col(cname).values(), object)
     vv = np.asarray(fr.col(vname).to_numpy(), np.float64)
@@ -1399,6 +1437,9 @@ def _ddply(env, fr, group_cols, fun):
     from h2o3_tpu_torch.ops.filters import take_rows
 
     idx = _idx_list(group_cols, fr.ncols)
+    mesh = SF.sharded_mesh(fr)
+    if mesh is not None:
+        return PS.ddply(env, fr, idx, fun, mesh)
     keys = [np.asarray(fr.col(int(i)).to_numpy()) for i in idx]
     combo = {}
     for r in range(fr.nrows):
@@ -1435,33 +1476,28 @@ def _ddply(env, fr, group_cols, fun):
 
 @prim("apply")
 def _apply(env, fr, margin, fun):
-    """AstApply: margin 2 = per column, 1 = per row."""
+    """AstApply: margin 2 = per column, 1 = per row. On a row-sharded
+    frame a column's lambda runs on the sharded column (its reductions
+    are the sharded prims) and the one-row result is held whole on every
+    rank; a row's runs on the rank that holds it."""
     m = int(_scalar(margin))
+    mesh = SF.sharded_mesh(fr)
     if m == 2:
-        results = []
-        for n in fr.names:
-            res = _eval_lambda(env, fun, [_colfr(fr.col(n), n)])
-            results.append(float(_scalar(res)) if not _is_fr(res)
-                           else float(np.asarray(res.to_numpy()).ravel()[0]))
+        results = [PS.first_value(_eval_lambda(env, fun,
+                                               [_colfr(fr.col(n), n)]))
+                   for n in fr.names]
         out = Frame()
         for n, v in zip(fr.names, results):
-            out.add(n, Column.from_numpy(np.asarray([v])))
+            out.add(n, _num_col(np.asarray([v]), 1,
+                                replicate=mesh is not None))
         return out
+    if mesh is not None:
+        return PS.apply_rows(env, fr, fun)
     # margin 1: per-row — vectorize by evaluating the lambda on the whole
     # frame when possible is unsafe in general; do an explicit row loop
-    M = _num_matrix(fr)
-    vals = np.empty(M.shape[0])
-    row_fr = Frame()
-    for j, n in enumerate(fr.names):
-        row_fr.add(n, Column.from_numpy(M[0:1, j]))
-    for i in range(M.shape[0]):
-        rf = Frame()
-        for j, n in enumerate(fr.names):
-            rf.add(n, Column.from_numpy(M[i: i + 1, j]))
-        res = _eval_lambda(env, fun, [rf])
-        vals[i] = (float(_scalar(res)) if not _is_fr(res)
-                   else float(np.asarray(res.to_numpy()).ravel()[0]))
-    return _colfr(Column.from_numpy(vals), "apply")
+    return _colfr(Column.from_numpy(PS.row_lambdas(env, fun, fr.names,
+                                                   _num_matrix(fr))),
+                  "apply")
 
 
 @prim("rank_within_groupby")
@@ -1477,27 +1513,41 @@ def _rank_within_group(env, fr, group_cols, sort_cols, ascending, new_col,
     from h2o3_tpu_torch.ops import window
 
     rank_col = window.rank_within_groupby_device(fr, gidx, sidx, asc)
+    mesh = SF.sharded_mesh(fr)
+    if rank_col is None and mesh is not None:
+        rank_col = window.rank_keyed(fr, gidx, sidx, asc, mesh)
     if rank_col is None:
-        SF.refuse(fr, "rank_within_groupby on string key columns")
-        # the host walk, for string key columns
+        # the host walk, for string key columns: a string key sorts and
+        # groups as its rank among the column's distinct strings does; in
+        # the lexsort's order each row with every sort key present counts
+        # on from the last such row unless a group key changed (NaN
+        # differs from everything)
+        from h2o3_tpu_torch.ops.sort import host_codes
+
         gkeys = [np.asarray(fr.col(int(i)).to_numpy()) for i in gidx]
+        if fr.nrows > 1 and any(k.dtype == object and (k == None).any()
+                                for k in gkeys):   # noqa: E711
+            # the sort compares None with the strings, as lexsort would
+            raise TypeError("'<' not supported between instances of "
+                            "'NoneType' and 'str'")
+        gkeys = [host_codes(k)[0] if k.dtype == object else k
+                 for k in gkeys]
         skeys = [np.asarray(fr.col(int(i)).to_numpy(), np.float64)
                  for i in sidx]
         order_keys = [k if a else -k
                       for k, a in zip(reversed(skeys), reversed(asc))]
         order = np.lexsort(tuple(order_keys) + tuple(reversed(gkeys)))
+        valid = np.ones(fr.nrows, bool)
+        for k in skeys:
+            valid &= ~np.isnan(k)
+        ov = order[valid[order]]
+        start = np.zeros(len(ov), bool)
+        start[:1] = True
+        for k in gkeys:
+            start[1:] |= k[ov][1:] != k[ov][:-1]
+        at = np.arange(len(ov))
         rank = np.full(fr.nrows, np.nan)
-        prev_g = None
-        r = 0
-        for pos in order:
-            gk = tuple(k[pos] for k in gkeys)
-            if any(np.isnan(np.asarray(skeys)[:, pos])):
-                continue
-            if gk != prev_g:
-                prev_g = gk
-                r = 0
-            r += 1
-            rank[pos] = r
+        rank[ov] = at - np.maximum.accumulate(np.where(start, at, 0)) + 1
         rank_col = Column.from_numpy(rank)
     out = fr.subframe(fr.names)
     out.add(_s(new_col).strip('"'), rank_col)
@@ -1642,6 +1692,9 @@ def _grouped_permute(env, fr, perm_col, groupby, permute_by, keep_col):
     kb = int(_scalar(keep_col))
     pb = int(_scalar(permute_by))
     gb = [int(i) for i in _idx_list(groupby, fr.ncols)]
+    mesh = SF.sharded_mesh(fr)
+    if mesh is not None:
+        return PS.grouped_permute(fr, pc, kb, pb, gb, mesh)
     names = [fr.names[i] for i in gb]
     g_np = [np.asarray(fr.col(fr.names[i]).to_numpy()) for i in gb]
     perm = np.asarray(fr.col(fr.names[pc]).to_numpy(), np.float64)
@@ -1654,20 +1707,19 @@ def _grouped_permute(env, fr, perm_col, groupby, permute_by, keep_col):
     # compound key over ALL group-by columns
     gkey = np.asarray(list(zip(*[g.astype(str) for g in g_np])), object)
     gkey = np.asarray(["\x1f".join(t) for t in gkey])
-    rows = {k: [] for k in ("in", "out", "inamnt", "outamnt")}
-    grows = {nm: [] for nm in names}
-    for gv in np.unique(gkey):
-        sel = gkey == gv
-        din = np.where(sel & is_d)[0]
-        dout = np.where(sel & ~is_d)[0]
-        for i in din:
-            for j in dout:
-                for gi, nm in enumerate(names):
-                    grows[nm].append(g_np[gi][i])
-                rows["in"].append(perm[i])
-                rows["out"].append(perm[j])
-                rows["inamnt"].append(keep[i])
-                rows["outamnt"].append(keep[j])
+    # groups in sorted key order, each group's rows in row order; per
+    # group its D rows, each paired with every other row
+    order = np.argsort(gkey, kind="stable")
+    cut = np.flatnonzero(gkey[order][1:] != gkey[order][:-1]) + 1
+    pi, pj = [np.zeros(0, np.int64)], [np.zeros(0, np.int64)]
+    for grp in np.split(order, cut) if len(order) else []:
+        din, dout = grp[is_d[grp]], grp[~is_d[grp]]
+        pi.append(np.repeat(din, len(dout)))
+        pj.append(np.tile(dout, len(din)))
+    i, j = np.concatenate(pi), np.concatenate(pj)
+    rows = {"in": perm[i], "out": perm[j], "inamnt": keep[i],
+            "outamnt": keep[j]}
+    grows = {nm: g_np[gi][i] for gi, nm in enumerate(names)}
     out = Frame()
     pdom = list(fr.col(fr.names[pc]).domain or []) or None
     kdom = list(fr.col(fr.names[kb]).domain or []) or None
@@ -1738,6 +1790,36 @@ prim("maxNA")(_na_rollup(np.max))
 prim("minNA")(_na_rollup(np.min))
 
 
+def _isax_index(sym: np.ndarray, C: int, nrows: int, mesh=None) -> Column:
+    """The iSax_index enum of the symbol rows `sym` (a rank's block with
+    `mesh`), as `Column.from_numpy(labels, ctype="enum")` interns the
+    labels: each distinct symbol row's label made once, the domain the
+    sorted labels some row holds (with `mesh`, of every rank's)."""
+    from h2o3_tpu_torch.core.frame import torch_code_dtype
+
+    sym = sym.reshape(len(sym), -1)
+    W = sym.shape[1]
+    if (C + 1) ** W < 2 ** 62:
+        # a row's symbols (each in [0, C]) as one integer
+        code = sym.astype(np.int64) @ ((C + 1) ** np.arange(W - 1, -1, -1,
+                                                             dtype=np.int64))
+        _u, first, inv = np.unique(code, return_index=True,
+                                   return_inverse=True)
+        uniq = sym[first]
+    else:
+        uniq, inv = np.unique(sym, axis=0, return_inverse=True)
+    labels = ["_".join(f"{int(s)}^{C}" for s in row) for row in uniq]
+    dom = sorted(set(labels) if mesh is None else set().union(
+        *SF.all_gather_object(mesh, sorted(set(labels)))))
+    pos = {v: i for i, v in enumerate(dom)}
+    lut = np.asarray([pos[v] for v in labels] or [0], np.int64)
+    codes = torch.from_numpy(lut[inv.reshape(-1)])
+    from h2o3_tpu_torch.core.frame import _device
+
+    return Column(codes.to(torch_code_dtype(len(dom))).to(_device(None)),
+                  T_CAT, nrows, domain=dom)
+
+
 @prim("isax")
 def _isax(env, fr, num_words, max_cardinality, optimize_card=0):
     """AstIsax — iSAX symbolization of row-wise series: z-normalize each
@@ -1750,6 +1832,9 @@ def _isax(env, fr, num_words, max_cardinality, optimize_card=0):
     C = int(_scalar(max_cardinality))
     if W <= 0 or C <= 0:
         raise ValueError("isax: numWords and maxCardinality must be > 0")
+    mesh = SF.sharded_mesh(fr)
+    if mesh is not None:
+        return PS.isax(fr, W, C, mesh)
     X = _num_matrix(fr)                               # (n, T) series rows
     n, T = X.shape
     mu = np.nanmean(X, axis=1, keepdims=True)
@@ -1763,9 +1848,7 @@ def _isax(env, fr, num_words, max_cardinality, optimize_card=0):
     brk = np.asarray([nd.inv_cdf(q) for q in np.linspace(0, 1, C + 1)[1:-1]])
     sym = np.searchsorted(brk, paa)                   # (n, W) in [0, C)
     out = Frame()
-    idx_strings = np.asarray(
-        ["_".join(f"{int(s)}^{C}" for s in row) for row in sym], object)
-    out.add("iSax_index", Column.from_numpy(idx_strings, ctype="enum"))
+    out.add("iSax_index", _isax_index(sym, C, n))
     for i in range(W):
         out.add(f"c{i}", Column.from_numpy(sym[:, i].astype(np.float64)))
     return out
@@ -1776,10 +1859,13 @@ def _tfidf(env, fr, doc_id_idx, text_idx, preprocess=1, case_sensitive=1):
     """AstTfIdf — (doc, word, TF, IDF, TF-IDF) from a corpus frame."""
     di = int(_scalar(doc_id_idx))
     ti = int(_scalar(text_idx))
-    docs = np.asarray(fr.col(fr.names[di]).to_numpy())
-    words = _host_strings(fr.col(fr.names[ti]))
     pre = bool(int(_scalar(preprocess)))
     cs = bool(int(_scalar(case_sensitive)))
+    mesh = SF.sharded_mesh(fr)
+    if mesh is not None:
+        return PS.tfidf(fr, di, ti, pre, cs, mesh)
+    docs = np.asarray(fr.col(fr.names[di]).to_numpy())
+    words = _host_strings(fr.col(fr.names[ti]))
     pairs = []
     for d, txt in zip(docs, words):
         if txt is None:

@@ -415,14 +415,25 @@ def test_merge_against_the_jax_package(cl, how):
 
 
 def test_merge_on_string_keys_stays_refused():
+    """A merge on string keys runs on the mesh now (ROADMAP A14.6c part
+    1b: each rank's block is one process's); what stays refused is
+    explanation on the merged frame (partial dependence, parts 2-4)."""
     from h2o3_tpu_torch.ops.merge import merge
 
     cols = {"s": (np.array(["a", "b", "c", "d"], object), None),
             "x": (np.arange(4, dtype=np.float32), None)}
+    with M.use(None):
+        one = _local(merge(_frame(cols), _frame(cols)))
+        model = th.GBM(ntrees=1, max_depth=2, seed=1).train(
+            y="z", training_frame=_frame({
+                "x": cols["x"],
+                "z": (np.array([0.5, 1.5, 1.0, 2.0], np.float32), None)}))
 
     def rank(r, m):
+        got = merge(_frame(cols), _frame(cols))
+        _same_block(one, _local(got), 2, r, "string merge")
         with pytest.raises(NotImplementedError, match="A14.6c"):
-            merge(_frame(cols), _frame(cols))
+            model.partial_plot(got, cols=["x"])
         return True
 
     assert run_ranks(2, rank) == [True, True]
@@ -612,6 +623,11 @@ def test_rapids_cross_row_prims_against_the_jax_package(cl):
 
 
 def test_the_remaining_cross_row_prims_stay_refused():
+    """`t`, `x` and `melt`, once refused here, run on the mesh (ROADMAP
+    A14.6c part 1b; tests/test_torch_sharded_reshape.py holds them to
+    one process); what a Rapids session still cannot reach on a sharded
+    frame is a builder without a sharded path (a GLRM and an SVD train,
+    parts 2-4)."""
     from h2o3_tpu_torch.rapids import Session, exec_rapids
 
     cols = {"x": (np.arange(8, dtype=np.float32), None)}
@@ -620,10 +636,13 @@ def test_the_remaining_cross_row_prims_stay_refused():
         fr = _frame(cols, key=f"refused_{r}")
         fr.install()
         try:
-            for st in ("(t {f})", "(x {f} {f})",
+            for st in ("(t {f})", "(x {f} (t {f}))",
                        "(melt {f} [0] [] 'variable' 'value' 0)"):
-                with pytest.raises(NotImplementedError, match="A14.6c"):
-                    exec_rapids(st.format(f=fr.key), Session(f"ref{r}"))
+                exec_rapids(st.format(f=fr.key), Session(f"ref{r}"))
+            with pytest.raises(NotImplementedError, match="A14.6c"):
+                th.GLRM(k=1).train(training_frame=fr)
+            with pytest.raises(NotImplementedError, match="A14.6c"):
+                th.SVD(nv=1).train(training_frame=fr)
         finally:
             th.DKV.remove(str(fr.key))
         return True

@@ -452,35 +452,88 @@ def test_c50_segment_keys_are_gathered_as_keys_not_rows(R):
         assert refused == [("FAILED", True)] * 2
 
 
-# -- what stays refused (A14.6c part 1b) -----------------------------------------
+# -- what stays refused (A14.6c parts 2-4) ---------------------------------------
 
-PART_1B = ["t", "x", "melt", "pivot", "ddply", "apply", "grouped_permute",
-           "isax", "tf-idf", "h2o.random_stratified_split"]
+_MODEL = {}
 
 
-@pytest.mark.parametrize("name", PART_1B)
+def _one_gbm():
+    """A one-process GBM (trained once) whose explanation methods the
+    sharded frames below reach."""
+    if "gbm" not in _MODEL:
+        with M.use(None):
+            fr = _frame({"x": (np.arange(64, dtype=np.float32), None),
+                         "y": (np.array(["u", "v"], object)[
+                             np.arange(64) % 2], "enum")})
+            _MODEL["gbm"] = th.GBM(ntrees=2, max_depth=2, seed=1).train(
+                y="y", training_frame=fr)
+    return _MODEL["gbm"]
+
+
+def _refused_frame():
+    return _frame({"x": (np.arange(8, dtype=np.float32), None),
+                   "y": (np.array(["u", "v", "w", "u", "v", "w", "u", "v"],
+                                  object), "enum")})
+
+
+# work that A14.6c parts 2-4 still have to port: the builders without a
+# sharded path, GLM's multinomial and ordinal families, the DeepLearning
+# autoencoder and explanation on a sharded frame
+STILL_REFUSED = {
+    "glm_multinomial": lambda fr, m: th.GLM(family="multinomial").train(
+        y="y", training_frame=fr),
+    "glm_ordinal": lambda fr, m: th.GLM(family="ordinal").train(
+        y="y", training_frame=fr),
+    "kmeans": lambda fr, m: th.KMeans(k=2).train(training_frame=fr),
+    "isolation_forest": lambda fr, m: th.IsolationForest(ntrees=2).train(
+        training_frame=fr),
+    "pca": lambda fr, m: th.PCA(k=1).train(training_frame=fr),
+    "dl_autoencoder": lambda fr, m: th.DeepLearning(
+        epochs=1, autoencoder=True).train(training_frame=fr),
+    "predict_contributions": lambda fr, m: m.predict_contributions(fr),
+    "partial_plot": lambda fr, m: m.partial_plot(fr, cols=["x"]),
+    "predict_leaf_node_assignment":
+        lambda fr, m: m.predict_leaf_node_assignment(fr),
+    "staged_predict_proba": lambda fr, m: m.staged_predict_proba(fr),
+}
+
+
+@pytest.mark.parametrize("name", list(STILL_REFUSED))
 def test_part_1b_prims_still_refuse_a_sharded_frame(name):
-    from h2o3_tpu_torch.rapids.eval import PRIMS
+    """What stays refused on a row-sharded frame once part 1b's prims
+    run there (tests/test_torch_sharded_reshape.py): each item of
+    ROADMAP A14.6c parts 2-4 raises naming it, on both ranks, without
+    gathering a row."""
+    model = _one_gbm()
 
     def rank(r, m):
-        fr = _frame({"x": (np.arange(8, dtype=np.float32), None)})
+        fr = _refused_frame()
+        before = SF.counters()["gathered_rows"]
         with pytest.raises(NotImplementedError, match="A14.6c"):
-            PRIMS[name](None, fr, fr, 0.0, 0.0, 0.0, 0.0)
-        return True
+            STILL_REFUSED[name](fr, model)
+        return SF.counters()["gathered_rows"] - before
 
-    assert run_ranks(2, rank) == [True, True]
+    assert run_ranks(2, rank) == [0, 0]
 
 
 def test_distance_to_a_sharded_frame_and_an_append_refuse():
-    from h2o3_tpu_torch.ingest.chunked import append_csv
+    """`distance` to a row-sharded frame and a streaming append now run
+    on the mesh (tests/test_torch_sharded_reshape.py); what still
+    refuses beside them: AutoML's target-encoding stage and an Extended
+    Isolation Forest train (ROADMAP A14.6c parts 2-4)."""
     from h2o3_tpu_torch.rapids.eval import PRIMS
 
     def rank(r, m):
-        fr = _frame({"x": (np.arange(8, dtype=np.float32), None)})
+        fr = _refused_frame()
+        got = PRIMS["distance"](None, fr.subframe(["x"]), fr.subframe(["x"]),
+                                "l2")
+        assert got.ncols == 8 and got.shard == m.rows(8)
         with pytest.raises(NotImplementedError, match="A14.6c"):
-            PRIMS["distance"](None, fr, fr, "l2")
+            th.H2OAutoML(max_models=1, seed=1, preprocessing=[
+                "target_encoding"], project_name=f"te_{r}").train(
+                    y="y", training_frame=fr)
         with pytest.raises(NotImplementedError, match="A14.6c"):
-            append_csv(fr, "1\n")
+            th.ExtendedIsolationForest(ntrees=2).train(training_frame=fr)
         return True
 
     assert run_ranks(2, rank) == [True, True]
