@@ -4318,7 +4318,10 @@ def phase_times(dev, launches, max_err):
                              + launches["sharded"] + launches["nccl"]
                              + launches["sharded_cv"]
                              + launches["sharded_xgb"]
-                             + launches["sharded_automl"]),
+                             + launches["sharded_automl"]
+                             + launches["sharded_multinomial"]
+                             + launches["sharded_automl_multiclass"]
+                             + launches["sharded_cv_stratified"]),
              "max_abs_err": max_err,
              "ms": mean[0], "plain_ms": mean[1], "bound_ms": mean[3],
              "bound_by": "bytes", "library_ms": mean[2],
@@ -6563,6 +6566,310 @@ def _reshape_steps(h2o, fr, tag):
                       {"append": append})
 
 
+# phase 3y's multiclass and explanation step (ROADMAP A14.6c parts 2-3):
+# a 4-class and a 3-class response cut on the mesh from z = n0 + n1/2 -
+# n2/2, n0 then left out of the predictors (z's classes are not
+# separable); multinomial GLM and a 20-tree depth-5 multinomial GBM on
+# the 4 classes, ordinal GLM and AutoML on the 3; AutoML cut as 3y's is
+# (2 models, 2 folds, GLM, GBM and ensembles) and its GBM step to 2
+# trees of depth 6 (the exploitation step doubles them): its GLM member
+# fails on a multiclass response and its AUTO metalearner refuses the
+# multinomial family, in both packages; a 5-fold stratified CV GBM
+# (depth 5, cut to 5 trees) on the flagship's response; the flagship GBM
+# explained: leaves and staged probabilities on every row, TreeSHAP on a
+# 200,000-row slice (host-bound), PDP on n1, n2 and c0 at 20 bins and
+# the 2-D PDP of (n2, c0)
+SHARD_MULTI = dict(z="(- (+ (cols {f} [0]) (* (cols {f} [1]) 0.5)) "
+                     "(* (cols {f} [2]) 0.5))",
+                   breaks4=[-1000, -0.7, 0, 0.7, 1000],
+                   breaks3=[-1000, -0.5, 0.5, 1000], ntrees=20,
+                   max_depth=5, aml_trees=2, aml_depth=6, cv_trees=5,
+                   nfolds=5, contrib_rows=200_000,
+                   pdp_cols=["n1", "n2", "c0"], nbins=20,
+                   # ROADMAP C46; C54 for the unpenalised multinomial
+                   # (L-BFGS stops on |g| <= 1e-6 of a flat optimum)
+                   c46=dict(rtol=1e-6, atol=1e-6),
+                   c54=dict(rtol=1e-5, atol=1e-5), pdp_atol=1e-6)
+SHARD_MULTI_AML = dict(max_models=2, nfolds=2, seed=1,
+                       include_algos=["glm", "gbm", "stackedensemble"])
+
+
+@contextlib.contextmanager
+def _cut_gbm_steps(trees, depth):
+    """AutoML's default GBM step cut to `trees` trees of depth `depth`
+    for the block (the plan's other steps as they are)."""
+    from h2o3_tpu_torch.automl import steps
+
+    saved = steps.GBMSteps.defaults
+
+    def defaults(self, ctx):
+        return [steps.step("def_gbm_1", "gbm", 10, steps.GROUP_DEFAULTS,
+                           ntrees=trees, max_depth=depth, learn_rate=0.1,
+                           sample_rate=0.8, col_sample_rate_per_tree=0.8)]
+
+    steps.GBMSteps.defaults = defaults
+    try:
+        yield
+    finally:
+        steps.GBMSteps.defaults = saved
+
+
+def _multiclass_frames(h2o, fr, tag):
+    """(4-class frame, 3-class frame): the flagship's features but n0,
+    and a response cut from z on this process's rows."""
+    from h2o3_tpu_torch.rapids import Session, exec_rapids
+
+    fr.install()
+    sess = Session(f"multi_{tag}")
+    z = SHARD_MULTI["z"].format(f=fr.key)
+    ys = {}
+    try:
+        for k, br in (("y4", "breaks4"), ("y3", "breaks3")):
+            edges = SHARD_MULTI[br]
+            labels = " ".join(f'"k{i}"' for i in range(len(edges) - 1))
+            v = exec_rapids(f"(cut {z} [{' '.join(map(str, edges))}] "
+                            f"[{labels}] 0 1 3)", sess)
+            ys[k] = v.col(v.names[0])
+    finally:
+        sess.end()
+    feats = [n for n in fr.names if n not in ("n0", "y")]
+    out = []
+    for k in ("y4", "y3"):
+        f = h2o.Frame(key=f"multi_{k}_{tag}.hex")
+        for n in feats:
+            f.add(n, fr.col(n))
+        f.add("y", ys[k])
+        out.append(f)
+    return out
+
+
+def _blocks(v, ref):
+    """A result frame's digest: one process's two rank blocks (`ref`),
+    else this rank's rows."""
+    if ref:
+        return [_digest(v, _blk(v.nrows, r)) for r in (0, 1)]
+    return _digest(v)
+
+
+def _probs(m, f):
+    """This process's rows of a classifier's class probabilities."""
+    p = m.predict(f)
+    return np.stack([p.col(c).data.float().cpu().numpy()
+                     for c in p.names[1:]], 1)
+
+
+def _multiclass_steps(h2o, fr, gbm, tag):
+    """Phase 3y's multiclass and explanation step on the flagship frame
+    `fr` (one process's with tag "ref", else a rank's) and its flagship
+    GBM `gbm`: -> (results, {name: this process's rows or coefficients}).
+    Each path's kernel launches are counted from 0 just before it."""
+    from h2o3_tpu_torch.core import sharded_frame as SF
+    from h2o3_tpu_torch.models.tree import hist_gather as hg
+    from h2o3_tpu_torch.ops.filters import take_rows
+
+    ref = tag == "ref"
+    c = SHARD_MULTI
+    res, arrays = {}, {}
+    g0 = SF.counters()["gathered_rows"]
+    t_step = time.perf_counter()
+    f4, f3 = _multiclass_frames(h2o, fr, tag)
+    res["classes"] = [len(f4.col("y").domain), len(f3.col("y").domain)]
+    for name, f in (("multinomial", f4), ("ordinal", f3)):
+        m, dt = _timed(lambda: h2o.GLM(family=name).train(
+            y="y", training_frame=f))
+        res[f"glm_{name}"] = {"s": dt, "iterations": m.iterations,
+                              "deviance": m.residual_deviance}
+        arrays[f"glm_{name}_beta"] = m.beta.cpu().numpy()
+        arrays[f"glm_{name}_probs"] = _probs(m, f)
+        h2o.DKV.remove(str(m.key))
+    hg.launches = 0
+    m, dt = _timed(lambda: h2o.GBM(
+        ntrees=c["ntrees"], max_depth=c["max_depth"], seed=1).train(
+        y="y", training_frame=f4))
+    res["gbm_multinomial"] = {"s": dt, "launches": hg.launches,
+                              "levels": _levels(m), "forest": _digest(m),
+                              "logloss": float(
+                                  m._output.training_metrics.logloss)}
+    h2o.DKV.remove(str(m.key))
+    hg.launches = 0
+    with _cut_gbm_steps(c["aml_trees"], c["aml_depth"]):
+        aml, dt = _timed(lambda: h2o.H2OAutoML(
+            project_name=f"multi_aml_{tag}", **SHARD_MULTI_AML).train(
+            y="y", training_frame=f3))
+    res["automl"] = {"s": dt, "launches": hg.launches,
+                     "levels": sum(_levels(m) for m in aml.models
+                                   if m.algo_name == "gbm"),
+                     "members": _aml_members(aml),
+                     "leaderboard": [[r["algo"], r.get("logloss")]
+                                     for r in aml.leaderboard],
+                     "failed": sorted(e["message"].split(":")[0]
+                                      for e in aml.event_log
+                                      if e["message"].startswith("FAILED"))}
+    for k in [k for k in h2o.DKV.keys()
+              if str(k).startswith(f"multi_aml_{tag}")]:
+        h2o.DKV.remove(k)
+    del aml
+    hg.launches = 0
+    gc0 = SF.counters()["gathered_rows"]
+    cv, dt = _timed(lambda: h2o.GBM(
+        ntrees=c["cv_trees"], max_depth=c["max_depth"], seed=1,
+        nfolds=c["nfolds"], fold_assignment="Stratified").train(
+        y="y", training_frame=fr))
+    o = cv._output
+    res["cv_stratified"] = {
+        "s": dt, "launches": hg.launches, "levels": _levels(cv),
+        "forest": _digest(cv),
+        "folds": [_digest(f) for f in o.cross_validation_models],
+        "fold_digest": o.fold_assignment_digest,
+        "logloss": o.cross_validation_metrics.logloss,
+        "gathered": SF.counters()["gathered_rows"] - gc0}
+    h2o.DKV.remove(str(cv.key))
+    # the flagship GBM explained
+    ex = {}
+    t0 = time.perf_counter()
+    for kind in ("Path", "Node_ID"):
+        v, ex[f"leaf_{kind}_s"] = _timed(
+            lambda: gbm.predict_leaf_node_assignment(fr, type=kind))
+        ex[f"leaf_{kind}"] = _blocks(v, ref)
+        if kind == "Path":
+            ex["path_domains"] = [v.col(n).domain for n in v.names]
+    v, ex["staged_s"] = _timed(lambda: gbm.staged_predict_proba(fr))
+    ex["staged"] = _blocks(v, ref)
+    del v
+    sl = take_rows(fr, np.arange(c["contrib_rows"]))
+    v, ex["contrib_s"] = _timed(lambda: gbm.predict_contributions(sl))
+    ex["contrib"] = _blocks(v, ref)
+    del v, sl
+    (pd, pd2), ex["pdp_s"] = _timed(lambda: (gbm.partial_plot(
+        fr, cols=c["pdp_cols"], nbins=c["nbins"]), gbm.partial_plot(
+        fr, col_pairs_2dpdp=[tuple(c["pdp_cols"][1:])], nbins=c["nbins"])))
+    ex["pdp"] = [[t["column"], [v if isinstance(v, str) else float(v)
+                                for v in t["values"]],
+                  t["mean_response"], t["stddev_response"]] for t in pd]
+    ex["pdp2"] = [[r[0], r[1] if isinstance(r[1], str) else float(r[1]),
+                   r[2], r[3]] for r in pd2[0]["rows"]]
+    ex["s"] = time.perf_counter() - t0
+    res["explain"] = ex
+    res["gathered"] = SF.counters()["gathered_rows"] - g0
+    res["step_s"] = time.perf_counter() - t_step
+    for f in (f4, f3):
+        h2o.DKV.remove(str(f.key))
+    return res, arrays
+
+
+def _check_multiclass(mine, theirs, arr1, ref, arr_ref):
+    """Phase 3y's multiclass and explanation step on both ranks (`mine`,
+    `theirs`; rank 1's arrays `arr1`) against one process's (`ref`,
+    `arr_ref`): the forests, fold ids, leaves, staged probabilities and
+    contributions bitwise, the GLMs and PDP tables within their bars,
+    the AutoML leaderboard one process's, each tree path's launches the
+    levels it grew, no row gathered. Prints the step's metrics; returns
+    the kernel's launches of the sharded paths (rank 0)."""
+    c = SHARD_MULTI
+    n = FLAGSHIP["n_rows"]
+    check(ref["classes"] == [4, 3], f"the cut responses' classes "
+          f"{ref['classes']}")
+    for name in ("gbm_multinomial", "automl", "cv_stratified"):
+        check(ref[name]["launches"] == ref[name]["levels"] > 0,
+              f"one process's {name}: {ref[name]['launches']} launches for "
+              f"{ref[name]['levels']} levels grown")
+    check(ref["automl"]["members"] == ["def_gbm_1",
+                                       "exploit_gbm_lr_annealing"]
+          and ref["automl"]["failed"] == ["FAILED StackedEnsemble_AllModels",
+                                          "FAILED def_glm (glm)"],
+          f"the multiclass AutoML's plan: {ref['automl']}")
+    for r, arr in ((mine, mine["multi_arrays"]), (theirs, arr1)):
+        rk, got = r["rank"], r["multi"]
+        lo, hi = _blk(n, rk)
+        for name in ("multinomial", "ordinal"):
+            b, want = arr[f"glm_{name}_beta"], arr_ref[f"glm_{name}_beta"]
+            p, pwant = (arr[f"glm_{name}_probs"],
+                        arr_ref[f"glm_{name}_probs"][lo:hi])
+            g, gref = got[f"glm_{name}"], ref[f"glm_{name}"]
+            bar = c["c54"] if name == "multinomial" else c["c46"]
+            excess = max(float(np.max(np.abs(b - want) - bar["atol"]
+                                      - bar["rtol"] * np.abs(want))),
+                         float(np.max(np.abs(p - pwant) - bar["atol"]
+                                      - bar["rtol"] * np.abs(pwant))))
+            dev_rel = abs(g["deviance"] - gref["deviance"]) / abs(
+                gref["deviance"])
+            print(f"rank {rk}: sharded {name} GLM, coefficients max abs gap "
+                  f"{float(np.max(np.abs(b - want)))!r}, probabilities max "
+                  f"abs gap {float(np.max(np.abs(p - pwant)))!r}, deviance "
+                  f"relative gap {dev_rel!r}; iterations {g['iterations']} "
+                  f"(one process {gref['iterations']})")
+            check(excess <= 0 and dev_rel <= 1e-6
+                  and abs(g["iterations"] - gref["iterations"]) <= 1,
+                  f"rank {rk}: the {name} GLM is beyond its bar of one "
+                  f"process's ({'C54' if name == 'multinomial' else 'C46'}"
+                  f": {bar}, deviance 1e-6)")
+        g = got["gbm_multinomial"]
+        check(g["forest"] == ref["gbm_multinomial"]["forest"]
+              and g["logloss"] == ref["gbm_multinomial"]["logloss"],
+              f"rank {rk}: the multinomial GBM differs from one process's")
+        a = got["automl"]
+        check(a["leaderboard"] == ref["automl"]["leaderboard"]
+              and a["failed"] == ref["automl"]["failed"]
+              and a["members"] == ref["automl"]["members"],
+              f"rank {rk}: multiclass AutoML {a} vs one process's "
+              f"{ref['automl']}")
+        cv, cref = got["cv_stratified"], ref["cv_stratified"]
+        check(cv["gathered"] == 0, f"rank {rk}: stratified CV gathered "
+              f"{cv['gathered']} rows")
+        check((cv["fold_digest"], cv["forest"], cv["folds"], cv["logloss"])
+              == (cref["fold_digest"], cref["forest"], cref["folds"],
+                  cref["logloss"]),
+              f"rank {rk}: the stratified CV GBM differs from one "
+              "process's")
+        for name in ("gbm_multinomial", "automl", "cv_stratified"):
+            check(got[name]["launches"] == got[name]["levels"]
+                  == ref[name]["levels"],
+                  f"rank {rk}: {name} {got[name]['launches']} launches for "
+                  f"{got[name]['levels']} levels grown")
+        ex, eref = got["explain"], ref["explain"]
+        for k in ("leaf_Path", "leaf_Node_ID", "staged", "contrib"):
+            check(ex[k] == eref[k][rk], f"rank {rk}: {k} differs from one "
+                  "process's rows")
+        check(ex["path_domains"] == eref["path_domains"],
+              f"rank {rk}: the leaf paths' domains differ")
+        for t, tr in zip(ex["pdp"], eref["pdp"]):
+            check(t[:2] == tr[:2], f"rank {rk}: PDP grid of {t[0]}")
+            gap = float(np.max(np.abs(np.array(t[2:]) - np.array(tr[2:]))))
+            check(gap <= c["pdp_atol"], f"rank {rk}: PDP {t[0]} {gap!r}")
+        gap2 = float(np.max(np.abs(np.array([r[2:] for r in ex["pdp2"]])
+                                   - np.array([r[2:] for r in
+                                               eref["pdp2"]]))))
+        check([r[:2] for r in ex["pdp2"]] == [r[:2] for r in eref["pdp2"]]
+              and gap2 <= c["pdp_atol"], f"rank {rk}: 2-D PDP {gap2!r}")
+        check(got["gathered"] == 0, f"rank {rk} gathered {got['gathered']}"
+              " rows in the multiclass and explanation step")
+    print("multinomial GBM, stratified CV GBM, leaves, staged "
+          "probabilities and contributions bitwise one process's on both "
+          "ranks; the multiclass AutoML's members, failures and "
+          "leaderboard one process's; ordinal GLM within C46, multinomial "
+          "GLM within C54, PDP within 1e-6; launches = levels grown; 0 "
+          "rows gathered")
+    got = mine["multi"]
+    for name in ("glm_multinomial", "glm_ordinal", "gbm_multinomial",
+                 "automl", "cv_stratified"):
+        label = {"automl": "automl_multiclass"}.get(name, name)
+        metric(f"sharded_{label}_train_s", got[name]["s"],
+               f"(one process {ref[name]['s']!r}"
+               + (f"; {got[name]['launches']} launches"
+                  if "launches" in got[name] else "") + ")")
+    ex, eref = got["explain"], ref["explain"]
+    metric("sharded_explain_s", ex["s"], f"(one process {eref['s']!r}; "
+           + ", ".join(f"{k} {ex[k]!r} ({eref[k]!r})" for k in
+                       ("leaf_Path_s", "leaf_Node_ID_s", "staged_s",
+                        "contrib_s", "pdp_s")) + ")")
+    print(f"3y's multiclass and explanation step: one process "
+          f"{ref['step_s']!r} s, rank 0 {got['step_s']!r} s, rank 1 "
+          f"{theirs['multi']['step_s']!r} s")
+    return {"sharded_multinomial": got["gbm_multinomial"]["launches"],
+            "sharded_automl_multiclass": got["automl"]["launches"],
+            "sharded_cv_stratified": got["cv_stratified"]["launches"]}
+
+
 def _same_leaderboard(got, want):
     """The same models in the same order; tree members' metrics bitwise,
     the GLM's and the ensembles' within ROADMAP C46's 1e-6."""
@@ -6737,6 +7044,8 @@ def _shard_steps(h2o, dev, rank, csv_path, out):
         if mm["name"] == "h2o3_tree_trees_built_total"
         for s in mm["samples"]][0]
     _shard_slice(h2o, dev, fr, m, res)
+    res["multi"], res["multi_arrays"] = _multiclass_steps(h2o, fr, gbm,
+                                                          "shard")
     res["kernel_times"] = _cross_rank_times(dev, m)
     res["xgb_kernel_times"] = _cross_rank_times_xgb(dev, m)
     for k in ("shard_flagship.hex", str(gbm.key), str(drf.key),
@@ -7065,6 +7374,8 @@ def shard_child(outdir: str, csv_path: str) -> None:
     res = _shard_steps(h2o, dev, 1, csv_path, outdir)
     res["boot_s"] = boot_s
     arrays = {"pred": res.pop("pred"), "glm_beta": res.pop("glm_beta")}
+    for k, v in res.pop("multi_arrays").items():
+        arrays[f"multi_{k}"] = v
     for key in ("prims", "reshape"):
         for k, v in res.pop(f"{key}_arrays").items():
             arrays[f"{key}_{k}"] = v
@@ -7121,8 +7432,13 @@ def phase_sharded(h2o, dev, tmp, csv_path):
     aml_ref = (_leaderboard(aml), hg.launches, aml_s)
     for k in [k for k in h2o.DKV.keys() if str(k).startswith("shard_aml")]:
         h2o.DKV.remove(k)
+    gref = h2o.GBM(ntrees=FLAGSHIP["ntrees"],
+                   max_depth=FLAGSHIP["max_depth"]).train(
+        y="y", training_frame=ref_fr)
+    multi_ref, multi_arr_ref = _multiclass_steps(h2o, ref_fr, gref, "ref")
+    h2o.DKV.remove(str(gref.key))
     h2o.DKV.remove("shard_ref.hex")
-    del ref_fr, aml
+    del ref_fr, aml, gref
     launches = {}
     with _env(H2O_TPU_MESH_TIMEOUT_S=SHARD["mesh_timeout_s"]):
         store = dist.TCPStore("127.0.0.1", 0, 2, True,
@@ -7249,6 +7565,9 @@ def phase_sharded(h2o, dev, tmp, csv_path):
     print(f"3y's part 1b step: one-process references {reshape_ref_s!r} s, "
           f"rank 0 {mine['reshape_wall_s']!r} s, rank 1 "
           f"{theirs['reshape_wall_s']!r} s (wall, digests included)")
+    launches.update(_check_multiclass(
+        mine, theirs, {k[len("multi_"):]: v for k, v in arr.items()
+                       if k.startswith("multi_")}, multi_ref, multi_arr_ref))
     _c47_window(h2o, dev, tmp, csv_path, munge_ref["sort"])
     print(f"follower hist_gather launches (sharded flagship) "
           f"{theirs['gbm_launches']}")

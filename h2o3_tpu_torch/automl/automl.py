@@ -19,8 +19,8 @@ same collectives in the same order. So no rank decides alone on time:
 the members get no time budget of their own, and the run's budget is
 read at member boundaries as an all-reduced "out of time" flag. A plan
 whose member cannot train across ranks (a builder that is not
-row-sharded, GLM on a multiclass response, the target-encoding stage)
-is refused before any member runs, naming ROADMAP A14.6c.
+row-sharded, the target-encoding stage) is refused before any member
+runs, naming ROADMAP A14.6c.
 """
 
 from __future__ import annotations
@@ -172,7 +172,7 @@ class H2OAutoML:
         mesh = (SF.mesh_of(training_frame) if SF._is_sharded(training_frame)
                 else None)
         if mesh is not None:
-            self._refuse_unsharded_plan(training_frame, y_col, classification)
+            self._refuse_unsharded_plan(training_frame, classification)
 
         def past(deadline) -> bool:
             # one verdict for every rank of a mesh: the slowest rank's
@@ -376,9 +376,10 @@ class H2OAutoML:
         self._log(f"AutoML done: {len(self.models)} models")
         return self
 
-    def _refuse_unsharded_plan(self, train: Frame, y_col, classification):
+    def _refuse_unsharded_plan(self, train: Frame, classification):
         """Refuse, before any member runs, a plan with a member that
-        cannot train on the row-sharded `train` (ROADMAP A14.6c)."""
+        cannot train on the row-sharded `train` (ROADMAP A14.6c part
+        4)."""
         from h2o3_tpu_torch.core.sharded_frame import refuse
         from h2o3_tpu_torch.models.model_builder import BUILDERS
 
@@ -390,10 +391,6 @@ class H2OAutoML:
         for a in sorted(algos):
             if a in BUILDERS and not BUILDERS[a].row_sharded:
                 refuse(train, f"AutoML's {a} member")
-        if classification and y_col.cardinality > 2 and (
-                "glm" in algos or "stackedensemble" in algos):
-            refuse(train, "AutoML's multinomial GLM (a member or a "
-                          "stacked ensemble's metalearner)")
 
     def _build_ensembles(self, y: str, train: Frame):
         """StackedEnsemble_BestOfFamily (each family's best) and

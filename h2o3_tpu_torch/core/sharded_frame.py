@@ -33,10 +33,9 @@ this process sent to other ranks through the row exchange, and
 Every Rapids prim and frame operation runs on a row-sharded frame
 (reshapes, user lambdas and string keys since ROADMAP A14.6c part 1b:
 rapids/prims_sharded.py, ops/sort.keyed_sort). Work not ported to the
-row mesh yet (A14.6c parts 2-4: GLM's multinomial and ordinal families,
-the isolation forests, KMeans and the other builders without a sharded
-path, the DeepLearning autoencoder, AutoML's target-encoding stage,
-explanation on a sharded frame) calls `refuse`, which raises an error
+row mesh yet (A14.6c part 4: the isolation forests, KMeans and the
+other builders without a sharded path, the DeepLearning autoencoder,
+AutoML's target-encoding stage) calls `refuse`, which raises an error
 naming that item instead of gathering rows.
 """
 
@@ -225,6 +224,23 @@ def replicated(col):
     rank's block test (`core/frame._shard_of`) may read as a block."""
     col._shard = None
     return col
+
+
+def block_column(arr, nrows: int, ctype=None, domain=None, device=None):
+    """`Column.from_numpy` of this process's rows `arr` of an `nrows`-row
+    column: on a row-sharded cloud they are this rank's block (a
+    row-local result: a prediction, a leaf, a contribution), stored as
+    one process stores the whole array."""
+    from h2o3_tpu_torch.core.frame import Column
+    from h2o3_tpu_torch.parallel import mesh as M
+
+    if M.current() is None:
+        return Column.from_numpy(arr, ctype=ctype, domain=domain,
+                                 device=device)
+    with M.alone():
+        c = Column.from_numpy(arr, ctype=ctype, domain=domain, device=device)
+    return Column(c.data, c.ctype, nrows, domain=c.domain,
+                  host_data=c.host_data)
 
 
 def carry(m, local: Sequence[float]) -> np.ndarray:

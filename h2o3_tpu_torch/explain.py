@@ -15,25 +15,30 @@ client).
 Where the work runs: the partial-dependence sweep and the correlation
 matrix score through the model's own device path, one predict per grid
 value or model, and reduce each response vector on the host with the
-reference's numpy calls. TreeSHAP bins the frame on the device, copies
-the bin matrix to the host once and walks every row through every tree
-in the host library's C++ (csrc/treeshap.cpp, threads over rows): a
-tree-shaped recursion with per-row path state. `_shap_one_tree` is its
+reference's numpy calls; on a row-sharded frame each rank scores its own
+rows and the ranks' float64 sums are all-reduced. TreeSHAP bins the
+frame on the device, copies the bin matrix to the host once and walks
+every row through every tree in the host library's C++
+(csrc/treeshap.cpp, threads over rows): a tree-shaped recursion with
+per-row path state. `_shap_one_tree` is its
 plain Python version, which the tests hold the native walk to. Feature
 interactions walk the forest's node tables on the host.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from h2o3_tpu_torch.core.frame import (Column, Frame, T_CAT, T_NUM,
-                                       torch_code_dtype)
+                                       torch_code_dtype, widen)
 from h2o3_tpu_torch.core.runtime import in_full_float32
+from h2o3_tpu_torch.core.sharded_frame import block_column, sharded_mesh
 from h2o3_tpu_torch.models.model import Model
+from h2o3_tpu_torch.parallel import mesh as M
 
 
 # ---------------------------------------------------------------------------
@@ -52,21 +57,90 @@ def _response_vector(model: Model, frame: Frame,
             raise ValueError("multinomial partial dependence needs a target "
                              f"class (one of {dom})")
         k = dom.index(target) if target is not None else 1
-        return raw["probs"][: frame.nrows, k].cpu().numpy()
-    return raw["value"][: frame.nrows].cpu().numpy()
+        return raw["probs"][: frame.local_rows, k].cpu().numpy()
+    return raw["value"][: frame.local_rows].cpu().numpy()
 
 
 def _grid_for(col: Column, nbins: int) -> List:
+    """The column's grid: its domain, or nbins points over its finite
+    range (on a row-sharded frame the all-reduced min and max, exact,
+    so the grid is one process's bit for bit)."""
     if col.is_categorical:
         return list(col.domain or [])
-    vals = col.to_numpy()
-    vals = vals[np.isfinite(vals)]
-    if len(vals) == 0:
-        return []
-    lo, hi = float(vals.min()), float(vals.max())
+    mesh = sharded_mesh(col)
+    if mesh is None:
+        vals = col.to_numpy()
+        vals = vals[np.isfinite(vals)]
+        if len(vals) == 0:
+            return []
+        lo, hi = float(vals.min()), float(vals.max())
+    else:
+        v = col.data.double()
+        v = v[torch.isfinite(v)]
+        ends = torch.tensor([float(v.min()) if len(v) else np.inf,
+                             -float(v.max()) if len(v) else np.inf],
+                            dtype=torch.float64)
+        mesh.all_reduce(ends, "min")
+        lo, hi = float(ends[0]), -float(ends[1])
+        if not np.isfinite(lo):
+            return []
     if lo == hi:
         return [lo]
     return list(np.linspace(lo, hi, nbins))
+
+
+def _stats(resps: List[np.ndarray], w: Optional[np.ndarray], mesh):
+    """(means, standard deviations) of each grid value's response vector,
+    weighted by w where given. One process: numpy's float32 mean and
+    std (two-pass weighted), as the reference takes them. A row-sharded
+    frame: each rank's float64 sums of w, w·r and w·r² for every grid
+    value, all-reduced in one collective."""
+    if mesh is None:
+        means, stds = [], []
+        for resp in resps:
+            if w is not None:
+                wm = float(np.sum(w * resp) / max(np.sum(w), 1e-12))
+                var = float(np.sum(w * (resp - wm) ** 2)
+                            / max(np.sum(w), 1e-12))
+                means.append(wm)
+                stds.append(np.sqrt(var))
+            else:
+                means.append(float(np.mean(resp)))
+                stds.append(float(np.std(resp)))
+        return means, stds
+    sums = np.zeros((len(resps), 3), np.float64)
+    for i, resp in enumerate(resps):
+        r = resp.astype(np.float64)
+        wr = np.ones_like(r) if w is None else w.astype(np.float64)
+        sums[i] = (wr.sum(), (wr * r).sum(), (wr * r * r).sum())
+    tot = mesh.all_reduce(torch.from_numpy(sums), "sum").numpy()
+    den = np.maximum(tot[:, 0], 1e-12)
+    mean = tot[:, 1] / den
+    var = np.maximum(tot[:, 2] / den - mean * mean, 0.0)
+    return [float(m) for m in mean], [float(np.sqrt(v)) for v in var]
+
+
+def _ice_row(frame: Frame, row_index: int) -> Frame:
+    """The one row `row_index` of `frame` as a frame of one row: on a
+    row-sharded frame the rank that holds it keeps it (a frame of its
+    own, scored under `mesh.alone`), every other rank none."""
+    from h2o3_tpu_torch.ops.filters import take_rows
+
+    if sharded_mesh(frame) is None:
+        return take_rows(frame, np.array([row_index]))
+    lo, hi = frame.shard
+    i = row_index - lo
+    keep = slice(i, i + 1) if lo <= row_index < hi else slice(0, 0)
+    out = Frame()
+    with M.alone():
+        for name in frame.names:
+            c = frame.col(name)
+            data = None if c.data is None else c.data[keep]
+            host = None if c.host_data is None else c.host_data[keep]
+            n = len(data if data is not None else host)
+            out.add(name, Column(data, c.ctype, n, domain=c.domain,
+                                 host_data=host))
+    return out
 
 
 def _with_value(frame: Frame, col_name: str, value, is_cat: bool,
@@ -74,7 +148,7 @@ def _with_value(frame: Frame, col_name: str, value, is_cat: bool,
     """`frame` with column `col_name` set to `value` on every row, made on
     the column's device (the values Column.from_numpy would store)."""
     out = Frame()
-    n = frame.nrows
+    n, rows = frame.nrows, frame.local_rows
     for name in frame.names:
         if name != col_name:
             out.add(name, frame.col(name))
@@ -82,11 +156,11 @@ def _with_value(frame: Frame, col_name: str, value, is_cat: bool,
         dev = frame.col(name).device
         if is_cat:
             code = (domain.index(value) if value in domain else -1)
-            data = torch.full((n,), code, dtype=torch_code_dtype(
+            data = torch.full((rows,), code, dtype=torch_code_dtype(
                 max(len(domain), 1)), device=dev)
             out.add(name, Column(data, T_CAT, n, domain=list(domain)))
         else:
-            data = torch.full((n,), float(value), dtype=torch.float32,
+            data = torch.full((rows,), float(value), dtype=torch.float32,
                               device=dev)
             out.add(name, Column(data, T_NUM, n))
     return out
@@ -101,39 +175,36 @@ def partial_dependence(model: Model, frame: Frame,
                        target: Optional[str] = None) -> List[dict]:
     """One table per column: {column, values, mean_response,
     stddev_response}. row_index >= 0 gives an ICE curve for that one row
-    instead of the data average (PartialDependence.java _row_index)."""
+    instead of the data average (PartialDependence.java _row_index). On
+    a row-sharded frame each rank scores its own rows and the tables are
+    the cloud's (`_stats`); an ICE row is scored on the rank that holds
+    it."""
     cols = list(cols) if cols else list(model._output.names)
+    mesh = sharded_mesh(frame)
     w = None
     if weight_column and weight_column in frame:
-        w = frame.col(weight_column).to_numpy()
+        wc = frame.col(weight_column)
+        w = wc.to_numpy() if mesh is None else widen(wc.data).cpu().numpy()
     # grids come from the whole frame's value range; an ICE request then
     # scores the one row over that grid
     grids = {c: _grid_for(frame.col(c), nbins) for c in cols if c in frame}
+    scope = contextlib.nullcontext
     if row_index >= 0:
-        from h2o3_tpu_torch.ops.filters import take_rows
-
-        frame = take_rows(frame, np.array([row_index]))
+        frame = _ice_row(frame, row_index)
         w = None
+        if mesh is not None:
+            scope = M.alone
     tables = []
     for cname in cols:
         if cname not in frame:
             continue
         col = frame.col(cname)
         grid = grids[cname]
-        means, stds = [], []
-        for v in grid:
-            fr_v = _with_value(frame, cname, v, col.is_categorical,
-                               col.domain or [])
-            resp = _response_vector(model, fr_v, target)
-            if w is not None:
-                wm = float(np.sum(w * resp) / max(np.sum(w), 1e-12))
-                var = float(np.sum(w * (resp - wm) ** 2)
-                            / max(np.sum(w), 1e-12))
-                means.append(wm)
-                stds.append(np.sqrt(var))
-            else:
-                means.append(float(np.mean(resp)))
-                stds.append(float(np.std(resp)))
+        with scope():
+            resps = [_response_vector(model, _with_value(
+                frame, cname, v, col.is_categorical, col.domain or []),
+                target) for v in grid]
+        means, stds = _stats(resps, w, mesh)
         tables.append({"column": cname, "values": grid,
                        "mean_response": means, "stddev_response": stds})
     return tables
@@ -144,21 +215,25 @@ def partial_dependence_2d(model: Model, frame: Frame,
                           col_pairs: Sequence[Tuple[str, str]],
                           nbins: int = 20,
                           target: Optional[str] = None) -> List[dict]:
-    """2-D partial dependence (PartialDependence.java _col_pairs_2dpdp)."""
+    """2-D partial dependence (PartialDependence.java _col_pairs_2dpdp);
+    on a row-sharded frame the cloud's, as `partial_dependence`."""
+    mesh = sharded_mesh(frame)
     tables = []
     for c1, c2 in col_pairs:
         g1 = _grid_for(frame.col(c1), nbins)
         g2 = _grid_for(frame.col(c2), nbins)
         is1, is2 = frame.col(c1).is_categorical, frame.col(c2).is_categorical
         d1, d2 = frame.col(c1).domain or [], frame.col(c2).domain or []
-        rows = []
+        pairs, resps = [], []
         for v1 in g1:
             fr1 = _with_value(frame, c1, v1, is1, d1)
             for v2 in g2:
                 fr12 = _with_value(fr1, c2, v2, is2, d2)
-                resp = _response_vector(model, fr12, target)
-                rows.append((v1, v2, float(np.mean(resp)),
-                             float(np.std(resp))))
+                pairs.append((v1, v2))
+                resps.append(_response_vector(model, fr12, target))
+        means, stds = _stats(resps, None, mesh)
+        rows = [(v1, v2, m, sd) for (v1, v2), m, sd in zip(pairs, means,
+                                                           stds)]
         tables.append({"columns": (c1, c2), "rows": rows})
     return tables
 
@@ -274,7 +349,8 @@ def predict_contributions(model, frame: Frame) -> Frame:
     log-odds, as in the reference. The frame is binned on its device,
     the bin matrix is copied to the host once, and the host library's
     walk (native.native_treeshap) computes the contributions; there is
-    no other path."""
+    no other path. Row-local: on a row-sharded frame each rank walks its
+    own rows, and the result is sharded as its input."""
     from h2o3_tpu_torch import native
 
     forest = getattr(model, "forest", None)
@@ -285,20 +361,20 @@ def predict_contributions(model, frame: Frame) -> Frame:
         raise ValueError("predict_contributions supports binomial/regression "
                          "models only (reference restriction)")
     adapted = model.adapt_test(frame)
-    binned = model.spec.bin_columns(adapted)[: frame.nrows]
+    binned = model.spec.bin_columns(adapted)[: frame.local_rows]
     dev = binned.device
     binned = binned.cpu().numpy()
     names = model._output.names
-    n = binned.shape[0]
+    n = frame.nrows
     bias = forest.init_f
     for t in range(forest.n_trees):
         bias += _expected_value(forest, t)
     phi = native.native_treeshap(binned, forest)
     out = Frame()
     for j, nm in enumerate(names):
-        out.add(nm, Column.from_numpy(phi[:, j], device=dev))
-    out.add("BiasTerm", Column.from_numpy(np.full(n, bias, np.float64),
-                                          device=dev))
+        out.add(nm, block_column(phi[:, j], n, device=dev))
+    out.add("BiasTerm", block_column(
+        np.full(binned.shape[0], bias, np.float64), n, device=dev))
     return out
 
 

@@ -43,8 +43,10 @@ rounded once to float32, as in one process), and the weighted means and
 deviances are all-reduced too, so every rank solves the same system and
 stops at the same iteration. The lambda search takes lambda_max from the
 all-reduced null-model gradient and its fits reuse the all-reduced Gram;
-the p-values invert the all-reduced information matrix. Multinomial and
-ordinal on a sharded frame are ROADMAP A14.6c.
+the p-values invert the all-reduced information matrix. Each multinomial
+and ordinal L-BFGS evaluation sums the ranks' float64 NLL, gradient and
+weight sum in one all-reduce and rounds once to float32, so every rank
+takes the same line-search steps.
 """
 
 from __future__ import annotations
@@ -365,21 +367,69 @@ def _irls_fit(X, y, w, offset, beta0, lam_l2, lam_l1, beta_eps, *,
     return beta, it, dev_of(beta)
 
 
+def _cloud_value_and_grad(part, penalty, wsum_part, mesh):
+    """The L-BFGS evaluation on the row mesh: this rank's summed weighted
+    NLL `part(x)` and its gradient, in float64, with its weight sum, all
+    reduced across the ranks in one collective; the penalty `penalty(x)`
+    added once and the sums divided by the cloud's weight sum, then
+    rounded once to float32. Every rank sees the same value and
+    gradient, so the line search takes the same branches and the ranks'
+    collectives stay in step."""
+    def vg(x):
+        x = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            v = part(x)
+            (g,) = torch.autograd.grad(v, x)
+        buf = torch.cat([v.detach().double().reshape(1),
+                         g.double().reshape(-1),
+                         wsum_part.double().reshape(1)]).contiguous()
+        mesh.all_reduce(buf, "sum")
+        W = torch.clamp_min(buf[-1], EPS)
+        xd = x.detach().double().requires_grad_(True)
+        with torch.enable_grad():
+            pv = penalty(xd)
+            (pg,) = torch.autograd.grad(pv, xd)
+        val = (buf[0] + pv.detach()) / W
+        grad = (buf[1:-1].reshape(x.shape) + pg) / W
+        return val.float(), grad.float()
+    return vg
+
+
+def _lbfgs_fit(part, penalty, w, x0, max_iter):
+    """L-BFGS on (part(x) + penalty(x)) / sum(w): -> (x, iterations, the
+    summed objective). In one process the objective is taken in float32
+    through autograd, as the reference's; on the row mesh its sums are
+    the cloud's (`_cloud_value_and_grad`)."""
+    m = _fit_mesh()
+    if m is None:
+        wsum = torch.clamp_min(torch.sum(w), EPS)
+
+        def loss(x):
+            return part(x) / wsum + penalty(x) / wsum
+
+        x, iters = lbfgs.minimize(lbfgs.value_and_grad(loss), x0, max_iter)
+        return x, iters, loss(x) * wsum
+    vg = _cloud_value_and_grad(part, penalty, torch.sum(w), m)
+    x, iters = lbfgs.minimize(vg, x0, max_iter)
+    W = _sum(w).double()
+    return x, iters, vg(x)[0].double() * torch.clamp_min(W, EPS)
+
+
 def _multinomial_fit(X, y, w, B0, lam_l2, *, max_iter):
     """Softmax regression by full-batch L-BFGS (glm.py:324): -> (B
     (p+1, K), iterations, the summed weighted NLL)."""
     Xi = _with_intercept_column(X)
     yi = y.long()[:, None]
-    wsum = torch.clamp_min(torch.sum(w), EPS)
 
-    def loss(B):
+    def part(B):
         logits = Xi @ B
         lse = torch.logsumexp(logits, dim=-1)
-        nll = torch.sum(w * (lse - torch.gather(logits, 1, yi)[:, 0])) / wsum
-        return nll + 0.5 * lam_l2 * torch.sum(B[:-1] ** 2) / wsum
+        return torch.sum(w * (lse - torch.gather(logits, 1, yi)[:, 0]))
 
-    B, iters = lbfgs.minimize(lbfgs.value_and_grad(loss), B0, max_iter)
-    return B, iters, loss(B) * wsum
+    def penalty(B):
+        return 0.5 * lam_l2 * torch.sum(B[:-1] ** 2)
+
+    return _lbfgs_fit(part, penalty, w, B0, max_iter)
 
 
 def ordinal_class_probs(X, v):
@@ -405,18 +455,18 @@ def _ordinal_fit(X, y, w, lam_l2, *, nclasses, max_iter):
     x·beta), by full-batch L-BFGS (glm.py:387)."""
     p = X.shape[1]
     yi = y.long()[:, None]
-    wsum = torch.clamp_min(torch.sum(w), EPS)
 
-    def loss(v):
+    def part(v):
         pk = ordinal_class_probs(X, v)
         picked = torch.clamp_min(torch.gather(pk, 1, yi)[:, 0], 1e-12)
-        nll = -torch.sum(w * torch.log(picked)) / wsum
-        return nll + 0.5 * lam_l2 * torch.sum(v[:p] ** 2) / wsum
+        return -torch.sum(w * torch.log(picked))
+
+    def penalty(v):
+        return 0.5 * lam_l2 * torch.sum(v[:p] ** 2)
 
     v0 = torch.zeros(p + nclasses - 1, dtype=torch.float32, device=X.device)
     v0[p] = -1.0        # spread the first threshold so classes separate
-    v, iters = lbfgs.minimize(lbfgs.value_and_grad(loss), v0, max_iter)
-    return v, iters, loss(v) * wsum
+    return _lbfgs_fit(part, penalty, w, v0, max_iter)
 
 
 def glm_predict(X, beta, offset, *, linkname, link_power=0.0, nclasses=1):
@@ -634,10 +684,6 @@ class GLM(ModelBuilder):
         from h2o3_tpu_torch.core import sharded_frame
 
         mesh = sharded_frame.mesh_of(train)
-        if mesh is not None:
-            fam = self._resolve_family(train)
-            if fam in ("multinomial", "ordinal"):
-                sharded_frame.refuse(train, f"GLM family={fam}")
         prev = _fit_mesh()
         _FIT.mesh = mesh
         try:

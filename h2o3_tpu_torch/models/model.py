@@ -349,9 +349,6 @@ class Model(Keyed):
                      weight_column: Optional[str] = None,
                      row_index: int = -1, col_pairs_2dpdp=None):
         """Partial-dependence tables (plotting stays with the client)."""
-        from h2o3_tpu_torch.core.sharded_frame import refuse
-
-        refuse(data, "partial dependence")
         from h2o3_tpu_torch import explain
 
         if col_pairs_2dpdp:
@@ -365,9 +362,6 @@ class Model(Keyed):
     def predict_contributions(self, test_data: Frame,
                               key: Optional[str] = None) -> Frame:
         """Per-feature SHAP contributions and BiasTerm (tree models)."""
-        from h2o3_tpu_torch.core.sharded_frame import refuse
-
-        refuse(test_data, "predict_contributions")
         from h2o3_tpu_torch import explain
         from h2o3_tpu_torch.core.dkv import Key
 

@@ -72,8 +72,8 @@ class ModelBuilder:
     # detection): no response is asked for and no metrics are made
     supervised = True
     # trains over a row-sharded frame (GBM, DRF, GLM, XGBoost,
-    # DeepLearning, StackedEnsemble): the others are ROADMAP A14.6c and
-    # refuse one
+    # DeepLearning, StackedEnsemble): the others are ROADMAP A14.6c part
+    # 4 and refuse one
     row_sharded = False
     # builders that implement training continuation set this; the rest
     # refuse a checkpoint rather than train from scratch
@@ -407,11 +407,12 @@ class ModelBuilder:
         nfolds). On a row-sharded cloud the ids are this rank's block:
         the draws are made over all n rows on every rank with one seed
         (rank 0's when it is fresh), so they and their digest are one
-        process's; Stratified gathers the response's codes once (counted
-        in ``gathered_rows``); a fold column is read from the rank's own
-        block, its folds are the union of the ranks' ids, and its digest
-        is `fold_fingerprint`'s, which needs no rank to hold every id
-        (ROADMAP C49)."""
+        process's; Stratified reads the rank's own response codes and
+        the class counts of the ranks before it, and its digest is
+        chained through the ranks (`_digest`); a fold column is read
+        from the rank's own block, its folds are the union of the ranks'
+        ids, and its digest is `fold_fingerprint`'s, which needs no rank
+        to hold every id (ROADMAP C49)."""
         from h2o3_tpu_torch.core import sharded_frame as SF
 
         n = train.nrows
@@ -440,9 +441,17 @@ class ModelBuilder:
             if not resp or not train.col(resp).is_categorical:
                 raise ValueError("fold_assignment='Stratified' requires a "
                                  "categorical response")
-            # NA responses keep their uniform draw
-            assign = stratified_fold_ids(train.col(resp).to_numpy(), nfolds,
-                                         np.random.default_rng(seed), n)
+            # NA responses keep their uniform draw; on a row-sharded
+            # cloud each rank draws its own block's ids from the class
+            # counts of the ranks before it, and the digest is chained
+            # through the ranks: both are one process's
+            yc = train.col(resp)
+            codes = (yc.to_numpy() if mesh is None
+                     else widen(yc.data).cpu().numpy())
+            ids = stratified_fold_ids(codes, nfolds,
+                                      np.random.default_rng(seed), n,
+                                      lo=lo, mesh=mesh)
+            return ids, list(range(nfolds)), _digest(ids, mesh)
         elif scheme == "modulo":
             assign = np.arange(n) % nfolds
         else:
@@ -545,10 +554,17 @@ class ModelBuilder:
         raise NotImplementedError
 
 
-def _digest(assign: np.ndarray) -> str:
+def _digest(assign: np.ndarray, mesh=None) -> str:
     """The fold assignment's digest: sha1 of its int64 ids, as the
-    reference computes it."""
-    return hashlib.sha1(np.ascontiguousarray(assign, np.int64)).hexdigest()
+    reference computes it; on a row-sharded cloud `assign` is this
+    rank's block of ids, chained through the ranks in row order
+    (native.chained_sha1), so no rank needs the others' ids."""
+    ids = np.ascontiguousarray(assign, np.int64)
+    if mesh is None:
+        return hashlib.sha1(ids).hexdigest()
+    from h2o3_tpu_torch import native
+
+    return native.chained_sha1(ids.tobytes(), mesh)
 
 
 _FP_PRIME = 2 ** 31 - 1

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from h2o3_tpu_torch.core.frame import Column, Frame
+from h2o3_tpu_torch.core.frame import Frame
 from h2o3_tpu_torch.models.model import ModelCategory
 from h2o3_tpu_torch.models.model_builder import register
 from h2o3_tpu_torch.models.tree.shared_tree import (SharedTree,
@@ -27,16 +27,17 @@ class GBMModel(SharedTreeModel):
         """Per-stage class probabilities: column T<t>.C<c> holds class c's
         probability using trees 1..t (multinomial: tree groups 1..t).
         Binomial trees model class 1, so T<t>.C1 carries p0, as in the
-        reference."""
-        from h2o3_tpu_torch.core.sharded_frame import refuse
+        reference. Row-local: on a row-sharded frame each rank computes
+        its own rows, and the result is sharded as its input."""
+        from h2o3_tpu_torch.core.sharded_frame import block_column
 
-        refuse(frame, "staged_predict_proba")
         cat = self._output.model_category
         if cat not in (ModelCategory.Binomial, ModelCategory.Multinomial):
             raise ValueError("staged_predict_proba needs a classification "
                              "GBM")
         adapted = self.adapt_test(frame)
-        leaf = _leaf_matrix(self, adapted, frame.nrows)
+        n = frame.nrows
+        leaf = _leaf_matrix(self, adapted, frame.local_rows)
         dev = adapted.col(adapted.names[0]).data.device
         fo = self.forest
         lv = np.asarray(fo.leaf_val, np.float64)
@@ -49,14 +50,14 @@ class GBMModel(SharedTreeModel):
                 torch.as_tensor(margins)).double().numpy()
             for t in range(fo.n_trees):
                 out.add(f"T{t + 1}.C1",
-                        Column.from_numpy(1.0 - p1[:, t], device=dev))
+                        block_column(1.0 - p1[:, t], n, device=dev))
             return out
         # multinomial: stages advance one tree group (one tree per class)
         K = fo.nclasses
         tcls = np.asarray(fo.tree_class)
         init = (np.asarray(fo.init_class, np.float64)
                 if fo.init_class is not None else np.zeros(K))
-        margins = np.tile(init, (frame.nrows, 1))
+        margins = np.tile(init, (len(leaf), 1))
         by_group: dict = {}
         counters: dict = {}
         for t in range(fo.n_trees):
@@ -72,7 +73,7 @@ class GBMModel(SharedTreeModel):
             p = e / e.sum(1, keepdims=True)
             for k in range(K):
                 out.add(f"T{g + 1}.C{k + 1}",
-                        Column.from_numpy(p[:, k].copy(), device=dev))
+                        block_column(p[:, k].copy(), n, device=dev))
         return out
 
 

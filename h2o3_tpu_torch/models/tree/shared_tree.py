@@ -147,19 +147,29 @@ class SharedTreeModel(Model):
         root as an enum ("(root)" for a stump), or 'Node_ID', the leaf's
         node index. One column per tree, T<t> (T<g>.C<k> for per-class
         forests). Leaves come from the training BinSpec's bins and the
-        forest's lockstep walk, the same walk scoring sums over."""
-        from h2o3_tpu_torch.core.sharded_frame import refuse
-
-        refuse(frame, "predict_leaf_node_assignment")
+        forest's lockstep walk, the same walk scoring sums over. On a
+        row-sharded frame each rank walks its own rows and the result is
+        sharded as its input; a Path domain is the leaves some row of
+        any rank reached (one all-reduce for the forest)."""
         if type not in ("Path", "Node_ID"):
             raise ValueError(f"leaf assignment type {type!r} "
                              "(Path or Node_ID)")
         adapted = self.adapt_test(frame)
         dev = adapted.col(adapted.names[0]).data.device
-        leaf = _leaf_matrix(self, adapted, frame.nrows)
+        leaf = _leaf_matrix(self, adapted, frame.local_rows)
         fo = self.forest
+        n = frame.nrows
         tcls = np.asarray(fo.tree_class)
         per_class = fo.per_class_trees
+        reached = None
+        if type == "Path":
+            reached = np.zeros(np.asarray(fo.feat).shape, np.int32)
+            for t in range(fo.n_trees):
+                reached[t, np.unique(leaf[:, t])] = 1
+            mesh = sharded_frame.sharded_mesh(frame)
+            if mesh is not None:
+                reached = mesh.all_reduce(torch.from_numpy(reached),
+                                          "max").numpy()
         counters: dict = {}
         out = Frame()
         for t in range(fo.n_trees):
@@ -171,10 +181,11 @@ class SharedTreeModel(Model):
             else:
                 name = f"T{t + 1}"
             if type == "Node_ID":
-                out.add(name, Column.from_numpy(leaf[:, t].astype(np.int32),
-                                                device=dev))
+                out.add(name, sharded_frame.block_column(
+                    leaf[:, t].astype(np.int32), n, device=dev))
                 continue
-            out.add(name, _path_column(fo, t, leaf[:, t], dev))
+            out.add(name, _path_column(fo, t, leaf[:, t],
+                                       np.nonzero(reached[t])[0], n, dev))
         return out
 
     def _margin_to_raw(self, f):
@@ -766,11 +777,13 @@ class SharedTree(ModelBuilder):
                                               key=lambda kv: -kv[1])}
 
 
-def _path_column(fo, t: int, leaf: np.ndarray, dev) -> Column:
-    """Tree t's root-to-leaf L/R walks as an enum column: the domain is
-    the sorted walks of the leaves some row reached ("(root)" for a
-    stump), as interning the strings would make it, built per leaf and
-    gathered, not per row."""
+def _path_column(fo, t: int, leaf: np.ndarray, reached: np.ndarray,
+                 n: int, dev) -> Column:
+    """Tree t's root-to-leaf L/R walks as an enum column of `n` rows,
+    this process's rows `leaf`: the domain is the sorted walks of the
+    leaves some row reached (`reached`, the sorted node ids; "(root)"
+    for a stump), as interning the strings would make it, built per leaf
+    and gathered, not per row."""
     feat, left, right = (np.asarray(a[t]) for a in (fo.feat, fo.left,
                                                     fo.right))
     paths = [""] * feat.shape[0]
@@ -781,13 +794,13 @@ def _path_column(fo, t: int, leaf: np.ndarray, dev) -> Column:
         if feat[node] >= 0:
             stack.append((int(right[node]), prefix + "R"))
             stack.append((int(left[node]), prefix + "L"))
-    reached = np.unique(leaf)
     names = [paths[i] or "(root)" for i in reached]
     order = sorted(range(len(names)), key=names.__getitem__)
     lut = np.zeros(feat.shape[0], np.int32)
     lut[reached[order]] = np.arange(len(order), dtype=np.int32)
-    return Column.from_numpy(lut[leaf], ctype="enum",
-                             domain=[names[i] for i in order], device=dev)
+    return sharded_frame.block_column(lut[leaf], n, ctype="enum",
+                                      domain=[names[i] for i in order],
+                                      device=dev)
 
 
 def _leaf_matrix(model, adapted: Frame, n: int) -> np.ndarray:

@@ -1,8 +1,10 @@
 """Build and load the port's host C++ library: ``csrc/csv_parser.cpp``,
 the CSV parser of the ingest path and its time-column parser, and
 ``csrc/threefry.cpp``, the host walk of DeepLearning's key chain, and
-``csrc/treeshap.cpp``, the path-dependent TreeSHAP walk of
-``predict_contributions``, compiled together into one shared library.
+``csrc/sha1.cpp``, SHA-1's blocks with their state handed from rank to
+rank (`chained_sha1`), and ``csrc/treeshap.cpp``, the path-dependent
+TreeSHAP walk of ``predict_contributions``, compiled together into one
+shared library.
 
 Counterpart of h2o3_tpu/native/loader.py (`_build` :27, `get_lib` :64):
 the sources compile with the host C++ compiler (``$CXX``, else ``g++``,
@@ -30,6 +32,7 @@ import numpy as np
 SOURCE = Path(__file__).resolve().parent / "csrc" / "csv_parser.cpp"
 THREEFRY_SOURCE = SOURCE.with_name("threefry.cpp")
 TREESHAP_SOURCE = SOURCE.with_name("treeshap.cpp")
+SHA1_SOURCE = SOURCE.with_name("sha1.cpp")
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # -ffp-contract=off: the number parser's multiply-adds must round as
 # written, never fuse, or a float could differ from the reference's
@@ -55,6 +58,7 @@ SIGNATURES = {
                                ctypes.c_int32, _P, _P]),
     "h2o_treeshap": (None, [_P, ctypes.c_longlong, _I, _P, _P, _P, _P, _P,
                             _P, _P, _P, _I, _P, _P, _I, _I, _P, _I]),
+    "h2o_sha1_blocks": (None, [_P, _P, _L]),
 }
 
 _LOCK = threading.Lock()
@@ -72,7 +76,7 @@ def cxx() -> str:
 
 def sources() -> tuple:
     """The library's C++ sources, in link order."""
-    return (SOURCE, THREEFRY_SOURCE, TREESHAP_SOURCE)
+    return (SOURCE, THREEFRY_SOURCE, SHA1_SOURCE, TREESHAP_SOURCE)
 
 
 def lib_path() -> Path:
@@ -291,3 +295,44 @@ def native_treeshap(binned: np.ndarray, forest, nthreads: int = 0
         int(cat_table.shape[1]), _ptr(na_bins), _ptr(cover), T, M,
         _ptr(phi), nthreads or min(os.cpu_count() or 4, 16))
     return phi
+
+
+_SHA1_INIT = (0x67452301, 0xEFCDAB89, 0x98BADCFE, 0x10325476, 0xC3D2E1F0)
+
+
+def _sha1_blocks(state: np.ndarray, data: bytes) -> None:
+    """Run the whole 64-byte blocks of `data` through `state` (5 uint32,
+    updated in place)."""
+    nb = len(data) // 64
+    if nb:
+        buf = np.frombuffer(data, np.uint8, nb * 64)
+        lib().h2o_sha1_blocks(_ptr(state), _ptr(buf), nb)
+
+
+def chained_sha1(data: bytes, mesh=None) -> str:
+    """hashlib.sha1 of the bytes every rank of `mesh` holds, in rank
+    order, without moving them: each rank in turn runs its bytes through
+    the state and tail the rank before it handed on (one all-gather of
+    a few words a rank), and every rank pads and finishes the last
+    state. Without a mesh, the digest of `data`."""
+    state = np.array(_SHA1_INIT, np.uint32)
+    tail, total = b"", 0
+    ranks = 1 if mesh is None else mesh.size
+    for s in range(ranks):
+        if mesh is None or mesh.rank == s:
+            buf = tail + bytes(data)
+            cut = len(buf) // 64 * 64
+            _sha1_blocks(state, buf[:cut])
+            tail, total = buf[cut:], total + len(data)
+        if mesh is not None:
+            from h2o3_tpu_torch.core.sharded_frame import all_gather_object
+
+            got = all_gather_object(
+                mesh, (state.tolist(), tail, total) if mesh.rank == s
+                else None)[s]
+            state = np.array(got[0], np.uint32)
+            tail, total = got[1], got[2]
+    pad = tail + b"\x80" + b"\x00" * ((55 - len(tail)) % 64) \
+        + (8 * total).to_bytes(8, "big")
+    _sha1_blocks(state, pad)
+    return "".join(f"{int(v):08x}" for v in state)

@@ -271,7 +271,7 @@ def test_failed_parser_build_raises(tmp_path, monkeypatch):
     p.write_text("a\n1\n")
     with pytest.raises(RuntimeError,
                        match=r"building csv_parser\.cpp \+ threefry\.cpp "
-                             r"\+ treeshap\.cpp failed"):
+                             r"\+ sha1\.cpp \+ treeshap\.cpp failed"):
         th.import_file(str(p))
 
 

@@ -296,18 +296,15 @@ def test_fixed_point_group_sums_are_each_groups_own_sum(size):
 
 
 def test_out_of_scope_work_refuses_a_sharded_frame():
-    """What the row exchange does not serve yet (ROADMAP A14.6c parts
-    2-4) refuses a row-sharded frame, naming that item: a PCA train (the
-    Rapids prims, melt among them, all run there now), GLM's multinomial
-    family, the isolation forests and the other builders, and the
-    DeepLearning autoencoder."""
+    """What the row exchange does not serve yet (ROADMAP A14.6c part 4)
+    refuses a row-sharded frame, naming that item: a PCA train (the
+    Rapids prims, melt among them, all run there now), the isolation
+    forests and the other builders, and the DeepLearning autoencoder."""
 
     def rank(r, m):
         fr = _train_frame(n=64)()
         with pytest.raises(NotImplementedError, match="A14.6c"):
             th.PCA(k=1).train(training_frame=fr)
-        with pytest.raises(NotImplementedError, match="A14.6c"):
-            th.GLM(family="multinomial").train(y="g", training_frame=fr)
         with pytest.raises(NotImplementedError, match="A14.6c"):
             th.IsolationForest(ntrees=2).train(training_frame=fr)
         with pytest.raises(NotImplementedError, match="A14.6c"):

@@ -89,8 +89,6 @@ CV_CASES = {
                                       fold_column="fc",
                                       keep_cross_validation_predictions=True),
 }
-# schemes that gather n values once: the response's codes (Stratified)
-GATHERING = {"gbm_stratified"}
 
 
 def _cv_frame(n=256, seed=2):
@@ -116,7 +114,7 @@ def test_cv_folds_forests_and_metrics_are_one_process(R, case):
         return got, SF.counters()["gathered_rows"] - before
 
     for r, (got, gathered) in enumerate(run_ranks(R, rank)):
-        assert gathered == (R * 256 if case in GATHERING else 0)
+        assert gathered == 0
         if case.endswith("fold_column"):
             # read from each rank's block: the digest is the fingerprint,
             # whatever the number of ranks (ROADMAP C49)
@@ -427,6 +425,45 @@ def test_deeplearning_model_averaging_against_the_jax_package(cl,
         np.testing.assert_allclose(got, exp, atol=1e-5)
 
 
+@pytest.mark.parametrize("vary", [False, True])
+def test_c48_shard_map_sums_the_gradient_of_replicated_params(cl, vary):
+    """ROADMAP C48's cause, on the reference's 8-device mesh through its
+    own `_compat_shard_map`: inside the body, the gradient with respect
+    to replicated parameters (in_specs P()) is the sum of every device's
+    gradient, not the device's own (this JAX build transposes the
+    implicit broadcast of an unvarying value into a psum); made varying
+    first, it is the device's own. So each local step of
+    `epoch_avg_body` moves by the 8 shards' summed gradient, where
+    ``jax.vmap`` and the port move each shard by its own."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+
+    from h2o3_tpu.models.deeplearning import _compat_shard_map
+
+    rng = np.random.default_rng(0)
+    X = jnp.asarray(rng.standard_normal((64, 3)), jnp.float32)
+    w0 = jnp.asarray(rng.standard_normal(3), jnp.float32)
+
+    def loss(w, xs):
+        return jnp.sum(jnp.tanh(xs @ w))
+
+    def body(w, xs):
+        if vary:
+            cast = getattr(jax.lax, "pcast", None)
+            w = (cast(w, ("rows",), to="varying") if cast is not None
+                 else jax.lax.pvary(w, ("rows",)))
+        return jax.grad(loss)(w, xs)[None]
+
+    own = np.stack([np.asarray(jax.grad(loss)(w0, X[8 * i:8 * i + 8]))
+                    for i in range(8)])
+    got = jax.jit(_compat_shard_map(
+        body, mesh=cl.mesh, in_specs=(P(), P("rows", None)),
+        out_specs=P("rows")))(w0, X)
+    want = own if vary else np.broadcast_to(own.sum(0), own.shape)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=1e-5, atol=1e-6)
+
+
 # -- StackedEnsemble and AutoML ----------------------------------------------------
 
 def test_stacked_ensemble_across_ranks_within_c46():
@@ -531,7 +568,18 @@ def test_automl_leaderboard_across_ranks_is_one_process():
                 assert auc == want
 
 
-def test_automl_refuses_a_plan_it_cannot_run_across_ranks():
+def test_automl_refuses_a_plan_it_cannot_run_across_ranks(monkeypatch):
+    """A plan with a stage that cannot run across ranks (target encoding,
+    ROADMAP A14.6c part 4) is refused before any member runs; a
+    multiclass plan runs (its GLM member fails on the response, as in one
+    process), here with the GBM step cut to 2 trees."""
+    from h2o3_tpu_torch.automl import steps as tsteps
+
+    def defaults(self, ctx):
+        return [tsteps.step("def_gbm_1", "gbm", 10, tsteps.GROUP_DEFAULTS,
+                            ntrees=2, max_depth=3)]
+
+    monkeypatch.setattr(tsteps.GBMSteps, "defaults", defaults)
     rng = np.random.default_rng(0)
     n = 96
     X = rng.standard_normal((n, 3)).astype(np.float32)
@@ -540,12 +588,21 @@ def test_automl_refuses_a_plan_it_cannot_run_across_ranks():
     def rank(r, m):
         fr = th.Frame.from_numpy(X, names=["a", "b", "c"])
         fr.add("y", th.Column.from_numpy(y3, ctype="enum"))
-        aml = th.H2OAutoML(max_models=2, nfolds=2, seed=1,
-                           include_algos=["glm", "gbm"],
-                           project_name=f"refuse_{r}")
+        refused = th.H2OAutoML(max_models=2, nfolds=2, seed=1,
+                               include_algos=["glm", "gbm"],
+                               preprocessing=["target_encoding"],
+                               project_name=f"refuse_{r}")
         with pytest.raises(NotImplementedError, match="A14.6c"):
-            aml.train(y="y", training_frame=fr)
-        return aml.models
+            refused.train(y="y", training_frame=fr)
+        aml = th.H2OAutoML(max_models=1, nfolds=0, seed=1,
+                           include_algos=["glm", "gbm"],
+                           project_name=f"multiclass_{r}").train(
+            y="y", training_frame=fr)
+        return refused.models, [(x["algo"], x["logloss"])
+                                for x in aml.leaderboard]
 
-    # refused before any member ran
-    assert run_ranks(2, rank) == [[], []]
+    (r0, lb0), (r1, lb1) = run_ranks(2, rank, timeout_s=60.0)
+    # refused before any member ran; the multiclass plan's GBM one
+    # process's on both ranks
+    assert r0 == r1 == [] and lb0 == lb1
+    assert [a for a, _ll in lb0] == ["gbm"]

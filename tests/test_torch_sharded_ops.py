@@ -415,28 +415,37 @@ def test_merge_against_the_jax_package(cl, how):
 
 
 def test_merge_on_string_keys_stays_refused():
-    """A merge on string keys runs on the mesh now (ROADMAP A14.6c part
-    1b: each rank's block is one process's); what stays refused is
-    explanation on the merged frame (partial dependence, parts 2-4)."""
+    """A merge on string keys runs on the mesh (ROADMAP A14.6c part 1b:
+    each rank's block is one process's), and so, since part 3, does
+    partial dependence on the merged frame, which refused before: its
+    table is one process's within ROADMAP C55's bar (1e-6 of the
+    response's scale)."""
     from h2o3_tpu_torch.ops.merge import merge
 
     cols = {"s": (np.array(["a", "b", "c", "d"], object), None),
             "x": (np.arange(4, dtype=np.float32), None)}
     with M.use(None):
-        one = _local(merge(_frame(cols), _frame(cols)))
+        merged = merge(_frame(cols), _frame(cols))
+        one = _local(merged)
         model = th.GBM(ntrees=1, max_depth=2, seed=1).train(
             y="z", training_frame=_frame({
                 "x": cols["x"],
                 "z": (np.array([0.5, 1.5, 1.0, 2.0], np.float32), None)}))
+        want = model.partial_plot(merged, cols=["x"])
 
     def rank(r, m):
         got = merge(_frame(cols), _frame(cols))
         _same_block(one, _local(got), 2, r, "string merge")
-        with pytest.raises(NotImplementedError, match="A14.6c"):
-            model.partial_plot(got, cols=["x"])
-        return True
+        return model.partial_plot(got, cols=["x"])
 
-    assert run_ranks(2, rank) == [True, True]
+    for got in run_ranks(2, rank):
+        assert len(got) == len(want) == 1
+        a, b = want[0], got[0]
+        assert list(b["values"]) == list(a["values"])
+        scale = max(1.0, float(np.max(np.abs(a["mean_response"]))))
+        for k in ("mean_response", "stddev_response"):
+            np.testing.assert_allclose(b[k], a[k], rtol=0,
+                                       atol=1e-6 * scale, err_msg=k)
 
 
 # -- group-by, table, quantiles ---------------------------------------------------

@@ -452,7 +452,7 @@ def test_c50_segment_keys_are_gathered_as_keys_not_rows(R):
         assert refused == [("FAILED", True)] * 2
 
 
-# -- what stays refused (A14.6c parts 2-4) ---------------------------------------
+# -- what stays refused (A14.6c part 4) -----------------------------------
 
 _MODEL = {}
 
@@ -476,25 +476,15 @@ def _refused_frame():
                                   object), "enum")})
 
 
-# work that A14.6c parts 2-4 still have to port: the builders without a
-# sharded path, GLM's multinomial and ordinal families, the DeepLearning
-# autoencoder and explanation on a sharded frame
+# work that A14.6c part 4 still has to port: the builders without a
+# sharded path and the DeepLearning autoencoder
 STILL_REFUSED = {
-    "glm_multinomial": lambda fr, m: th.GLM(family="multinomial").train(
-        y="y", training_frame=fr),
-    "glm_ordinal": lambda fr, m: th.GLM(family="ordinal").train(
-        y="y", training_frame=fr),
     "kmeans": lambda fr, m: th.KMeans(k=2).train(training_frame=fr),
     "isolation_forest": lambda fr, m: th.IsolationForest(ntrees=2).train(
         training_frame=fr),
     "pca": lambda fr, m: th.PCA(k=1).train(training_frame=fr),
     "dl_autoencoder": lambda fr, m: th.DeepLearning(
         epochs=1, autoencoder=True).train(training_frame=fr),
-    "predict_contributions": lambda fr, m: m.predict_contributions(fr),
-    "partial_plot": lambda fr, m: m.partial_plot(fr, cols=["x"]),
-    "predict_leaf_node_assignment":
-        lambda fr, m: m.predict_leaf_node_assignment(fr),
-    "staged_predict_proba": lambda fr, m: m.staged_predict_proba(fr),
 }
 
 
@@ -502,7 +492,7 @@ STILL_REFUSED = {
 def test_part_1b_prims_still_refuse_a_sharded_frame(name):
     """What stays refused on a row-sharded frame once part 1b's prims
     run there (tests/test_torch_sharded_reshape.py): each item of
-    ROADMAP A14.6c parts 2-4 raises naming it, on both ranks, without
+    ROADMAP A14.6c part 4 raises naming it, on both ranks, without
     gathering a row."""
     model = _one_gbm()
 
@@ -520,7 +510,7 @@ def test_distance_to_a_sharded_frame_and_an_append_refuse():
     """`distance` to a row-sharded frame and a streaming append now run
     on the mesh (tests/test_torch_sharded_reshape.py); what still
     refuses beside them: AutoML's target-encoding stage and an Extended
-    Isolation Forest train (ROADMAP A14.6c parts 2-4)."""
+    Isolation Forest train (ROADMAP A14.6c part 4)."""
     from h2o3_tpu_torch.rapids.eval import PRIMS
 
     def rank(r, m):
